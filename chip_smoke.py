@@ -18,7 +18,20 @@ Phases, each printing JSON lines:
                of that run show the path went through the kernels; then a
                profiled generate and the kernel path's logits against the
                gather path's;
-  6. server  — InferenceServer answers 8 requests from 4 threads.
+  6. server  — InferenceServer answers 8 requests from 4 threads;
+  7. train-kernels — flash_fwd, flash_bwd_dq, flash_bwd_dkv and fused_adamw
+               against their plain versions at the training path's shapes
+               (gpt2-350m and llama3-8b attention geometry, a sliding
+               window, a tail, fp32 bodies; AdamW over every gpt2-350m
+               leaf, bit for bit), with times, bounds and library times;
+  8. train-reference — gpt2-350m width cut to two layers, fp32: two
+               train_batch steps on the card against the same engine on
+               the CPU (loss, grad norm, params);
+  9. train   — gpt2-350m at full width and depth in bf16 with the bench
+               row's step (micro 8, gas 8, seq 1024, AdamW, clip 1.0,
+               ZeRO-1): a warm-up step, then three timed steps whose launch
+               counts show the path ran the kernels; a profiled step; one
+               step with remat "nothing_saveable" (the forward reruns).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -35,9 +48,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor rate
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, bf16 tensor rate,
+# fp32 outside the tensor cores (the flash kernels' fp32 bodies)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 MODEL = "llama3-8b"
 ENGINE_CFG = {"memory_config": {"num_blocks": 1024, "block_size": 16},
@@ -52,6 +67,24 @@ LOGITS_RTOL = 0.1
 # (cuBLAS vs CPU GEMMs over K up to 14336, kernel vs plain page walk)
 REF_LAYERS = 2
 REF_RTOL = 1e-4
+
+TRAIN_MODEL = "gpt2-350m"
+# bench.py row_gpt2_350m's step, on one device; remat "none" stands in for
+# "dots_flash_saveable" (not ported): same numbers, more memory
+TRAIN_CFG = {"train_micro_batch_size_per_gpu": 8,
+             "gradient_accumulation_steps": 8,
+             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+             "bf16": {"enabled": True},
+             "zero_optimization": {"stage": 1},
+             "gradient_clipping": 1.0,
+             "steps_per_print": 10_000,
+             "activation_checkpointing": {"remat_policy": "none"}}
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 3
+# flash kernels vs plain versions, by the output's dtype: bf16 outputs
+# about two ulps (other summation order before p, ds and the outputs
+# round), fp32 outputs (lse in every case) summation order only
+FLASH_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
 
 
 def emit(obj) -> None:
@@ -320,25 +353,34 @@ def phase_engine(pa, tf_model, v2, prompts):
     return eng, launches, outs["bf16"]
 
 
-def phase_profile(eng, prompts, card):
-    """Where the time goes in one generate() on the bf16 engine: device
-    kernel time by name from torch.profiler, and the device's idle share
-    of the wall time."""
+def profile_call(fn):
+    """Run ``fn`` once under torch.profiler: (wall ms, device ms by kernel
+    name, device busy ms).  Only device-side events count: a CPU op's
+    self device time repeats the time of the kernels it launched."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=32)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
+        if us > 0 and ev.device_type != DeviceType.CPU:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    busy_ms = sum(by_name.values())
+    return wall_ms, by_name, sum(by_name.values())
+
+
+def phase_profile(eng, prompts, card):
+    """Where the time goes in one generate() on the bf16 engine: device
+    kernel time by name from torch.profiler, and the device's idle share
+    of the wall time."""
+    wall_ms, by_name, busy_ms = profile_call(
+        lambda: eng.generate(prompts, max_new_tokens=32))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     attn_ms = sum(v for k, v in by_name.items() if "paged_attention" in k)
     emit({"phase": "profile", "what": f"generate {len(prompts)} prompts, "
@@ -446,6 +488,376 @@ def phase_server(serving, pa, eng, prompts, ref, card):
         fail("server did not finish its 8 requests")
 
 
+# ----------------------------------------------------------------------
+# phase 7: training kernels against their plain versions
+# ----------------------------------------------------------------------
+def attn_pairs(s, causal, window):
+    """(query, key) pairs the mask keeps: the work these inputs need."""
+    import numpy as np
+
+    rows = np.arange(s)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(rows - window + 1, 0)
+    hi = rows + 1 if causal else np.full(s, s)
+    return int(np.sum(hi - lo))
+
+
+def flash_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
+    """Least time of each flash kernel: its operands read once and outputs
+    written once over the HBM rate, against its products (2 flops per
+    multiply-add, 2, 3 and 4 products of pairs x d per head) over the
+    peak for the operands' type."""
+    q_bytes, kv_bytes, rows = b * hq * s * d * elem, b * hkv * s * d * elem, b * hq * s * 4
+    per_pair = 2.0 * pairs * d * hq * b
+    work = {"flash_fwd": (2 * q_bytes + 2 * kv_bytes + rows, 2 * per_pair),
+            "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3 * per_pair),
+            "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4 * per_pair)}
+    peak = FP32_FLOPS if fp32 else BF16_FLOPS
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+# name, b, hq, hkv, s, d, dtype, causal, window, timed (and library-timed)
+FLASH_CASES = [
+    ("gpt2-350m", 8, 16, 16, 1024, 64, "bfloat16", True, None, True),
+    ("llama3-8b", 1, 32, 8, 4096, 128, "bfloat16", True, None, True),
+    ("window", 2, 16, 16, 2048, 64, "bfloat16", True, 512, False),
+    ("tail", 4, 16, 16, 1000, 64, "bfloat16", True, None, False),
+    ("fp32", 2, 16, 16, 1024, 64, "float32", True, None, True),
+    ("fp32-gqa-d128", 1, 8, 2, 520, 128, "float32", False, 200, False),
+]
+
+
+def flash_case(fm, case):
+    import torch
+    import torch.nn.functional as F
+
+    name, b, hq, hkv, s, d, dt, causal, window, timed = case
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(h):   # the model's layout: [B, S, H, D] read as [B, H, S, D]
+        return torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype).transpose(1, 2)
+
+    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+    scale = 1.0 / d ** 0.5
+    args = (causal, scale, window)
+    o, lse = fm.flash_fwd(q, k, v, *args)
+    delta = fm.attn_delta(o, do).contiguous()
+    dq = fm.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    dk, dv = fm.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    # each kernel against its plain version on the same inputs
+    checks = {"flash_fwd": ((o, lse), fm.flash_fwd_ref(q, k, v, *args)),
+              "flash_bwd_dq": ((dq,), (fm.flash_bwd_dq_ref(
+                  q, k, v, do, lse, delta, *args),)),
+              "flash_bwd_dkv": ((dk, dv), fm.flash_bwd_dkv_ref(
+                  q, k, v, do, lse, delta, *args))}
+    pairs = attn_pairs(s, causal, window)
+    bounds = flash_bounds(b, hq, hkv, s, d, q.element_size(), pairs,
+                          dt == "float32")
+    rows = {}
+    for kname, (got, ref) in checks.items():
+        err, ok = 0.0, True
+        for g, r in zip(got, ref):
+            rtol = FLASH_RTOL[str(g.dtype).removeprefix("torch.")]
+            diff = (g.float() - r.float()).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool(torch.all(diff <= rtol * (1 + r.float().abs())))
+            ok &= bool(torch.isfinite(g.float()).all())
+        rows[kname] = {"phase": "train-kernel", "kernel": kname, "case": name,
+                       "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                       "dtype": dt, "causal": causal, "window": window,
+                       "max_abs_err": err,
+                       "tolerance": "|k-r| <= rtol * (1 + |r|), rtol "
+                                    f"{FLASH_RTOL} by output dtype",
+                       "ok": ok,
+                       "bound_ms": bounds[kname][0],
+                       "bound_by": bounds[kname][1], "pairs": pairs}
+    if timed:
+        calls = {
+            "flash_fwd": (lambda: fm.flash_fwd(q, k, v, *args),
+                          lambda: fm.flash_fwd_ref(q, k, v, *args)),
+            "flash_bwd_dq": (
+                lambda: fm.flash_bwd_dq(q, k, v, do, lse, delta, *args),
+                lambda: fm.flash_bwd_dq_ref(q, k, v, do, lse, delta, *args)),
+            "flash_bwd_dkv": (
+                lambda: fm.flash_bwd_dkv(q, k, v, do, lse, delta, *args),
+                lambda: fm.flash_bwd_dkv_ref(q, k, v, do, lse, delta, *args))}
+        for kname, (kern, plain) in calls.items():
+            rows[kname]["ms"] = cuda_time_ms(kern)
+            rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        # one PyTorch call for the same function, timed as a yardstick only
+        lib = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            *lib, is_causal=causal, enable_gqa=hq != hkv))
+        with torch.no_grad():
+            rows["flash_fwd"]["library_ms"] = cuda_time_ms(sdpa)
+        out = sdpa()
+        pair_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out, lib, do, retain_graph=True))
+        for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            rows[kname]["library_ms"] = pair_ms
+            rows[kname]["library_note"] = ("scaled_dot_product_attention "
+                                           "backward: dq, dk and dv together")
+        rows["flash_fwd"]["library_note"] = "scaled_dot_product_attention"
+    for row in rows.values():
+        emit(row)
+        if not row["ok"]:
+            fail(f"{row['kernel']} disagrees with its plain version "
+                 f"({name})")
+    return rows
+
+
+def phase_adamw(fo, tf_model, tf):
+    """The fused AdamW kernel over every fp32 leaf of gpt2-350m in one
+    launch, against its plain version leaf by leaf: bit for bit."""
+    import torch
+
+    mc = tf_model.get_model_config(TRAIN_MODEL)
+    params = tf.init_params(mc, seed=0, device="cuda")
+    ps = []
+    tf.tree_map_with_path(lambda _p, x: ps.append(x), params)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    gs = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-2 for p in ps]
+    ms = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in ps]
+    vs = [torch.rand(p.shape, generator=gen, device="cuda") * 1e-5 for p in ps]
+    ref = [[t.clone() for t in group] for group in (ps, ms, vs)]
+    hp = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    count = 5
+    table = fo.AdamWTable()
+    fo.fused_adamw(ps, gs, ms, vs, count=count, table=table, **hp)
+    torch.cuda.synchronize()
+    bc1, bc2 = fo.bias_corrections(count, hp["b1"], hp["b2"])
+
+    def plain(group=ref):
+        for p, g, m, v in zip(group[0], gs, group[1], group[2]):
+            fo.adamw_leaf_ref(p, g, m, v, hp["lr"], bc1, bc2, hp["b1"],
+                              hp["b2"], hp["eps"], hp["wd"])
+
+    plain()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for ga, gb in zip((ps, ms, vs), ref)
+                for a, b in zip(ga, gb))
+    err = max(float((a - b).abs().max()) for ga, gb in zip((ps, ms, vs), ref)
+              for a, b in zip(ga, gb))
+    n = sum(p.numel() for p in ps)
+    t_b = 28.0 * n / HBM_BYTES_PER_S * 1e3     # p, g, m, v read; p, m, v written
+    t_o = 16.0 * n / FP32_FLOPS * 1e3
+    row = {"phase": "train-kernel", "kernel": "fused_adamw",
+           "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
+           "elements": n, "bitwise_equal": equal, "max_abs_err": err,
+           "ms": cuda_time_ms(lambda: fo.fused_adamw(
+               ps, gs, ms, vs, count=count, table=table, **hp), iters=10),
+           "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
+           "bound_ms": max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    steps = [torch.tensor(float(count + 1), device="cuda") for _ in ps]
+    row["library_ms"] = cuda_time_ms(lambda: torch._fused_adamw_(
+        ref[0], gs, ref[1], ref[2], [], steps, lr=hp["lr"], beta1=hp["b1"],
+        beta2=hp["b2"], weight_decay=hp["wd"], eps=hp["eps"], amsgrad=False,
+        maximize=False), iters=10)
+    row["library_note"] = "torch._fused_adamw_ over the same leaves"
+    emit(row)
+    if not equal:
+        fail(f"fused_adamw differs from its plain version by {err}")
+    del params, ps, gs, ms, vs, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_kernels(fm, fo, tf_model, tf):
+    import torch
+
+    summary = {}
+    for case in FLASH_CASES:
+        rows = flash_case(fm, case)
+        if case[0] == TRAIN_MODEL:
+            summary.update(rows)
+        torch.cuda.empty_cache()
+    summary["fused_adamw"] = phase_adamw(fo, tf_model, tf)
+    return summary
+
+
+# ----------------------------------------------------------------------
+# phases 8/9: training on gpt2-350m
+# ----------------------------------------------------------------------
+def train_batch_of(vocab, rows, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, size=(rows, TRAIN_SEQ + 1), dtype=np.int32)
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:].astype(np.int32)}
+
+
+def zero_counts(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def phase_train_reference(ds, tf_model, tf, fm, fo):
+    """gpt2-350m width cut to REF_LAYERS layers, fp32 weights and compute:
+    the engine on the card (kernels, cuBLAS with TF32 off) and the same
+    engine on the CPU (plain versions) take two train_batch steps on one
+    batch; loss, grad norm and params must agree to REF_RTOL (summation
+    order only)."""
+    import numpy as np
+    import torch
+
+    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=REF_LAYERS)
+    cfg = {**TRAIN_CFG, "bf16": {"enabled": False},
+           "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2}
+    card, *_ = ds.initialize(model=model, config=cfg, seed=1)
+    host, *_ = ds.initialize(
+        model=model, config=cfg, device="cpu",
+        model_parameters=tf.tree_map_with_path(
+            lambda _p, a: a.detach().cpu(), card.params))
+    p0 = tf.tree_map_with_path(lambda _p, a: a.detach().clone(), host.params)
+    batch = train_batch_of(model.vocab_size, 4, seed=3)
+    counts = (fm.flash_mha.launches, fo.fused_adamw.launches)
+    zero_counts(*counts)
+    rows = []
+    worst = 0.0
+    for step in range(2):
+        lc, lh = float(card.train_batch(batch)), float(host.train_batch(batch))
+        gc_, gh = card.get_global_grad_norm(), host.get_global_grad_norm()
+        if not (np.isfinite(lc) and np.isfinite(gc_)):
+            fail("card training reference: loss or grad norm not finite")
+        rows.append({"loss_card": lc, "loss_cpu": lh,
+                     "grad_norm_card": gc_, "grad_norm_cpu": gh})
+        worst = max(worst, abs(lc - lh) / abs(lh), abs(gc_ - gh) / gh)
+    launched = {**counts[0], **counts[1]}
+    num = den = upd_den = upd_max = 0.0
+    for a, b, z in zip(tf.tree_leaves(card.params), tf.tree_leaves(host.params),
+                       tf.tree_leaves(p0)):
+        a, b, z = a.detach().cpu().double(), b.detach().double(), z.double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+        upd_den += float(((b - z) ** 2).sum())
+        upd_max = max(upd_max, float((a - b).abs().max()))
+    params_rel = (num / den) ** 0.5
+    update_rel = (num / upd_den) ** 0.5   # |(a - p0) - (b - p0)| / |b - p0|
+    want = {"flash_fwd": 2 * 2 * REF_LAYERS, "flash_bwd_dq": 2 * 2 * REF_LAYERS,
+            "flash_bwd_dkv": 2 * 2 * REF_LAYERS, "fused_adamw": 2}
+    emit({"phase": "train-reference", "model": TRAIN_MODEL,
+          "layers": REF_LAYERS, "dtype": "float32", "micro": 2, "gas": 2,
+          "seq": TRAIN_SEQ, "steps": rows,
+          "check": "card (kernels, cuBLAS) vs CPU (plain versions)",
+          "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
+          "update_rel_l2": update_rel, "params_max_abs_diff": upd_max,
+          "tolerance": REF_RTOL, "launches": launched, "expected": want})
+    if worst > REF_RTOL or params_rel > REF_RTOL:
+        fail(f"card training differs from the CPU's: {worst}, {params_rel}")
+    if launched != want:
+        fail(f"the reference steps launched {launched}, expected {want}")
+    del card, host
+    torch.cuda.empty_cache()
+
+
+def fwd_flops_per_tok(model, seq):
+    """Model forward flops a token (qkvo GQA-aware + MLP + lm_head +
+    attention), the JAX package's telemetry/derive.py formula."""
+    h, n_layers, vocab = model.hidden_size, model.num_layers, model.vocab_size
+    act = 3 if model.activation == "swiglu" else 2
+    qkvo = 2 * h * h + 2 * h * (h * model.kv_heads // model.num_heads)
+    matmul = n_layers * (qkvo + act * h * model.intermediate_size)
+    return 2 * matmul + 2 * h * vocab + 2 * seq * h * n_layers
+
+
+def phase_train(ds, tf_model, fm, fo, card):
+    """gpt2-350m at full width and depth in bf16 with the bench row's
+    step: a warm-up step, TRAIN_STEPS timed steps on one fixed batch (the
+    counts are zeroed just before them and read just after), a profiled
+    step, then one step with remat "nothing_saveable"."""
+    import numpy as np
+    import torch
+
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    t0 = time.perf_counter()
+    eng, *_ = ds.initialize(model=model, config=TRAIN_CFG, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = TRAIN_CFG["train_micro_batch_size_per_gpu"] * \
+        TRAIN_CFG["gradient_accumulation_steps"]
+    batch = train_batch_of(model.vocab_size, rows)
+    t0 = time.perf_counter()
+    losses = [float(eng.train_batch(batch))]     # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    counts = (fm.flash_mha.launches, fo.fused_adamw.launches)
+    zero_counts(*counts)
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))   # float() syncs
+        step_s.append(time.perf_counter() - t0)
+    launches = {**counts[0], **counts[1]}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = rows * TRAIN_SEQ
+    tps = tokens * TRAIN_STEPS / sum(step_s)
+    mfu = tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ) / BF16_FLOPS
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    want = {"flash_fwd": model.num_layers * 8, "flash_bwd_dq": model.num_layers * 8,
+            "flash_bwd_dkv": model.num_layers * 8, "fused_adamw": 1}
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and per_step == want)
+    emit({"phase": "train", "model": TRAIN_MODEL, "layers": model.num_layers,
+          "dtype": "bfloat16", "remat": "none", "zero_stage": 1,
+          "micro": TRAIN_CFG["train_micro_batch_size_per_gpu"],
+          "gas": TRAIN_CFG["gradient_accumulation_steps"], "seq": TRAIN_SEQ,
+          "init_s": init_s, "warmup_step_s": warm_s, "step_s": step_s,
+          "tokens_per_step": tokens, "tokens_per_s": tps, "mfu": mfu,
+          "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM)",
+          "losses": losses, "max_memory_allocated_gib": peak_gb,
+          "launches": launches, "launches_per_step": per_step,
+          "expected_per_step": want, "card": card, "ok": ok})
+    if not ok:
+        fail("gpt2-350m training: losses not finite and falling, or the "
+             "launch counts do not show the kernels")
+
+    wall_ms, by_name, busy_ms = profile_call(lambda: eng.train_batch(batch))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+
+    def share(*keys):
+        return sum(v for k, v in by_name.items() if any(x in k for x in keys))
+
+    emit({"phase": "train-profile", "what": "one train_batch, gpt2-350m bf16",
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+          "flash_ms": {n: share(n + "_kernel") for n in
+                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+          "fused_adamw_ms": share("fused_adamw_kernel"),
+          "gemm_ms": share("gemm", "nvjet", "cutlass", "xmma"),
+          "top_kernels_ms": [[k[:90], v] for k, v in top], "card": card})
+
+    cfg = {**TRAIN_CFG, "activation_checkpointing":
+           {"remat_policy": "nothing_saveable"}}
+    eng2, *_ = ds.initialize(model=model, config=cfg,
+                             model_parameters=eng.params)
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counts)
+    t0 = time.perf_counter()
+    loss = float(eng2.train_batch(batch))
+    remat_s = time.perf_counter() - t0
+    remat_launches = {**counts[0], **counts[1]}
+    want_remat = {**want, "flash_fwd": 2 * model.num_layers * 8}
+    emit({"phase": "train-remat", "remat": "nothing_saveable",
+          "step_s": remat_s, "loss": loss,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": remat_launches, "expected": want_remat})
+    if remat_launches != want_remat or not np.isfinite(loss):
+        fail(f"remat step launched {remat_launches}, expected {want_remat}")
+    del eng2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch").is_dir():
         print("chip_smoke: the deepspeed_tpu_torch package is not beside "
@@ -461,10 +873,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     import numpy as np
 
+    import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch import serving
     from deepspeed_tpu_torch.inference import v2
     from deepspeed_tpu_torch.models import registry as tf_model
     from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import flash_mha as fm
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import paged_attention as pa
 
@@ -506,23 +921,47 @@ def main() -> int:
     phase_profile(eng, prompts, smi)
     phase_logits(v2, tf_model, eng.params, prompts)
     phase_server(serving, pa, eng, prompts, ref, smi)
+    del eng
+    torch.cuda.empty_cache()
 
-    # 7. kernels line
+    # 7. training kernels, 8. training reference, 9. training
+    train_summary = phase_train_kernels(fm, fo, tf_model, tf)
+    phase_train_reference(ds, tf_model, tf, fm, fo)
+    train_launches = phase_train(ds, tf_model, fm, fo, smi)
+
+    # 10. kernels line: each path's launches from its own run
+    flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+    sources = {"paged_attention": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+               "paged_attention_int8": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+               "flash_fwd": flash_src, "flash_bwd_dq": flash_src,
+               "flash_bwd_dkv": flash_src,
+               "fused_adamw": "deepspeed_tpu_torch/ops/csrc/fused_adamw.cu"}
     replaces = {"paged_attention":
                 "deepspeed_tpu/ops/pallas/paged_attention.py:52",
                 "paged_attention_int8":
-                "deepspeed_tpu/ops/pallas/paged_attention.py:129"}
+                "deepspeed_tpu/ops/pallas/paged_attention.py:129",
+                "flash_fwd": "deepspeed_tpu/ops/pallas/flash_mha.py:147",
+                "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_mha.py:172",
+                "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_mha.py:192",
+                "fused_adamw": "deepspeed_tpu/ops/pallas/fused_optimizer.py:77"}
+    also = {"flash_fwd": "deepspeed_tpu/ops/pallas/flash_mha.py:286",
+            "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_mha.py:346",
+            "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_mha.py:390"}
     launch_run = {"paged_attention": launches["bf16"]["paged_attention"],
                   "paged_attention_int8":
-                  launches["int8"]["paged_attention_int8"]}
-    emit({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-         "replaces": replaces[name], "launches": launch_run[name],
-         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for name, row in summary.items()]})
+                  launches["int8"]["paged_attention_int8"],
+                  **{k: train_launches[k] for k in train_summary}}
+    entries = []
+    for name, row in {**summary, **train_summary}.items():
+        entry = {"name": name, "route": "cuda", "source": sources[name],
+                 "replaces": replaces[name], "launches": launch_run[name],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if name in also:
+            entry["also_replaces"] = also[name]
+        entries.append(entry)
+    emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,20 @@
 """Functional transformer model family (GPT-2 and Llama class), PyTorch.
 
-Port of ``deepspeed_tpu/models/transformer.py``: the main-path subset the
-ragged serving forward needs.  The parameter tree keeps the JAX package's
-key paths and its ``[in, out]`` kernel layout (``x @ W``, no
-``nn.Linear`` transpose), with the per-layer leaves stacked on axis 0, so
-a JAX param tree carries over through numpy as an identity copy
-(``models/bridge.py``).
+Port of ``deepspeed_tpu/models/transformer.py``: what the ragged serving
+forward and the one-GPU training step need (``forward`` over the stacked
+layers, ``loss_fn``).  The parameter tree keeps the JAX package's key
+paths and its ``[in, out]`` kernel layout (``x @ W``, no ``nn.Linear``
+transpose), with the per-layer leaves stacked on axis 0, so a JAX param
+tree carries over through numpy as an identity copy (``models/bridge.py``).
 
-Of the branches not ported yet, MoE layers and the ZeRO-3 fused
-gather-matmul are the ones this subset can reach: ``init_params`` and the
-ragged forward raise ``NotImplementedError`` for them, naming the ROADMAP
-item.  The ring, sparse and pipeline branches live in the training
-forward, which is not ported yet (ROADMAP Queue A items 2 and 9 to 11).
+Casts sit where the JAX code has them (``x @ w.to(dt)`` inside the
+differentiated function, no ``torch.autocast``), so bf16 rounds where it
+rounds in JAX and fp32 master leaves receive fp32 gradients.
+
+Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item: MoE layers and the ZeRO-3 fused gather-matmul, the ring, sparse and
+pipeline attention paths, parameter streaming, random-LTD, progressive
+layer drop and the sequence-tiled loss.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -372,6 +377,13 @@ def tree_map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     return fn(path, tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, in ``tree_map_with_path`` order."""
+    out = []
+    tree_map_with_path(lambda _p, x: out.append(x), tree)
+    return out
+
+
 # ----------------------------------------------------------------------
 # Forward pieces
 # ----------------------------------------------------------------------
@@ -446,3 +458,309 @@ def _mlp_block(x, p, cfg: TransformerConfig):
     if p.get("bo") is not None:
         y = y + p["bo"].to(dt)
     return y.to(dt0)
+
+
+def _rope(q, k, positions, cfg: TransformerConfig):
+    """Rotary embeddings (Llama). q,k: [B, S, H, D].  ``rotary_pct`` < 1
+    rotates only the leading fraction of the head dim (Phi partial
+    rotary); ``rope_interleaved`` pairs dims (2i, 2i+1) (GPT-J)."""
+    d = cfg.dim_per_head
+    rot_d = d if cfg.rotary_pct >= 1.0 else max(2, int(d * cfg.rotary_pct) // 2 * 2)
+    freqs = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, rot_d, 2, dtype=torch.float32, device=q.device) / rot_d))
+    angles = positions[..., None].float() * freqs  # [B, S, rot_d/2]
+    ct = torch.float32 if op_fp32(cfg, "rope") else q.dtype
+    cos = torch.cos(angles)[:, :, None, :].to(ct)
+    sin = torch.sin(angles)[:, :, None, :].to(ct)
+
+    def rot(x):
+        xf = x.to(ct)
+        xr, x_pass = xf[..., :rot_d], xf[..., rot_d:]
+        if cfg.rope_interleaved:
+            x1, x2 = xr[..., 0::2], xr[..., 1::2]
+            xr = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                             dim=-1).reshape(xr.shape)
+        else:
+            x1, x2 = torch.chunk(xr, 2, dim=-1)
+            xr = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+        return torch.cat([xr, x_pass], dim=-1)
+
+    return rot(q).to(q.dtype), rot(k).to(k.dtype)
+
+
+def _attention_scores(q, k, v, cfg: TransformerConfig, attention_mask=None):
+    """MHA/GQA over [B, S, H, D] through plain products — the path for a
+    key-padding ``attention_mask`` ([B, S], 1 = attend) and the ALiBi
+    score bias, which the flash kernels have no lane for."""
+    b, s, nh, d = q.shape
+    nkv = k.shape[2]
+    if nkv != nh:  # GQA: repeat kv heads
+        k = k.repeat_interleave(nh // nkv, dim=2)
+        v = v.repeat_interleave(nh // nkv, dim=2)
+    scale = cfg.attn_scale if cfg.attn_scale is not None else 1 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if cfg.use_alibi:
+        slopes = alibi_slopes(nh, device=q.device)
+        if attention_mask is not None:
+            # key positions within the real sequence (HF build_alibi_tensor)
+            am = attention_mask.float()
+            kpos = (torch.cumsum(am, dim=-1) - 1.0) * am      # [B, S]
+            scores = scores + (slopes[None, :, None, None]
+                               * kpos[:, None, None, :]).to(scores.dtype)
+        else:
+            kpos = torch.arange(s, dtype=torch.float32, device=q.device)
+            scores = scores + (slopes[:, None, None]
+                               * kpos[None, None, :]).to(scores.dtype)
+    if cfg.causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        if cfg.sliding_window:
+            idx = torch.arange(s, device=q.device)
+            mask = mask & (idx[:, None] - idx[None, :] < cfg.sliding_window)
+        mask = mask[None, None]
+    else:
+        mask = torch.ones((1, 1, s, s), dtype=torch.bool, device=q.device)
+    if attention_mask is not None:
+        mask = mask & attention_mask[:, None, None, :].bool()
+    # JAX's where against an fp32 minimum promotes the scores to fp32
+    scores = torch.where(mask, scores.float(), torch.finfo(torch.float32).min)
+    ct = torch.float32 if op_fp32(cfg, "softmax") else scores.dtype
+    probs = torch.softmax(scores.to(ct), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+ATTN_IMPLS = ("auto", "pallas_flash", "xla", "sparse")
+
+
+def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None):
+    b, s, _h = x.shape
+    nh, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
+    dt0 = x.dtype  # residual-stream dtype: restored at the block boundary
+    dt = _module_dtype(cfg, "attn", dt0)
+    x = x.to(dt)
+
+    def proj(w, b_):
+        y = x @ w.to(dt)
+        if b_ is not None:
+            y = y + b_.to(dt)
+        return y
+
+    q = proj(p["wq"], p.get("bq")).reshape(b, s, nh, d)
+    k = proj(p["wk"], p.get("bk")).reshape(b, s, nkv, d)
+    v = proj(p["wv"], p.get("bv")).reshape(b, s, nkv, d)
+    if cfg.use_rope:
+        q, k = _rope(q, k, positions, cfg)
+    if cfg.seq_impl not in ("ulysses", "ring"):
+        raise ValueError(f"seq_impl={cfg.seq_impl!r}: expected 'ulysses' "
+                         "or 'ring'")
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected one of "
+                         f"{ATTN_IMPLS}")
+    # one device: no sequence-parallel world, so neither the ring nor the
+    # Ulysses exchange applies (the config rejects a "seq" axis above one)
+    if attention_mask is not None or cfg.use_alibi:
+        if cfg.attn_impl == "sparse":
+            raise NotImplementedError(
+                "attention_mask/alibi + attn_impl='sparse' not supported")
+        out = _attention_scores(q, k, v, cfg, attention_mask=attention_mask)
+    elif cfg.attn_impl == "sparse":
+        raise NotImplementedError(
+            "block-sparse attention is not ported yet (ROADMAP Queue A "
+            "item 11, Queue B item 9)")
+    elif cfg.attn_impl in ("pallas_flash", "auto"):
+        out = flash_attention(q, k, v, causal=cfg.causal,
+                              sm_scale=cfg.attn_scale,
+                              window=cfg.sliding_window or None)
+    elif q.device.type != "cpu":
+        # "xla" is the unfused reference path: on the card these inputs
+        # (no mask, no alibi) go through the flash kernel, never the plain one
+        raise NotImplementedError(
+            "attn_impl='xla' runs only on the CPU in deepspeed_tpu_torch; "
+            "use 'auto' on the card")
+    else:
+        out = _attention_scores(q, k, v, cfg)
+    out = out.reshape(b, s, nh * d) @ p["wo"].to(dt)
+    if p.get("bo") is not None:
+        out = out + p["bo"].to(dt)
+    return out.to(dt0)
+
+
+def _fold(seed: int, i: int) -> int:
+    """A child seed of ``seed`` for stream ``i`` (JAX's ``fold_in``
+    role): dropout masks depend only on (step, micro-step, layer, branch),
+    so a checkpointed layer draws the same masks when it reruns."""
+    return (seed * 1_000_003 + i + 1) % (1 << 62)
+
+
+def _dropout(x, rate: float, seed: Optional[int]):
+    """Inverted dropout from a ``torch.Generator`` seeded with ``seed``;
+    identity when no seed is threaded (eval/serve)."""
+    if seed is None or rate <= 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
+                      dropout_seed: Optional[int] = None,
+                      attention_mask=None):
+    """One transformer block: pre-norm, post-norm (BERT) or the parallel
+    attention + MLP residual (Falcon/Phi).  ``dropout_seed``: this layer's
+    seed for residual dropout (None → off)."""
+    def dk(i):
+        return None if dropout_seed is None else _fold(dropout_seed, i)
+
+    if cfg.parallel_block:
+        n = _norm(x, layer_params["ln1"], cfg)
+        n_mlp = _norm(x, layer_params["ln2"], cfg) if cfg.parallel_norms else n
+        attn_out = _attn_block(n, layer_params["attn"], positions, cfg,
+                               attention_mask=attention_mask)
+        y = _mlp_block(n_mlp, layer_params["mlp"], cfg)
+        return x + _dropout(attn_out, cfg.dropout, dk(0)) \
+            + _dropout(y, cfg.dropout, dk(1))
+    if cfg.norm_position == "post":
+        attn_out = _attn_block(x, layer_params["attn"], positions, cfg,
+                               attention_mask=attention_mask)
+        x = _norm(x + _dropout(attn_out, cfg.dropout, dk(0)),
+                  layer_params["ln1"], cfg)
+        y = _mlp_block(x, layer_params["mlp"], cfg)
+        return _norm(x + _dropout(y, cfg.dropout, dk(1)),
+                     layer_params["ln2"], cfg)
+    attn_out = _attn_block(_norm(x, layer_params["ln1"], cfg),
+                           layer_params["attn"], positions, cfg,
+                           attention_mask=attention_mask)
+    x = x + _dropout(attn_out, cfg.dropout, dk(0))
+    y = _mlp_block(_norm(x, layer_params["ln2"], cfg), layer_params["mlp"], cfg)
+    return x + _dropout(y, cfg.dropout, dk(1))
+
+
+def _maybe_remat(fn, cfg: TransformerConfig):
+    """``"none"`` saves every activation; ``"full"`` and
+    ``"nothing_saveable"`` checkpoint the layer (its forward, flash kernel
+    included, reruns in the backward).  The named ``*_saveable`` and
+    ``offload_dots`` policies of the JAX model have no port yet."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy in ("full", "nothing_saveable"):
+        return lambda *args: torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False)
+    raise NotImplementedError(
+        f"remat policy {cfg.remat_policy!r} (selective activation "
+        "checkpointing) is not ported yet (ROADMAP Queue A item 13)")
+
+
+def _forward_unsupported(cfg: TransformerConfig, pld_theta) -> None:
+    _unsupported(cfg)
+    if cfg.param_stream:
+        raise NotImplementedError(
+            "parameter streaming is not ported yet (ROADMAP Queue A item 7)")
+    if pld_theta is not None or cfg.ltd_kept:
+        raise NotImplementedError(
+            "progressive layer drop and random-LTD are not ported yet "
+            "(ROADMAP Queue A item 11)")
+
+
+def _embed(params: Params, input_ids, positions, cfg: TransformerConfig,
+           token_embeds=None, token_type_ids=None):
+    """Embedding prologue: token rows (or precomputed ``token_embeds``),
+    learned positions, BERT segment rows and embedding norm."""
+    et = _module_dtype(cfg, "embed", cfg.dtype)
+    x = (params["embed"]["tokens"].to(et)[input_ids]
+         if token_embeds is None else token_embeds.to(et))
+    if cfg.has_learned_positions:
+        x = x + params["embed"]["positions"].to(et)[positions]
+    if cfg.type_vocab_size:
+        tt = (token_type_ids if token_type_ids is not None
+              else torch.zeros_like(input_ids))
+        x = x + params["embed"]["token_types"].to(et)[tt]
+    if cfg.embed_norm:
+        x = _norm(x.to(cfg.dtype), params["embed"]["norm"], cfg)
+    return x.to(cfg.dtype)
+
+
+def forward(params: Params, input_ids, cfg: TransformerConfig,
+            positions=None, pld_theta=None, return_hidden: bool = False,
+            token_embeds=None, dropout_seed: Optional[int] = None,
+            token_type_ids=None, attention_mask=None):
+    """Token ids [B, S] → logits [B, S, V].  A Python loop over the
+    stacked layers takes the place of the JAX ``lax.scan``: each stacked
+    leaf is unbound once into per-layer views, so its gradient is stacked
+    once per backward.  ``dropout_seed``: per-micro-step seed enabling
+    ``cfg.dropout`` (None → off, the eval contract)."""
+    _forward_unsupported(cfg, pld_theta)
+    b, s = input_ids.shape
+    dt = cfg.dtype
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int64,
+                                 device=input_ids.device)[None, :].expand(b, s)
+    x = _embed(params, input_ids, positions, cfg, token_embeds,
+               token_type_ids=token_type_ids)
+    if dropout_seed is not None and cfg.dropout > 0:
+        x = _dropout(x, cfg.dropout, _fold(dropout_seed, 10_000))
+
+    per_layer = tree_map_with_path(lambda _p, leaf: leaf.unbind(0),
+                                   params["layers"])
+    for i in range(cfg.num_layers):
+        lp = tree_map_with_path(lambda _p, views, i=i: views[i], per_layer)
+        # GPT-Neo alternating attention: even layers attend globally
+        lcfg = cfg.replace(sliding_window=None) \
+            if cfg.alt_window and i % 2 == 0 else cfg
+        seed = None if dropout_seed is None else _fold(dropout_seed, i)
+        step = _maybe_remat(
+            lambda h, lp=lp, lcfg=lcfg, seed=seed: transformer_layer(
+                h, lp, positions, lcfg, dropout_seed=seed,
+                attention_mask=attention_mask), cfg)
+        x = step(x)
+
+    if cfg.norm_position != "post":
+        x = _norm(x, params["final_norm"], cfg)
+    if return_hidden:
+        return x
+    ht = _module_dtype(cfg, "lm_head", dt)
+    if cfg.mlm_head:
+        mh = params["mlm_head"]
+        t = x.to(ht) @ mh["w"].to(ht) + mh["b"].to(ht)
+        t = F.relu(t) if cfg.activation == "relu" else F.gelu(
+            t, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+        t = _norm(t, mh["ln"], cfg)
+        logits = t.to(ht) @ params["embed"]["tokens"].to(ht).T \
+            + mh["bias"].to(ht)
+    elif cfg.tie_embeddings:
+        logits = x.to(ht) @ params["embed"]["tokens"].to(ht).T
+    else:
+        logits = x.to(ht) @ params["lm_head"].to(ht)
+    if not cfg.mlm_head and params.get("lm_head_bias") is not None:
+        logits = logits + params["lm_head_bias"].to(ht)
+    return logits
+
+
+def _nll_sum(logits32, labels_mb):
+    """Summed token NLL with -100 = ignore (HF convention)."""
+    m = labels_mb != -100
+    safe = torch.where(m, labels_mb, torch.zeros_like(labels_mb))
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, safe[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * m)
+
+
+def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
+            token_embeds=None):
+    """Causal LM cross-entropy.  ``batch``: input_ids [B,S], labels [B,S]
+    (-100 = ignore), optional loss_mask, token_type_ids, attention_mask
+    and dropout_seed, all tensors on the params' device."""
+    labels = batch["labels"]
+    mask = labels != -100
+    if "loss_mask" in batch:
+        mask = mask & (batch["loss_mask"] > 0)
+    if cfg.loss_tiles and batch["input_ids"].shape[1] % cfg.loss_tiles == 0:
+        raise NotImplementedError(
+            "the sequence-tiled loss (ALST) is not ported yet (ROADMAP "
+            "Queue A item 9)")
+    out = forward(params, batch["input_ids"], cfg,
+                  pld_theta=batch.get("pld_theta"), token_embeds=token_embeds,
+                  dropout_seed=batch.get("dropout_seed"),
+                  token_type_ids=batch.get("token_type_ids"),
+                  attention_mask=batch.get("attention_mask"))
+    lt = torch.float32 if op_fp32(cfg, "loss") else out.dtype
+    labels_eff = torch.where(mask, labels, torch.full_like(labels, -100))
+    return _nll_sum(out.to(lt), labels_eff) / torch.clamp(mask.sum(), min=1)

@@ -1,0 +1,301 @@
+"""DeepSpeed JSON config → typed config objects, for the port's training path.
+
+Port of ``deepspeed_tpu/runtime/config.py`` over the keys the one-GPU
+training path reads: the batch triple, ``optimizer``, ``scheduler``,
+``bf16``, ``gradient_clipping``, ``zero_optimization.stage``,
+``activation_checkpointing.remat_policy``, ``steps_per_print``, ``seed``
+and ``dataloader_drop_last``.  Those keys get the JAX config's rejections
+(:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO stage
+outside [0, 3], fp16 together with bf16).  A key that turns on a feature
+the port has not got yet raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.  Any other key of the ``fp16``, ``bf16``,
+``zero_optimization`` and ``activation_checkpointing`` blocks (bucket
+sizes, overlap and persistence knobs of a sharded world, loss-scale
+settings of a disabled fp16) is logged as ignored: none of them changes a
+step on one device.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, Optional, Union
+
+from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+class DeepSpeedConfigError(Exception):
+    pass
+
+
+def not_ported(what: str, item: str):
+    """The error for a config value whose feature is not ported yet."""
+    return NotImplementedError(f"{what} is not ported to deepspeed_tpu_torch "
+                               f"yet (ROADMAP {item})")
+
+
+def _from_dict(cls, data: Optional[Dict[str, Any]], context: str):
+    data = data or {}
+    if not isinstance(data, dict):
+        raise DeepSpeedConfigError(f"'{context}' must be a dict, got {type(data)}")
+    valid = {f.name for f in fields(cls)}
+    for k in data:
+        if k not in valid:
+            logger.warning(f"Config: ignoring key '{k}' in '{context}' "
+                           "(not read by deepspeed_tpu_torch)")
+    return cls(**{k: v for k, v in data.items() if k in valid})
+
+
+@dataclass
+class OptimizerConfig:
+    """``"optimizer": {"type": ..., "params": {...}}``"""
+    type: str = C.ADAMW_OPTIMIZER
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.type = self.type.lower()
+
+    @property
+    def lr(self) -> float:
+        return float(self.params.get("lr", 1e-3))
+
+
+@dataclass
+class SchedulerConfig:
+    """``"scheduler": {"type": ..., "params": {...}}``"""
+    type: str = "WarmupLR"
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class FP16Config:
+    enabled: bool = False
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = False
+
+
+@dataclass
+class ZeroConfig:
+    """The ``zero_optimization`` keys the port reads or rejects.  Stage 0
+    and stage 1 on one device are the same computation (stage 1 shards the
+    optimizer state over a data-parallel world of one), so both run; stage
+    2 and 3, offload and ZeRO++ quantization raise."""
+    stage: int = 0
+    offload_param: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[Dict[str, Any]] = None
+    cpu_offload: Optional[bool] = None
+    cpu_offload_params: Optional[bool] = None
+    zero_hpz_partition_size: int = 1
+    zero_quantized_weights: bool = False
+    zero_quantized_nontrainable_weights: bool = False
+    zero_quantized_gradients: bool = False
+    mics_shard_size: int = -1
+
+    def __post_init__(self):
+        if not 0 <= self.stage <= 3:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.stage must be in [0,3], got {self.stage}")
+        if self.stage >= 2:
+            raise not_ported(f"zero_optimization.stage={self.stage}",
+                             "Queue A items 4 and 7")
+        for name, off in (("offload_param", self.offload_param),
+                          ("offload_optimizer", self.offload_optimizer)):
+            if off and (off.get("device", "none") != "none"):
+                raise not_ported(f"zero_optimization.{name}",
+                                 "Queue A item 7")
+        if self.cpu_offload or self.cpu_offload_params:
+            raise not_ported("zero_optimization.cpu_offload", "Queue A item 7")
+        if (self.zero_quantized_weights or self.zero_quantized_gradients
+                or self.zero_quantized_nontrainable_weights
+                or self.zero_hpz_partition_size > 1
+                or self.mics_shard_size > 0):
+            raise not_ported("ZeRO++ (quantized weights/gradients, hpZ, MiCS)",
+                             "Queue A item 8")
+
+
+# the JAX config's remat policy names; the port runs the first three
+REMAT_POLICIES = ("none", "full", "nothing_saveable", "dots_saveable",
+                  "dots_flash_saveable", "flash_saveable",
+                  "dots_with_no_batch_dims_saveable", "offload_dots")
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    remat_policy: str = "nothing_saveable"
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise DeepSpeedConfigError(
+                f"activation_checkpointing.remat_policy={self.remat_policy!r}"
+                f": expected one of {REMAT_POLICIES}")
+        if self.remat_policy not in ("none", "full", "nothing_saveable"):
+            raise not_ported(
+                f"the {self.remat_policy!r} remat policy (selective "
+                "activation checkpointing)", "Queue A item 13")
+        if self.cpu_checkpointing:
+            raise not_ported("activation_checkpointing.cpu_checkpointing",
+                             "Queue A item 13")
+
+
+# top-level blocks whose feature is not ported: key -> (is it switched on,
+# ROADMAP item).  A block present but switched off is accepted.
+def _enabled(block) -> bool:
+    if isinstance(block, dict):
+        return bool(block.get("enabled", True)) and bool(block)
+    return bool(block)
+
+
+_UNPORTED_BLOCKS = {
+    "torch_autocast": (_enabled, "Queue A item 3 (torch_autocast)"),
+    "comm_quantization": (_enabled, "Queue A item 8"),
+    "step_schedule": (lambda b: bool(b), "Queue A item 8"),
+    "sparse_gradients": (bool, "Queue A item 11"),
+    "compression_training": (lambda b: bool(b), "Queue A item 11"),
+    "data_efficiency": (_enabled, "Queue A item 11"),
+    "curriculum_learning": (_enabled, "Queue A item 11"),
+    "progressive_layer_drop": (_enabled, "Queue A item 11"),
+    "telemetry": (_enabled, "Queue A item 12"),
+    "flops_profiler": (_enabled, "Queue A item 12"),
+    "tensorboard": (_enabled, "Queue A item 12"),
+    "wandb": (_enabled, "Queue A item 12"),
+    "csv_monitor": (_enabled, "Queue A item 12"),
+    "comet": (_enabled, "Queue A item 12"),
+    "elasticity": (_enabled, "Queue A item 12"),
+}
+
+
+def _check_world(d: Dict[str, Any]) -> None:
+    """The port trains on one device: any mesh axis, tensor, pipeline,
+    sequence or expert parallel size above one raises."""
+    mesh = d.get(C.MESH) or {}
+    sizes = {k: v for k, v in mesh.items() if v not in (1, -1)}
+    tp = d.get(C.TENSOR_PARALLEL) or {}
+    for key, size in (("tensor_parallel", tp.get("autotp_size",
+                                                 tp.get("tp_size", 1))),
+                      ("pipeline", (d.get(C.PIPELINE) or {}).get("stages", 1)),
+                      (C.SEQUENCE_PARALLEL_SIZE,
+                       d.get(C.SEQUENCE_PARALLEL_SIZE, 1)),
+                      (C.EXPERT_PARALLEL_SIZE,
+                       d.get(C.EXPERT_PARALLEL_SIZE, 1))):
+        if (size or 1) > 1:
+            sizes[key] = size
+    if sizes:
+        raise not_ported(f"a device mesh or parallel world above one "
+                         f"({sizes})", "Queue A items 4, 9 and 10")
+
+
+class DeepSpeedConfig:
+    """Parsed and validated config (JSON path or dict).  The data-parallel
+    world is one device, so ``train_batch_size == micro * gas``."""
+
+    world_size = 1
+
+    def __init__(self, config: Union[str, Dict[str, Any], None]):
+        if config is None:
+            config = {}
+        if isinstance(config, str):
+            with open(config, "r") as f:
+                config = json.load(f)
+        if not isinstance(config, dict):
+            raise DeepSpeedConfigError(
+                f"config must be a dict or JSON path, got {type(config)}")
+        self._param_dict = copy.deepcopy(config)
+        d = self._param_dict
+
+        self.train_batch_size: Optional[int] = d.get(C.TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu: Optional[int] = d.get(
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps: Optional[int] = d.get(
+            C.GRADIENT_ACCUMULATION_STEPS)
+
+        opt = d.get(C.OPTIMIZER)
+        self.optimizer: Optional[OptimizerConfig] = (
+            _from_dict(OptimizerConfig, opt, "optimizer")
+            if opt is not None else None)
+        sched = d.get(C.SCHEDULER)
+        self.scheduler: Optional[SchedulerConfig] = (
+            _from_dict(SchedulerConfig, sched, "scheduler")
+            if sched is not None else None)
+        self.fp16 = _from_dict(FP16Config, d.get(C.FP16), "fp16")
+        self.bf16 = _from_dict(BF16Config, d.get(C.BFLOAT16,
+                                                 d.get(C.BFLOAT16_OLD)),
+                               "bf16")
+        if self.fp16.enabled and self.bf16.enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if self.fp16.enabled:
+            raise not_ported("fp16 with loss scaling",
+                             "Queue A item 3 (fp16 loss scaling)")
+        self.zero_config = _from_dict(ZeroConfig, d.get(C.ZERO_OPTIMIZATION),
+                                      "zero_optimization")
+        self.activation_checkpointing = _from_dict(
+            ActivationCheckpointingConfig, d.get(C.ACTIVATION_CHECKPOINTING),
+            "activation_checkpointing")
+        _check_world(d)
+        for key, (on, item) in _UNPORTED_BLOCKS.items():
+            if key in d and on(d[key]):
+                raise not_ported(f"the '{key}' block", item)
+        dtypes = d.get("data_types")
+        if isinstance(dtypes, dict) and dtypes.get(
+                "grad_accum_dtype", "fp32") != "fp32":
+            raise not_ported("a grad_accum_dtype other than fp32",
+                             "Queue A item 3")
+
+        self.gradient_clipping: float = float(
+            d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
+        self.steps_per_print: int = int(
+            d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT))
+        self.dataloader_drop_last: bool = bool(
+            d.get(C.DATALOADER_DROP_LAST, False))
+        self.seed: int = int(d.get("seed", 42))
+        self._resolve_batch_sizes()
+
+    @property
+    def zero_optimization_stage(self) -> int:
+        return self.zero_config.stage
+
+    def _resolve_batch_sizes(self) -> None:
+        """The JAX config's resolution rules at a world of one:
+        train == micro * gas; any one may be inferred."""
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            if train % micro != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {train} not divisible by "
+                    f"micro_batch*world {micro}")
+            gas = train // micro
+        elif train is not None and gas is not None:
+            if train % gas != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {train} not divisible by gas*world "
+                    f"{gas}")
+            micro = train // gas
+        elif micro is not None:
+            gas = gas or C.GRADIENT_ACCUMULATION_STEPS_DEFAULT
+            train = micro * gas
+        elif train is not None:
+            gas, micro = 1, train
+        else:
+            raise DeepSpeedConfigError(
+                "At least one of train_batch_size / "
+                "train_micro_batch_size_per_gpu must be set")
+        if train != micro * gas:
+            raise DeepSpeedConfigError(
+                f"Inconsistent batch config: train_batch_size={train} != "
+                f"micro({micro}) * gas({gas}) * dp_world(1)")
+        self.train_batch_size = int(train)
+        self.train_micro_batch_size_per_gpu = int(micro)
+        self.gradient_accumulation_steps = int(gas)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return copy.deepcopy(self._param_dict)
