@@ -31,7 +31,22 @@ Phases, each printing JSON lines:
                row's step (micro 8, gas 8, seq 1024, AdamW, clip 1.0,
                ZeRO-1): a warm-up step, then three timed steps whose launch
                counts show the path ran the kernels; a profiled step; one
-               step with remat "nothing_saveable" (the forward reruns).
+               step with remat "nothing_saveable" (the forward reruns);
+ 10. sparse-kernels — bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv against their
+               plain versions: the sparse path's shape and layout, Fixed,
+               BigBird with per-head layouts, llama3-8b geometry with GQA,
+               a bidirectional case with 128-token blocks and an fp32
+               case, each with its time, its bound from the layout's live
+               pairs, and scaled_dot_product_attention under the expanded
+               mask as the library time;
+ 11. lion-kernel — fused_lion over every gpt2-350m fp32 leaf, bit for bit;
+ 12. train-sparse-reference — phase 8 with block-sparse attention
+               (DeepSpeed's BSLongformer layout, causal) and Lion;
+ 13. train-sparse — phase 9's step with block-sparse attention and Lion
+               (lr 3e-5, betas 0.9/0.99, weight decay 0.1): a warm-up
+               step, three timed steps whose launch counts show the
+               block-sparse and Lion kernels and no flash kernel, and a
+               profiled step.
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -85,6 +100,24 @@ TRAIN_STEPS = 3
 # about two ulps (other summation order before p, ds and the outputs
 # round), fp32 outputs (lse in every case) summation order only
 FLASH_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+# slice 3: the same step with DeepSpeed's BSLongformerSparsityConfig
+# defaults (unidirectional, as a causal LM uses) and Lion
+SPARSE = {"mode": "bslongformer", "block": 16, "num_sliding_window_blocks": 3,
+          "global_block_indices": [0], "attention": "unidirectional"}
+SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
+    "type": "Lion", "params": {"lr": 3e-5, "betas": [0.9, 0.99],
+                               "weight_decay": 0.1}}}
+# kernel name -> the parts of its name in a profiler trace: the attention
+# roles are one template each, told apart by their mask policy
+PROFILE_NAMES = {
+    "flash_fwd": ("attn_fwd_kernel", "CausalWindow"),
+    "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
+    "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
+    "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
+    "bsa_bwd_dq": ("attn_bwd_dq_kernel", "BlockLayout"),
+    "bsa_bwd_dkv": ("attn_bwd_dkv_kernel", "BlockLayout"),
+    "fused_adamw": ("fused_adamw_kernel",),
+    "fused_lion": ("fused_lion_kernel",)}
 
 
 def emit(obj) -> None:
@@ -502,20 +535,21 @@ def attn_pairs(s, causal, window):
 
 
 def flash_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
-    """Least time of each flash kernel: its operands read once and outputs
-    written once over the HBM rate, against its products (2 flops per
-    multiply-add, 2, 3 and 4 products of pairs x d per head) over the
-    peak for the operands' type."""
+    """Least time of the forward, dq and dk/dv kernels, in that order: their
+    operands read once and outputs written once over the HBM rate, against
+    their products (2 flops per multiply-add, 2, 3 and 4 products of
+    pairs x d per head; ``pairs``: the (query, key) pairs a head keeps)
+    over the peak for the operands' type."""
     q_bytes, kv_bytes, rows = b * hq * s * d * elem, b * hkv * s * d * elem, b * hq * s * 4
     per_pair = 2.0 * pairs * d * hq * b
-    work = {"flash_fwd": (2 * q_bytes + 2 * kv_bytes + rows, 2 * per_pair),
-            "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3 * per_pair),
-            "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4 * per_pair)}
+    work = [(2 * q_bytes + 2 * kv_bytes + rows, 2 * per_pair),       # fwd
+            (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3 * per_pair),   # dq
+            (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4 * per_pair)]   # dk/dv
     peak = FP32_FLOPS if fp32 else BF16_FLOPS
-    out = {}
-    for name, (nbytes, flops) in work.items():
+    out = []
+    for nbytes, flops in work:
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-        out[name] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+        out.append((max(t_b, t_o), "bytes" if t_b >= t_o else "operations"))
     return out
 
 
@@ -530,37 +564,42 @@ FLASH_CASES = [
 ]
 
 
-def flash_case(fm, case):
+def bshd_inputs(b, hq, hkv, s, d, dtype, seed):
+    """q, k, v, do in the model's layout: [B, S, H, D] read as [B, H, S, D]."""
     import torch
-    import torch.nn.functional as F
 
-    name, b, hq, hkv, s, d, dt, causal, window, timed = case
-    dtype = getattr(torch, dt)
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rand(h):   # the model's layout: [B, S, H, D] read as [B, H, S, D]
+    def rand(h):
         return torch.randn((b, s, h, d), generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype).transpose(1, 2)
 
-    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
-    scale = 1.0 / d ** 0.5
-    args = (causal, scale, window)
-    o, lse = fm.flash_fwd(q, k, v, *args)
-    delta = fm.attn_delta(o, do).contiguous()
-    dq = fm.flash_bwd_dq(q, k, v, do, lse, delta, *args)
-    dk, dv = fm.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+    return rand(hq), rand(hkv), rand(hkv), rand(hq)
+
+
+def attn_case(row, roles, inputs, bounds, library, timed):
+    """Each kernel of one attention case against its plain version on the
+    same inputs.  ``roles``: (name, kernel, plain) for the forward
+    ``(q, k, v) -> (o, lse)``, then dq and dk/dv ``(q, k, v, do, lse,
+    delta)``, the backward fed the kernel forward's lse.  ``library``:
+    keyword arguments and a note for the scaled_dot_product_attention call
+    timed beside the kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_mha import attn_delta
+
+    q, k, v, do = inputs
+    (fwd, fwd_k, fwd_p), (dqn, dq_k, dq_p), (dkvn, dkv_k, dkv_p) = roles
+    o, lse = fwd_k(q, k, v)
+    bwd = (q, k, v, do, lse, attn_delta(o, do).contiguous())
+    dq = dq_k(*bwd)
+    dk, dv = dkv_k(*bwd)
     torch.cuda.synchronize()
-    # each kernel against its plain version on the same inputs
-    checks = {"flash_fwd": ((o, lse), fm.flash_fwd_ref(q, k, v, *args)),
-              "flash_bwd_dq": ((dq,), (fm.flash_bwd_dq_ref(
-                  q, k, v, do, lse, delta, *args),)),
-              "flash_bwd_dkv": ((dk, dv), fm.flash_bwd_dkv_ref(
-                  q, k, v, do, lse, delta, *args))}
-    pairs = attn_pairs(s, causal, window)
-    bounds = flash_bounds(b, hq, hkv, s, d, q.element_size(), pairs,
-                          dt == "float32")
+    checks = {fwd: ((o, lse), fwd_p(q, k, v)), dqn: ((dq,), (dq_p(*bwd),)),
+              dkvn: ((dk, dv), dkv_p(*bwd))}
     rows = {}
-    for kname, (got, ref) in checks.items():
+    for (kname, (got, ref)), (bound, by) in zip(checks.items(), bounds):
         err, ok = 0.0, True
         for g, r in zip(got, ref):
             rtol = FLASH_RTOL[str(g.dtype).removeprefix("torch.")]
@@ -568,48 +607,117 @@ def flash_case(fm, case):
             err = max(err, float(diff.max()))
             ok &= bool(torch.all(diff <= rtol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g.float()).all())
-        rows[kname] = {"phase": "train-kernel", "kernel": kname, "case": name,
-                       "B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-                       "dtype": dt, "causal": causal, "window": window,
-                       "max_abs_err": err,
+        rows[kname] = {**row, "kernel": kname, "max_abs_err": err,
                        "tolerance": "|k-r| <= rtol * (1 + |r|), rtol "
                                     f"{FLASH_RTOL} by output dtype",
-                       "ok": ok,
-                       "bound_ms": bounds[kname][0],
-                       "bound_by": bounds[kname][1], "pairs": pairs}
+                       "ok": ok, "bound_ms": bound, "bound_by": by}
     if timed:
-        calls = {
-            "flash_fwd": (lambda: fm.flash_fwd(q, k, v, *args),
-                          lambda: fm.flash_fwd_ref(q, k, v, *args)),
-            "flash_bwd_dq": (
-                lambda: fm.flash_bwd_dq(q, k, v, do, lse, delta, *args),
-                lambda: fm.flash_bwd_dq_ref(q, k, v, do, lse, delta, *args)),
-            "flash_bwd_dkv": (
-                lambda: fm.flash_bwd_dkv(q, k, v, do, lse, delta, *args),
-                lambda: fm.flash_bwd_dkv_ref(q, k, v, do, lse, delta, *args))}
+        calls = {fwd: (lambda: fwd_k(q, k, v), lambda: fwd_p(q, k, v)),
+                 dqn: (lambda: dq_k(*bwd), lambda: dq_p(*bwd)),
+                 dkvn: (lambda: dkv_k(*bwd), lambda: dkv_p(*bwd))}
         for kname, (kern, plain) in calls.items():
             rows[kname]["ms"] = cuda_time_ms(kern)
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
         # one PyTorch call for the same function, timed as a yardstick only
+        kw, note = library
         lib = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         sdpa = (lambda: F.scaled_dot_product_attention(
-            *lib, is_causal=causal, enable_gqa=hq != hkv))
+            *lib, enable_gqa=q.shape[1] != k.shape[1], **kw))
         with torch.no_grad():
-            rows["flash_fwd"]["library_ms"] = cuda_time_ms(sdpa)
+            rows[fwd]["library_ms"] = cuda_time_ms(sdpa)
         out = sdpa()
         pair_ms = cuda_time_ms(lambda: torch.autograd.grad(
             out, lib, do, retain_graph=True))
-        for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[fwd]["library_note"] = note
+        for kname in (dqn, dkvn):
             rows[kname]["library_ms"] = pair_ms
-            rows[kname]["library_note"] = ("scaled_dot_product_attention "
-                                           "backward: dq, dk and dv together")
-        rows["flash_fwd"]["library_note"] = "scaled_dot_product_attention"
-    for row in rows.values():
-        emit(row)
-        if not row["ok"]:
-            fail(f"{row['kernel']} disagrees with its plain version "
-                 f"({name})")
+            rows[kname]["library_note"] = f"{note} backward: dq, dk and dv together"
+    for r in rows.values():
+        emit(r)
+        if not r["ok"]:
+            fail(f"{r['kernel']} disagrees with its plain version "
+                 f"({r['case']})")
     return rows
+
+
+def flash_case(fm, case):
+    import torch
+
+    name, b, hq, hkv, s, d, dt, causal, window, timed = case
+    inputs = bshd_inputs(b, hq, hkv, s, d, getattr(torch, dt), seed=7)
+    args = (causal, 1.0 / d ** 0.5, window)
+    roles = [("flash_fwd", lambda q, k, v: fm.flash_fwd(q, k, v, *args),
+              lambda q, k, v: fm.flash_fwd_ref(q, k, v, *args)),
+             ("flash_bwd_dq", lambda *a: fm.flash_bwd_dq(*a, *args),
+              lambda *a: fm.flash_bwd_dq_ref(*a, *args)),
+             ("flash_bwd_dkv", lambda *a: fm.flash_bwd_dkv(*a, *args),
+              lambda *a: fm.flash_bwd_dkv_ref(*a, *args))]
+    pairs = attn_pairs(s, causal, window)
+    row = {"phase": "train-kernel", "case": name, "B": b, "Hq": hq,
+           "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
+           "window": window, "pairs": pairs}
+    return attn_case(row, roles, inputs,
+                     flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
+                                  pairs, dt == "float32"),
+                     ({"is_causal": causal}, "scaled_dot_product_attention"),
+                     timed)
+
+
+# name, b, hq, hkv, s, d, dtype, (sparsity config, its kwargs), causal
+SPARSE_KW = {k: v for k, v in SPARSE.items() if k != "mode"}
+SPARSE_CASES = [
+    ("gpt2-350m", 8, 16, 16, 1024, 64, "bfloat16",
+     ("BSLongformerSparsityConfig", SPARSE_KW), True),
+    ("fixed", 2, 16, 16, 1024, 64, "bfloat16",
+     ("FixedSparsityConfig", {"block": 16, "num_local_blocks": 4,
+                              "num_global_blocks": 1,
+                              "attention": "unidirectional"}), True),
+    ("bigbird-per-head", 2, 16, 16, 1024, 64, "bfloat16",
+     ("BigBirdSparsityConfig", {"block": 16, "num_random_blocks": 2,
+                                "different_layout_per_head": True,
+                                "seed": 1}), True),
+    ("llama3-8b", 1, 32, 8, 4096, 128, "bfloat16",
+     ("BSLongformerSparsityConfig", {"block": 64,
+                                     "attention": "unidirectional"}), True),
+    ("bidirectional-b128", 2, 16, 16, 2048, 64, "bfloat16",
+     ("BSLongformerSparsityConfig", {"block": 128}), False),
+    ("fp32", 2, 16, 16, 1024, 64, "float32",
+     ("BSLongformerSparsityConfig", SPARSE_KW), True),
+]
+
+
+def sparse_case(bsm, sa, case):
+    """A block-sparse case: the layout of a DeepSpeed sparsity config, its
+    bound from the pairs the layout (and causal) keeps, and SDPA under the
+    expanded boolean mask as the library time."""
+    import torch
+
+    name, b, hq, hkv, s, d, dt, (cls, kw), causal = case
+    inputs = bshd_inputs(b, hq, hkv, s, d, getattr(torch, dt), seed=9)
+    layout = getattr(sa, cls)(num_heads=hq, **kw).make_layout(s)
+    plan = bsm.SparseLayout(layout, kw["block"], causal, "cuda")
+    scale = d ** -0.5
+    roles = [("bsa_fwd", lambda q, k, v: bsm.bsa_fwd(q, k, v, plan, scale),
+              lambda q, k, v: bsm.bsa_fwd_ref(q, k, v, plan, scale)),
+             ("bsa_bwd_dq", lambda *a: bsm.bsa_bwd_dq(*a, plan, scale),
+              lambda *a: bsm.bsa_bwd_dq_ref(*a, plan, scale)),
+             ("bsa_bwd_dkv", lambda *a: bsm.bsa_bwd_dkv(*a, plan, scale),
+              lambda *a: bsm.bsa_bwd_dkv_ref(*a, plan, scale))]
+    mask = plan.token_mask()
+    pairs = int(mask.sum()) / hq     # mean over the heads
+    n = plan.live.shape[1]
+    row = {"phase": "sparse-kernel", "case": name, "B": b, "Hq": hq,
+           "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
+           "layout": cls, "block": kw["block"], "pairs_per_head": pairs,
+           "dense_pairs_per_head": attn_pairs(s, causal, None),
+           "live_tiles": int(plan.live.sum()),
+           "visited_tiles_dense": hq * (n * (n + 1) // 2 if causal else n * n)}
+    return attn_case(row, roles, inputs,
+                     flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
+                                  pairs, dt == "float32"),
+                     ({"attn_mask": mask[None]},
+                      "scaled_dot_product_attention with the layout's "
+                      "boolean mask"), True)
 
 
 def phase_adamw(fo, tf_model, tf):
@@ -628,7 +736,7 @@ def phase_adamw(fo, tf_model, tf):
     ref = [[t.clone() for t in group] for group in (ps, ms, vs)]
     hp = dict(lr=1e-4, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
     count = 5
-    table = fo.AdamWTable()
+    table = fo.LeafTable()
     fo.fused_adamw(ps, gs, ms, vs, count=count, table=table, **hp)
     torch.cuda.synchronize()
     bc1, bc2 = fo.bias_corrections(count, hp["b1"], hp["b2"])
@@ -669,6 +777,66 @@ def phase_adamw(fo, tf_model, tf):
     return row
 
 
+def phase_lion(fo, tf_model, tf):
+    """The fused Lion kernel over every fp32 leaf of gpt2-350m in one
+    launch, against its plain version leaf by leaf: bit for bit."""
+    import torch
+
+    mc = tf_model.get_model_config(TRAIN_MODEL)
+    params = tf.init_params(mc, seed=0, device="cuda")
+    ps = tf.tree_leaves(params)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gs = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-2 for p in ps]
+    ms = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in ps]
+    ref = [[t.clone() for t in group] for group in (ps, ms)]
+    hp = dict(lr=3e-5, b1=0.9, b2=0.99, wd=0.1)
+    table = fo.LeafTable()
+    fo.fused_lion(ps, gs, ms, table=table, **hp)
+    torch.cuda.synchronize()
+
+    def plain(group=ref):
+        for p, g, m in zip(group[0], gs, group[1]):
+            fo.lion_leaf_ref(p, g, m, hp["lr"], hp["b1"], hp["b2"], hp["wd"])
+
+    plain()
+    torch.cuda.synchronize()
+    pairs = [(a, b) for ga, gb in zip((ps, ms), ref) for a, b in zip(ga, gb)]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    n = sum(p.numel() for p in ps)
+    t_b = 20.0 * n / HBM_BYTES_PER_S * 1e3     # p, g, m read; p, m written
+    t_o = 10.0 * n / FP32_FLOPS * 1e3
+    row = {"phase": "lion-kernel", "kernel": "fused_lion",
+           "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
+           "elements": n, "bitwise_equal": equal, "max_abs_err": err,
+           "ms": cuda_time_ms(lambda: fo.fused_lion(
+               ps, gs, ms, table=table, **hp), iters=10),
+           "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
+           "bound_ms": max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "library_ms": None,
+           "library_note": "no PyTorch call computes a Lion step"}
+    emit(row)
+    if not equal:
+        fail(f"fused_lion differs from its plain version by {err}")
+    del params, ps, gs, ms, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sparse_kernels(bsm, sa, fo, tf_model, tf):
+    import torch
+
+    summary = {}
+    for case in SPARSE_CASES:
+        rows = sparse_case(bsm, sa, case)
+        if case[0] == TRAIN_MODEL:
+            summary.update(rows)
+        torch.cuda.empty_cache()
+    summary["fused_lion"] = phase_lion(fo, tf_model, tf)
+    return summary
+
+
 def phase_train_kernels(fm, fo, tf_model, tf):
     import torch
 
@@ -699,17 +867,24 @@ def zero_counts(*counters):
             c[k] = 0
 
 
-def phase_train_reference(ds, tf_model, tf, fm, fo):
+def expected(counters, **nonzero):
+    """Every counted kernel at 0 but the ones named."""
+    return {**{k: 0 for c in counters for k in c}, **nonzero}
+
+
+def phase_train_reference(ds, tf_model, tf, counters, phase, cfg, want,
+                          **model_kw):
     """gpt2-350m width cut to REF_LAYERS layers, fp32 weights and compute:
     the engine on the card (kernels, cuBLAS with TF32 off) and the same
     engine on the CPU (plain versions) take two train_batch steps on one
     batch; loss, grad norm and params must agree to REF_RTOL (summation
-    order only)."""
+    order only), and the card's steps launch ``want``."""
     import numpy as np
     import torch
 
-    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=REF_LAYERS)
-    cfg = {**TRAIN_CFG, "bf16": {"enabled": False},
+    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=REF_LAYERS,
+                                      **model_kw)
+    cfg = {**cfg, "bf16": {"enabled": False},
            "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2}
     card, *_ = ds.initialize(model=model, config=cfg, seed=1)
     host, *_ = ds.initialize(
@@ -718,19 +893,18 @@ def phase_train_reference(ds, tf_model, tf, fm, fo):
             lambda _p, a: a.detach().cpu(), card.params))
     p0 = tf.tree_map_with_path(lambda _p, a: a.detach().clone(), host.params)
     batch = train_batch_of(model.vocab_size, 4, seed=3)
-    counts = (fm.flash_mha.launches, fo.fused_adamw.launches)
-    zero_counts(*counts)
+    zero_counts(*counters)
     rows = []
     worst = 0.0
     for step in range(2):
         lc, lh = float(card.train_batch(batch)), float(host.train_batch(batch))
         gc_, gh = card.get_global_grad_norm(), host.get_global_grad_norm()
         if not (np.isfinite(lc) and np.isfinite(gc_)):
-            fail("card training reference: loss or grad norm not finite")
+            fail(f"{phase}: loss or grad norm not finite")
         rows.append({"loss_card": lc, "loss_cpu": lh,
                      "grad_norm_card": gc_, "grad_norm_cpu": gh})
         worst = max(worst, abs(lc - lh) / abs(lh), abs(gc_ - gh) / gh)
-    launched = {**counts[0], **counts[1]}
+    launched = {k: v for c in counters for k, v in c.items()}
     num = den = upd_den = upd_max = 0.0
     for a, b, z in zip(tf.tree_leaves(card.params), tf.tree_leaves(host.params),
                        tf.tree_leaves(p0)):
@@ -741,19 +915,19 @@ def phase_train_reference(ds, tf_model, tf, fm, fo):
         upd_max = max(upd_max, float((a - b).abs().max()))
     params_rel = (num / den) ** 0.5
     update_rel = (num / upd_den) ** 0.5   # |(a - p0) - (b - p0)| / |b - p0|
-    want = {"flash_fwd": 2 * 2 * REF_LAYERS, "flash_bwd_dq": 2 * 2 * REF_LAYERS,
-            "flash_bwd_dkv": 2 * 2 * REF_LAYERS, "fused_adamw": 2}
-    emit({"phase": "train-reference", "model": TRAIN_MODEL,
-          "layers": REF_LAYERS, "dtype": "float32", "micro": 2, "gas": 2,
-          "seq": TRAIN_SEQ, "steps": rows,
+    emit({"phase": phase, "model": TRAIN_MODEL, "layers": REF_LAYERS,
+          "dtype": "float32", "micro": 2, "gas": 2, "seq": TRAIN_SEQ,
+          "attn_impl": model.attn_impl, "optimizer": cfg["optimizer"]["type"],
+          "steps": rows,
           "check": "card (kernels, cuBLAS) vs CPU (plain versions)",
           "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
           "update_rel_l2": update_rel, "params_max_abs_diff": upd_max,
           "tolerance": REF_RTOL, "launches": launched, "expected": want})
     if worst > REF_RTOL or params_rel > REF_RTOL:
-        fail(f"card training differs from the CPU's: {worst}, {params_rel}")
+        fail(f"{phase}: card training differs from the CPU's: {worst}, "
+             f"{params_rel}")
     if launched != want:
-        fail(f"the reference steps launched {launched}, expected {want}")
+        fail(f"{phase}: the reference steps launched {launched}, expected {want}")
     del card, host
     torch.cuda.empty_cache()
 
@@ -768,56 +942,59 @@ def fwd_flops_per_tok(model, seq):
     return 2 * matmul + 2 * h * vocab + 2 * seq * h * n_layers
 
 
-def phase_train(ds, tf_model, fm, fo, card):
+def phase_train(ds, tf_model, counters, card, phase, cfg, want, remat=False,
+                **model_kw):
     """gpt2-350m at full width and depth in bf16 with the bench row's
     step: a warm-up step, TRAIN_STEPS timed steps on one fixed batch (the
-    counts are zeroed just before them and read just after), a profiled
-    step, then one step with remat "nothing_saveable"."""
+    counts are zeroed just before them and read just after and must equal
+    ``want`` a step), then a profiled step; with ``remat``, one more step
+    under remat "nothing_saveable" (the checkpointed forward reruns, so the
+    forward kernel launches twice a layer).  Returns the timed steps'
+    launches."""
     import numpy as np
     import torch
 
-    model = tf_model.get_model_config(TRAIN_MODEL)
+    model = tf_model.get_model_config(TRAIN_MODEL, **model_kw)
     t0 = time.perf_counter()
-    eng, *_ = ds.initialize(model=model, config=TRAIN_CFG, seed=0)
+    eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rows = TRAIN_CFG["train_micro_batch_size_per_gpu"] * \
-        TRAIN_CFG["gradient_accumulation_steps"]
+    rows = cfg["train_micro_batch_size_per_gpu"] * cfg["gradient_accumulation_steps"]
     batch = train_batch_of(model.vocab_size, rows)
     t0 = time.perf_counter()
     losses = [float(eng.train_batch(batch))]     # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    counts = (fm.flash_mha.launches, fo.fused_adamw.launches)
-    zero_counts(*counts)
+    zero_counts(*counters)
     step_s = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         losses.append(float(eng.train_batch(batch)))   # float() syncs
         step_s.append(time.perf_counter() - t0)
-    launches = {**counts[0], **counts[1]}
+    launches = {k: v for c in counters for k, v in c.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens = rows * TRAIN_SEQ
     tps = tokens * TRAIN_STEPS / sum(step_s)
     mfu = tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ) / BF16_FLOPS
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    want = {"flash_fwd": model.num_layers * 8, "flash_bwd_dq": model.num_layers * 8,
-            "flash_bwd_dkv": model.num_layers * 8, "fused_adamw": 1}
     ok = (all(np.isfinite(losses)) and losses[-1] < losses[0]
           and per_step == want)
-    emit({"phase": "train", "model": TRAIN_MODEL, "layers": model.num_layers,
-          "dtype": "bfloat16", "remat": "none", "zero_stage": 1,
-          "micro": TRAIN_CFG["train_micro_batch_size_per_gpu"],
-          "gas": TRAIN_CFG["gradient_accumulation_steps"], "seq": TRAIN_SEQ,
+    emit({"phase": phase, "model": TRAIN_MODEL, "layers": model.num_layers,
+          "dtype": "bfloat16", "attn_impl": model.attn_impl,
+          "sparse_attention": model.sparse_attention,
+          "optimizer": cfg["optimizer"], "remat": "none", "zero_stage": 1,
+          "micro": cfg["train_micro_batch_size_per_gpu"],
+          "gas": cfg["gradient_accumulation_steps"], "seq": TRAIN_SEQ,
           "init_s": init_s, "warmup_step_s": warm_s, "step_s": step_s,
           "tokens_per_step": tokens, "tokens_per_s": tps, "mfu": mfu,
-          "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM)",
+          "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM); the formula "
+                      "counts dense attention",
           "losses": losses, "max_memory_allocated_gib": peak_gb,
           "launches": launches, "launches_per_step": per_step,
           "expected_per_step": want, "card": card, "ok": ok})
     if not ok:
-        fail("gpt2-350m training: losses not finite and falling, or the "
-             "launch counts do not show the kernels")
+        fail(f"{phase}: losses not finite and falling, or the launch counts "
+             "do not show the kernels")
 
     wall_ms, by_name, busy_ms = profile_call(lambda: eng.train_batch(batch))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -825,29 +1002,34 @@ def phase_train(ds, tf_model, fm, fo, card):
     def share(*keys):
         return sum(v for k, v in by_name.items() if any(x in k for x in keys))
 
-    emit({"phase": "train-profile", "what": "one train_batch, gpt2-350m bf16",
+    emit({"phase": phase + "-profile",
+          "what": f"one train_batch, gpt2-350m bf16, attn_impl "
+                  f"{model.attn_impl}, {cfg['optimizer']['type']}",
           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-          "flash_ms": {n: share(n + "_kernel") for n in
-                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
-          "fused_adamw_ms": share("fused_adamw_kernel"),
+          "kernel_ms": {n: sum(v for k, v in by_name.items()
+                               if all(x in k for x in parts))
+                        for n, parts in PROFILE_NAMES.items() if want.get(n)},
           "gemm_ms": share("gemm", "nvjet", "cutlass", "xmma"),
           "top_kernels_ms": [[k[:90], v] for k, v in top], "card": card})
+    if not remat:
+        return launches
 
-    cfg = {**TRAIN_CFG, "activation_checkpointing":
+    cfg = {**cfg, "activation_checkpointing":
            {"remat_policy": "nothing_saveable"}}
     eng2, *_ = ds.initialize(model=model, config=cfg,
                              model_parameters=eng.params)
     del eng
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(*counts)
+    zero_counts(*counters)
     t0 = time.perf_counter()
     loss = float(eng2.train_batch(batch))
     remat_s = time.perf_counter() - t0
-    remat_launches = {**counts[0], **counts[1]}
-    want_remat = {**want, "flash_fwd": 2 * model.num_layers * 8}
-    emit({"phase": "train-remat", "remat": "nothing_saveable",
+    remat_launches = {k: v for c in counters for k, v in c.items()}
+    fwd = next(k for k in ("flash_fwd", "bsa_fwd") if want.get(k))
+    want_remat = {**want, fwd: 2 * want[fwd]}
+    emit({"phase": phase + "-remat", "remat": "nothing_saveable",
           "step_s": remat_s, "loss": loss,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "launches": remat_launches, "expected": want_remat})
@@ -878,10 +1060,12 @@ def main() -> int:
     from deepspeed_tpu_torch.inference import v2
     from deepspeed_tpu_torch.models import registry as tf_model
     from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import block_sparse_mha as bsm
     from deepspeed_tpu_torch.ops import flash_mha as fm
     from deepspeed_tpu_torch.ops import fused_optimizer as fo
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     # 1. device
     smi = subprocess.run(
@@ -925,34 +1109,68 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. training kernels, 8. training reference, 9. training
+    counters = (fm.flash_mha.launches, bsm.block_sparse_mha.launches,
+                fo.fused_adamw.launches, fo.fused_lion.launches)
+    layers = tf_model.get_model_config(TRAIN_MODEL).num_layers
+    micro_steps = TRAIN_CFG["gradient_accumulation_steps"]
     train_summary = phase_train_kernels(fm, fo, tf_model, tf)
-    phase_train_reference(ds, tf_model, tf, fm, fo)
-    train_launches = phase_train(ds, tf_model, fm, fo, smi)
+    ref_steps = 2 * 2 * REF_LAYERS    # 2 steps x gas 2 x layers
+    phase_train_reference(
+        ds, tf_model, tf, counters, "train-reference", TRAIN_CFG,
+        expected(counters, flash_fwd=ref_steps, flash_bwd_dq=ref_steps,
+                 flash_bwd_dkv=ref_steps, fused_adamw=2))
+    n = layers * micro_steps
+    train_launches = phase_train(
+        ds, tf_model, counters, smi, "train", TRAIN_CFG,
+        expected(counters, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                 fused_adamw=1), remat=True)
 
-    # 10. kernels line: each path's launches from its own run
-    flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
-    sources = {"paged_attention": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-               "paged_attention_int8": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
-               "flash_fwd": flash_src, "flash_bwd_dq": flash_src,
-               "flash_bwd_dkv": flash_src,
-               "fused_adamw": "deepspeed_tpu_torch/ops/csrc/fused_adamw.cu"}
-    replaces = {"paged_attention":
-                "deepspeed_tpu/ops/pallas/paged_attention.py:52",
-                "paged_attention_int8":
-                "deepspeed_tpu/ops/pallas/paged_attention.py:129",
-                "flash_fwd": "deepspeed_tpu/ops/pallas/flash_mha.py:147",
-                "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_mha.py:172",
-                "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_mha.py:192",
-                "fused_adamw": "deepspeed_tpu/ops/pallas/fused_optimizer.py:77"}
-    also = {"flash_fwd": "deepspeed_tpu/ops/pallas/flash_mha.py:286",
-            "flash_bwd_dq": "deepspeed_tpu/ops/pallas/flash_mha.py:346",
-            "flash_bwd_dkv": "deepspeed_tpu/ops/pallas/flash_mha.py:390"}
+    # 10. block-sparse kernels and Lion, 11. their training reference,
+    # 12. training with block-sparse attention and Lion
+    sparse = {"attn_impl": "sparse", "sparse_attention": SPARSE}
+    sparse_summary = phase_sparse_kernels(bsm, sa, fo, tf_model, tf)
+    phase_train_reference(
+        ds, tf_model, tf, counters, "train-sparse-reference", SPARSE_TRAIN_CFG,
+        expected(counters, bsa_fwd=ref_steps, bsa_bwd_dq=ref_steps,
+                 bsa_bwd_dkv=ref_steps, fused_lion=2), **sparse)
+    sparse_launches = phase_train(
+        ds, tf_model, counters, smi, "train-sparse", SPARSE_TRAIN_CFG,
+        expected(counters, bsa_fwd=n, bsa_bwd_dq=n, bsa_bwd_dkv=n,
+                 fused_lion=1), **sparse)
+
+    # 13. kernels line: each path's launches from its own run
+    csrc = "deepspeed_tpu_torch/ops/csrc/"
+    pallas = "deepspeed_tpu/ops/pallas/"
+    sources = {"paged_attention": csrc + "paged_attention.cu",
+               "paged_attention_int8": csrc + "paged_attention.cu",
+               "flash_fwd": csrc + "flash_attention.cu",
+               "flash_bwd_dq": csrc + "flash_attention.cu",
+               "flash_bwd_dkv": csrc + "flash_attention.cu",
+               "fused_adamw": csrc + "fused_adamw.cu",
+               "bsa_fwd": csrc + "block_sparse_attention.cu",
+               "bsa_bwd_dq": csrc + "block_sparse_attention.cu",
+               "bsa_bwd_dkv": csrc + "block_sparse_attention.cu",
+               "fused_lion": csrc + "fused_lion.cu"}
+    replaces = {"paged_attention": pallas + "paged_attention.py:52",
+                "paged_attention_int8": pallas + "paged_attention.py:129",
+                "flash_fwd": pallas + "flash_mha.py:147",
+                "flash_bwd_dq": pallas + "flash_mha.py:172",
+                "flash_bwd_dkv": pallas + "flash_mha.py:192",
+                "fused_adamw": pallas + "fused_optimizer.py:77",
+                "bsa_fwd": pallas + "block_sparse_mha.py:119",
+                "bsa_bwd_dq": pallas + "block_sparse_mha.py:171",
+                "bsa_bwd_dkv": pallas + "block_sparse_mha.py:211",
+                "fused_lion": pallas + "fused_optimizer.py:133"}
+    also = {"flash_fwd": pallas + "flash_mha.py:286",
+            "flash_bwd_dq": pallas + "flash_mha.py:346",
+            "flash_bwd_dkv": pallas + "flash_mha.py:390"}
     launch_run = {"paged_attention": launches["bf16"]["paged_attention"],
                   "paged_attention_int8":
                   launches["int8"]["paged_attention_int8"],
-                  **{k: train_launches[k] for k in train_summary}}
+                  **{k: train_launches[k] for k in train_summary},
+                  **{k: sparse_launches[k] for k in sparse_summary}}
     entries = []
-    for name, row in {**summary, **train_summary}.items():
+    for name, row in {**summary, **train_summary, **sparse_summary}.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name], "launches": launch_run[name],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],

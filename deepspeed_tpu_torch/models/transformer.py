@@ -12,7 +12,7 @@ differentiated function, no ``torch.autocast``), so bf16 rounds where it
 rounds in JAX and fp32 master leaves receive fp32 gradients.
 
 Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item: MoE layers and the ZeRO-3 fused gather-matmul, the ring, sparse and
+item: MoE layers and the ZeRO-3 fused gather-matmul, the ring and
 pipeline attention paths, parameter streaming, random-LTD, progressive
 layer drop and the sequence-tiled loss.
 """
@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -529,6 +530,29 @@ def _attention_scores(q, k, v, cfg: TransformerConfig, attention_mask=None):
 
 
 ATTN_IMPLS = ("auto", "pallas_flash", "xla", "sparse")
+_SPARSITY_CONFIGS = {"fixed": sa.FixedSparsityConfig,
+                     "bigbird": sa.BigBirdSparsityConfig,
+                     "bslongformer": sa.BSLongformerSparsityConfig,
+                     "variable": sa.VariableSparsityConfig,
+                     "dense": sa.DenseSparsityConfig}
+_SPARSITY_CACHE: Dict[Tuple[str, int], sa.SparsityConfig] = {}
+
+
+def _sparse_attn(q, k, v, cfg: TransformerConfig):
+    """Block-sparse attention path (ref ops/sparse_attention configs):
+    ``cfg.sparse_attention`` = {"mode": ..., "block": ..., mode kwargs};
+    causal composes with the layout.  As in the JAX model, the scale is
+    ``d**-0.5`` (``attn_scale`` and ``sliding_window`` do not apply).  The
+    config object is built once per (sparse config, heads) and its kernel
+    layout once per sequence length (``sparse_attention.sparse_layout``)."""
+    key = (repr(cfg.sparse_attention), q.shape[2])
+    sparsity = _SPARSITY_CACHE.get(key)
+    if sparsity is None:
+        sc = dict(cfg.sparse_attention or {})
+        mode = sc.pop("mode", "fixed")
+        sparsity = _SPARSITY_CONFIGS[mode](num_heads=q.shape[2], **sc)
+        _SPARSITY_CACHE[key] = sparsity
+    return sa.sparse_attention(q, k, v, sparsity, causal=cfg.causal)
 
 
 def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None):
@@ -563,9 +587,7 @@ def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None):
                 "attention_mask/alibi + attn_impl='sparse' not supported")
         out = _attention_scores(q, k, v, cfg, attention_mask=attention_mask)
     elif cfg.attn_impl == "sparse":
-        raise NotImplementedError(
-            "block-sparse attention is not ported yet (ROADMAP Queue A "
-            "item 11, Queue B item 9)")
+        out = _sparse_attn(q, k, v, cfg)
     elif cfg.attn_impl in ("pallas_flash", "auto"):
         out = flash_attention(q, k, v, causal=cfg.causal,
                               sm_scale=cfg.attn_scale,

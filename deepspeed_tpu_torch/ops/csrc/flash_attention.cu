@@ -6,11 +6,8 @@
 //   flash_bwd_dkv <- _dkv_kernel (:192) + _dkv_kernel_blocked (:390)
 // The TPU file splits each role into a VMEM-resident and a KV-blocked
 // variant for its VMEM budget; one kernel per role serves every sequence
-// length here and follows the blocked kernels' arithmetic: fp32 scores, an
-// online softmax over 64-key tiles (forward), p = exp(s - lse) against the
-// saved log-sum-exp (backward), p rounded to v's dtype before p.v and to
-// do's before p^T.do, ds rounded to k's dtype for dq and to q's for dk, the
-// -1e30 mask with p zeroed on masked entries, safe_l = l > 0 ? l : 1.
+// length here and follows the blocked kernels' arithmetic.  The kernels are
+// the tile walk of attention_tiles.cuh under the dense mask below.
 //
 // Bound: at the training shapes (S = 1024, d = 64, causal) the forward is
 // just below the bytes line and the backward kernels are bound by their
@@ -19,594 +16,37 @@
 // once per tile pair into shared memory and the [64 x 64] score, p and ds
 // tiles live only there.
 //
-// Design (simple and right first):
-//  * 256 threads, one block per (q tile, head, batch) for fwd and dq and per
-//    (k tile, KV head, batch) for dk/dv: independent blocks, a loop inside
-//    the block in place of the TPU's sequential grid axis.  GQA folds
-//    h -> h / group in the index arithmetic; the dk/dv block walks its
-//    group's query heads itself (the TPU's static `for g in range(group)`),
-//    so it owns its output tile and needs no atomics.
-//  * dead tiles are skipped by bounding each block's loop: fwd/dq stop the
-//    key walk at the diagonal and start it at the window's edge (the TPU's
-//    _clamped_kv_index as loop bounds), dk/dv start the query walk at the
-//    diagonal and stop it past the window.
-//  * a sequence tail (S % 64 != 0) is masked in-kernel (cols < S, rows < S);
-//    tail rows load as zeros and are never stored: no padding copy.
-//  * operands are [B, H, S, D] views with any (b, h, s) strides and a
-//    contiguous D, copied to shared memory with 16-byte vector loads.
-//  * products: bf16 tiles through the tensor cores (nvcuda::wmma 16x16x16,
-//    fp32 accumulation); fp32 tiles (the card-vs-CPU reference) by plain
-//    FMA loops.  The forward's o accumulator lives in shared memory in
-//    fp32, so the online softmax can rescale it by rows between products;
-//    the backward's dq, dk, dv need no rescale and stay in wmma registers
-//    for the whole loop (bf16), which also frees the shared memory for two
-//    dk/dv blocks per SM at d = 64.
-//    No wgmma/TMA/warp specialisation and no cp.async double buffer: those
-//    are for the PRs that make it fast.
-//
-// Each entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError().
+// Dead tiles are loop bounds (the TPU's _clamped_kv_index): fwd/dq stop the
+// key walk at the diagonal and start it at the window's edge, dk/dv start
+// the query walk at the diagonal and stop it past the window.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "attention_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+// Causal and sliding-window masking: key visible iff col <= row (causal)
+// and row - col < window (window > 0).
+struct CausalWindow {
+  int S, causal, window;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockK = 64;  // keys per tile (the online softmax step)
-constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, s;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Padded row length, in elements, of a shared tile with n columns: keeps
-// rows 16-byte aligned and wmma tile starts 32-byte aligned while shifting
-// banks from row to row.
-template <typename T> __host__ __device__ constexpr int ld(int n) {
-  return n + (sizeof(T) == 2 ? 8 : 4);
-}
-__host__ __device__ constexpr size_t r128(size_t x) { return (x + 127) / 128 * 128; }
-
-// Bump allocator over dynamic shared memory; every array 128-byte aligned.
-struct Smem {
-  unsigned char* p;
-  template <typename U> __device__ U* take(int n) {
-    U* r = reinterpret_cast<U*>(p);
-    p += r128(static_cast<size_t>(n) * sizeof(U));
-    return r;
+  __device__ int k_begin(int, int iq) const {
+    return window > 0 ? max(0, iq * kTile - window + 1) / kTile : 0;
+  }
+  __device__ int k_end(int, int iq) const {
+    const int n = (S + kTile - 1) / kTile;
+    return causal ? min(n, iq + 1) : n;
+  }
+  __device__ int k_tile(int t) const { return t; }
+  __device__ int q_begin(int, int ik) const { return causal ? ik : 0; }
+  __device__ int q_end(int, int ik) const {
+    const int n = (S + kTile - 1) / kTile;
+    return window > 0 ? min(n, (ik * kTile + kTile - 1 + window - 1) / kTile + 1) : n;
+  }
+  __device__ int q_tile(int t) const { return t; }
+  __device__ bool ok(int, int row, int col) const {
+    return row < S && col < S && (!causal || col <= row) && (window <= 0 || row - col < window);
   }
 };
-
-// dst[r][:] = row (row0 + r) of src for r < ROWS; rows at or past S are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
-                                          int S) {
-  constexpr int kPerVec = 16 / sizeof(T);
-  constexpr int kVecs = D / kPerVec;
-  constexpr int LD = ld<T>(D);
-  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * kPerVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + static_cast<long long>(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// C[M x N] (fp32, row-major, ldc) = (acc ? C : 0) + A[M x K] . B[K x N] over
-// shared memory.  A_ROW: A(m, k) = A[m * lda + k], else A[k * lda + m];
-// B_ROW: B(k, n) = B[k * ldb + n], else B[n * ldb + k].
-template <typename T, int M, int N, int K, bool A_ROW, bool B_ROW>
-__device__ __forceinline__ void block_gemm(const T* A, int lda, const T* B, int ldb, float* C,
-                                           int ldc, bool acc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<A_ROW, wmma::row_major, wmma::col_major>::type;
-    using LB = typename std::conditional<B_ROW, wmma::row_major, wmma::col_major>::type;
-    constexpr int kTilesN = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < (M / 16) * kTilesN; t += kWarps) {
-      const int m0 = (t / kTilesN) * 16, n0 = (t % kTilesN) * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (acc)
-        wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-        wmma::load_matrix_sync(a, A_ROW ? A + m0 * lda + k0 : A + k0 * lda + m0, lda);
-        wmma::load_matrix_sync(b, B_ROW ? B + k0 * ldb + n0 : B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < M * N; e += kThreads) {
-      const int m = e / N, n = e % N;
-      float s = acc ? C[m * ldc + n] : 0.f;
-      for (int k = 0; k < K; ++k)
-        s += to_f(A_ROW ? A[m * lda + k] : A[k * lda + m]) *
-             to_f(B_ROW ? B[k * ldb + n] : B[n * ldb + k]);
-      C[m * ldc + n] = s;
-    }
-  }
-}
-
-// An [M x N] fp32 accumulator summed over a loop of products.  bf16: warp w
-// holds its output tiles (w, w + kWarps, ...) as wmma fragments in
-// registers for the whole loop; `stage` writes them to a shared buffer for
-// the epilogue.  fp32: the accumulator is a shared buffer and the products
-// are the FMA loops of block_gemm.
-template <typename T, int M, int N>
-struct Acc {
-  float* c;  // fp32 path: the accumulator itself; [M x ldc]
-  int ldc;
-  __device__ Acc(float* c_, int ldc_) : c(c_), ldc(ldc_) {}
-  __device__ void zero() {
-    for (int i = threadIdx.x; i < M * ldc; i += kThreads) c[i] = 0.f;
-  }
-  template <int K, bool A_ROW, bool B_ROW>
-  __device__ void mma(const T* A, int lda, const T* B, int ldb) {
-    block_gemm<T, M, N, K, A_ROW, B_ROW>(A, lda, B, ldb, c, ldc, true);
-  }
-  __device__ const float* stage(float*, int) const { return c; }
-};
-
-template <int M, int N>
-struct Acc<bf16, M, N> {
-  static constexpr int kTilesN = N / 16;
-  static constexpr int kPerWarp = (M / 16) * kTilesN / kWarps;
-  static_assert((M / 16) * kTilesN % kWarps == 0, "tiles must split evenly over the warps");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f[kPerWarp];
-  __device__ Acc(float*, int) {}
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) nvcuda::wmma::fill_fragment(f[i], 0.f);
-  }
-  template <int K, bool A_ROW, bool B_ROW>
-  __device__ void mma(const bf16* A, int lda, const bf16* B, int ldb) {
-    using namespace nvcuda;
-    using LA = typename std::conditional<A_ROW, wmma::row_major, wmma::col_major>::type;
-    using LB = typename std::conditional<B_ROW, wmma::row_major, wmma::col_major>::type;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const int t = warp + i * kWarps;
-      const int m0 = (t / kTilesN) * 16, n0 = (t % kTilesN) * 16;
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-        wmma::load_matrix_sync(a, A_ROW ? A + m0 * lda + k0 : A + k0 * lda + m0, lda);
-        wmma::load_matrix_sync(b, B_ROW ? B + k0 * ldb + n0 : B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(f[i], a, b, f[i]);
-      }
-    }
-  }
-  // store to buf [M x ld]; the caller syncs before reading it
-  __device__ const float* stage(float* buf, int ld) const {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int i = 0; i < kPerWarp; ++i) {
-      const int t = warp + i * kWarps;
-      nvcuda::wmma::store_matrix_sync(buf + (t / kTilesN) * 16 * ld + (t % kTilesN) * 16, f[i],
-                                      ld, nvcuda::wmma::mem_row_major);
-    }
-    return buf;
-  }
-};
-
-template <typename T> constexpr bool kRegAcc = std::is_same<T, bf16>::value;
-
-// Rows row0.. of an accumulator, rounded to T, into out (rows past S are
-// not stored); stage: a free shared buffer of [ROWS x ld] fp32.
-template <typename T, int D, int ROWS, typename A>
-__device__ __forceinline__ void store_acc(const A& acc, float* stage, int ld, T* out,
-                                          long long row_stride, int row0, int S) {
-  __syncthreads();  // every warp is done with the buffer the stage reuses
-  const float* src = acc.stage(stage, ld);
-  __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (row0 + r < S) out[static_cast<long long>(row0 + r) * row_stride + c] = from_f<T>(src[r * ld + c]);
-  }
-}
-
-__device__ __forceinline__ bool is_valid(int row, int col, int S, int causal, int window) {
-  return row < S && col < S && (!causal || col <= row) && (window <= 0 || row - col < window);
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-struct FwdLayout {
-  static constexpr int BQ = 64, BK = kBlockK;
-  static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
-  static constexpr size_t bytes() {
-    return r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
-           r128(BQ * LDS * sizeof(float)) + r128(BQ * LDP * sizeof(T)) +
-           r128(BQ * LDO * sizeof(float)) + 3 * r128(BQ * sizeof(float));
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                 Strides so, int Hq, int Hkv, int S, float scale, int causal, int window) {
-  using L = FwdLayout<T, D>;
-  constexpr int BQ = L::BQ, BK = L::BK;
-  const int nq = (S + BQ - 1) / BQ;
-  const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal walks first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = iq * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem sm{smem_raw};
-  T* qs = sm.take<T>(BQ * L::LDT);
-  T* ks = sm.take<T>(BK * L::LDT);
-  T* vs = sm.take<T>(BK * L::LDT);
-  float* ss = sm.take<float>(BQ * L::LDS);
-  T* ps = sm.take<T>(BQ * L::LDP);
-  float* os = sm.take<float>(BQ * L::LDO);
-  float* m_s = sm.take<float>(BQ);
-  float* l_s = sm.take<float>(BQ);
-  float* a_s = sm.take<float>(BQ);
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-  load_tile<T, D, BQ>(qs, qb, sq.s, q0, S);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) os[i] = 0.f;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  const int nk = (S + BK - 1) / BK;
-  int k_hi = nk - 1;
-  if (causal) k_hi = min(k_hi, (q0 + BQ - 1) / BK);
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  for (int ik = k_lo; ik <= k_hi; ++ik) {
-    const int k0 = ik * BK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, D, BK>(ks, kb, sk.s, k0, S);
-    load_tile<T, D, BK>(vs, vb, sv.s, k0, S);
-    __syncthreads();
-    block_gemm<T, BQ, BK, D, true, false>(qs, L::LDT, ks, L::LDT, ss, L::LDS, false);
-    __syncthreads();
-    // online softmax, one warp per row, two columns per lane
-    for (int r = warp; r < BQ; r += kWarps) {
-      const int row = q0 + r;
-      float s[BK / 32];
-      bool ok[BK / 32];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j;
-        // tail rows (row >= S) see no valid key: o = 0, never stored
-        ok[j] = is_valid(row, k0 + c, S, causal, window);
-        s[j] = ok[j] ? ss[r * L::LDS + c] * scale : kNegInf;
-        mx = fmaxf(mx, s[j]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-        sum += p;
-        ps[r * L::LDP + lane + 32 * j] = from_f<T>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      os[r * L::LDO + c] *= a_s[r];
-    }
-    __syncthreads();
-    block_gemm<T, BQ, D, BK, true, true>(ps, L::LDP, vs, L::LDT, os, L::LDO, true);
-  }
-  __syncthreads();
-
-  T* ob = o + b * so.b + h * so.h;
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < S) {
-      const float l = l_s[r];
-      ob[static_cast<long long>(q0 + r) * so.s + c] = from_f<T>(os[r * L::LDO + c] / (l > 0.f ? l : 1.f));
-    }
-  }
-  float* lb = lse + (static_cast<long long>(b) * Hq + h) * S;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    if (q0 + r < S) {
-      const float l = l_s[r];
-      lb[q0 + r] = m_s[r] + logf(l > 0.f ? l : 1.f);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: dq
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-struct DqLayout {
-  static constexpr int BQ = 64, BK = kBlockK;
-  static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
-  // bf16 keeps dq in registers and stages it over the two score buffers
-  static constexpr size_t kAccBytes = kRegAcc<T> ? 0 : r128(BQ * LDO * sizeof(float));
-  static_assert(!kRegAcc<T> || BQ * LDO * sizeof(float) <= 2 * r128(BQ * LDS * sizeof(float)),
-                "dq staging must fit the score buffers");
-  static constexpr size_t bytes() {
-    return 2 * r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
-           2 * r128(BQ * LDS * sizeof(float)) + r128(BQ * LDP * sizeof(T)) + kAccBytes +
-           2 * r128(BQ * sizeof(float));
-  }
-};
-
-// lse/delta rows of one q tile into shared memory (0 past S)
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows, int S) {
-  for (int r = threadIdx.x; r < rows; r += kThreads) dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk,
-                    Strides sv, Strides sdo, Strides sdq, int Hq, int Hkv, int S, float scale,
-                    int causal, int window) {
-  using L = DqLayout<T, D>;
-  constexpr int BQ = L::BQ, BK = L::BK;
-  const int nq = (S + BQ - 1) / BQ;
-  const int iq = nq - 1 - static_cast<int>(blockIdx.x);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = iq * BQ;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem sm{smem_raw};
-  T* qs = sm.take<T>(BQ * L::LDT);
-  T* dos = sm.take<T>(BQ * L::LDT);
-  T* ks = sm.take<T>(BK * L::LDT);
-  T* vs = sm.take<T>(BK * L::LDT);
-  float* ss = sm.take<float>(BQ * L::LDS);
-  float* dps = sm.take<float>(BQ * L::LDS);
-  T* dss = sm.take<T>(BQ * L::LDP);
-  Acc<T, BQ, D> dq_acc(kRegAcc<T> ? nullptr : sm.take<float>(BQ * L::LDO), L::LDO);
-  float* lse_s = sm.take<float>(BQ);
-  float* dl_s = sm.take<float>(BQ);
-
-  const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
-  load_tile<T, D, BQ>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  load_tile<T, D, BQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-  load_rows(lse_s, lse + row_off, q0, BQ, S);
-  load_rows(dl_s, delta + row_off, q0, BQ, S);
-  dq_acc.zero();
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-
-  const int nk = (S + BK - 1) / BK;
-  int k_hi = nk - 1;
-  if (causal) k_hi = min(k_hi, (q0 + BQ - 1) / BK);
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  for (int ik = k_lo; ik <= k_hi; ++ik) {
-    const int k0 = ik * BK;
-    __syncthreads();
-    load_tile<T, D, BK>(ks, kb, sk.s, k0, S);
-    load_tile<T, D, BK>(vs, vb, sv.s, k0, S);
-    __syncthreads();
-    block_gemm<T, BQ, BK, D, true, false>(qs, L::LDT, ks, L::LDT, ss, L::LDS, false);
-    block_gemm<T, BQ, BK, D, true, false>(dos, L::LDT, vs, L::LDT, dps, L::LDS, false);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const bool ok = is_valid(q0 + r, k0 + c, S, causal, window);
-      const float p = ok ? expf(ss[r * L::LDS + c] * scale - lse_s[r]) : 0.f;
-      const float ds = p * (dps[r * L::LDS + c] - dl_s[r]) * scale;
-      dss[r * L::LDP + c] = from_f<T>(ds);
-    }
-    __syncthreads();
-    dq_acc.template mma<BK, true, true>(dss, L::LDP, ks, L::LDT);
-  }
-  // the score buffers are free: stage dq over them
-  store_acc<T, D, BQ>(dq_acc, ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
-}
-
-// ---------------------------------------------------------------------------
-// backward: dk, dv
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-struct DkvLayout {
-  // fp32 tiles at d = 128 would overrun shared memory with 64-row q tiles
-  static constexpr int BQ = sizeof(T) == 4 ? 32 : 64, BK = kBlockK;
-  static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
-  // bf16 keeps dk, dv in registers and stages each over the score buffers
-  static constexpr size_t kAccBytes = kRegAcc<T> ? 0 : 2 * r128(BK * LDO * sizeof(float));
-  static_assert(!kRegAcc<T> || BK * LDO * sizeof(float) <= 2 * r128(BQ * LDS * sizeof(float)),
-                "dk/dv staging must fit the score buffers");
-  static constexpr size_t bytes() {
-    return 2 * r128(BK * LDT * sizeof(T)) + kAccBytes + 2 * r128(BQ * LDT * sizeof(T)) +
-           2 * r128(BQ * LDS * sizeof(float)) + 2 * r128(BQ * LDP * sizeof(T)) +
-           2 * r128(BQ * sizeof(float));
-  }
-};
-
-// bf16 at d = 64 fits two blocks' shared memory on an SM; ask ptxas for the
-// registers to match (<= 128 a thread)
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kRegAcc<T> && D == 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     int Hq, int Hkv, int S, float scale, int causal, int window) {
-  using L = DkvLayout<T, D>;
-  constexpr int BQ = L::BQ, BK = L::BK;
-  const int ik = blockIdx.x;  // low k tiles have the longest causal walks: first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int k0 = ik * BK;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem sm{smem_raw};
-  T* ks = sm.take<T>(BK * L::LDT);
-  T* vs = sm.take<T>(BK * L::LDT);
-  Acc<T, BK, D> dk_acc(kRegAcc<T> ? nullptr : sm.take<float>(BK * L::LDO), L::LDO);
-  Acc<T, BK, D> dv_acc(kRegAcc<T> ? nullptr : sm.take<float>(BK * L::LDO), L::LDO);
-  T* qs = sm.take<T>(BQ * L::LDT);
-  T* dos = sm.take<T>(BQ * L::LDT);
-  float* ss = sm.take<float>(BQ * L::LDS);
-  float* dps = sm.take<float>(BQ * L::LDS);
-  T* pts = sm.take<T>(BQ * L::LDP);
-  T* dss = sm.take<T>(BQ * L::LDP);
-  float* lse_s = sm.take<float>(BQ);
-  float* dl_s = sm.take<float>(BQ);
-
-  load_tile<T, D, BK>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
-  load_tile<T, D, BK>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
-  dk_acc.zero();
-  dv_acc.zero();
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int q_lo = causal ? k0 / BQ : 0;
-  int q_hi = nq - 1;
-  if (window > 0) q_hi = min(q_hi, (k0 + BK - 1 + window - 1) / BQ);
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
-    const T* qb = q + b * sq.b + h * sq.h;
-    const T* dob = dout + b * sdo.b + h * sdo.h;
-    for (int iq = q_lo; iq <= q_hi; ++iq) {
-      const int q0 = iq * BQ;
-      __syncthreads();  // the previous q tile is consumed
-      load_tile<T, D, BQ>(qs, qb, sq.s, q0, S);
-      load_tile<T, D, BQ>(dos, dob, sdo.s, q0, S);
-      load_rows(lse_s, lse + row_off, q0, BQ, S);
-      load_rows(dl_s, delta + row_off, q0, BQ, S);
-      __syncthreads();
-      block_gemm<T, BQ, BK, D, true, false>(qs, L::LDT, ks, L::LDT, ss, L::LDS, false);
-      block_gemm<T, BQ, BK, D, true, false>(dos, L::LDT, vs, L::LDT, dps, L::LDS, false);
-      __syncthreads();
-      for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-        const int r = i / BK, c = i % BK;
-        // pad query rows carry lse = 0: the row check kills them
-        const bool ok = is_valid(q0 + r, k0 + c, S, causal, window);
-        const float p = ok ? expf(ss[r * L::LDS + c] * scale - lse_s[r]) : 0.f;
-        pts[r * L::LDP + c] = from_f<T>(p);
-        dss[r * L::LDP + c] = from_f<T>(p * (dps[r * L::LDS + c] - dl_s[r]) * scale);
-      }
-      __syncthreads();
-      dv_acc.template mma<BQ, false, true>(pts, L::LDP, dos, L::LDT);
-      dk_acc.template mma<BQ, false, true>(dss, L::LDP, qs, L::LDT);
-    }
-  }
-  // the score buffers are free: stage dk, then dv, over them
-  store_acc<T, D, BK>(dk_acc, ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
-  store_acc<T, D, BK>(dv_acc, ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
-}
-
-// ---------------------------------------------------------------------------
-// launch
-// ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-Strides at(const long long* st, int i) { return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
-
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const long long* st,
-        int B, int Hq, int Hkv, int S, float scale, int causal, int window, cudaStream_t stream) {
-  using L = FwdLayout<T, D>;
-  auto kern = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, L::bytes());
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + L::BQ - 1) / L::BQ, Hq, B);
-  kern<<<grid, kThreads, L::bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, at(st, 0), at(st, 1), at(st, 2), at(st, 3), Hq, Hkv, S, scale,
-      causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq, const long long* st, int B, int Hq, int Hkv, int S,
-           float scale, int causal, int window, cudaStream_t stream) {
-  using L = DqLayout<T, D>;
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, L::bytes());
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + L::BQ - 1) / L::BQ, Hq, B);
-  kern<<<grid, kThreads, L::bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), at(st, 0), at(st, 1),
-      at(st, 2), at(st, 3), at(st, 4), Hq, Hkv, S, scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-            const float* delta, void* dk, void* dv, const long long* st, int B, int Hq, int Hkv,
-            int S, float scale, int causal, int window, cudaStream_t stream) {
-  using L = DkvLayout<T, D>;
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, L::bytes());
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + L::BK - 1) / L::BK, Hkv, B);
-  kern<<<grid, kThreads, L::bytes(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      at(st, 0), at(st, 1), at(st, 2), at(st, 3), at(st, 4), at(st, 5), Hq, Hkv, S, scale, causal,
-      window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool bad_shape(int B, int Hq, int Hkv, int S, int D) {
-  return B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128);
-}
 
 }  // namespace
 
@@ -615,56 +55,33 @@ bool bad_shape(int B, int Hq, int Hkv, int S, int D) {
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                          void* lse, const long long* strides, int B, int Hq, int Hkv, int S, int D,
                          float scale, int causal, int window, void* stream) {
-  if (bad_shape(B, Hq, Hkv, S, D) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || S == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 1)
-    return D == 64 ? fwd<bf16, 64>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, causal, window, s)
-                   : fwd<bf16, 128>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, causal, window, s);
-  return D == 64 ? fwd<float, 64>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, causal, window, s)
-                 : fwd<float, 128>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, causal, window, s);
+  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+  a.o = o;
+  a.lse_out = static_cast<float*>(lse);
+  return launch(Role::kFwd, dtype, D, a, CausalWindow{S, causal, window});
 }
 
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, void* dq,
                             const long long* strides, int B, int Hq, int Hkv, int S, int D,
                             float scale, int causal, int window, void* stream) {
-  if (bad_shape(B, Hq, Hkv, S, D) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || S == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
-    return D == 64 ? bwd_dq<bf16, 64>(q, k, v, dout, l, dl, dq, strides, B, Hq, Hkv, S, scale,
-                                      causal, window, s)
-                   : bwd_dq<bf16, 128>(q, k, v, dout, l, dl, dq, strides, B, Hq, Hkv, S, scale,
-                                       causal, window, s);
-  return D == 64 ? bwd_dq<float, 64>(q, k, v, dout, l, dl, dq, strides, B, Hq, Hkv, S, scale,
-                                     causal, window, s)
-                 : bwd_dq<float, 128>(q, k, v, dout, l, dl, dq, strides, B, Hq, Hkv, S, scale,
-                                      causal, window, s);
+  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+  a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dq = dq;
+  return launch(Role::kBwdDq, dtype, D, a, CausalWindow{S, causal, window});
 }
 
 extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                              const void* dout, const void* lse, const void* delta, void* dk,
                              void* dv, const long long* strides, int B, int Hq, int Hkv, int S,
                              int D, float scale, int causal, int window, void* stream) {
-  if (bad_shape(B, Hq, Hkv, S, D) || (dtype != 0 && dtype != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || S == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
-    return D == 64 ? bwd_dkv<bf16, 64>(q, k, v, dout, l, dl, dk, dv, strides, B, Hq, Hkv, S,
-                                       scale, causal, window, s)
-                   : bwd_dkv<bf16, 128>(q, k, v, dout, l, dl, dk, dv, strides, B, Hq, Hkv, S,
-                                        scale, causal, window, s);
-  return D == 64 ? bwd_dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, strides, B, Hq, Hkv, S, scale,
-                                      causal, window, s)
-                 : bwd_dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, strides, B, Hq, Hkv, S,
-                                       scale, causal, window, s);
+  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+  a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = dk;
+  a.dv = dv;
+  return launch(Role::kBwdDkv, dtype, D, a, CausalWindow{S, causal, window});
 }

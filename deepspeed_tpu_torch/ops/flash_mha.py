@@ -48,8 +48,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # plain versions (CPU tensors; the card's reference in chip_smoke.py)
 # ----------------------------------------------------------------------
 def _valid(s_real: int, k0: int, k1: int, causal: bool,
-           window: Optional[int], device) -> torch.Tensor:
-    """[S, k1-k0] validity of (query row, key col) pairs of one key tile."""
+           window: Optional[int], device, mask=None) -> torch.Tensor:
+    """[S, k1-k0] validity of (query row, key col) pairs of one key tile;
+    ``mask``: a [Hkv, group, S, S] token mask (a block-sparse layout's) to
+    compose on top, making the result [Hkv, group, S, k1-k0]."""
     rows = torch.arange(s_real, device=device)[:, None]
     cols = torch.arange(k0, k1, device=device)[None, :]
     valid = cols < s_real
@@ -57,7 +59,14 @@ def _valid(s_real: int, k0: int, k1: int, causal: bool,
         valid = valid & (cols <= rows)
     if window is not None:
         valid = valid & (rows - cols < window)
+    if mask is not None:
+        valid = valid & mask[..., k0:k1]
     return valid
+
+
+def _group_mask(mask, hkv: int):
+    """A [Hq, S, S] token mask folded as [Hkv, group, S, S] (or None)."""
+    return None if mask is None else mask.reshape(hkv, -1, *mask.shape[1:])
 
 
 def attn_delta(o, do):
@@ -67,21 +76,25 @@ def attn_delta(o, do):
 
 
 def flash_fwd_ref(q, k, v, causal: bool, sm_scale: float,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None, mask=None):
     """Plain version of ``flash_fwd``: ``(o [B,Hq,S,D] in q's dtype,
     lse [B,Hq,S] fp32)`` by an online softmax over ``BLOCK_K``-key tiles,
-    the query heads of a group folded onto their KV head."""
+    the query heads of a group folded onto their KV head.  ``mask``: an
+    optional [Hq, S, S] bool token mask ANDed into every tile's validity
+    (the block-sparse kernels' plain versions pass their layout's).  A row
+    that sees no key gets o = 0 and lse = -1e30."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
     dev = q.device
+    mask = _group_mask(mask, hkv)
     qf = q.float().reshape(b, hkv, g, s, d)
     m = torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=dev)
     for k0 in range(0, s, BLOCK_K):
         k1 = min(k0 + BLOCK_K, s)
-        valid = _valid(s, k0, k1, causal, window, dev)
+        valid = _valid(s, k0, k1, causal, window, dev, mask)
         sc = torch.einsum("bhgsd,bhkd->bhgsk", qf, k[:, :, k0:k1].float())
         sc = torch.where(valid, sc * sm_scale, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
@@ -97,13 +110,14 @@ def flash_fwd_ref(q, k, v, causal: bool, sm_scale: float,
     return o, (m + torch.log(safe_l)).reshape(b, hq, s)
 
 
-def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window):
+def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window, mask):
     """The backward's key-tile walk shared by the two plain versions:
     yields ``(k0, k1, kt, p, ds)`` per tile, p and ds fp32
     [B, Hkv, group, S, tile] with masked entries zero."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
+    mask = _group_mask(mask, hkv)
     qf = q.float().reshape(b, hkv, g, s, d)
     dof = do.float().reshape(b, hkv, g, s, d)
     lse_ = lse.float().reshape(b, hkv, g, s, 1)
@@ -111,7 +125,7 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window):
     for k0 in range(0, s, BLOCK_K):
         k1 = min(k0 + BLOCK_K, s)
         kt, vt = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
-        valid = _valid(s, k0, k1, causal, window, q.device)
+        valid = _valid(s, k0, k1, causal, window, q.device, mask)
         sc = torch.einsum("bhgsd,bhkd->bhgsk", qf, kt)
         sc = torch.where(valid, sc * sm_scale, NEG_INF)
         p = torch.where(valid, torch.exp(sc - lse_), 0.0)
@@ -120,7 +134,7 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window):
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, mask=None):
     """Plain version of ``flash_bwd_dq``: dq = sum over key tiles of
     (p·(dp−delta)·scale rounded to k's dtype)·k."""
     b, hq, s, d = q.shape
@@ -128,13 +142,13 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     dq = torch.zeros((b, hkv, hq // hkv, s, d), dtype=torch.float32,
                      device=q.device)
     for _k0, _k1, kt, _p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
-                                           sm_scale, window):
+                                           sm_scale, window, mask):
         dq += torch.einsum("bhgsk,bhkd->bhgsd", ds.to(k.dtype).float(), kt)
     return dq.to(q.dtype).reshape(b, hq, s, d)
 
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, mask=None):
     """Plain version of ``flash_bwd_dkv``: per key tile, dv = pᵀ·do (p
     rounded to do's dtype) and dk = dsᵀ·q (ds rounded to q's dtype), summed
     over the query heads of each KV head's group."""
@@ -145,7 +159,7 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     dk = torch.empty((b, hkv, s, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, hkv, s, d), dtype=v.dtype, device=q.device)
     for k0, k1, _kt, p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
-                                         sm_scale, window):
+                                         sm_scale, window, mask):
         dv[:, :, k0:k1] = torch.einsum(
             "bhgsk,bhgsd->bhkd", p.to(do.dtype).float(), dof).to(v.dtype)
         dk[:, :, k0:k1] = torch.einsum(

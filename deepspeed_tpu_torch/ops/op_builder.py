@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface; it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries land in ``build/torch_kernels/`` at the checkout root, named by
-a hash of the source and the flags, so an unchanged source is built once.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an unchanged source is built once.
 A failed build raises with nvcc's output; nothing falls back.
 """
 
@@ -21,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw",
+                  "block_sparse_attention", "fused_lion")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,8 +43,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    sources = [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 

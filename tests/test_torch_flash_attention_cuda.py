@@ -134,7 +134,7 @@ def test_cuda_fused_adamw_bitwise(wd, cuda_device):
     ms = [torch.zeros_like(p) for p in ps]
     vs = [torch.zeros_like(p) for p in ps]
     ref = [[t.clone() for t in group] for group in (ps, ms, vs)]
-    table = fo.AdamWTable()
+    table = fo.LeafTable()
     for count in range(3):
         gs = [torch.from_numpy(rng.standard_normal(p.numel()).astype(np.float32))
               .to(cuda_device) for p in ps]

@@ -1,15 +1,19 @@
-"""The port's fused AdamW (``deepspeed_tpu_torch/ops/fused_optimizer.py``,
-its plain version on the CPU, and ``runtime/optimizers.py``) against the
-JAX package: the Pallas ``fused_adamw_leaf`` run through the interpreter,
-``build_optimizer("AdamW")``'s optax chain (the JAX engine's default), and
-the JAX fused optimizer's state-dtype math for a bf16 leaf.
+"""The port's fused AdamW and Lion (``deepspeed_tpu_torch/ops/
+fused_optimizer.py``, their plain versions on the CPU, and
+``runtime/optimizers.py``) against the JAX package: the Pallas
+``fused_adamw_leaf`` and ``fused_lion_leaf`` run through the interpreter,
+``build_optimizer``'s optax chains (the JAX engine's default), and the JAX
+fused optimizers' state-dtype math for a bf16 leaf.
 
 Tolerances: the Pallas kernel and the port's plain version perform the
 same fp32 operations in the same order, so they agree to one fp32 ulp of
 the result (|port - jax| <= 2^-23 (1 + |jax|); the bias corrections are
 each framework's own fp32 ``pow``).  The optax chain adds its moment terms
 in another order and forms its bias corrections from an integer power:
-1e-6 relative over several steps.  bf16 state: one bf16 ulp, 2^-7.
+1e-6 relative over several steps.  bf16 state: one bf16 ulp, 2^-7.  Lion
+has no division and no bias correction: its plain version and the Pallas
+kernel round at the same points (one fp32 ulp), and a sign that flipped
+between the two would move p by 2 lr, far outside that band.
 """
 
 import importlib
@@ -145,3 +149,100 @@ def test_cpu_step_counts_no_launch_and_checks_inputs():
     with pytest.raises(ValueError):
         tfo.fused_adamw([torch.ones(3)], [torch.ones(4)], [torch.zeros(3)],
                         [torch.zeros(3)], lr=0.1, count=0)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1], ids=["no-decay", "decay"])
+def test_plain_fused_lion_matches_pallas_kernel(wd, monkeypatch):
+    """Three Lion steps, the port's multi-tensor call against
+    fused_lion_leaf per leaf (leaves the JAX kernel serves)."""
+    monkeypatch.setattr(jfo, "INTERPRET", True)
+    rng = np.random.default_rng(3)
+    shapes = [(8, 128), (2, 4, 256)]
+    p = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jp = [jnp.asarray(x) for x in p]
+    jm = [jnp.zeros(s, jnp.float32) for s in shapes]
+    tp = [torch.from_numpy(x.copy()) for x in p]
+    tm = [torch.zeros(s) for s in shapes]
+    for step in range(3):
+        g = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+        lr = 1e-3 * (step + 1)
+        for i in range(len(shapes)):
+            jp[i], jm[i] = jfo.fused_lion_leaf(jp[i], jnp.asarray(g[i]), jm[i],
+                                               lr, 0.9, 0.99, wd)
+        tfo.fused_lion(tp, [torch.from_numpy(x) for x in g], tm, lr=lr,
+                       b1=0.9, b2=0.99, wd=wd)
+    for t, j in zip(tp + tm, jp + jm):
+        _close(t, j, 2.0 ** -23)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1], ids=["no-decay", "decay"])
+def test_lion_matches_optax_chain_over_steps(wd):
+    """build_optimizer("Lion") in both packages: state named alike (count,
+    mu), the JAX defaults (betas 0.9/0.99, no decay), and the same
+    trajectory over three steps with a moving learning rate."""
+    rng = np.random.default_rng(4)
+    params = _tree(rng)
+    cfg = {"lr": 1e-3, "weight_decay": wd}
+    jopt, topt = jax_build("Lion", cfg), build_optimizer("FusedLion", cfg)
+    assert topt.defaults == {"betas": (0.9, 0.99), "weight_decay": wd}
+    jp = jax.tree.map(jnp.asarray, params)
+    js = jopt.init(jp)
+    tp = _torch_tree(params)
+    ts = topt.init(tp)
+    assert set(ts) == {"count", "mu"}
+    for step in range(3):
+        g = _tree(rng)
+        lr = 1e-3 / (step + 1)
+        jp, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp, lr)
+        topt.update(_torch_tree(g), ts, tp, lr)
+    lion = js[0]
+    assert int(ts["count"]) == int(lion.count) == 3
+    for port, ref in ((tp, jp), (ts["mu"], lion.mu)):
+        jax.tree.map(lambda t, j: _close(t, j, 1e-6), port, ref)
+
+
+def test_bf16_leaf_lion_follows_the_state_dtype_path(monkeypatch):
+    """A bf16 leaf steps Lion in its own dtype, as the JAX fused Lion's
+    _jnp_leaf does; the fp32 leaf beside it takes the fused path."""
+    monkeypatch.setattr(jfo, "INTERPRET", True)
+    rng = np.random.default_rng(6)
+    params = {"w": rng.standard_normal((8, 128)).astype(np.float32),
+              "h": rng.standard_normal((6, 10)).astype(np.float32)}
+    jp = {"w": jnp.asarray(params["w"]),
+          "h": jnp.asarray(params["h"], jnp.bfloat16)}
+    tp = {"w": torch.from_numpy(params["w"].copy()),
+          "h": torch.from_numpy(params["h"]).bfloat16()}
+    cfg = {"pallas_fused": True, "weight_decay": 0.1}
+    jopt, topt = jax_build("Lion", cfg), build_optimizer("Lion", cfg)
+    js, ts = jopt.init(jp), topt.init(tp)
+    assert ts["mu"]["h"].dtype == torch.bfloat16
+    for _ in range(3):
+        g = {k: rng.standard_normal(v.shape).astype(np.float32)
+             for k, v in params.items()}
+        jp, js = jopt.update({"w": jnp.asarray(g["w"]),
+                              "h": jnp.asarray(g["h"], jnp.bfloat16)}, js, jp,
+                             jnp.float32(2e-3))
+        topt.update({"w": torch.from_numpy(g["w"]),
+                     "h": torch.from_numpy(g["h"]).bfloat16()}, ts, tp, 2e-3)
+    assert tp["h"].dtype == torch.bfloat16
+    _close(tp["h"], jp["h"].astype(jnp.float32), 2.0 ** -7)
+    _close(ts["mu"]["h"], js[0].mu["h"].astype(jnp.float32), 2.0 ** -7)
+    _close(tp["w"], jp["w"], 2.0 ** -23)
+
+
+def test_cpu_lion_counts_no_launch_and_keeps_jnp_sign():
+    """No launch on the CPU; a zero or NaN momentum sum steps like
+    jnp.sign (torch.sign would map NaN to 0); bad inputs raise."""
+    before = dict(tfo.fused_lion.launches)
+    p = [torch.ones(3)]
+    g = [torch.tensor([1.0, 0.0, float("nan")])]
+    tfo.fused_lion(p, g, [torch.zeros(3)], lr=0.1)
+    assert tfo.fused_lion.launches == before
+    assert float(p[0][0]) == pytest.approx(0.9) and float(p[0][1]) == 1.0
+    assert torch.isnan(p[0][2])
+    with pytest.raises(TypeError):
+        tfo.fused_lion([torch.ones(3, dtype=torch.float64)], [torch.ones(3)],
+                       [torch.zeros(3)], lr=0.1)
+    with pytest.raises(ValueError):
+        tfo.fused_lion([torch.ones(3)], [torch.ones(4)], [torch.zeros(3)],
+                       lr=0.1)

@@ -6,7 +6,11 @@ engine against the JAX engine, from the same weights (the JAX init,
 carried over by ``params_from_jax``) and the same batches (numpy).
 
 The JAX engine runs on a one-device mesh (``"mesh": {"data": 1}``), so
-both engines see the same micro-batch rows.  Tolerances (fp32): logits and
+both engines see the same micro-batch rows.  The block-sparse + Lion
+cases (DeepSpeed's BSLongformer layout, unidirectional) compare the JAX
+model through its interpreted Pallas kernel for the gradients and through
+its dense-masked lowering in the engine (every row of that layout sees a
+key, where the two agree).  Tolerances (fp32): logits and
 loss 1e-5 relative, gradients 1e-4 of the leaf's largest gradient (or of
 the tree's, for a leaf whose true gradient is zero, such as the key bias
 that softmax ignores), the 5-step loss curve 1e-5.  In bf16 the two
@@ -14,6 +18,8 @@ frameworks round elementwise chains at other points (XLA fuses them in
 fp32, PyTorch rounds per op), so the curve is held to a band: 2e-2
 relative.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +36,9 @@ from deepspeed_tpu.runtime.config import DeepSpeedConfigError as JaxConfigError
 from deepspeed_tpu_torch.models import get_model_config
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.models.bridge import params_from_jax, params_to_numpy
+from deepspeed_tpu_torch.ops import block_sparse_mha as tbsm
 from deepspeed_tpu_torch.ops import flash_mha as tfm
+from deepspeed_tpu_torch.ops import fused_optimizer as tfo
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 
 from test_torch_engine_v2 import one_torch_thread  # noqa: F401
@@ -66,8 +74,13 @@ MODELS = ["gpt2-tiny", "llama-tiny", "mistral-tiny", "gptneo-tiny",
 
 @pytest.mark.parametrize("name", MODELS)
 def test_forward_loss_and_grads_match_jax(name):
-    jc = jax_model_config(name).replace(dtype=jnp.float32)
-    tc = get_model_config(name).replace(dtype=torch.float32, remat_policy="none")
+    _check_forward_loss_and_grads(name)
+
+
+def _check_forward_loss_and_grads(name, **replace):
+    jc = jax_model_config(name).replace(dtype=jnp.float32, **replace)
+    tc = get_model_config(name).replace(dtype=torch.float32, remat_policy="none",
+                                        **replace)
     jp = jtf.init_params(jc, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     for _path, leaf in _paths(tp):
@@ -103,16 +116,16 @@ def test_forward_loss_and_grads_match_jax(name):
         assert np.abs(got - ref).max() <= 1e-4 * scale, path
 
 
-def _engines(model_name, cfg, dtype_flag):
+def _engines(model_name, cfg, dtype_flag, **replace):
     cfg = dict(cfg)
     if dtype_flag:
         cfg["bf16"] = {"enabled": True}
-    jeng, *_ = dsj.initialize(model=jax_model_config(model_name),
+    jeng, *_ = dsj.initialize(model=jax_model_config(model_name).replace(**replace),
                               config={**cfg, "mesh": {"data": 1}})
-    params = params_from_jax(jax.tree.map(np.asarray, jeng.params),
-                             get_model_config(model_name), device="cpu")
-    teng, opt, _, sched = dst.initialize(model=get_model_config(model_name),
-                                         config=cfg, device="cpu",
+    tmodel = get_model_config(model_name).replace(**replace)
+    params = params_from_jax(jax.tree.map(np.asarray, jeng.params), tmodel,
+                             device="cpu")
+    teng, opt, _, sched = dst.initialize(model=tmodel, config=cfg, device="cpu",
                                          model_parameters=params)
     assert opt is teng.optimizer and sched is teng.lr_scheduler
     return jeng, teng
@@ -198,17 +211,18 @@ def test_attn_impl_forward_matches_jax(impl):
     assert np.abs(tl - jl).max() <= 1e-5 * np.abs(jl).max()
 
 
-@pytest.mark.parametrize("impl,device,err", [
-    ("xla", "meta", NotImplementedError),   # off the CPU: no plain path
-    ("sparse", "cpu", NotImplementedError),
-    ("dense", "cpu", ValueError),
+@pytest.mark.parametrize("impl,device,err,extra", [
+    ("xla", "meta", NotImplementedError, {}),   # off the CPU: no plain path
+    ("sparse", "cpu", NotImplementedError, {"use_alibi": True}),
+    ("dense", "cpu", ValueError, {}),
 ], ids=["xla-off-cpu", "sparse", "unknown"])
-def test_attn_impl_rejections(impl, device, err):
+def test_attn_impl_rejections(impl, device, err, extra):
     """``attn_impl="xla"`` runs the plain attention only on CPU tensors
     (the card runs these inputs through the flash kernel), block-sparse
-    attention is not ported, and an unknown name raises."""
+    attention takes no alibi bias or padding mask (as in JAX), and an
+    unknown name raises."""
     cfg = get_model_config("gpt2-tiny").replace(dtype=torch.float32,
-                                                attn_impl=impl)
+                                                attn_impl=impl, **extra)
     h, width = cfg.hidden_size, cfg.num_heads * cfg.dim_per_head
     p = {n: torch.zeros(h, width, device=device) for n in ("wq", "wk", "wv")}
     p["wo"] = torch.zeros(width, h, device=device)
@@ -298,10 +312,10 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
     {"comm_quantization": {"enabled": True}},
     {"telemetry": {"enabled": True}},
-    {"optimizer": {"type": "Lion", "params": {"lr": 1e-4}}},
+    {"optimizer": {"type": "Lamb", "params": {"lr": 1e-4}}},
     {"optimizer": {"type": "Adam", "params": {"adam_w_mode": False}}},
 ], ids=["fp16", "zero2", "offload", "mesh", "tp", "named-remat", "commq",
-        "telemetry", "lion", "adam-l2"])
+        "telemetry", "lamb", "adam-l2"])
 def test_unported_features_raise_naming_the_roadmap(extra):
     cfg = {"train_micro_batch_size_per_gpu": 2, **extra}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -322,3 +336,64 @@ def test_cpu_training_never_launches_a_kernel():
                              config=TRAIN_CFG, device="cpu")
     eng.train_batch(_batch(512, 4, 16, seed=6))
     assert tfm.flash_mha.launches == before
+
+
+SPARSE = {"mode": "bslongformer", "block": 16, "num_sliding_window_blocks": 3,
+          "global_block_indices": [0], "attention": "unidirectional"}
+# a constant learning rate: Lion moves a param whose momentum sum lands
+# next to 0 by +-lr on a sign the two frameworks' summation noise decides
+SPARSE_LION_CFG = {**{k: v for k, v in TRAIN_CFG.items() if k != "scheduler"},
+                   "optimizer": {"type": "Lion", "params": {
+                       "lr": 3e-4, "betas": [0.9, 0.99], "weight_decay": 0.1}}}
+
+
+@pytest.mark.parametrize("name", ["gpt2-tiny", "llama-tiny"])
+def test_sparse_forward_loss_and_grads_match_jax(name, monkeypatch):
+    """attn_impl="sparse": logits, loss and grads against jax.grad through
+    the interpreted Pallas block-sparse kernel (S 48: a tail tile)."""
+    jfm = importlib.import_module("deepspeed_tpu.ops.pallas.flash_mha")
+    monkeypatch.setattr(jfm, "INTERPRET", True)
+    _check_forward_loss_and_grads(name, attn_impl="sparse",
+                                  sparse_attention=SPARSE)
+
+
+@pytest.mark.parametrize("name", ["gpt2-tiny", "llama-tiny"])
+def test_sparse_lion_loss_curve_matches_jax_engine(name):
+    """The slice's step at tiny size: block-sparse attention and Lion,
+    fp32, five train_batch steps against the JAX engine (loss 1e-5, grad
+    norm 1e-5); the loss falls on the fixed batch.  Params agree to 1e-5
+    but where Lion took the sign of summation noise (the key bias, whose
+    true gradient is zero; a rare momentum sum next to 0): at most 2 lr a
+    step there, and in under 1 % of any leaf's elements."""
+    jeng, teng = _engines(name, SPARSE_LION_CFG, False, attn_impl="sparse",
+                          sparse_attention=SPARSE)
+    assert teng.optimizer.name == "fused_lion"
+    batch = _batch(512, 4, 128, seed=9)
+    jl, tl = [], []
+    for _ in range(5):
+        jl.append(float(np.asarray(jeng.train_batch(batch))))
+        tl.append(float(teng.train_batch(batch)))
+        assert abs(jeng.get_global_grad_norm() - teng.get_global_grad_norm()) \
+            <= 1e-5 * jeng.get_global_grad_norm()
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[-1] < tl[0]
+    assert int(teng.opt_state["count"]) == 5 and set(teng.opt_state) == {"count", "mu"}
+    pj = jax.tree.map(np.asarray, jeng.params)
+    pt = params_to_numpy(teng.params)
+    lr = SPARSE_LION_CFG["optimizer"]["params"]["lr"]
+    for path, a in _paths(pj):
+        diff = np.abs(_get(pt, path) - a)
+        assert diff.max() <= 2 * lr * 5 + 1e-5, path
+        if path != ("layers", "attn", "bk"):
+            assert np.mean(diff > 1e-5 * (1 + np.abs(a))) < 1e-2, path
+
+
+def test_cpu_sparse_lion_training_never_launches_a_kernel():
+    before = (dict(tbsm.block_sparse_mha.launches), dict(tfo.fused_lion.launches),
+              dict(tfm.flash_mha.launches))
+    model = get_model_config("llama-tiny").replace(attn_impl="sparse",
+                                                   sparse_attention=SPARSE)
+    eng, *_ = dst.initialize(model=model, config=SPARSE_LION_CFG, device="cpu")
+    eng.train_batch(_batch(512, 4, 32, seed=6))
+    assert (tbsm.block_sparse_mha.launches, tfo.fused_lion.launches,
+            tfm.flash_mha.launches) == before
