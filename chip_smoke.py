@@ -46,7 +46,26 @@ Phases, each printing JSON lines:
                (lr 3e-5, betas 0.9/0.99, weight decay 0.1): a warm-up
                step, three timed steps whose launch counts show the
                block-sparse and Lion kernels and no flash kernel, and a
-               profiled step.
+               profiled step;
+ 14. linear-kernels — quantize, dequantize and fake_quantize bit for bit
+               against their plain versions (llama3-8b projection weights,
+               bf16 int8/int4 at group 512, fp32 at group 128, a row tail,
+               a 1-D tensor) and fp6_matmul within tolerance (decode-sized
+               and the path's M, M 7, bf16 and fp32 activations), with
+               times, bounds and, for fp6_matmul, torch.matmul against the
+               dequantized bf16 weight as the library time;
+ 15. linear-reference — a LoRAStack (residual SwiGLU MLP blocks whose
+               projections are OptimizedLinears over quantized frozen
+               bases, adapters trained by a duck-typed engine) cut to
+               hidden 512, intermediate 1024, 2 blocks, fp32: two
+               train_batch steps on the card against the CPU, for q_bits
+               4, 6 and 8;
+ 16. linear-train — the LoRAStack at llama3-8b width (hidden 4096,
+               intermediate 14336), 4 blocks, bf16 bases of q_bits 6 (the
+               FP6 GEMM carries the forward) and 8 (the dequantize kernel
+               runs before each base product): a warm-up step, three timed
+               steps whose launch counts show the kernels and no attention
+               kernel, and a profiled step, per q_bits.
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -117,7 +136,38 @@ PROFILE_NAMES = {
     "bsa_bwd_dq": ("attn_bwd_dq_kernel", "BlockLayout"),
     "bsa_bwd_dkv": ("attn_bwd_dkv_kernel", "BlockLayout"),
     "fused_adamw": ("fused_adamw_kernel",),
-    "fused_lion": ("fused_lion_kernel",)}
+    "fused_lion": ("fused_lion_kernel",),
+    "fp6_matmul": ("fp6_mma_kernel",),
+    "dequantize": ("dequant_kernel",)}
+# slice 4: LoRA adapters over quantized llama3-8b-width MLP bases
+LINEAR_MODEL = "llama3-8b"
+LINEAR_BLOCKS = 4
+LINEAR_GROUP = 512
+LINEAR_SEQ = 512
+LINEAR_CFG = {"train_micro_batch_size_per_gpu": 8,
+              "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+              "gradient_clipping": 1.0,
+              "steps_per_print": 10_000}
+PROJ = ("gate", "up", "down")
+# A block with no norm is quadratic in its input: at hidden 4096 and
+# intermediate 14336 with std-0.02 weights it adds about 2·std(h)^2 to h,
+# so unit-variance inputs compound to ~1e6 over 4 blocks (losses ~1e13).
+# Inputs of std 0.1 keep h near 0.1 through the stack.
+LINEAR_X_STD = 0.1
+# The full-width first step (bf16 activations, 8 mantissa bits, through
+# 4 blocks) against the same step in fp32 with plain ops: relative L2 of
+# the adapters' update and relative error of the grad norm.  At lr 1e-4 the
+# loss moves less than one bf16 step of h, so this, not the loss, shows
+# that the update is the right one.
+LINEAR_UPDATE_RTOL = 0.05
+
+
+def bound_ms(nbytes, ops, peak):
+    """The least time of a call, and what bounds it: the bytes it must move
+    over the HBM rate against its operations over ``peak``."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
 def emit(obj) -> None:
@@ -213,9 +263,7 @@ def kernel_bound(pages, pos, clen, nkv, nh, d, bs, window, kv_elem, quant,
     io_bytes = 2 * q_bytes + pages.numel() * 4 + 2 * pos.numel() * 4
     keys = int(live.sum()) * bs
     flops = 4.0 * keys * nh * d
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+    return (*bound_ms(kv_bytes + io_bytes, flops, BF16_FLOPS),
             kv_bytes + io_bytes)
 
 
@@ -546,11 +594,7 @@ def flash_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
             (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3 * per_pair),   # dq
             (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4 * per_pair)]   # dk/dv
     peak = FP32_FLOPS if fp32 else BF16_FLOPS
-    out = []
-    for nbytes, flops in work:
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-        out.append((max(t_b, t_o), "bytes" if t_b >= t_o else "operations"))
-    return out
+    return [bound_ms(nbytes, flops, peak) for nbytes, flops in work]
 
 
 # name, b, hq, hkv, s, d, dtype, causal, window, timed (and library-timed)
@@ -753,16 +797,15 @@ def phase_adamw(fo, tf_model, tf):
     err = max(float((a - b).abs().max()) for ga, gb in zip((ps, ms, vs), ref)
               for a, b in zip(ga, gb))
     n = sum(p.numel() for p in ps)
-    t_b = 28.0 * n / HBM_BYTES_PER_S * 1e3     # p, g, m, v read; p, m, v written
-    t_o = 16.0 * n / FP32_FLOPS * 1e3
+    # p, g, m, v read; p, m, v written
+    bound, by = bound_ms(28.0 * n, 16.0 * n, FP32_FLOPS)
     row = {"phase": "train-kernel", "kernel": "fused_adamw",
            "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
            "elements": n, "bitwise_equal": equal, "max_abs_err": err,
            "ms": cuda_time_ms(lambda: fo.fused_adamw(
                ps, gs, ms, vs, count=count, table=table, **hp), iters=10),
            "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
-           "bound_ms": max(t_b, t_o),
-           "bound_by": "bytes" if t_b >= t_o else "operations"}
+           "bound_ms": bound, "bound_by": by}
     steps = [torch.tensor(float(count + 1), device="cuda") for _ in ps]
     row["library_ms"] = cuda_time_ms(lambda: torch._fused_adamw_(
         ref[0], gs, ref[1], ref[2], [], steps, lr=hp["lr"], beta1=hp["b1"],
@@ -804,16 +847,14 @@ def phase_lion(fo, tf_model, tf):
     equal = all(torch.equal(a, b) for a, b in pairs)
     err = max(float((a - b).abs().max()) for a, b in pairs)
     n = sum(p.numel() for p in ps)
-    t_b = 20.0 * n / HBM_BYTES_PER_S * 1e3     # p, g, m read; p, m written
-    t_o = 10.0 * n / FP32_FLOPS * 1e3
+    bound, by = bound_ms(20.0 * n, 10.0 * n, FP32_FLOPS)  # p, g, m read; p, m written
     row = {"phase": "lion-kernel", "kernel": "fused_lion",
            "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
            "elements": n, "bitwise_equal": equal, "max_abs_err": err,
            "ms": cuda_time_ms(lambda: fo.fused_lion(
                ps, gs, ms, table=table, **hp), iters=10),
            "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
-           "bound_ms": max(t_b, t_o),
-           "bound_by": "bytes" if t_b >= t_o else "operations",
+           "bound_ms": bound, "bound_by": by,
            "library_ms": None,
            "library_note": "no PyTorch call computes a Lion step"}
     emit(row)
@@ -1040,6 +1081,464 @@ def phase_train(ds, tf_model, counters, card, phase, cfg, want, remat=False,
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 14-16: LoRA adapters over quantized llama3-8b-width MLP bases
+# ----------------------------------------------------------------------
+class LoRAStack:
+    """A duck-typed trainable over the public API of
+    ``deepspeed_tpu_torch.linear``: a residual stack of SwiGLU MLP blocks,
+    ``h = h + down(silu(gate(h)) * up(h))``, each projection an
+    ``OptimizedLinear`` over a frozen base quantized to ``q_bits`` with a
+    LoRA adapter (``LoRAConfig()`` defaults: r 64, alpha 16) that the
+    params hold; loss = mean squared error of the last h against
+    ``batch["y"]``.  ``weights``: per block an iterable of the gate, up and
+    down ``[in, out]`` weights, consumed one at a time (each is quantized
+    and dropped)."""
+
+    def __init__(self, lin, weights, q_bits, group_size, dtype):
+        self.lora_config = lin.LoRAConfig(delay_lora_init=True)
+        qc = lin.QuantizationConfig(q_bits=q_bits, group_size=group_size)
+        self.lin, self.dtype = lin, dtype
+        self.blocks = [{name: lin.OptimizedLinear(
+            w, lora_config=self.lora_config, quantization_config=qc)
+            for name, w in zip(PROJ, block)} for block in weights]
+
+    def init(self, generator):
+        params = {}
+        for i, block in enumerate(self.blocks):
+            for name, layer in block.items():
+                params.setdefault(f"block{i}", {})[name] = \
+                    self.lin.init_lora_params(generator, *layer.base.shape,
+                                              self.lora_config)
+        return params
+
+    def loss(self, params, batch):
+        import torch
+
+        h = batch["x"].to(self.dtype)
+        for i, block in enumerate(self.blocks):
+            p = params[f"block{i}"]
+            g = block["gate"](h, **p["gate"])
+            u = block["up"](h, **p["up"])
+            h = h + block["down"](torch.nn.functional.silu(g) * u, **p["down"])
+        return torch.mean(torch.square(h.float() - batch["y"]))
+
+    def nbytes(self):
+        return sum(b.base.nbytes for block in self.blocks for b in block.values())
+
+
+def stack_weights(hidden, inter, blocks, seed, dtype, device):
+    """Per block, a generator of the gate, up and down weights (std 0.02,
+    from one seeded generator), made on ``device`` as they are consumed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def block():
+        for shape in ((hidden, inter), (hidden, inter), (inter, hidden)):
+            yield (torch.randn(shape, generator=gen, device=device)
+                   * 0.02).to(dtype)
+
+    return (block() for _ in range(blocks))
+
+
+# name, shape, dtype, group, bits, timed
+QUANT_CASES = [
+    ("gate/up weight bf16 int8", (4096, 14336), "bfloat16", 512, 8, True),
+    ("gate/up weight bf16 int4", (4096, 14336), "bfloat16", 512, 4, False),
+    ("down weight bf16 int8", (14336, 4096), "bfloat16", 512, 8, False),
+    ("down weight fp32 int8 g128", (14336, 4096), "float32", 128, 8, False),
+    ("row tail", (300, 384), "bfloat16", 128, 8, False),
+    ("1-D", (1 << 20,), "bfloat16", 256, 4, False),
+]
+
+
+def quant_case(qk, case):
+    """quantize, dequantize (to the input dtype) and fake_quantize against
+    their plain versions, bit for bit; timed rows for the path's case."""
+    import torch
+
+    name, shape, dt, gs, bits, timed = case
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+    x[..., :gs] = 0.0                       # an all-zero group: scale 1.0
+    q, s = qk.quantize(x, bits, gs)
+    d = qk.dequantize(q, s, dtype)
+    f = qk.fake_quantize(x, bits, gs)
+    torch.cuda.synchronize()
+    q_r, s_r = qk.quantize_ref(x, bits, gs)
+    d_r = qk.dequantize_ref(q, s, dtype)
+    f_r = qk.fake_quantize_ref(x, bits, gs)
+    n = x.numel()
+    elem = x.element_size()
+    s_bytes = s.numel() * 4
+    work = {"quantize": ((q, q_r), (s, s_r), n * elem + n + s_bytes, 5 * n),
+            "dequantize": ((d, d_r), (d, d_r), n + s_bytes + n * elem, n),
+            "fake_quantize": ((f, f_r), (f, f_r), 2 * n * elem, 6 * n)}
+    calls = {"quantize": (lambda: qk.quantize(x, bits, gs),
+                          lambda: qk.quantize_ref(x, bits, gs)),
+             "dequantize": (lambda: qk.dequantize(q, s, dtype),
+                            lambda: qk.dequantize_ref(q, s, dtype)),
+             "fake_quantize": (lambda: qk.fake_quantize(x, bits, gs),
+                               lambda: qk.fake_quantize_ref(x, bits, gs))}
+    rows = {}
+    for kname, ((a, a_r), (b, b_r), nbytes, ops) in work.items():
+        equal = torch.equal(a, a_r) and torch.equal(b, b_r)
+        err = max(float((a.float() - a_r.float()).abs().max()),
+                  float((b.float() - b_r.float()).abs().max()))
+        row = {"phase": "linear-kernel", "kernel": kname, "case": name,
+               "shape": list(shape), "dtype": dt, "group": gs, "bits": bits,
+               "bitwise_equal": equal, "max_abs_err": err,
+               "tolerance": "bit for bit"}
+        if timed:
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, FP32_FLOPS)
+            row.update(ms=cuda_time_ms(calls[kname][0]),
+                       plain_ms=cuda_time_ms(calls[kname][1], iters=3, warmup=1),
+                       bound_bytes=nbytes, library_ms=None,
+                       library_note="no single PyTorch call computes "
+                                    "per-group absmax quantization")
+        rows[kname] = row
+        emit(row)
+        if not equal:
+            fail(f"{kname} differs from its plain version ({name}): {err}")
+    return rows
+
+
+# name, M, K, N, x dtype, timed
+FP6_CASES = [
+    ("decode gate/up", 16, 4096, 14336, "bfloat16", True),
+    ("decode down", 16, 14336, 4096, "bfloat16", True),
+    ("path gate/up", 4096, 4096, 14336, "bfloat16", True),
+    ("path down", 4096, 14336, 4096, "bfloat16", False),
+    ("M 7", 7, 4096, 14336, "bfloat16", False),
+    ("fp32 x", 256, 4096, 14336, "float32", True),
+]
+FP6_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+
+
+def fp6_case(t6, case):
+    """fp6_matmul against its plain version; timed cases add the bound and
+    torch.matmul of x with the dequantized weight (the 16-bit product FP6
+    exists to beat at decode) as the library time."""
+    import torch
+
+    name, m, k, n, dt, timed = case
+    dtype = getattr(torch, dt)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    packed, scale = t6.fp6_quantize(w)
+    del w
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    out = t6.fp6_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    ref = t6.fp6_matmul_ref(x, packed, scale)
+    diff = (out.float() - ref.float()).abs()
+    rtol = FP6_RTOL[dt]
+    ok = (bool(torch.all(diff <= rtol * (1 + ref.float().abs())))
+          and bool(torch.isfinite(out.float()).all()))
+    row = {"phase": "linear-kernel", "kernel": "fp6_matmul", "case": name,
+           "M": m, "K": k, "N": n, "dtype": dt, "max_abs_err": float(diff.max()),
+           "tolerance": f"|k-r| <= {rtol} * (1 + |r|)", "ok": ok}
+    if timed:
+        elem = x.element_size()
+        nbytes = packed.numel() + scale.numel() * 4 + m * k * elem + m * n * elem
+        peak = FP32_FLOPS if dt == "float32" else BF16_FLOPS
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n, peak)
+        row.update(ms=cuda_time_ms(lambda: t6.fp6_matmul(x, packed, scale)),
+                   plain_ms=cuda_time_ms(
+                       lambda: t6.fp6_matmul_ref(x, packed, scale), iters=3,
+                       warmup=1),
+                   bound_bytes=nbytes)
+        wd = t6.fp6_dequantize(packed, scale, dtype)
+        row["library_ms"] = cuda_time_ms(lambda: torch.matmul(x, wd))
+        row["library_note"] = (f"torch.matmul of x with the dequantized "
+                               f"{dt} weight")
+        row["library_bound_ms"] = bound_ms(
+            k * n * elem + m * k * elem + m * n * elem, 2.0 * m * k * n, peak)[0]
+        del wd
+    emit(row)
+    if not ok:
+        fail(f"fp6_matmul disagrees with its plain version ({name})")
+    return row
+
+
+def phase_linear_kernels(qk, t6):
+    import torch
+
+    summary = {}
+    for case in QUANT_CASES:
+        rows = quant_case(qk, case)
+        if case[-1]:
+            summary.update(rows)
+        else:
+            for k, r in rows.items():   # the worst error over every case
+                summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"],
+                                                r["max_abs_err"])
+        torch.cuda.empty_cache()
+    for case in FP6_CASES:
+        row = fp6_case(t6, case)
+        if case[0] == "path gate/up":
+            summary["fp6_matmul"] = row
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_linear_reference(ds, lin, counters, all_counters):
+    """The LoRAStack cut to hidden 512, intermediate 1024, 2 blocks, fp32:
+    the same weights quantized on the card (kernels) and on the CPU (plain
+    versions) must give the same bytes; two train_batch steps on each
+    (micro 2, gas 2, seq 64) must agree to REF_RTOL on loss, grad norm and
+    adapters, and the card's steps launch the expected kernels."""
+    import numpy as np
+    import torch
+
+    hidden, inter, blocks = 512, 1024, 2
+    cfg = {**LINEAR_CFG, "train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2}
+    rng = np.random.default_rng(23)
+    batch = {k: rng.standard_normal((4, 64, hidden)).astype(np.float32)
+             for k in ("x", "y")}
+    for q_bits in (4, 6, 8):
+        weights = [[w.cpu() for w in block] for block in stack_weights(
+            hidden, inter, blocks, 24, torch.float32, "cuda")]
+        zero_counts(*all_counters)
+        card_stack = LoRAStack(lin, [[w.cuda() for w in b] for b in weights],
+                               q_bits, LINEAR_GROUP, torch.float32)
+        built = {k: v for c in counters for k, v in c.items()}
+        host_stack = LoRAStack(lin, weights, q_bits, LINEAR_GROUP,
+                               torch.float32)
+        same_bytes = all(
+            torch.equal(a.base.data.cpu(), b.base.data)
+            and torch.equal(a.base.scale.cpu(), b.base.scale)
+            for ba, bb in zip(card_stack.blocks, host_stack.blocks)
+            for a, b in zip(ba.values(), bb.values()))
+        card, *_ = ds.initialize(model=card_stack, config=cfg, seed=1)
+        host, *_ = ds.initialize(
+            model=host_stack, config=cfg, device="cpu",
+            model_parameters={b: {n: {k: v.detach().cpu() for k, v in p.items()}
+                                  for n, p in blk.items()}
+                              for b, blk in card.params.items()})
+        zero_counts(*all_counters)
+        steps, worst = [], 0.0
+        for _ in range(2):
+            lc, lh = float(card.train_batch(batch)), float(host.train_batch(batch))
+            gc_, gh = card.get_global_grad_norm(), host.get_global_grad_norm()
+            steps.append({"loss_card": lc, "loss_cpu": lh,
+                          "grad_norm_card": gc_, "grad_norm_cpu": gh})
+            worst = max(worst, abs(lc - lh) / abs(lh), abs(gc_ - gh) / gh)
+        launched = {k: v for c in all_counters for k, v in c.items()}
+        num = den = 0.0
+        for blk in card.params:
+            for n in card.params[blk]:
+                for k in ("lora_A", "lora_B"):
+                    a = card.params[blk][n][k].detach().cpu().double()
+                    b = host.params[blk][n][k].detach().double()
+                    num += float(((a - b) ** 2).sum())
+                    den += float((b ** 2).sum())
+        params_rel = (num / den) ** 0.5
+        micro = 2 * 2 * 3 * blocks          # steps x gas x projections x blocks
+        want_built = expected(counters, quantize=3 * blocks if q_bits != 6 else 0)
+        want = expected(all_counters, fused_adamw=2,
+                        **({"fp6_matmul": micro} if q_bits == 6
+                           else {"dequantize": micro}))
+        emit({"phase": "linear-reference", "q_bits": q_bits, "hidden": hidden,
+              "intermediate": inter, "blocks": blocks, "dtype": "float32",
+              "micro": 2, "gas": 2, "seq": 64, "group": LINEAR_GROUP,
+              "lora_r": 64, "bases_bytes_equal": same_bytes, "steps": steps,
+              "check": "card (kernels, cuBLAS) vs CPU (plain versions)",
+              "max_rel_err_loss_grad_norm": worst, "adapters_rel_l2": params_rel,
+              "tolerance": REF_RTOL, "construction_launches": built,
+              "expected_construction": want_built, "launches": launched,
+              "expected": want})
+        if not same_bytes:
+            fail(f"linear-reference q{q_bits}: bases quantized on the card "
+                 "differ from the CPU's")
+        if worst > REF_RTOL or params_rel > REF_RTOL:
+            fail(f"linear-reference q{q_bits}: card training differs from "
+                 f"the CPU's: {worst}, {params_rel}")
+        if launched != want or built != want_built:
+            fail(f"linear-reference q{q_bits}: launched {built} / {launched}, "
+                 f"expected {want_built} / {want}")
+        del card, host, card_stack, host_stack
+        torch.cuda.empty_cache()
+
+
+def adapter_leaves(params):
+    """((block, projection, name), leaf) over a LoRAStack's params."""
+    for blk, projs in params.items():
+        for proj, leaves in projs.items():
+            for name, leaf in leaves.items():
+                yield (blk, proj, name), leaf
+
+
+def linear_first_update(stack, eng, before, batch):
+    """The engine's first step on the adapters (``before`` -> ``eng.params``)
+    against the same step in fp32 with plain ops only: each base
+    dequantized to fp32 by its plain version, the stack's forward and
+    backward per micro-batch, the mean over the micro-batches, the clip and
+    one AdamW step by ``adamw_leaf_ref``.  Returns the relative L2 error of
+    the update over every adapter leaf, the plain grad norm and the relative
+    error of the engine's."""
+    import torch
+
+    from deepspeed_tpu_torch.ops import fp6_linear as t6
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    from deepspeed_tpu_torch.ops import quantize as qk
+    from deepspeed_tpu_torch.ops import quantizer
+
+    def plain_weight(base):
+        if base.q_bits == 6:
+            return t6.fp6_dequantize(base.data, base.scale, torch.float32)
+        q = quantizer.unpack_int4(base.data) if base.q_bits == 4 else base.data
+        return qk.dequantize_ref(q, base.scale, torch.float32)
+
+    ws = [{n: plain_weight(layer.base) for n, layer in blk.items()}
+          for blk in stack.blocks]
+    ps = {k: v.clone().requires_grad_(True) for k, v in before.items()}
+    s = stack.lora_config.lora_alpha / stack.lora_config.lora_r
+    gas = eng.gradient_accumulation_steps()
+    micro = batch["x"].shape[0] // gas
+    for i in range(gas):
+        rows = slice(i * micro, (i + 1) * micro)
+        h = batch["x"][rows].float()
+        for b, blk in enumerate(ws):
+            def proj(n, x, b=b, blk=blk):
+                a, bb = ps[(f"block{b}", n, "lora_A")], ps[(f"block{b}", n, "lora_B")]
+                return x @ blk[n] + s * ((x @ a) @ bb)
+            h = h + proj("down", torch.nn.functional.silu(proj("gate", h))
+                         * proj("up", h))
+        torch.mean(torch.square(h - batch["y"][rows])).backward()
+    del ws, h
+    opt, lr = eng.optimizer, LINEAR_CFG["optimizer"]["params"]["lr"]
+    after = dict(adapter_leaves(eng.params))
+    with torch.no_grad():
+        grads = {k: p.grad / gas for k, p in ps.items()}
+        norm = float(torch.sqrt(sum(torch.sum(torch.square(g))
+                                    for g in grads.values())))
+        coef = min(1.0, LINEAR_CFG["gradient_clipping"] / (norm + 1e-6))
+        num = den = 0.0
+        for k, g in grads.items():
+            p = before[k].clone()
+            fo.adamw_leaf_ref(p, g * coef, torch.zeros_like(p),
+                              torch.zeros_like(p), lr, 1 - opt.b1, 1 - opt.b2,
+                              opt.b1, opt.b2, opt.eps, opt.wd)
+            d_ref = (p - before[k]).double()
+            d_eng = (after[k].detach() - before[k]).double()
+            num += float(torch.sum(torch.square(d_eng - d_ref)))
+            den += float(torch.sum(torch.square(d_ref)))
+    return ((num / den) ** 0.5, norm,
+            abs(eng.get_global_grad_norm() - norm) / norm)
+
+
+def phase_linear_train(ds, lin, all_counters, card, q_bits):
+    """The LoRAStack at llama3-8b width and LINEAR_BLOCKS blocks in bf16:
+    build (counting the construction's quantize launches), a warm-up step
+    held to the same step in fp32 with plain ops (``linear_first_update``),
+    TRAIN_STEPS timed steps on one fixed batch (counts zeroed just before
+    and read just after: fp6_matmul or dequantize 3 x blocks x gas times a
+    step, fused_adamw once, nothing else), then a profiled step.  Returns
+    (construction launches, timed steps' launches)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models import registry
+
+    mc = registry.get_model_config(LINEAR_MODEL)
+    hidden, inter = mc.hidden_size, mc.intermediate_size
+    zero_counts(*all_counters)
+    t0 = time.perf_counter()
+    stack = LoRAStack(lin, stack_weights(hidden, inter, LINEAR_BLOCKS, 25,
+                                         torch.bfloat16, "cuda"),
+                      q_bits, LINEAR_GROUP, torch.bfloat16)
+    eng, *_ = ds.initialize(model=stack, config=LINEAR_CFG, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built = {k: v for c in all_counters for k, v in c.items()}
+    want_built = expected(all_counters, quantize=3 * LINEAR_BLOCKS
+                          if q_bits != 6 else 0)
+    micro, gas = (LINEAR_CFG["train_micro_batch_size_per_gpu"],
+                  LINEAR_CFG["gradient_accumulation_steps"])
+    rows = micro * gas * LINEAR_SEQ
+    # inputs and target of std LINEAR_X_STD (see its note), on the card
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    shape = (micro * gas, LINEAR_SEQ, hidden)
+    batch = {"x": (torch.randn(shape, generator=gen, device="cuda")
+                   * LINEAR_X_STD).to(torch.bfloat16),
+             "y": torch.randn(shape, generator=gen, device="cuda") * LINEAR_X_STD}
+    before = {k: v.detach().clone() for k, v in adapter_leaves(eng.params)}
+    t0 = time.perf_counter()
+    losses = [float(eng.train_batch(batch))]     # warm-up
+    warm_s = time.perf_counter() - t0
+    update_err, plain_norm, norm_err = linear_first_update(stack, eng, before,
+                                                           batch)
+    del before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*all_counters)
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))   # float() syncs
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: v for c in all_counters for k, v in c.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    n_proj = 3 * LINEAR_BLOCKS * gas
+    want = expected(all_counters, fused_adamw=1,
+                    **({"fp6_matmul": n_proj} if q_bits == 6
+                       else {"dequantize": n_proj}))
+    # base products forward and dx backward: 2 x 2 x K x N a row a projection
+    flops = 2 * 2.0 * rows * 3 * hidden * inter * LINEAR_BLOCKS
+    base_bytes = stack.nbytes()
+    bf16_bytes = 3 * hidden * inter * LINEAR_BLOCKS * 2
+    first_ok = max(update_err, norm_err) <= LINEAR_UPDATE_RTOL
+    ok = (all(np.isfinite(losses)) and losses[-1] < losses[0] and first_ok
+          and per_step == want and built == want_built)
+    emit({"phase": "linear-train", "model": f"{LINEAR_MODEL} MLP width",
+          "hidden": hidden, "intermediate": inter, "blocks": LINEAR_BLOCKS,
+          "q_bits": q_bits, "group": LINEAR_GROUP if q_bits != 6 else None,
+          "lora_r": 64, "lora_alpha": 16.0, "dtype": "bfloat16",
+          "optimizer": LINEAR_CFG["optimizer"], "micro": micro, "gas": gas,
+          "seq": LINEAR_SEQ, "x_std": LINEAR_X_STD, "rows_per_step": rows,
+          "init_s": init_s,
+          "warmup_step_s": warm_s, "step_s": step_s,
+          "rows_per_s": rows * TRAIN_STEPS / sum(step_s),
+          "base_tflops_per_s": flops * TRAIN_STEPS / sum(step_s) / 1e12,
+          "losses": losses,
+          "first_step_vs_fp32_plain": {
+              "update_rel_l2": update_err, "grad_norm_rel_err": norm_err,
+              "grad_norm_plain": plain_norm, "tolerance": LINEAR_UPDATE_RTOL},
+          "max_memory_allocated_gib": peak_gb,
+          "bases_nbytes": base_bytes, "bases_bf16_bytes": bf16_bytes,
+          "bases_fraction_of_bf16": base_bytes / bf16_bytes,
+          "adapter_leaves": 2 * 3 * LINEAR_BLOCKS,
+          "construction_launches": built, "expected_construction": want_built,
+          "launches": launches, "launches_per_step": per_step,
+          "expected_per_step": want, "card": card, "ok": ok})
+    if not ok:
+        fail(f"linear-train q{q_bits}: losses not finite and falling, the "
+             "first step off the fp32 plain step, or the launch counts do "
+             "not show the kernels")
+
+    wall_ms, by_name, busy_ms = profile_call(lambda: eng.train_batch(batch))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "linear-train-profile",
+          "what": f"one train_batch, LoRAStack q_bits {q_bits}",
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+          "kernel_ms": {n: sum(v for k, v in by_name.items()
+                               if all(x in k for x in parts))
+                        for n, parts in PROFILE_NAMES.items() if want.get(n)},
+          "gemm_ms": sum(v for k, v in by_name.items()
+                         if any(x in k for x in ("gemm", "nvjet", "cutlass",
+                                                 "xmma"))),
+          "top_kernels_ms": [[k[:90], v] for k, v in top], "card": card})
+    del eng, stack, batch
+    torch.cuda.empty_cache()
+    return built, launches
+
+
 def main() -> int:
     if not (ROOT / "deepspeed_tpu_torch").is_dir():
         print("chip_smoke: the deepspeed_tpu_torch package is not beside "
@@ -1060,11 +1559,14 @@ def main() -> int:
     from deepspeed_tpu_torch.inference import v2
     from deepspeed_tpu_torch.models import registry as tf_model
     from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch import linear as lin
     from deepspeed_tpu_torch.ops import block_sparse_mha as bsm
     from deepspeed_tpu_torch.ops import flash_mha as fm
+    from deepspeed_tpu_torch.ops import fp6_linear as t6
     from deepspeed_tpu_torch.ops import fused_optimizer as fo
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quantize as qk
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     # 1. device
@@ -1138,7 +1640,19 @@ def main() -> int:
         expected(counters, bsa_fwd=n, bsa_bwd_dq=n, bsa_bwd_dkv=n,
                  fused_lion=1), **sparse)
 
-    # 13. kernels line: each path's launches from its own run
+    # 14. quantize and FP6 kernels, 15. their training reference,
+    # 16. LoRA training over quantized llama3-8b-width bases
+    lcount = (qk.launches, t6.fp6_matmul.launches, fo.fused_adamw.launches)
+    all_counters = (pa.paged_decode_attention.launches, *counters,
+                    qk.launches, t6.fp6_matmul.launches)
+    zero_counts(*all_counters)
+    linear_summary = phase_linear_kernels(qk, t6)
+    fake_phase_launches = qk.launches["fake_quantize"]
+    phase_linear_reference(ds, lin, lcount, all_counters)
+    built6, fp6_launches = phase_linear_train(ds, lin, all_counters, smi, 6)
+    built8, int8_launches = phase_linear_train(ds, lin, all_counters, smi, 8)
+
+    # 17. kernels line: each path's launches from its own run
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
     sources = {"paged_attention": csrc + "paged_attention.cu",
@@ -1150,7 +1664,11 @@ def main() -> int:
                "bsa_fwd": csrc + "block_sparse_attention.cu",
                "bsa_bwd_dq": csrc + "block_sparse_attention.cu",
                "bsa_bwd_dkv": csrc + "block_sparse_attention.cu",
-               "fused_lion": csrc + "fused_lion.cu"}
+               "fused_lion": csrc + "fused_lion.cu",
+               "quantize": csrc + "quantize.cu",
+               "dequantize": csrc + "quantize.cu",
+               "fake_quantize": csrc + "quantize.cu",
+               "fp6_matmul": csrc + "fp6_linear.cu"}
     replaces = {"paged_attention": pallas + "paged_attention.py:52",
                 "paged_attention_int8": pallas + "paged_attention.py:129",
                 "flash_fwd": pallas + "flash_mha.py:147",
@@ -1160,7 +1678,11 @@ def main() -> int:
                 "bsa_fwd": pallas + "block_sparse_mha.py:119",
                 "bsa_bwd_dq": pallas + "block_sparse_mha.py:171",
                 "bsa_bwd_dkv": pallas + "block_sparse_mha.py:211",
-                "fused_lion": pallas + "fused_optimizer.py:133"}
+                "fused_lion": pallas + "fused_optimizer.py:133",
+                "quantize": pallas + "quantize.py:78",
+                "dequantize": pallas + "quantize.py:125",
+                "fake_quantize": pallas + "quantize.py:158",
+                "fp6_matmul": pallas + "fp6_linear.py:132"}
     also = {"flash_fwd": pallas + "flash_mha.py:286",
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
@@ -1168,9 +1690,19 @@ def main() -> int:
                   "paged_attention_int8":
                   launches["int8"]["paged_attention_int8"],
                   **{k: train_launches[k] for k in train_summary},
-                  **{k: sparse_launches[k] for k in sparse_summary}}
+                  **{k: sparse_launches[k] for k in sparse_summary},
+                  "quantize": built8["quantize"],
+                  "dequantize": int8_launches["dequantize"],
+                  "fake_quantize": fake_phase_launches,
+                  "fp6_matmul": fp6_launches["fp6_matmul"]}
+    notes = {"quantize": "at construction of the q_bits 8 LoRAStack (one a "
+                         "base); a train_batch launches none",
+             "fake_quantize": "the linear-kernels phase's launches: the "
+                              "training path does not run fake_quantize "
+                              "(ops.quantizer.fake_quantize, the QAT op)"}
     entries = []
-    for name, row in {**summary, **train_summary, **sparse_summary}.items():
+    for name, row in {**summary, **train_summary, **sparse_summary,
+                      **linear_summary}.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name], "launches": launch_run[name],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -1178,6 +1710,8 @@ def main() -> int:
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
         if name in also:
             entry["also_replaces"] = also[name]
+        if name in notes:
+            entry["launches_note"] = notes[name]
         entries.append(entry)
     emit({"kernels": entries})
     print(smi, flush=True)

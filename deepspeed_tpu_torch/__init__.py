@@ -36,8 +36,12 @@ def initialize(args=None,
     lr_scheduler)``.  The reference's ``distributed_port`` and
     ``dist_init_required`` are not taken: the port trains on one device and
     starts no process group.  ``model`` is a :class:`TransformerConfig` from the
-    model registry; ``model_parameters`` may carry a param tree (for
-    example ``models.bridge.params_from_jax`` of a JAX engine's params).
+    model registry, or a duck-typed trainable with ``init(generator) ->
+    params`` and ``loss(params, batch) -> scalar`` (for example LoRA
+    adapters over ``linear.OptimizedLinear`` layers with quantized frozen
+    bases); ``model_parameters`` may carry a param tree (for example
+    ``models.bridge.params_from_jax`` of a JAX engine's params), which
+    overrides ``init``.
     ``device=None`` means the CUDA card, and raises without one; pass
     ``device="cpu"`` to train on the CPU through the kernels' plain
     versions."""

@@ -3,13 +3,16 @@
 Both trees share key paths, the ``[in, out]`` kernel layout and the
 stacked per-layer leaves, so the bridge is an identity copy through numpy:
 ``params_from_jax(jax.tree.map(np.asarray, jax_params), cfg)`` gives the
-port's tree bit for bit.  The port never imports JAX; the caller converts
-its arrays to numpy first.
+port's tree bit for bit.  A duck-typed trainable's tree (LoRA adapters,
+say) goes through ``params_from_jax(tree, None)`` as it is.  A JAX
+``linear.QuantizedParameter`` comes across by its fields
+(:func:`quantized_from_jax`), without quantizing again.  The port never
+imports JAX; the caller converts its arrays to numpy first.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,13 +49,15 @@ def _check_shapes(tree: Params, cfg: TransformerConfig) -> None:
     tree_map_with_path(layer_dim, tree["layers"])
 
 
-def params_from_jax(tree, cfg: TransformerConfig, device=None,
+def params_from_jax(tree, cfg: Optional[TransformerConfig], device=None,
                     dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX param tree (leaves as numpy arrays) as the port's tree on
     ``device`` (``None`` → CUDA).  ``dtype=None`` copies bit for bit;
     otherwise leaves are cast once to ``dtype`` as an engine does at load,
-    norm leaves excepted (the forward casts those at use)."""
-    _check_shapes(tree, cfg)
+    norm leaves excepted (the forward casts those at use).  ``cfg=None``:
+    a duck-typed trainable's tree, whose shapes are not checked."""
+    if cfg is not None:
+        _check_shapes(tree, cfg)
     dev = resolve_device(device)
 
     def conv(path, leaf):
@@ -75,3 +80,25 @@ def params_to_numpy(params: Params):
         return t.numpy()
 
     return tree_map_with_path(conv, params)
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def quantized_from_jax(data: np.ndarray, scale: np.ndarray,
+                       zero: Optional[np.ndarray], q_bits: int,
+                       shape: Sequence[int], dtype, group_size: int,
+                       device=None):
+    """A JAX ``linear.QuantizedParameter``'s fields (arrays as numpy;
+    ``dtype`` a numpy dtype or its name) as the port's
+    ``QuantizedParameter`` on ``device`` (``None`` → CUDA), with the same
+    bytes: nothing is quantized again."""
+    from deepspeed_tpu_torch.linear.quantization import QuantizedParameter
+
+    dev = resolve_device(device)
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    return QuantizedParameter.from_fields(
+        _to_tensor(data).to(dev), _to_tensor(scale).to(dev),
+        None if zero is None else _to_tensor(zero).to(dev), int(q_bits),
+        tuple(int(d) for d in shape), _TORCH_DTYPES[name], int(group_size))

@@ -11,6 +11,18 @@ of the JAX engine becomes a loop of ``loss.backward()`` calls (gradients
 accumulate in place in each master leaf's ``.grad``) and an in-place
 optimizer step.
 
+The model is a :class:`TransformerConfig` (the built-in model) or, as in
+the JAX engine, any duck-typed trainable with ``init(generator) ->
+params`` and ``loss(params, batch) -> scalar``: the engine passes it a
+``torch.Generator`` seeded from the config (the JAX engine passes a PRNG
+key), keeps the params it returns as the masters (``model_parameters``
+overrides ``init``), and calls ``loss(params, micro_batch).backward()`` per
+micro-step.  Whatever the trainable holds outside ``params`` (a frozen
+quantized base, for instance) takes no gradient and no optimizer state.
+The ``bf16`` flag sets the built-in model's compute dtype; a duck-typed
+trainable chooses its own, as in the JAX engine, and the flag is logged
+as ignored for it.
+
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
 trio, telemetry and the watchdog, checkpoints, fp16 loss scaling, ZeRO
 stage 2 and 3, offload, and data-parallel worlds above one device.  ZeRO
@@ -39,6 +51,11 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 Batch = Dict[str, Any]
 
 
+def _as_array(v):
+    """A batch value as a tensor (kept where it lies) or a numpy array."""
+    return v if torch.is_tensor(v) else np.asarray(v)
+
+
 def _global_norm(leaves) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
     sums = torch.stack([torch.sum(torch.square(g.float())) for g in leaves])
@@ -46,19 +63,21 @@ def _global_norm(leaves) -> torch.Tensor:
 
 
 class DeepSpeedEngine:
-    """Training engine over the built-in functional transformer."""
+    """Training engine over a functional model: the built-in transformer
+    (a :class:`TransformerConfig`) or a duck-typed trainable."""
 
-    def __init__(self, model: TransformerConfig,
+    def __init__(self, model: Any,
                  config: Union[DeepSpeedConfig, Dict[str, Any], str, None] = None,
                  model_params: Optional[Any] = None,
                  optimizer: Optional[Optimizer] = None,
                  lr_scheduler: Optional[LRSchedule] = None,
                  seed: Optional[int] = None, device=None):
-        if not isinstance(model, TransformerConfig):
-            raise NotImplementedError(
-                "duck-typed trainables (objects with init/loss) are not "
-                "ported yet (ROADMAP Queue A item 3); pass a "
-                "TransformerConfig")
+        builtin = isinstance(model, TransformerConfig)
+        if not builtin and not (callable(getattr(model, "init", None))
+                                and callable(getattr(model, "loss", None))):
+            raise TypeError("model must be a TransformerConfig or a "
+                            "trainable with init(generator) and "
+                            "loss(params, batch)")
         self.config = config if isinstance(config, DeepSpeedConfig) \
             else DeepSpeedConfig(config)
         cfg = self.config
@@ -71,21 +90,36 @@ class DeepSpeedEngine:
 
         # -- model: compute dtype from the precision block, remat policy
         # from activation_checkpointing (the JAX engine's rule) ----------
-        mc = model.replace(dtype=torch.bfloat16 if cfg.bf16.enabled
-                           else torch.float32)
-        ac = cfg.activation_checkpointing
-        if ac.partition_activations or ac.remat_policy != "nothing_saveable":
-            mc = mc.replace(remat_policy=ac.remat_policy)
-        self.model_config = mc
+        if builtin:
+            mc = model.replace(dtype=torch.bfloat16 if cfg.bf16.enabled
+                               else torch.float32)
+            ac = cfg.activation_checkpointing
+            if ac.partition_activations or ac.remat_policy != "nothing_saveable":
+                mc = mc.replace(remat_policy=ac.remat_policy)
+            self.model_config = mc
+            self._loss_fn = lambda params, batch: tf_model.loss_fn(params,
+                                                                   batch, mc)
+        else:
+            self.model_config = None
+            self._loss_fn = model.loss
+            if cfg.bf16.enabled:
+                log_dist("bf16.enabled is ignored for a duck-typed trainable: "
+                         "it computes in the dtype it chooses itself",
+                         level="warning")
 
-        # -- params: fp32 masters, leaves of the autograd graph ---------
+        # -- params: masters (fp32 for the built-in model), leaves of the
+        # autograd graph -------------------------------------------------
         if model_params is not None:
             params = tree_map_with_path(
                 lambda _p, x: torch.as_tensor(x).detach().to(
                     self.device, copy=True), model_params)
-        else:
+        elif builtin:
             params = tf_model.init_params(mc, seed=self.seed,
                                           device=self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            params = tree_map_with_path(
+                lambda _p, x: x.detach().to(self.device), model.init(gen))
         for p in tree_leaves(params):
             p.requires_grad_(True)
         self.params = params
@@ -114,33 +148,35 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------
     def _stack_micro_batches(self, data) -> Batch:
-        """Accept a stacked batch dict [gas*micro, ...], a dict already
-        shaped [gas, micro, ...], or an iterator of micro-batches; return
-        numpy arrays shaped [gas, micro, ...]."""
+        """Accept a stacked batch dict [gas*micro, ...] of any keys, a dict
+        already shaped [gas, micro, ...], or an iterator of micro-batches;
+        return arrays shaped [gas, micro, ...].  A dict's values may be
+        numpy arrays or tensors (tensors stay where they lie)."""
         gas = self.gradient_accumulation_steps_value
         per_step = self.micro_batch_size
         if isinstance(data, dict):
             first = next(iter(data.values()))
             n = np.shape(first)[0]
             if n == gas and np.ndim(first) >= 2 and np.shape(first)[1] == per_step:
-                return {k: np.asarray(v) for k, v in data.items()}
+                return {k: _as_array(v) for k, v in data.items()}
             if n != gas * per_step:
                 raise ValueError(
                     f"batch dim {n} != gas({gas}) * micro*dp({per_step})")
-            return {k: np.asarray(v).reshape((gas, per_step) + np.shape(v)[1:])
+            return {k: _as_array(v).reshape((gas, per_step)
+                                            + tuple(np.shape(v)[1:]))
                     for k, v in data.items()}
         micros = [next(data) for _ in range(gas)]
         return {k: np.stack([np.asarray(m[k]) for m in micros], axis=0)
                 for k in micros[0]}
 
     def _to_device(self, batch: Batch) -> Batch:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+        return {k: torch.as_tensor(_as_array(v)).to(self.device)
                 for k, v in batch.items()}
 
     def _dropout_seeds(self, gas: int):
-        """Per-micro-step dropout seeds when the model trains with
+        """Per-micro-step dropout seeds when the built-in model trains with
         dropout (the JAX engine's per-step PRNG keys); None otherwise."""
-        if self.model_config.dropout <= 0.0:
+        if self.model_config is None or self.model_config.dropout <= 0.0:
             return None
         step = tf_model._fold(self.seed + 7919, self.global_steps)
         return [tf_model._fold(step, i) for i in range(gas)]
@@ -159,7 +195,7 @@ class DeepSpeedEngine:
             mb = self._to_device({k: v[i] for k, v in batch_stack.items()})
             if seeds is not None:
                 mb["dropout_seed"] = seeds[i]
-            loss = tf_model.loss_fn(self.params, mb, self.model_config)
+            loss = self._loss_fn(self.params, mb)
             loss.backward()
             loss_sum += loss.detach().float()
         grads = []
@@ -207,8 +243,7 @@ class DeepSpeedEngine:
 
     def eval_batch(self, batch: Batch) -> torch.Tensor:
         with torch.no_grad():
-            return tf_model.loss_fn(self.params, self._to_device(batch),
-                                    self.model_config)
+            return self._loss_fn(self.params, self._to_device(batch))
 
     def _after_step(self, metrics) -> None:
         self._last_metrics = metrics
