@@ -65,7 +65,27 @@ Phases, each printing JSON lines:
                FP6 GEMM carries the forward) and 8 (the dequantize kernel
                runs before each base product): a warm-up step, three timed
                steps whose launch counts show the kernels and no attention
-               kernel, and a profiled step, per q_bits.
+               kernel, and a profiled step, per q_bits;
+ 17. ring-kernels — ring_carry, ring_bwd_dq and ring_bwd_dkv against their
+               plain versions: the path's shape (llama3-8b attention
+               geometry, 4096 tokens a rank) for the diagonal and the
+               neighbour's hop under striped placement and the diagonal and
+               a fully live hop under contiguous placement, timed beside
+               the plain versions, their bounds and SDPA under the hop's
+               position mask; MHA d 64, a sliding window, a non-causal hop,
+               a 1000-row shard and fp32;
+ 18. ring-reference — the ring engine (llama3-8b head geometry at hidden
+               1024, 2 layers, fp32, seq 512) in two ranks sharing the card
+               over gloo against the same engine in this process on the CPU
+               at sp 1, two steps, both placements, with each rank's
+               launches;
+ 19. ring-train — llama3-8b at full width, 2 layers, seq 8192 striped over
+               two ranks sharing the card (bench.py's longseq_ring step:
+               micro 1, gas 2, bf16, AdamW, clip 1.0): a warm-up step,
+               three timed steps whose launch counts a rank show the ring
+               kernels, AdamW and nothing else, and a profiled step on
+               rank 0 (device busy share, and the host time inside the
+               comm layer's ring_rotate and all_reduce ranges).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -129,6 +149,9 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
 # kernel name -> the parts of its name in a profiler trace: the attention
 # roles are one template each, told apart by their mask policy
 PROFILE_NAMES = {
+    "ring_carry": ("attn_fwd_kernel", "RingOffsets"),
+    "ring_bwd_dq": ("attn_bwd_dq_kernel", "RingOffsets"),
+    "ring_bwd_dkv": ("attn_bwd_dkv_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
@@ -161,6 +184,38 @@ LINEAR_X_STD = 0.1
 # loss moves less than one bf16 step of h, so this, not the loss, shows
 # that the update is the right one.
 LINEAR_UPDATE_RTOL = 0.05
+
+
+# slice 5: ring sequence parallelism.  bench.py _longseq_ring_body's step
+# (llama-class d-128 GQA, seq_impl "ring", striped, AdamW, bf16, clip 1.0,
+# a 4096-token shard a rank) on llama3-8b at its registered width, depth
+# cut to 2 layers (each rank holds fp32 masters, grads and AdamW state of
+# 1.48 G parameters, ~27 GB, so two ranks fit one card), seq 8192
+# (llama3-8b's max_seq_len) over two ranks sharing the card.  The row's
+# loss_tiles=32 runs untiled (ROADMAP A9); ZeRO stage 1 over no
+# data-parallel world equals stage 0.
+RING_MODEL = "llama3-8b"
+RING_RANKS = 2
+RING_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
+RING_LAYERS = 2
+RING_SEQ = 8192
+RING_STEPS = 3
+RING_CFG = {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 1},
+            "gradient_clipping": 1.0,
+            "steps_per_print": 10_000,
+            "activation_checkpointing": {"remat_policy": "none"},
+            "mesh": {"seq": RING_RANKS}}
+# ring-reference: llama3-8b's head dim 128 and GQA group 4 at a width the
+# CPU run keeps short
+RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
+                  "intermediate_size": 3584, "vocab_size": 32000,
+                  "num_layers": 2}
+RING_REF_SEQ = 512
+RING_REF_STEPS = 2
 
 
 def bound_ms(nbytes, ops, peak):
@@ -436,8 +491,9 @@ def phase_engine(pa, tf_model, v2, prompts):
 
 def profile_call(fn):
     """Run ``fn`` once under torch.profiler: (wall ms, device ms by kernel
-    name, device busy ms).  Only device-side events count: a CPU op's
-    self device time repeats the time of the kernels it launched."""
+    name, device busy ms, the profiler).  Only device-side events count: a
+    CPU op's self device time repeats the time of the kernels it launched,
+    and a ``record_function`` range's device-side copy is no work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -451,16 +507,62 @@ def profile_call(fn):
     by_name = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type != DeviceType.CPU:
+        if (us > 0 and ev.device_type != DeviceType.CPU
+                and not getattr(ev, "is_user_annotation", False)):
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    return wall_ms, by_name, sum(by_name.values())
+    return wall_ms, by_name, sum(by_name.values()), prof
+
+
+def comm_ms(prof, names=("comm.ring_rotate", "comm.all_reduce")):
+    """The host time a profiled run spent inside each ``record_function``
+    range of ``names`` (``comm/comm.py`` opens one around each collective):
+    calls, host ms, and own ms, the host ms less the part during which
+    this process's compute kernels ran on the card.  A staged collective
+    first copies its buffer to the host, which waits for the kernels queued
+    before it; own ms leaves that wait out and keeps the staging copies and
+    the transfer."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    busy = sorted((ev.time_range.start, ev.time_range.end)
+                  for ev in prof.events()
+                  if ev.device_type != DeviceType.CPU
+                  and not getattr(ev, "is_user_annotation", False)
+                  and not ev.name.startswith(("Memcpy", "Memset")))
+    merged = []
+    for a, b in busy:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [a for a, _ in merged]
+
+    def overlap(a, b):
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        us = 0.0
+        while i < len(merged) and merged[i][0] < b:
+            us += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            i += 1
+        return us
+
+    out = {}
+    for name in names:
+        spans = [(ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events()
+                 if ev.device_type == DeviceType.CPU and ev.name == name]
+        host = sum(b - a for a, b in spans)
+        out[name] = {"calls": len(spans), "host_ms": host / 1e3,
+                     "own_ms": (host - sum(overlap(a, b) for a, b in spans))
+                     / 1e3}
+    return out
 
 
 def phase_profile(eng, prompts, card):
     """Where the time goes in one generate() on the bf16 engine: device
     kernel time by name from torch.profiler, and the device's idle share
     of the wall time."""
-    wall_ms, by_name, busy_ms = profile_call(
+    wall_ms, by_name, busy_ms, _ = profile_call(
         lambda: eng.generate(prompts, max_new_tokens=32))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     attn_ms = sum(v for k, v in by_name.items() if "paged_attention" in k)
@@ -894,11 +996,11 @@ def phase_train_kernels(fm, fo, tf_model, tf):
 # ----------------------------------------------------------------------
 # phases 8/9: training on gpt2-350m
 # ----------------------------------------------------------------------
-def train_batch_of(vocab, rows, seed=0):
+def train_batch_of(vocab, rows, seed=0, seq=TRAIN_SEQ):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    ids = rng.integers(0, vocab, size=(rows, TRAIN_SEQ + 1), dtype=np.int32)
+    ids = rng.integers(0, vocab, size=(rows, seq + 1), dtype=np.int32)
     return {"input_ids": ids[:, :-1], "labels": ids[:, 1:].astype(np.int32)}
 
 
@@ -1037,7 +1139,7 @@ def phase_train(ds, tf_model, counters, card, phase, cfg, want, remat=False,
         fail(f"{phase}: losses not finite and falling, or the launch counts "
              "do not show the kernels")
 
-    wall_ms, by_name, busy_ms = profile_call(lambda: eng.train_batch(batch))
+    wall_ms, by_name, busy_ms, _ = profile_call(lambda: eng.train_batch(batch))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
 
     def share(*keys):
@@ -1521,7 +1623,7 @@ def phase_linear_train(ds, lin, all_counters, card, q_bits):
              "first step off the fp32 plain step, or the launch counts do "
              "not show the kernels")
 
-    wall_ms, by_name, busy_ms = profile_call(lambda: eng.train_batch(batch))
+    wall_ms, by_name, busy_ms, _ = profile_call(lambda: eng.train_batch(batch))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     emit({"phase": "linear-train-profile",
           "what": f"one train_batch, LoRAStack q_bits {q_bits}",
@@ -1537,6 +1639,451 @@ def phase_linear_train(ds, lin, all_counters, card, q_bits):
     del eng, stack, batch
     torch.cuda.empty_cache()
     return built, launches
+
+
+# ----------------------------------------------------------------------
+# phases 17-19: ring sequence parallelism over two ranks sharing the card
+# ----------------------------------------------------------------------
+def ring_pairs(s, causal, window, pos):
+    """(query, key) pairs a hop keeps: for each query row, its key columns
+    under the causal and window tests on global positions (``pos`` =
+    q_off, q_stride, k_off, k_stride)."""
+    import numpy as np
+
+    q_off, q_stride, k_off, k_stride = pos
+    qpos = q_off + q_stride * np.arange(s)
+    hi = (np.clip((qpos - k_off) // k_stride + 1, 0, s) if causal
+          else np.full(s, s))
+    lo = (np.clip(-((k_off - qpos + window - 1) // k_stride), 0, s)
+          if window else np.zeros(s, np.int64))
+    return int(np.sum(np.maximum(hi - lo, 0)))
+
+
+def ring_mask(s, causal, window, pos, device):
+    """The hop's [S, S] boolean position mask (SDPA's, as the yardstick)."""
+    import torch
+
+    q_off, q_stride, k_off, k_stride = pos
+    qp = q_off + q_stride * torch.arange(s, device=device)[:, None]
+    kp = k_off + k_stride * torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= qp - kp < window
+    return mask
+
+
+def ring_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
+    """Least time of the carry, dq and dk/dv kernels of one hop: operands
+    read once and outputs written once (the fp32 carry and accumulators
+    are read and written in place) against 2, 3 and 4 products of
+    pairs x d per head."""
+    q_bytes, kv_bytes, rows = b * hq * s * d * elem, b * hkv * s * d * elem, b * hq * s * 4
+    qacc, kvacc = b * hq * s * d * 4, b * hkv * s * d * 4
+    per_pair = 2.0 * pairs * d * hq * b
+    work = [(q_bytes + 2 * kv_bytes + 4 * rows + 2 * qacc, 2 * per_pair),
+            (2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * qacc, 3 * per_pair),
+            (2 * q_bytes + 2 * kv_bytes + 2 * rows + 4 * kvacc, 4 * per_pair)]
+    peak = FP32_FLOPS if fp32 else BF16_FLOPS
+    return [bound_ms(nbytes, flops, peak) for nbytes, flops in work]
+
+
+def ring_case(fm, case):
+    """The three hop kernels of one case against their plain versions on
+    the same inputs: the hop from a fresh carry, dq and dk/dv into seeded
+    fp32 accumulators from the carry's lse.  Path-shape cases are timed
+    (CUDA events; the in-place kernels re-run on their own output), beside
+    the plain versions and scaled_dot_product_attention under the hop's
+    position mask (one hop's attention without the carry merge, forward
+    and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    name, b, hq, hkv, s, d, dt, causal, window, pos, timed = case
+    q, k, v, do = bshd_inputs(b, hq, hkv, s, d, getattr(torch, dt), seed=13)
+    scale = d ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def fresh():
+        return (torch.full((b, hq, s), fm.NEG_INF, device="cuda"),
+                torch.zeros((b, hq, s), device="cuda"),
+                torch.zeros((b, hq, s, d), device="cuda"))
+
+    def small(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.1
+
+    state, ref = fresh(), fresh()
+    fm.flash_carry_block(q, k, v, *state, pos, **kw)
+    fm.ring_carry_ref(q, k, v, *ref, pos, causal, scale, window)
+    m, l, _ = ref
+    lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
+    delta = small(b, hq, s)
+    acc0 = [small(b, hq, s, d), small(b, hkv, s, d), small(b, hkv, s, d)]
+    got = [t.clone() for t in acc0]
+    want = [t.clone() for t in acc0]
+    bwd = (q, k, v, do, lse, delta)
+    fm.flash_ring_dq_block(*bwd, got[0], pos, **kw)
+    fm.flash_ring_dkv_block(*bwd, got[1], got[2], pos, **kw)
+    fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal, scale, window)
+    fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal, scale, window)
+    torch.cuda.synchronize()
+    rtol = FLASH_RTOL[dt]
+    safe = [x[1].clamp(min=1e-20)[..., None] for x in (state, ref)]
+    checks = {
+        "ring_carry": [(state[0], ref[0], 1e-4), (state[1], ref[1], rtol),
+                       (state[2] / safe[0], ref[2] / safe[1], rtol)],
+        "ring_bwd_dq": [(got[0], want[0], rtol)],
+        "ring_bwd_dkv": [(got[1], want[1], rtol), (got[2], want[2], rtol)]}
+    pairs = ring_pairs(s, causal, window, pos)
+    bounds = ring_bounds(b, hq, hkv, s, d, q.element_size(), pairs,
+                         dt == "float32")
+    rows = {}
+    for (kname, pairs_), (bound, by) in zip(checks.items(), bounds):
+        err, ok = 0.0, True
+        for g, r, tol in pairs_:
+            diff = (g.float() - r.float()).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
+            ok &= bool(torch.isfinite(g).all())
+        rows[kname] = {"phase": "ring-kernel", "case": name, "kernel": kname,
+                       "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
+                       "dtype": dt, "causal": causal, "window": window,
+                       "pos": list(pos), "pairs": pairs,
+                       "max_abs_err": err, "ok": ok,
+                       "tolerance": "|k-r| <= rtol * (1 + |r|) on m (1e-4), "
+                                    f"l, acc/l, dq, dk, dv (rtol {rtol})",
+                       "bound_ms": bound, "bound_by": by}
+    if timed:
+        st = fresh()
+        calls = {"ring_carry": (lambda: fm.flash_carry_block(q, k, v, *st, pos, **kw),
+                                lambda: fm.ring_carry_ref(q, k, v, *st, pos, causal,
+                                                          scale, window)),
+                 "ring_bwd_dq": (lambda: fm.flash_ring_dq_block(*bwd, got[0], pos, **kw),
+                                 lambda: fm.ring_bwd_dq_ref(*bwd, got[0], pos, causal,
+                                                            scale, window)),
+                 "ring_bwd_dkv": (lambda: fm.flash_ring_dkv_block(
+                     *bwd, got[1], got[2], pos, **kw),
+                     lambda: fm.ring_bwd_dkv_ref(*bwd, got[1], got[2], pos, causal,
+                                                 scale, window))}
+        for kname, (kern, plain) in calls.items():
+            rows[kname]["ms"] = cuda_time_ms(kern)
+            rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        mask = ring_mask(s, causal, window, pos, "cuda")
+        lib = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            *lib, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
+        with torch.no_grad():
+            rows["ring_carry"]["library_ms"] = cuda_time_ms(sdpa)
+        out = sdpa()
+        pair_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out, lib, do, retain_graph=True))
+        note = ("scaled_dot_product_attention under the hop's boolean "
+                "position mask: one hop's attention without the carry merge")
+        rows["ring_carry"]["library_note"] = note
+        for kname in ("ring_bwd_dq", "ring_bwd_dkv"):
+            rows[kname]["library_ms"] = pair_ms
+            rows[kname]["library_note"] = f"{note}; backward, dq, dk and dv together"
+    for r in rows.values():
+        emit(r)
+        if not r["ok"]:
+            fail(f"{r['kernel']} disagrees with its plain version ({r['case']})")
+    return rows
+
+
+# name, b, hq, hkv, s_l, d, dtype, causal, window, (q_off, q_stride, k_off,
+# k_stride), timed.  The path: llama3-8b attention geometry, 4096 tokens a
+# rank of two; striped rank 1 holds positions 1, 3, ..., contiguous rank 1
+# positions 4096 on.
+RING_CASES = [
+    ("path-striped-hop0", 1, 32, 8, 4096, 128, "bfloat16", True, None,
+     (1, 2, 1, 2), True),
+    ("path-striped-hop1", 1, 32, 8, 4096, 128, "bfloat16", True, None,
+     (1, 2, 0, 2), True),
+    ("path-contiguous-hop0", 1, 32, 8, 4096, 128, "bfloat16", True, None,
+     (4096, 1, 4096, 1), True),
+    ("path-contiguous-live", 1, 32, 8, 4096, 128, "bfloat16", True, None,
+     (4096, 1, 0, 1), True),
+    ("mha-d64", 2, 16, 16, 1024, 64, "bfloat16", True, None, (1, 2, 0, 2),
+     False),
+    ("window", 1, 16, 4, 2048, 128, "bfloat16", True, 512,
+     (2048, 1, 0, 1), False),
+    ("noncausal", 1, 16, 4, 1024, 128, "bfloat16", False, None,
+     (0, 1, 1024, 1), False),
+    ("tail", 1, 8, 2, 1000, 128, "bfloat16", True, None, (1, 2, 0, 2), False),
+    ("fp32", 1, 8, 2, 1024, 128, "float32", True, None, (1, 2, 0, 2), False),
+]
+RING_ROW_CASE = "path-striped-hop1"   # the kernels line's row: a live
+                                      # off-diagonal hop of the main path
+
+
+def phase_ring_kernels(fm):
+    import torch
+
+    summary = {}
+    for case in RING_CASES:
+        rows = ring_case(fm, case)
+        if case[0] == RING_ROW_CASE:
+            summary.update(rows)
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _ring_counters():
+    """Every kernel counter of the port, in this process."""
+    from deepspeed_tpu_torch.ops import block_sparse_mha as bsm
+    from deepspeed_tpu_torch.ops import flash_mha as fm
+    from deepspeed_tpu_torch.ops import fp6_linear as t6
+    from deepspeed_tpu_torch.ops import fused_optimizer as fo
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.ops import quantize as qk
+
+    return (pa.paged_decode_attention.launches, fm.flash_mha.launches,
+            bsm.block_sparse_mha.launches, fo.fused_adamw.launches,
+            fo.fused_lion.launches, qk.launches, t6.fp6_matmul.launches,
+            fm.ring_launches)
+
+
+def ring_rank_reference(rank, world, model_kw, params, cfg, batch, steps):
+    """One rank of the ring-reference phase: the fp32 engine over a seq
+    axis of ``world`` ranks on the card, per placement, from ``params``:
+    losses, grad norms, launch counts and (rank 0) the params after."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    counters = _ring_counters()
+    out = {}
+    for placement in ("contiguous", "striped"):
+        model = registry.get_model_config(RING_MODEL, seq_impl="ring",
+                                          ring_placement=placement, **model_kw)
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params)
+        zero_counts(*counters)
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(float(eng.train_batch(batch)))
+            norms.append(eng.get_global_grad_norm())
+        out[placement] = {
+            "losses": losses, "grad_norms": norms,
+            "launches": {k: v for c in counters for k, v in c.items()},
+            "params": (tf.tree_map_with_path(
+                lambda _p, x: x.detach().cpu(), eng.params)
+                if rank == 0 else None)}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
+    """One rank of the ring-train phase: llama3-8b width, bf16, striped,
+    a warm-up step, ``steps`` timed steps (counts zeroed just before them
+    and read just after), then one step profiled on rank 0."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    counters = _ring_counters()
+    model = registry.get_model_config(RING_MODEL, **model_kw)
+    t0 = time.perf_counter()
+    eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = cfg["train_micro_batch_size_per_gpu"] * cfg["gradient_accumulation_steps"]
+    batch = train_batch_of(model.vocab_size, rows, seed=0, seq=seq)  # every rank alike
+    t0 = time.perf_counter()
+    losses = [float(eng.train_batch(batch))]      # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))   # float() syncs
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: v for c in counters for k, v in c.items()}
+    res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
+           "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
+           "launches": launches,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "param_checksum": float(sum(float(p.detach().double().sum())
+                                       for p in tf.tree_leaves(eng.params))),
+           "finite": bool(np.all(np.isfinite(losses)))}
+    if rank == 0:
+        wall_ms, by_name, busy_ms, prof = profile_call(
+            lambda: eng.train_batch(batch))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        res["profile"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "collectives": comm_ms(prof),
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_ms": {n: sum(v for k, v in by_name.items()
+                                 if all(x in k for x in parts))
+                          for n, parts in PROFILE_NAMES.items()
+                          if n.startswith("ring") or n == "fused_adamw"},
+            "gemm_ms": sum(v for k, v in by_name.items()
+                           if any(x in k for x in ("gemm", "nvjet", "cutlass",
+                                                   "xmma"))),
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    else:
+        eng.train_batch(batch)    # the profiled step's partner
+    return res
+
+
+def phase_ring_reference(ds, tf_model, tf, launch):
+    """The ring engine in two ranks on the card (gloo, one card) against
+    the same engine in this process on the CPU at sp 1, fp32, at
+    llama3-8b's head geometry and a reduced width: loss and grad norm of
+    each of RING_REF_STEPS steps and the params after them to REF_RTOL
+    (summation order only), under both placements; each rank's launches."""
+    import numpy as np
+    import torch
+
+    model = tf_model.get_model_config(RING_MODEL, **RING_REF_MODEL)
+    cfg = {**RING_CFG, "bf16": {"enabled": False}}
+    host, *_ = ds.initialize(model=model, device="cpu", seed=2, config={
+        k: v for k, v in cfg.items() if k != "mesh"})
+    params = tf.tree_map_with_path(lambda _p, a: a.detach().clone(),
+                                   host.params)
+    rows = cfg["train_micro_batch_size_per_gpu"] * cfg["gradient_accumulation_steps"]
+    batch = train_batch_of(model.vocab_size, rows, seed=5, seq=RING_REF_SEQ)
+    want = []
+    for _ in range(RING_REF_STEPS):
+        want.append((float(host.train_batch(batch)),
+                     host.get_global_grad_norm()))
+    ranks = launch(ring_rank_reference, RING_RANKS,
+                   args=(RING_REF_MODEL, params, cfg, batch, RING_REF_STEPS),
+                   backend=RING_BACKEND, device="cuda")
+    # launches a rank: steps x gas x layers x live hops (contiguous rank 0
+    # skips its dead hop); one AdamW a step
+    per = RING_REF_STEPS * cfg["gradient_accumulation_steps"] * RING_REF_MODEL["num_layers"]
+    for placement in ("contiguous", "striped"):
+        got = [r[placement] for r in ranks]
+        worst = 0.0
+        for r in got:
+            for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]), want):
+                worst = max(worst, abs(lc - lh) / abs(lh), abs(gc - gh) / gh)
+        num = den = 0.0
+        for a, b in zip(tf.tree_leaves(got[0]["params"]),
+                        tf.tree_leaves(host.params)):
+            a, b = a.double(), b.detach().double()
+            num += float(((a - b) ** 2).sum())
+            den += float((b ** 2).sum())
+        params_rel = (num / den) ** 0.5
+        wants = []
+        for rank in range(RING_RANKS):
+            live = 1 if placement == "contiguous" and rank == 0 else 2
+            wants.append({**{k: 0 for k in got[rank]["launches"]},
+                          "ring_carry": per * live, "ring_bwd_dq": per * live,
+                          "ring_bwd_dkv": per * live,
+                          "fused_adamw": RING_REF_STEPS})
+        launches = [r["launches"] for r in got]
+        emit({"phase": "ring-reference", "model": RING_MODEL,
+              "overrides": RING_REF_MODEL, "dtype": "float32",
+              "placement": placement, "ranks": RING_RANKS,
+              "backend": RING_BACKEND, "seq": RING_REF_SEQ,
+              "micro": cfg["train_micro_batch_size_per_gpu"],
+              "gas": cfg["gradient_accumulation_steps"],
+              "steps": [{"loss_card": [r["losses"][i] for r in got],
+                         "loss_cpu": want[i][0],
+                         "grad_norm_card": [r["grad_norms"][i] for r in got],
+                         "grad_norm_cpu": want[i][1]}
+                        for i in range(RING_REF_STEPS)],
+              "check": "two ranks on the card (ring kernels, cuBLAS) vs one "
+                       "CPU process at sp 1 (plain flash attention)",
+              "max_rel_err_loss_grad_norm": worst,
+              "params_rel_l2": params_rel, "tolerance": REF_RTOL,
+              "launches_per_rank": launches, "expected_per_rank": wants})
+        if worst > REF_RTOL or params_rel > REF_RTOL:
+            fail(f"ring-reference ({placement}): the card's ranks differ "
+                 f"from the CPU: {worst}, {params_rel}")
+        if launches != wants:
+            fail(f"ring-reference ({placement}): launched {launches}, "
+                 f"expected {wants}")
+    del host, params, ranks
+    torch.cuda.empty_cache()
+
+
+def phase_ring_train(tf_model, launch, card):
+    """llama3-8b at full width, depth cut to RING_LAYERS, seq RING_SEQ over
+    RING_RANKS ranks sharing the card (gloo), striped, bf16, the
+    longseq_ring row's step: seconds a step, tokens/s for the card, peak
+    memory a rank, a profiled step on rank 0 with the time inside
+    ring_rotate and all_reduce (``comm_ms``), and each rank's launches a step, which must
+    be 2 layers x gas 2 x 2 live hops of each ring kernel, one AdamW and
+    nothing else."""
+    import numpy as np
+    import torch
+
+    model_kw = {"num_layers": RING_LAYERS, "seq_impl": "ring",
+                "ring_placement": "striped"}
+    model = tf_model.get_model_config(RING_MODEL, **model_kw)
+    gas = RING_CFG["gradient_accumulation_steps"]
+    live = RING_LAYERS * gas * 2
+    emit({"phase": "ring-backend", "backend": RING_BACKEND,
+          "why": "the ranks share one card, and NCCL refuses two ranks on "
+                 "one GPU; point-to-point buffers go through pinned host "
+                 "memory, every computation stays on the card"})
+    ranks = launch(ring_rank_train, RING_RANKS,
+                   args=(model_kw, RING_CFG, RING_SEQ, RING_STEPS),
+                   backend=RING_BACKEND, device="cuda")
+    rows = RING_CFG["train_micro_batch_size_per_gpu"] * gas
+    tokens = rows * RING_SEQ
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(RING_STEPS)]
+    want = {**{k: 0 for k in ranks[0]["launches"]},
+            "ring_carry": live, "ring_bwd_dq": live, "ring_bwd_dkv": live,
+            "fused_adamw": 1}
+    per_step = [{k: v / RING_STEPS for k, v in r["launches"].items()}
+                for r in ranks]
+    ok = (all(r["finite"] for r in ranks)
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks)
+          and all(r["param_checksum"] == ranks[0]["param_checksum"]
+                  for r in ranks)
+          and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+          and all(p == want for p in per_step))
+    n_params = count_params(model)
+    emit({"phase": "ring-train", "model": RING_MODEL,
+          "layers": RING_LAYERS, "params": n_params, "dtype": "bfloat16",
+          "placement": "striped", "ranks": RING_RANKS,
+          "backend": RING_BACKEND, "seq": RING_SEQ,
+          "seq_per_rank": RING_SEQ // RING_RANKS,
+          "micro": RING_CFG["train_micro_batch_size_per_gpu"], "gas": gas,
+          "optimizer": RING_CFG["optimizer"], "remat": "none",
+          "zero_stage": 1, "step_s": step_s,
+          "tokens_per_step": tokens, "tokens_per_s": tokens * RING_STEPS / sum(step_s),
+          "ranks_detail": [{k: v for k, v in r.items() if k != "profile"}
+                           for r in ranks],
+          "launches_per_step": per_step, "expected_per_step": want,
+          "card": card, "ok": ok})
+    prof = ranks[0]["profile"]
+    emit({"phase": "ring-train-profile",
+          "what": "one train_batch on rank 0 (rank 1 steps beside it)",
+          "collectives_note": "host time inside comm.ring_rotate and "
+                              "comm.all_reduce (every grad leaf, plus the "
+                              "loss sum and count once a micro-step); own "
+                              "= less this rank's compute kernels running",
+          **prof, "card": card})
+    if not ok:
+        fail("ring-train: losses not finite, not equal on the ranks or not "
+             "falling, params differ between ranks, or the launch counts do "
+             "not show the ring kernels")
+    return {k: ranks[0]["launches"][k]
+            for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}
+
+
+def count_params(model):
+    """Parameter count of a llama-class model (untied head, RMSNorm)."""
+    h, hd = model.hidden_size, model.dim_per_head
+    attn = h * model.num_heads * hd * 2 + 2 * h * model.kv_heads * hd
+    layer = attn + 3 * h * model.intermediate_size + 2 * h
+    return 2 * model.vocab_size * h + model.num_layers * layer + h
 
 
 def main() -> int:
@@ -1652,7 +2199,21 @@ def main() -> int:
     built6, fp6_launches = phase_linear_train(ds, lin, all_counters, smi, 6)
     built8, int8_launches = phase_linear_train(ds, lin, all_counters, smi, 8)
 
-    # 17. kernels line: each path's launches from its own run
+    # 17. ring kernels, 18. ring reference (two ranks on the card against
+    # the CPU), 19. ring training at llama3-8b width over two ranks.  The
+    # kernels are built above, before any rank starts (two ranks building
+    # at once would race), and this process frees its cache so that two
+    # ranks of ~30 GB fit beside it.
+    from deepspeed_tpu_torch.launcher import launch
+
+    ring_summary = phase_ring_kernels(fm)
+    phase_ring_reference(ds, tf_model, tf, launch)
+    torch.cuda.empty_cache()
+    emit({"phase": "ring-parent-memory",
+          "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    ring_train_launches = phase_ring_train(tf_model, launch, smi)
+
+    # 20. kernels line: each path's launches from its own run
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
     sources = {"paged_attention": csrc + "paged_attention.cu",
@@ -1668,7 +2229,10 @@ def main() -> int:
                "quantize": csrc + "quantize.cu",
                "dequantize": csrc + "quantize.cu",
                "fake_quantize": csrc + "quantize.cu",
-               "fp6_matmul": csrc + "fp6_linear.cu"}
+               "fp6_matmul": csrc + "fp6_linear.cu",
+               "ring_carry": csrc + "ring_attention.cu",
+               "ring_bwd_dq": csrc + "ring_attention.cu",
+               "ring_bwd_dkv": csrc + "ring_attention.cu"}
     replaces = {"paged_attention": pallas + "paged_attention.py:52",
                 "paged_attention_int8": pallas + "paged_attention.py:129",
                 "flash_fwd": pallas + "flash_mha.py:147",
@@ -1682,7 +2246,10 @@ def main() -> int:
                 "quantize": pallas + "quantize.py:78",
                 "dequantize": pallas + "quantize.py:125",
                 "fake_quantize": pallas + "quantize.py:158",
-                "fp6_matmul": pallas + "fp6_linear.py:132"}
+                "fp6_matmul": pallas + "fp6_linear.py:132",
+                "ring_carry": pallas + "flash_mha.py:471",
+                "ring_bwd_dq": pallas + "flash_mha.py:699",
+                "ring_bwd_dkv": pallas + "flash_mha.py:765"}
     also = {"flash_fwd": pallas + "flash_mha.py:286",
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
@@ -1694,15 +2261,20 @@ def main() -> int:
                   "quantize": built8["quantize"],
                   "dequantize": int8_launches["dequantize"],
                   "fake_quantize": fake_phase_launches,
-                  "fp6_matmul": fp6_launches["fp6_matmul"]}
+                  "fp6_matmul": fp6_launches["fp6_matmul"],
+                  **ring_train_launches}
     notes = {"quantize": "at construction of the q_bits 8 LoRAStack (one a "
                          "base); a train_batch launches none",
              "fake_quantize": "the linear-kernels phase's launches: the "
                               "training path does not run fake_quantize "
-                              "(ops.quantizer.fake_quantize, the QAT op)"}
+                              "(ops.quantizer.fake_quantize, the QAT op)",
+             **{k: f"rank 0 of {RING_RANKS} in the ring-train phase's "
+                   f"{RING_STEPS} timed steps (each rank launched as many); "
+                   f"times from the {RING_ROW_CASE} case"
+                for k in ring_train_launches}}
     entries = []
     for name, row in {**summary, **train_summary, **sparse_summary,
-                      **linear_summary}.items():
+                      **linear_summary, **ring_summary}.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name], "launches": launch_run[name],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],

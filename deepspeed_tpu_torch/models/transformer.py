@@ -11,10 +11,15 @@ Casts sit where the JAX code has them (``x @ w.to(dt)`` inside the
 differentiated function, no ``torch.autocast``), so bf16 rounds where it
 rounds in JAX and fp32 master leaves receive fp32 gradients.
 
+Ring sequence parallelism runs when a topology with a ``seq`` axis above
+one is passed (``topo``; the engine passes its own): each rank's forward
+takes its shard of the sequence, positions follow the ring placement, and
+attention goes through ``sequence/ring.py``.
+
 Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item: MoE layers and the ZeRO-3 fused gather-matmul, the ring and
-pipeline attention paths, parameter streaming, random-LTD, progressive
-layer drop and the sequence-tiled loss.
+item: MoE layers and the ZeRO-3 fused gather-matmul, Ulysses sequence
+parallelism and the pipeline path, parameter streaming, random-LTD,
+progressive layer drop and the sequence-tiled loss.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.utils.checkpoint
 
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.sequence import ring
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -165,10 +171,9 @@ class TransformerConfig:
     # applies the permutation host-side and forward() derives matching
     # positions, so training is turnkey (sequence/ring.py helpers).
     ring_placement: str = "contiguous"
-    # ring hop/compute interleave depth (step_schedule.ring_interleave;
-    # sequence/ring.py): 1 = attend then rotate, 2 = rotate-ahead (next
-    # hop's ppermute issued before the current hop's attend so the
-    # transfer overlaps the hop's kernels)
+    # ring hop/compute interleave depth (step_schedule.ring_interleave):
+    # 1 or 2, the JAX option; the port accepts both and runs attend then
+    # rotate (its rotations are synchronous, sequence/ring.py)
     ring_interleave: int = 1
     # ring rotation wire dtype (comm_quantization.ring_rotation; set by
     # the engine): "fp32" | "int8" | "fp8" — quantized payloads + fp32
@@ -555,7 +560,12 @@ def _sparse_attn(q, k, v, cfg: TransformerConfig):
     return sa.sparse_attention(q, k, v, sparsity, causal=cfg.causal)
 
 
-def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None):
+def _sp_size(topo) -> int:
+    return topo.sp_size if topo is not None else 1
+
+
+def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None,
+                topo=None):
     b, s, _h = x.shape
     nh, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     dt0 = x.dtype  # residual-stream dtype: restored at the block boundary
@@ -579,9 +589,33 @@ def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None):
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected one of "
                          f"{ATTN_IMPLS}")
-    # one device: no sequence-parallel world, so neither the ring nor the
-    # Ulysses exchange applies (the config rejects a "seq" axis above one)
-    if attention_mask is not None or cfg.use_alibi:
+    if _sp_size(topo) > 1:
+        if cfg.seq_impl != "ring":
+            raise NotImplementedError(
+                "Ulysses sequence parallelism is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP Queue A item 9); use "
+                "seq_impl='ring'")
+        # Ring attention: K/V blocks rotate the seq ring (nearest-neighbour
+        # point-to-point + online softmax)
+        if attention_mask is not None:
+            raise NotImplementedError(
+                "attention_mask + ring sequence parallelism not supported")
+        if cfg.use_alibi:
+            raise NotImplementedError(
+                "alibi + ring sequence parallelism not supported (the "
+                "ring hop has no score-bias lane yet)")
+        if cfg.attn_impl == "sparse":
+            raise NotImplementedError(
+                "attn_impl='sparse' + ring sequence parallelism not "
+                "supported (dense ring hops would silently replace the "
+                "block-sparse layout's semantics)")
+        out = ring.ring_attention(q, k, v, topo, causal=cfg.causal,
+                                  sm_scale=cfg.attn_scale,
+                                  window=cfg.sliding_window or None,
+                                  placement=cfg.ring_placement,
+                                  interleave=cfg.ring_interleave,
+                                  wire_dtype=cfg.ring_wire_dtype)
+    elif attention_mask is not None or cfg.use_alibi:
         if cfg.attn_impl == "sparse":
             raise NotImplementedError(
                 "attention_mask/alibi + attn_impl='sparse' not supported")
@@ -625,10 +659,11 @@ def _dropout(x, rate: float, seed: Optional[int]):
 
 def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
                       dropout_seed: Optional[int] = None,
-                      attention_mask=None):
+                      attention_mask=None, topo=None):
     """One transformer block: pre-norm, post-norm (BERT) or the parallel
     attention + MLP residual (Falcon/Phi).  ``dropout_seed``: this layer's
-    seed for residual dropout (None → off)."""
+    seed for residual dropout (None → off); ``topo``: the mesh topology
+    (a seq axis above one runs ring attention)."""
     def dk(i):
         return None if dropout_seed is None else _fold(dropout_seed, i)
 
@@ -636,13 +671,13 @@ def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
         n = _norm(x, layer_params["ln1"], cfg)
         n_mlp = _norm(x, layer_params["ln2"], cfg) if cfg.parallel_norms else n
         attn_out = _attn_block(n, layer_params["attn"], positions, cfg,
-                               attention_mask=attention_mask)
+                               attention_mask=attention_mask, topo=topo)
         y = _mlp_block(n_mlp, layer_params["mlp"], cfg)
         return x + _dropout(attn_out, cfg.dropout, dk(0)) \
             + _dropout(y, cfg.dropout, dk(1))
     if cfg.norm_position == "post":
         attn_out = _attn_block(x, layer_params["attn"], positions, cfg,
-                               attention_mask=attention_mask)
+                               attention_mask=attention_mask, topo=topo)
         x = _norm(x + _dropout(attn_out, cfg.dropout, dk(0)),
                   layer_params["ln1"], cfg)
         y = _mlp_block(x, layer_params["mlp"], cfg)
@@ -650,7 +685,7 @@ def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
                      layer_params["ln2"], cfg)
     attn_out = _attn_block(_norm(x, layer_params["ln1"], cfg),
                            layer_params["attn"], positions, cfg,
-                           attention_mask=attention_mask)
+                           attention_mask=attention_mask, topo=topo)
     x = x + _dropout(attn_out, cfg.dropout, dk(0))
     y = _mlp_block(_norm(x, layer_params["ln2"], cfg), layer_params["mlp"], cfg)
     return x + _dropout(y, cfg.dropout, dk(1))
@@ -703,18 +738,26 @@ def _embed(params: Params, input_ids, positions, cfg: TransformerConfig,
 def forward(params: Params, input_ids, cfg: TransformerConfig,
             positions=None, pld_theta=None, return_hidden: bool = False,
             token_embeds=None, dropout_seed: Optional[int] = None,
-            token_type_ids=None, attention_mask=None):
+            token_type_ids=None, attention_mask=None, topo=None):
     """Token ids [B, S] → logits [B, S, V].  A Python loop over the
     stacked layers takes the place of the JAX ``lax.scan``: each stacked
     leaf is unbound once into per-layer views, so its gradient is stacked
     once per backward.  ``dropout_seed``: per-micro-step seed enabling
-    ``cfg.dropout`` (None → off, the eval contract)."""
+    ``cfg.dropout`` (None → off, the eval contract).  ``topo``: the mesh
+    topology; with a seq axis above one, ``input_ids`` is this rank's
+    shard of the sequence (in the placement's order) and its positions
+    are the shard's global ones."""
     _forward_unsupported(cfg, pld_theta)
     b, s = input_ids.shape
     dt = cfg.dtype
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int64,
-                                 device=input_ids.device)[None, :].expand(b, s)
+        if _sp_size(topo) > 1 and cfg.seq_impl == "ring":
+            pos_row = ring.shard_positions(s, topo, cfg.ring_placement,
+                                           device=input_ids.device)
+        else:
+            pos_row = torch.arange(s, dtype=torch.int64,
+                                   device=input_ids.device)
+        positions = pos_row[None, :].expand(b, s)
     x = _embed(params, input_ids, positions, cfg, token_embeds,
                token_type_ids=token_type_ids)
     if dropout_seed is not None and cfg.dropout > 0:
@@ -731,7 +774,7 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
         step = _maybe_remat(
             lambda h, lp=lp, lcfg=lcfg, seed=seed: transformer_layer(
                 h, lp, positions, lcfg, dropout_seed=seed,
-                attention_mask=attention_mask), cfg)
+                attention_mask=attention_mask, topo=topo), cfg)
         x = step(x)
 
     if cfg.norm_position != "post":
@@ -766,10 +809,13 @@ def _nll_sum(logits32, labels_mb):
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
-            token_embeds=None):
+            token_embeds=None, topo=None, sum_count: bool = False):
     """Causal LM cross-entropy.  ``batch``: input_ids [B,S], labels [B,S]
     (-100 = ignore), optional loss_mask, token_type_ids, attention_mask
-    and dropout_seed, all tensors on the params' device."""
+    and dropout_seed, all tensors on the params' device.  ``topo``: as in
+    :func:`forward`.  ``sum_count``: return ``(token NLL sum, token
+    count)`` of this batch instead of their ratio, for a caller that
+    reduces both over the ranks of a sequence-parallel group."""
     labels = batch["labels"]
     mask = labels != -100
     if "loss_mask" in batch:
@@ -782,7 +828,10 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
                   pld_theta=batch.get("pld_theta"), token_embeds=token_embeds,
                   dropout_seed=batch.get("dropout_seed"),
                   token_type_ids=batch.get("token_type_ids"),
-                  attention_mask=batch.get("attention_mask"))
+                  attention_mask=batch.get("attention_mask"), topo=topo)
     lt = torch.float32 if op_fp32(cfg, "loss") else out.dtype
     labels_eff = torch.where(mask, labels, torch.full_like(labels, -100))
-    return _nll_sum(out.to(lt), labels_eff) / torch.clamp(mask.sum(), min=1)
+    nll = _nll_sum(out.to(lt), labels_eff)
+    if sum_count:
+        return nll, mask.sum()
+    return nll / torch.clamp(mask.sum(), min=1)

@@ -1,10 +1,11 @@
 // Tiled attention for training, Hopper: forward, backward dq, backward dk/dv.
 //
-// The kernels of flash_attention.cu (dense: causal and sliding-window masks)
-// and block_sparse_attention.cu (a DeepSpeed block layout) are the same tile
-// walk; they differ only in which tiles a block visits and which (query,
-// key) pairs inside a tile count.  A `Mask` policy, passed by value, gives
-// both:
+// The kernels of flash_attention.cu (dense: causal and sliding-window masks),
+// block_sparse_attention.cu (a DeepSpeed block layout) and
+// ring_attention.cu (one ring hop: causal/window on global positions given
+// by offsets and strides) are the same tile walk; they differ only in which
+// tiles a block visits and which (query, key) pairs inside a tile count.  A
+// `Mask` policy, passed by value, gives all three:
 //   k_begin(h, iq), k_end(h, iq), k_tile(t): the key tiles (t in
 //       [k_begin, k_end)) visited by query tile iq of query head h (fwd, dq);
 //   q_begin(h, ik), q_end(h, ik), q_tile(t): the query tiles visited by key
@@ -12,6 +13,14 @@
 //   ok(h, row, col): whether query row `row` sees key `col` (rows and
 //       columns at or past S never do).
 // Tiles are kTile = 64 rows on both sides.
+//
+// Accumulate mode (template flag ACC, the ring hops): the walk starts from
+// fp32 state in device memory and writes it back, in place, instead of
+// starting from zero and writing a finished result.  Forward: (m, l, acc)
+// seed the online softmax and are stored unnormalised (no division, no
+// lse); dq and dk/dv: the incoming fp32 buffers seed the accumulators and
+// receive the sums in fp32.  The arithmetic of a tile is the same in both
+// modes, and ACC = false compiles the code it always did.
 //
 // Arithmetic (the TPU kernels' blocked variants): fp32 scores, an online
 // softmax over 64-key tiles (forward), p = exp(s - lse) against the saved
@@ -119,6 +128,21 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
   }
 }
 
+// dst[r][:] (row length ldd) = fp32 row (row0 + r) of src for r < ROWS;
+// rows at or past S are zero.  Rows are D contiguous floats, 16-byte aligned.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ldd, const float* src,
+                                              long long row_stride, int row0, int S) {
+  constexpr int kVecs = D / 4;
+  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S)
+      val = *reinterpret_cast<const float4*>(src + static_cast<long long>(row0 + r) * row_stride + c);
+    *reinterpret_cast<float4*>(dst + r * ldd + c) = val;
+  }
+}
+
 // C[M x N] (fp32, row-major, ldc) = (acc ? C : 0) + A[M x K] . B[K x N] over
 // shared memory.  A_ROW: A(m, k) = A[m * lda + k], else A[k * lda + m];
 // B_ROW: B(k, n) = B[k * ldb + n], else B[n * ldb + k].
@@ -173,6 +197,11 @@ struct Acc {
   __device__ void zero() {
     for (int i = threadIdx.x; i < M * ldc; i += kThreads) c[i] = 0.f;
   }
+  // accumulate mode: start from fp32 rows row0.. of src (0 past S); the
+  // staging buffer is not needed, the accumulator is shared memory already
+  __device__ void seed(float*, int, const float* src, long long row_stride, int row0, int S) {
+    load_rows_f32<N, M>(c, ldc, src, row_stride, row0, S);
+  }
   template <int K, bool A_ROW, bool B_ROW>
   __device__ void mma(const T* A, int lda, const T* B, int ldb) {
     block_gemm<T, M, N, K, A_ROW, B_ROW>(A, lda, B, ldb, c, ldc, true);
@@ -190,6 +219,21 @@ struct Acc<bf16, M, N> {
   __device__ void zero() {
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) nvcuda::wmma::fill_fragment(f[i], 0.f);
+  }
+  // accumulate mode: fp32 rows row0.. of src (0 past S) through the free
+  // shared buffer buf [M x ld] into the fragments; buf is free again on return
+  __device__ void seed(float* buf, int ld, const float* src, long long row_stride, int row0,
+                       int S) {
+    load_rows_f32<N, M>(buf, ld, src, row_stride, row0, S);
+    __syncthreads();
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const int t = warp + i * kWarps;
+      nvcuda::wmma::load_matrix_sync(f[i], buf + (t / kTilesN) * 16 * ld + (t % kTilesN) * 16, ld,
+                                     nvcuda::wmma::mem_row_major);
+    }
+    __syncthreads();
   }
   template <int K, bool A_ROW, bool B_ROW>
   __device__ void mma(const bf16* A, int lda, const bf16* B, int ldb) {
@@ -226,9 +270,9 @@ struct Acc<bf16, M, N> {
 
 template <typename T> constexpr bool kRegAcc = std::is_same<T, bf16>::value;
 
-// Rows row0.. of an accumulator, rounded to T, into out (rows past S are
-// not stored); stage: a free shared buffer of [ROWS x ld] fp32.
-template <typename T, int D, int ROWS, typename A>
+// Rows row0.. of an accumulator, rounded to out's type T, into out (rows
+// past S are not stored); stage: a free shared buffer of [ROWS x ld] fp32.
+template <int D, int ROWS, typename A, typename T>
 __device__ __forceinline__ void store_acc(const A& acc, float* stage, int ld, T* out,
                                           long long row_stride, int row0, int S) {
   __syncthreads();  // every warp is done with the buffer the stage reuses
@@ -259,11 +303,14 @@ struct FwdLayout {
   }
 };
 
-template <typename T, int D, typename Mask>
+// ACC: m_io (in lse's slot), l_io [B, Hq, S] and acc_io (strides so, in
+// o's) carry the running state in and out; o is not written.
+template <typename T, int D, typename Mask, bool ACC = false>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                Strides so, int Hq, int Hkv, int S, float scale, Mask mask) {
+                T* __restrict__ o, float* __restrict__ lse, float* __restrict__ l_io,
+                float* __restrict__ acc_io, Strides sq, Strides sk, Strides sv, Strides so,
+                int Hq, int Hkv, int S, float scale, Mask mask) {
   using L = FwdLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   const int nq = (S + BQ - 1) / BQ;
@@ -289,10 +336,19 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
   load_tile<T, D, BQ>(qs, qb, sq.s, q0, S);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) os[i] = 0.f;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+  if constexpr (ACC) {
+    const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
+    load_rows_f32<D, BQ>(os, L::LDO, acc_io + b * so.b + h * so.h, so.s, q0, S);
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      m_s[r] = q0 + r < S ? lse[row_off + q0 + r] : kNegInf;
+      l_s[r] = q0 + r < S ? l_io[row_off + q0 + r] : 0.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) os[i] = 0.f;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      m_s[r] = kNegInf;
+      l_s[r] = 0.f;
+    }
   }
 
   const int t_end = mask.k_end(h, iq);
@@ -346,6 +402,21 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
   __syncthreads();
 
+  if constexpr (ACC) {
+    const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
+    float* ab = acc_io + b * so.b + h * so.h;
+    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      if (q0 + r < S) ab[static_cast<long long>(q0 + r) * so.s + c] = os[r * L::LDO + c];
+    }
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      if (q0 + r < S) {
+        lse[row_off + q0 + r] = m_s[r];
+        l_io[row_off + q0 + r] = l_s[r];
+      }
+    }
+    return;
+  }
   T* ob = o + b * so.b + h * so.h;
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -381,13 +452,15 @@ struct DqLayout {
   }
 };
 
-template <typename T, int D, typename Mask>
+// ACC: dq is fp32 and carries the running sum in and out.
+template <typename T, int D, typename Mask, bool ACC = false>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk,
-                   Strides sv, Strides sdo, Strides sdq, int Hq, int Hkv, int S, float scale,
-                   Mask mask) {
+                   const float* __restrict__ delta,
+                   typename std::conditional<ACC, float, T>::type* __restrict__ dq, Strides sq,
+                   Strides sk, Strides sv, Strides sdo, Strides sdq, int Hq, int Hkv, int S,
+                   float scale, Mask mask) {
   using L = DqLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
   const int nq = (S + BQ - 1) / BQ;
@@ -414,7 +487,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   load_tile<T, D, BQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
   load_rows(lse_s, lse + row_off, q0, BQ, S);
   load_rows(dl_s, delta + row_off, q0, BQ, S);
-  dq_acc.zero();
+  if constexpr (ACC)
+    dq_acc.seed(ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);  // ss is free yet
+  else
+    dq_acc.zero();
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
 
@@ -439,7 +515,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     dq_acc.template mma<BK, true, true>(dss, L::LDP, ks, L::LDT);
   }
   // the score buffers are free: stage dq over them
-  store_acc<T, D, BQ>(dq_acc, ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
+  store_acc<D, BQ>(dq_acc, ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
 }
 
 // ---------------------------------------------------------------------------
@@ -464,11 +540,14 @@ struct DkvLayout {
 
 // bf16 at d = 64 fits two blocks' shared memory on an SM; ask ptxas for the
 // registers to match (<= 128 a thread)
-template <typename T, int D, typename Mask>
+// ACC: dk and dv are fp32 and carry the running sums in and out.
+template <typename T, int D, typename Mask, bool ACC = false>
 __global__ void __launch_bounds__(kThreads, kRegAcc<T> && D == 64 ? 2 : 1)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                    const float* __restrict__ delta,
+                    typename std::conditional<ACC, float, T>::type* __restrict__ dk,
+                    typename std::conditional<ACC, float, T>::type* __restrict__ dv,
                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                     int Hq, int Hkv, int S, float scale, Mask mask) {
   using L = DkvLayout<T, D>;
@@ -495,8 +574,13 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   load_tile<T, D, BK>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
   load_tile<T, D, BK>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
-  dk_acc.zero();
-  dv_acc.zero();
+  if constexpr (ACC) {  // the score buffers are free yet: stage through them
+    dk_acc.seed(ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
+    dv_acc.seed(ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
+  } else {
+    dk_acc.zero();
+    dv_acc.zero();
+  }
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
@@ -532,21 +616,22 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     }
   }
   // the score buffers are free: stage dk, then dv, over them
-  store_acc<T, D, BK>(dk_acc, ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
-  store_acc<T, D, BK>(dv_acc, ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
+  store_acc<D, BK>(dk_acc, ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
+  store_acc<D, BK>(dv_acc, ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 // The operands of one call.  strides: (b, h, s) of each [B, H, S, D]
-// operand in order (q, k, v, then o for the forward, do and dq for dq, do,
-// dk and dv for dk/dv).
+// operand in order (q, k, v, then o (acc in accumulate mode) for the
+// forward, do and dq for dq, do, dk and dv for dk/dv).  Accumulate mode:
+// lse_out is m, l_io is l, dq/dk/dv are fp32.
 struct AttnCall {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
   void *o, *dq, *dk, *dv;
-  float* lse_out;
+  float *lse_out, *l_io, *acc_io;
   const long long* st;
   int B, Hq, Hkv, S;
   float scale;
@@ -578,45 +663,47 @@ cudaError_t allow_smem(Kernel kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, typename Mask>
+template <typename T, int D, typename Mask, bool ACC>
 int launch_fwd(const AttnCall& a, Mask mask) {
   using L = FwdLayout<T, D>;
-  auto kern = attn_fwd_kernel<T, D, Mask>;
+  auto kern = attn_fwd_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + L::BQ - 1) / L::BQ, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.lse_out, a.at(0), a.at(1), a.at(2), a.at(3), a.Hq, a.Hkv, a.S,
-      a.scale, mask);
+      static_cast<T*>(a.o), a.lse_out, a.l_io, a.acc_io, a.at(0), a.at(1), a.at(2), a.at(3),
+      a.Hq, a.Hkv, a.S, a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, typename Mask>
+template <typename T, int D, typename Mask, bool ACC>
 int launch_bwd_dq(const AttnCall& a, Mask mask) {
   using L = DqLayout<T, D>;
-  auto kern = attn_bwd_dq_kernel<T, D, Mask>;
+  using Out = typename std::conditional<ACC, float, T>::type;
+  auto kern = attn_bwd_dq_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + L::BQ - 1) / L::BQ, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.dq), a.at(0), a.at(1),
-      a.at(2), a.at(3), a.at(4), a.Hq, a.Hkv, a.S, a.scale, mask);
+      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dq), a.at(0),
+      a.at(1), a.at(2), a.at(3), a.at(4), a.Hq, a.Hkv, a.S, a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, typename Mask>
+template <typename T, int D, typename Mask, bool ACC>
 int launch_bwd_dkv(const AttnCall& a, Mask mask) {
   using L = DkvLayout<T, D>;
-  auto kern = attn_bwd_dkv_kernel<T, D, Mask>;
+  using Out = typename std::conditional<ACC, float, T>::type;
+  auto kern = attn_bwd_dkv_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + L::BK - 1) / L::BK, a.Hkv, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.at(0), a.at(1), a.at(2), a.at(3), a.at(4), a.at(5), a.Hq, a.Hkv,
+      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dk),
+      static_cast<Out*>(a.dv), a.at(0), a.at(1), a.at(2), a.at(3), a.at(4), a.at(5), a.Hq, a.Hkv,
       a.S, a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
@@ -626,8 +713,8 @@ enum class Role { kFwd, kBwdDq, kBwdDkv };
 template <typename T> struct Tag { using type = T; };
 
 // Check the shape, then launch `role` for dtype code (0 = float32,
-// 1 = bfloat16) and head_dim D (64 or 128).
-template <typename Mask>
+// 1 = bfloat16) and head_dim D (64 or 128); ACC: accumulate mode.
+template <bool ACC = false, typename Mask>
 int launch(Role role, int dtype, int D, const AttnCall& a, Mask mask) {
   if (a.B < 0 || a.S < 0 || a.Hkv <= 0 || a.Hq <= 0 || a.Hq % a.Hkv != 0 ||
       (D != 64 && D != 128) || (dtype != 0 && dtype != 1))
@@ -637,9 +724,9 @@ int launch(Role role, int dtype, int D, const AttnCall& a, Mask mask) {
     using T = typename decltype(t)::type;
     constexpr int kD = decltype(d)::value;
     switch (role) {
-      case Role::kFwd: return launch_fwd<T, kD>(a, mask);
-      case Role::kBwdDq: return launch_bwd_dq<T, kD>(a, mask);
-      default: return launch_bwd_dkv<T, kD>(a, mask);
+      case Role::kFwd: return launch_fwd<T, kD, Mask, ACC>(a, mask);
+      case Role::kBwdDq: return launch_bwd_dq<T, kD, Mask, ACC>(a, mask);
+      default: return launch_bwd_dkv<T, kD, Mask, ACC>(a, mask);
     }
   };
   using D64 = std::integral_constant<int, 64>;

@@ -21,6 +21,16 @@ tiles, so kernel and plain version differ in summation order only.  The
 JAX **resident** kernel rounds ``p`` against the global row max instead of
 the running one, so against it bf16 results differ by p's rounding.
 
+The ring-attention hop kernels of the same TPU file (``_carry_kernel``,
+``_ring_dq_kernel``, ``_ring_dkv_kernel`` behind ``flash_carry_block``,
+``flash_ring_dq_block`` and ``flash_ring_dkv_block``) are the same tile
+walk in accumulate mode, under a mask on global positions ``off + stride
+· i``: their wrappers below launch ``ring_carry``, ``ring_bwd_dq`` and
+``ring_bwd_dkv`` of ``ops/csrc/ring_attention.cu`` on CUDA tensors, and
+their plain versions run the per-hop math of the JAX ring's XLA path
+(``sequence/ring.py`` ``_ring_fwd_xla``/``_ring_bwd_xla``) over the same
+key tiles on CPU tensors.  Each updates its fp32 state in place.
+
 Layout contract (the JAX function's): q is ``[B, Hq, S, D]``, k/v are
 ``[B, Hkv, S, D]`` with Hq a multiple of Hkv; the kernels read any such
 view whose last dim is contiguous (the model hands them transposed
@@ -47,14 +57,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # ----------------------------------------------------------------------
 # plain versions (CPU tensors; the card's reference in chip_smoke.py)
 # ----------------------------------------------------------------------
+# global positions of (query rows, key cols): (q_off, q_stride, k_off,
+# k_stride), row r at q_off + q_stride·r; one sequence: rows and cols alike
+SAME_BLOCK = (0, 1, 0, 1)
+
+
 def _valid(s_real: int, k0: int, k1: int, causal: bool,
-           window: Optional[int], device, mask=None) -> torch.Tensor:
-    """[S, k1-k0] validity of (query row, key col) pairs of one key tile;
-    ``mask``: a [Hkv, group, S, S] token mask (a block-sparse layout's) to
-    compose on top, making the result [Hkv, group, S, k1-k0]."""
-    rows = torch.arange(s_real, device=device)[:, None]
+           window: Optional[int], device, mask=None,
+           pos=SAME_BLOCK) -> torch.Tensor:
+    """[S, k1-k0] validity of (query row, key col) pairs of one key tile,
+    causal and window tested on the positions ``pos`` gives; ``mask``: a
+    [Hkv, group, S, S] token mask (a block-sparse layout's) to compose on
+    top, making the result [Hkv, group, S, k1-k0]."""
+    q_off, q_stride, k_off, k_stride = pos
+    rows = q_off + q_stride * torch.arange(s_real, device=device)[:, None]
     cols = torch.arange(k0, k1, device=device)[None, :]
     valid = cols < s_real
+    cols = k_off + k_stride * cols
     if causal:
         valid = valid & (cols <= rows)
     if window is not None:
@@ -87,14 +106,27 @@ def flash_fwd_ref(q, k, v, causal: bool, sm_scale: float,
     hkv = k.shape[1]
     g = hq // hkv
     dev = q.device
-    mask = _group_mask(mask, hkv)
-    qf = q.float().reshape(b, hkv, g, s, d)
     m = torch.full((b, hkv, g, s, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, s, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, s, d), dtype=torch.float32, device=dev)
+    m, l, acc = _fwd_walk(q, k, v, m, l, acc, causal, sm_scale, window,
+                          _group_mask(mask, hkv))
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    o = (acc / safe_l).to(q.dtype).reshape(b, hq, s, d)
+    return o, (m + torch.log(safe_l)).reshape(b, hq, s)
+
+
+def _fwd_walk(q, k, v, m, l, acc, causal, sm_scale, window, mask=None,
+              pos=SAME_BLOCK):
+    """The forward's online softmax over ``BLOCK_K``-key tiles from the
+    running ``(m, l, acc)`` ([B, Hkv, group, S, 1|D] fp32); returns them
+    updated, unnormalised."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, s, d)
     for k0 in range(0, s, BLOCK_K):
         k1 = min(k0 + BLOCK_K, s)
-        valid = _valid(s, k0, k1, causal, window, dev, mask)
+        valid = _valid(s, k0, k1, causal, window, q.device, mask, pos)
         sc = torch.einsum("bhgsd,bhkd->bhgsk", qf, k[:, :, k0:k1].float())
         sc = torch.where(valid, sc * sm_scale, NEG_INF)
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
@@ -105,14 +137,13 @@ def flash_fwd_ref(q, k, v, causal: bool, sm_scale: float,
                           v[:, :, k0:k1].float())
         acc = acc * alpha + pv
         m = m_new
-    safe_l = torch.where(l > 0, l, torch.ones_like(l))
-    o = (acc / safe_l).to(q.dtype).reshape(b, hq, s, d)
-    return o, (m + torch.log(safe_l)).reshape(b, hq, s)
+    return m, l, acc
 
 
-def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window, mask):
-    """The backward's key-tile walk shared by the two plain versions:
-    yields ``(k0, k1, kt, p, ds)`` per tile, p and ds fp32
+def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window, mask,
+               pos=SAME_BLOCK):
+    """The backward's key-tile walk shared by the plain versions: yields
+    ``(k0, k1, kt, p, ds)`` per tile, p and ds fp32
     [B, Hkv, group, S, tile] with masked entries zero."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -125,7 +156,7 @@ def _bwd_tiles(q, k, v, do, lse, delta, causal, sm_scale, window, mask):
     for k0 in range(0, s, BLOCK_K):
         k1 = min(k0 + BLOCK_K, s)
         kt, vt = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
-        valid = _valid(s, k0, k1, causal, window, q.device, mask)
+        valid = _valid(s, k0, k1, causal, window, q.device, mask, pos)
         sc = torch.einsum("bhgsd,bhkd->bhgsk", qf, kt)
         sc = torch.where(valid, sc * sm_scale, NEG_INF)
         p = torch.where(valid, torch.exp(sc - lse_), 0.0)
@@ -339,6 +370,56 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
                                window))
 
 
+def ring_carry_ref(q, k, v, m, l, acc, pos, causal: bool, sm_scale: float,
+                   window: Optional[int] = None):
+    """Plain version of ``ring_carry``: one ring hop's online-softmax update
+    of the running ``m, l`` ([B, Hq, S] fp32) and ``acc`` ([B, Hq, S, D]
+    fp32) against the visiting K/V block, in place, unnormalised; ``pos``:
+    the hop's ``(q_off, q_stride, k_off, k_stride)``."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    m5, l5, acc5 = _fwd_walk(q, k, v, m.reshape(b, hkv, g, s, 1),
+                             l.reshape(b, hkv, g, s, 1),
+                             acc.reshape(b, hkv, g, s, d), causal, sm_scale,
+                             window, pos=pos)
+    m.copy_(m5.reshape(m.shape))
+    l.copy_(l5.reshape(l.shape))
+    acc.copy_(acc5.reshape(acc.shape))
+    return m, l, acc
+
+
+def ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal: bool,
+                    sm_scale: float, window: Optional[int] = None):
+    """Plain version of ``ring_bwd_dq``: adds one hop's dq, key tile by key
+    tile, into the fp32 ``dq`` [B, Hq, S, D] in place."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    dq5 = dq.view(b, hkv, hq // hkv, s, d)
+    for _k0, _k1, kt, _p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
+                                           sm_scale, window, None, pos):
+        dq5 += torch.einsum("bhgsk,bhkd->bhgsd", ds.to(k.dtype).float(), kt)
+    return dq
+
+
+def ring_bwd_dkv_ref(q, k, v, do, lse, delta, dk, dv, pos, causal: bool,
+                     sm_scale: float, window: Optional[int] = None):
+    """Plain version of ``ring_bwd_dkv``: adds the visiting block's dk and
+    dv, summed over each KV head's group, into the fp32 ``dk``/``dv``
+    [B, Hkv, S, D] in place."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qf = q.float().reshape(b, hkv, hq // hkv, s, d)
+    dof = do.float().reshape(b, hkv, hq // hkv, s, d)
+    for k0, k1, _kt, p, ds in _bwd_tiles(q, k, v, do, lse, delta, causal,
+                                         sm_scale, window, None, pos):
+        dv[:, :, k0:k1] += torch.einsum("bhgsk,bhgsd->bhkd",
+                                        p.to(do.dtype).float(), dof)
+        dk[:, :, k0:k1] += torch.einsum("bhgsk,bhgsd->bhkd",
+                                        ds.to(q.dtype).float(), qf)
+    return dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom VJP of the JAX function: the forward saves
     ``(q, k, v, o, lse)`` and the backward never reruns the forward."""
@@ -372,3 +453,123 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
 
 
 flash_mha.launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+# ----------------------------------------------------------------------
+# ring-attention hop wrappers (the JAX flash_carry_block /
+# flash_ring_dq_block / flash_ring_dkv_block)
+# ----------------------------------------------------------------------
+ring_launches = {"ring_carry": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
+
+
+def _ring_lib():
+    from deepspeed_tpu_torch.ops import op_builder
+
+    lib = op_builder.load("ring_attention")
+    if not getattr(lib, "_bound", False):
+        tail = [_STRIDES] + [_I] * 5 + [_F] + [_I] * 6 + [_P]
+        lib.ring_carry.argtypes = [_I] + [_P] * 6 + tail
+        lib.ring_bwd_dq.argtypes = [_I] + [_P] * 7 + tail
+        lib.ring_bwd_dkv.argtypes = [_I] + [_P] * 8 + tail
+        for fn in (lib.ring_carry, lib.ring_bwd_dq, lib.ring_bwd_dkv):
+            fn.restype = _I
+        lib._bound = True
+    return lib
+
+
+def _check_state(q, heads: int, *tensors, rows_only=False):
+    """The ring kernels' fp32 state: contiguous fp32 on q's device,
+    [B, heads, S] (``rows_only``) or [B, heads, S, D]."""
+    b, _, s, d = q.shape
+    want = (b, heads, s) if rows_only else (b, heads, s, d)
+    for x in tensors:
+        if (x.dtype != torch.float32 or tuple(x.shape) != want
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"ring state {tuple(x.shape)} {x.dtype}: "
+                             f"expected contiguous fp32 {want} on {q.device}")
+
+
+def _ring_args(q, k, pos, causal, sm_scale, window):
+    b, hq, s, d = q.shape
+    q_off, q_stride, k_off, k_stride = (int(x) for x in pos)
+    if q_stride <= 0 or k_stride <= 0:
+        raise ValueError(f"position strides must be positive, got {pos}")
+    last = max(q_off + q_stride * s, k_off + k_stride * s)
+    if min(q_off, k_off) < 0 or last >= 2 ** 31:
+        raise ValueError(f"positions {pos} over {s} rows leave the kernels' "
+                         "32-bit range")
+    return (b, hq, k.shape[1], s, d, float(sm_scale), int(bool(causal)),
+            int(window or 0), q_off, k_off, q_stride, k_stride,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_carry_block(q, k, v, m, l, acc, pos, causal: bool = True,
+                      sm_scale: Optional[float] = None,
+                      window: Optional[int] = None):
+    """One ring hop, forward: update the running ``m, l`` ([B, Hq, S]
+    fp32) and ``acc`` ([B, Hq, S, D] fp32) against the visiting block
+    ``k/v [B, Hkv, S, D]`` in place, unnormalised.  ``pos = (q_off,
+    q_stride, k_off, k_stride)``: the global position of query row r is
+    ``q_off + q_stride·r``, of key col c ``k_off + k_stride·c``.  CPU
+    tensors take the plain version, CUDA tensors the ``ring_carry``
+    kernel.  Returns ``(m, l, acc)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return ring_carry_ref(q, k, v, m, l, acc, pos, causal, scale, window)
+    _check_cuda(q, k, v)
+    _check_state(q, q.shape[1], m, l, rows_only=True)
+    _check_state(q, q.shape[1], acc)
+    err = _ring_lib().ring_carry(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _strides(q, k, v, acc),
+        *_ring_args(q, k, pos, causal, scale, window))
+    _raise_on(err, "ring_carry")
+    ring_launches["ring_carry"] += 1
+    return m, l, acc
+
+
+def flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal: bool = True,
+                        sm_scale: Optional[float] = None,
+                        window: Optional[int] = None):
+    """One ring hop, backward dq side: add the hop's dq against the
+    visiting block into the fp32 ``dq`` [B, Hq, S, D] in place, from the
+    shard's final ``lse`` and ``delta`` ([B, Hq, S] fp32).  ``pos`` as in
+    :func:`flash_carry_block`.  CPU tensors take the plain version, CUDA
+    tensors the ``ring_bwd_dq`` kernel.  Returns ``dq``."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal,
+                               scale, window)
+    _check_cuda(q, k, v, do, lse, delta)
+    _check_state(q, q.shape[1], dq)
+    err = _ring_lib().ring_bwd_dq(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), *_ring_args(q, k, pos, causal, scale,
+                                               window))
+    _raise_on(err, "ring_bwd_dq")
+    ring_launches["ring_bwd_dq"] += 1
+    return dq
+
+
+def flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos,
+                         causal: bool = True, sm_scale: Optional[float] = None,
+                         window: Optional[int] = None):
+    """One ring hop, backward dk/dv side: add the visiting block's dk and
+    dv into the traveling fp32 ``dk/dv`` [B, Hkv, S, D] in place.  ``pos``
+    as in :func:`flash_carry_block`.  CPU tensors take the plain version,
+    CUDA tensors the ``ring_bwd_dkv`` kernel.  Returns ``(dk, dv)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return ring_bwd_dkv_ref(q, k, v, do, lse, delta, dk, dv, pos, causal,
+                                scale, window)
+    _check_cuda(q, k, v, do, lse, delta)
+    _check_state(q, k.shape[1], dk, dv)
+    err = _ring_lib().ring_bwd_dkv(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _strides(q, k, v, do, dk, dv),
+        *_ring_args(q, k, pos, causal, scale, window))
+    _raise_on(err, "ring_bwd_dkv")
+    ring_launches["ring_bwd_dkv"] += 1
+    return dk, dv

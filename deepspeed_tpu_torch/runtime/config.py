@@ -1,10 +1,12 @@
 """DeepSpeed JSON config → typed config objects, for the port's training path.
 
-Port of ``deepspeed_tpu/runtime/config.py`` over the keys the one-GPU
-training path reads: the batch triple, ``optimizer``, ``scheduler``,
-``bf16``, ``gradient_clipping``, ``zero_optimization.stage``,
-``activation_checkpointing.remat_policy``, ``steps_per_print``, ``seed``
-and ``dataloader_drop_last``.  Those keys get the JAX config's rejections
+Port of ``deepspeed_tpu/runtime/config.py`` over the keys the training
+path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
+``gradient_clipping``, ``zero_optimization.stage``,
+``activation_checkpointing.remat_policy``, ``steps_per_print``, ``seed``,
+``dataloader_drop_last``, the ``mesh``'s ``seq`` axis (or
+``sequence_parallel_size``; every other axis 1) and
+``step_schedule.ring_interleave``.  Those keys get the JAX config's rejections
 (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO stage
 outside [0, 3], fp16 together with bf16).  A key that turns on a feature
 the port has not got yet raises ``NotImplementedError`` naming the ROADMAP
@@ -155,7 +157,6 @@ def _enabled(block) -> bool:
 _UNPORTED_BLOCKS = {
     "torch_autocast": (_enabled, "Queue A item 3 (torch_autocast)"),
     "comm_quantization": (_enabled, "Queue A item 8"),
-    "step_schedule": (lambda b: bool(b), "Queue A item 8"),
     "sparse_gradients": (bool, "Queue A item 11"),
     "compression_training": (lambda b: bool(b), "Queue A item 11"),
     "data_efficiency": (_enabled, "Queue A item 11"),
@@ -171,29 +172,66 @@ _UNPORTED_BLOCKS = {
 }
 
 
-def _check_world(d: Dict[str, Any]) -> None:
-    """The port trains on one device: any mesh axis, tensor, pipeline,
-    sequence or expert parallel size above one raises."""
-    mesh = d.get(C.MESH) or {}
+@dataclass
+class StepScheduleConfig:
+    """``step_schedule``: the port reads ``ring_interleave`` (1 or 2, the
+    JAX ring's hop order; accepted, and the port's ring runs attend then
+    rotate for both, ``sequence/ring.py``); any other key of the block
+    raises."""
+    ring_interleave: int = 1
+
+    RING_INTERLEAVES = (1, 2)
+
+    def __post_init__(self):
+        if int(self.ring_interleave) not in self.RING_INTERLEAVES:
+            raise DeepSpeedConfigError(
+                f"step_schedule.ring_interleave must be one of "
+                f"{list(self.RING_INTERLEAVES)}, got {self.ring_interleave}")
+        self.ring_interleave = int(self.ring_interleave)
+
+
+def _step_schedule(block) -> StepScheduleConfig:
+    block = dict(block or {})
+    other = sorted(k for k in block if k != "ring_interleave")
+    if other:
+        raise not_ported(f"step_schedule keys {other}", "Queue A item 8")
+    return StepScheduleConfig(**block)
+
+
+def _check_world(d: Dict[str, Any]) -> int:
+    """The port's one parallel axis above one is ``seq`` (ring sequence
+    parallelism; ``sequence_parallel_size`` stands for it when the mesh
+    does not name it, as in the JAX config).  Any other mesh axis, tensor,
+    pipeline or expert parallel size above one raises.  Returns the seq
+    axis size."""
+    mesh = dict(d.get(C.MESH) or {})
+    if "seq" not in mesh and d.get(C.SEQUENCE_PARALLEL_SIZE):
+        mesh["seq"] = int(d[C.SEQUENCE_PARALLEL_SIZE])
+    seq = int(mesh.pop("seq", 1))
+    if seq < 1:
+        raise DeepSpeedConfigError(f"mesh.seq must be >= 1, got {seq}")
     sizes = {k: v for k, v in mesh.items() if v not in (1, -1)}
+    if "data" in sizes:
+        raise not_ported(f"a data-parallel mesh axis above one ({sizes})",
+                         "Queue A item 4")
     tp = d.get(C.TENSOR_PARALLEL) or {}
     for key, size in (("tensor_parallel", tp.get("autotp_size",
                                                  tp.get("tp_size", 1))),
                       ("pipeline", (d.get(C.PIPELINE) or {}).get("stages", 1)),
-                      (C.SEQUENCE_PARALLEL_SIZE,
-                       d.get(C.SEQUENCE_PARALLEL_SIZE, 1)),
                       (C.EXPERT_PARALLEL_SIZE,
                        d.get(C.EXPERT_PARALLEL_SIZE, 1))):
         if (size or 1) > 1:
             sizes[key] = size
     if sizes:
         raise not_ported(f"a device mesh or parallel world above one "
-                         f"({sizes})", "Queue A items 4, 9 and 10")
+                         f"({sizes})", "Queue A items 4 and 10")
+    return seq
 
 
 class DeepSpeedConfig:
     """Parsed and validated config (JSON path or dict).  The data-parallel
-    world is one device, so ``train_batch_size == micro * gas``."""
+    world is one device (the ranks of a seq axis share each batch row), so
+    ``train_batch_size == micro * gas``."""
 
     world_size = 1
 
@@ -237,7 +275,8 @@ class DeepSpeedConfig:
         self.activation_checkpointing = _from_dict(
             ActivationCheckpointingConfig, d.get(C.ACTIVATION_CHECKPOINTING),
             "activation_checkpointing")
-        _check_world(d)
+        self.seq_parallel_size: int = _check_world(d)
+        self.step_schedule = _step_schedule(d.get("step_schedule"))
         for key, (on, item) in _UNPORTED_BLOCKS.items():
             if key in d and on(d[key]):
                 raise not_ported(f"the '{key}' block", item)

@@ -23,10 +23,19 @@ The ``bf16`` flag sets the built-in model's compute dtype; a duck-typed
 trainable chooses its own, as in the JAX engine, and the flag is logged
 as ignored for it.
 
+Ring sequence parallelism (``{"mesh": {"seq": N}}`` with a built-in
+model of ``seq_impl="ring"``): every rank of the seq process group (which
+the launcher initialised) takes the same global batch, as the JAX engine
+does, keeps its shard of the sequence (striped first under
+``ring_placement="striped"``, as ``_maybe_stripe_ring``), runs its shard's
+forward and backward with attention around the ring, all-reduces each
+micro-step's token NLL sum and count and, before clipping, the fp32
+gradients over the group, and steps the same replicated params.
+
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
 trio, telemetry and the watchdog, checkpoints, fp16 loss scaling, ZeRO
 stage 2 and 3, offload, and data-parallel worlds above one device.  ZeRO
-stage 1 on one device equals stage 0 and runs.
+stage 1 without a data-parallel world equals stage 0 and runs.
 """
 
 from __future__ import annotations
@@ -36,19 +45,25 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import transformer as tf_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     tree_leaves,
                                                     tree_map_with_path)
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.parallel.topology import MeshTopology
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
                                                       build_lr_schedule,
                                                       constant_lr)
 from deepspeed_tpu_torch.runtime.optimizers import Optimizer, build_optimizer
+from deepspeed_tpu_torch.sequence.ring import stripe_sequence
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 Batch = Dict[str, Any]
+# batch keys with a sequence axis: striped and sharded over a seq axis
+SEQ_KEYS = ("input_ids", "labels", "loss_mask", "attention_mask",
+            "token_type_ids", "position_ids")
 
 
 def _as_array(v):
@@ -88,6 +103,18 @@ class DeepSpeedEngine:
         self.train_batch_size_value = cfg.train_batch_size
         self.seed = seed if seed is not None else cfg.seed
 
+        # -- the seq axis: ring sequence parallelism over the process group
+        # the launcher initialised ---------------------------------------
+        if cfg.seq_parallel_size > 1:
+            if not builtin:
+                raise not_ported("a seq mesh axis with a duck-typed "
+                                 "trainable", "Queue A item 9")
+            if model.seq_impl != "ring":
+                raise not_ported(f"seq_impl={model.seq_impl!r} (Ulysses) "
+                                 "over a seq axis above one",
+                                 "Queue A item 9")
+        self.topology = MeshTopology({"seq": cfg.seq_parallel_size})
+
         # -- model: compute dtype from the precision block, remat policy
         # from activation_checkpointing (the JAX engine's rule) ----------
         if builtin:
@@ -96,6 +123,8 @@ class DeepSpeedEngine:
             ac = cfg.activation_checkpointing
             if ac.partition_activations or ac.remat_policy != "nothing_saveable":
                 mc = mc.replace(remat_policy=ac.remat_policy)
+            if cfg.step_schedule.ring_interleave > 1 and mc.seq_impl == "ring":
+                mc = mc.replace(ring_interleave=cfg.step_schedule.ring_interleave)
             self.model_config = mc
             self._loss_fn = lambda params, batch: tf_model.loss_fn(params,
                                                                    batch, mc)
@@ -173,6 +202,45 @@ class DeepSpeedEngine:
         return {k: torch.as_tensor(_as_array(v)).to(self.device)
                 for k, v in batch.items()}
 
+    def _seq_shard(self, batch: Batch, seq_axis: int) -> Batch:
+        """This rank's shard of the sequence keys of a global batch,
+        striped first under striped ring placement (the JAX engine's
+        ``_maybe_stripe_ring``, then its seq sharding)."""
+        sp, rank = self.topology.sp_size, self.topology.sp_rank
+        if sp <= 1:
+            return batch
+        s = np.shape(batch["input_ids"])[seq_axis]
+        if s % sp:
+            raise ValueError(f"sequence length {s} not divisible by the seq "
+                             f"axis {sp}")
+        s_l = s // sp
+        cut = (slice(None),) * seq_axis + (slice(rank * s_l, (rank + 1) * s_l),)
+        striped = self.model_config.ring_placement == "striped"
+        out = dict(batch)
+        for k in SEQ_KEYS:
+            v = out.get(k)
+            if v is not None and np.ndim(v) > seq_axis \
+                    and np.shape(v)[seq_axis] == s:
+                if striped:
+                    v = stripe_sequence(v, sp, axis=seq_axis)
+                out[k] = v[cut]
+        return out
+
+    def _micro_loss(self, mb: Batch):
+        """The micro-batch loss to differentiate.  Over a seq axis each
+        rank's share of the global token mean: its NLL sum over the token
+        count all-reduced with the sum (so the summed grads are the global
+        mean's); returns ``(loss to differentiate, global mean loss)``."""
+        if self.topology.sp_size <= 1:
+            loss = self._loss_fn(self.params, mb)
+            return loss, loss.detach().float()
+        nll, count = tf_model.loss_fn(self.params, mb, self.model_config,
+                                      topo=self.topology, sum_count=True)
+        tot = torch.stack([nll.detach().float(), count.float()])
+        comm.all_reduce(tot, self.topology.seq_group)
+        denom = torch.clamp(tot[1], min=1)
+        return nll / denom, tot[0] / denom
+
     def _dropout_seeds(self, gas: int):
         """Per-micro-step dropout seeds when the built-in model trains with
         dropout (the JAX engine's per-step PRNG keys); None otherwise."""
@@ -195,14 +263,17 @@ class DeepSpeedEngine:
             mb = self._to_device({k: v[i] for k, v in batch_stack.items()})
             if seeds is not None:
                 mb["dropout_seed"] = seeds[i]
-            loss = self._loss_fn(self.params, mb)
+            loss, value = self._micro_loss(mb)
             loss.backward()
-            loss_sum += loss.detach().float()
+            loss_sum += value
         grads = []
         for p in leaves:
             if p.grad is None:   # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if self.topology.sp_size > 1:
+            for g in grads:
+                comm.all_reduce(g, self.topology.seq_group)
         return grads, loss_sum
 
     @torch.no_grad()
@@ -229,7 +300,8 @@ class DeepSpeedEngine:
     def train_batch(self, data) -> torch.Tensor:
         """One full train batch (gas micro-batches + optimizer step);
         returns the mean micro-batch loss as a 0-dim fp32 tensor."""
-        batch_stack = self._stack_micro_batches(data)
+        batch_stack = self._seq_shard(self._stack_micro_batches(data),
+                                      seq_axis=2)
         lr = float(self.lr_scheduler(self.global_steps))
         grads, loss_sum = self._accum_grads(batch_stack)
         grad_norm = self._apply_update(grads, lr)
@@ -242,8 +314,9 @@ class DeepSpeedEngine:
         return metrics["loss"]
 
     def eval_batch(self, batch: Batch) -> torch.Tensor:
+        batch = self._seq_shard(batch, seq_axis=1)
         with torch.no_grad():
-            return self._loss_fn(self.params, self._to_device(batch))
+            return self._micro_loss(self._to_device(batch))[1]
 
     def _after_step(self, metrics) -> None:
         self._last_metrics = metrics
