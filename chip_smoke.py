@@ -85,7 +85,29 @@ Phases, each printing JSON lines:
                three timed steps whose launch counts a rank show the ring
                kernels, AdamW and nothing else, and a profiled step on
                rank 0 (device busy share, and the host time inside the
-               comm layer's ring_rotate and all_reduce ranges).
+               comm layer's ring_rotate and all_reduce ranges);
+ 20. gemm-kernels — gather_matmul (the ZeRO-3 fused MLP's GEMM) against
+               its plain version in bf16 and fp32: the gpt2-350m MLP at
+               micro 8 x seq 1024 (forward wi and wo, and the backward's
+               dx = g·wᵀ and dw = xᵀ·g through transposed views), llama3-8b
+               width SwiGLU (M 4096, K 4096 <-> N 14336) and the JAX test's
+               ragged shapes, with times, bounds and torch.matmul as the
+               library time;
+ 21. zero-reference — gpt2-350m width cut to 2 layers, fp32, in two ranks
+               sharing the card over gloo ({"mesh": {"data": 2}}, micro 2 x
+               seq 256 a rank, gas 2) at ZeRO stages 1, 2, 3 and 3 with the
+               fused gather-matmul, against the same engine in this process
+               on the CPU at data 1: losses, grad norms and the gathered
+               params after two steps, and each rank's launches
+               (gather_matmul only in the fused run);
+ 22. zero3-train — gpt2-350m at full width and depth under ZeRO-3 with the
+               fused gather-matmul over two ranks sharing the card (bench.py's
+               ZeRO-3 row: micro 8 a rank, seq 1024, bf16, AdamW, clip 1.0,
+               persistence 0; gas 2): a warm-up step, three timed steps whose
+               launch counts a rank show gather_matmul, flash, AdamW and
+               nothing else, and a profiled step on rank 0 (device busy
+               share, host time inside comm.all_gather, comm.reduce_scatter
+               and comm.all_reduce).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -93,6 +115,7 @@ result; so does a machine without CUDA or a directory without the port.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -161,7 +184,8 @@ PROFILE_NAMES = {
     "fused_adamw": ("fused_adamw_kernel",),
     "fused_lion": ("fused_lion_kernel",),
     "fp6_matmul": ("fp6_mma_kernel",),
-    "dequantize": ("dequant_kernel",)}
+    "dequantize": ("dequant_kernel",),
+    "gather_matmul": ("gemm_mma_kernel",)}
 # slice 4: LoRA adapters over quantized llama3-8b-width MLP bases
 LINEAR_MODEL = "llama3-8b"
 LINEAR_BLOCKS = 4
@@ -216,6 +240,44 @@ RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
                   "num_layers": 2}
 RING_REF_SEQ = 512
 RING_REF_STEPS = 2
+
+# slice 6: ZeRO-3 over a data axis.  bench.py's ZeRO-3 row (_autosched_body
+# with the fused variant of _autosched_fused_ab): gpt2-350m, seq 1024, micro
+# 8 a rank, bf16 over fp32 masters, AdamW lr 1e-4, clip 1.0, ZeRO 3,
+# persistence 0, fused gather-matmul.  Cut: data 8 -> 2 ranks sharing the
+# card over gloo; gas 8 -> 2 (every collective is staged through the host);
+# remat dots_flash_saveable -> none (A13); gather_prefetch_depth 2 -> 1 (A7).
+ZERO_RANKS = 2
+ZERO_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
+ZERO_STEPS = 3
+ZERO_CFG = {"train_micro_batch_size_per_gpu": 8,
+            "gradient_accumulation_steps": 2,
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 3, "param_persistence_threshold": 0},
+            "gradient_clipping": 1.0,
+            "steps_per_print": 10_000,
+            "activation_checkpointing": {"remat_policy": "none"},
+            "step_schedule": {"fused_gather_matmul": True},
+            "mesh": {"data": ZERO_RANKS}}
+# zero-reference: 2 layers, fp32, micro 2 x seq 256 a rank; the ZeRO
+# configs the card's ranks run against one CPU engine at data 1
+ZERO_REF_LAYERS = 2
+ZERO_REF_SEQ = 256
+ZERO_REF_MICRO = 2
+ZERO_REF_STEPS = 2
+ZERO_REF_CONFIGS = {"stage1": (1, False), "stage2": (2, False),
+                    "stage3": (3, False), "stage3-fused": (3, True)}
+# card (cuBLAS, the kernels) vs CPU (plain versions) in fp32: losses and
+# grad norms, and the params' relative L2 after two steps
+ZERO_REF_RTOL = 1e-5
+ZERO_REF_PARAMS_RTOL = 1e-6
+# gather_matmul vs its plain version: bf16 outputs elementwise
+# |k - r| <= rtol (1 + |r|) (about two bf16 ulps), fp32 outputs
+# max |k - r| <= rtol max |r| (summation order only: an element's error
+# follows the partial sums over K, so one that cancels to near zero is held
+# to the output's scale)
+GEMM_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 
 
 def bound_ms(nbytes, ops, peak):
@@ -2078,6 +2140,348 @@ def phase_ring_train(tf_model, launch, card):
             for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}
 
 
+# ----------------------------------------------------------------------
+# phases 20-22: ZeRO-3 over a data axis and the gather-matmul GEMM
+# ----------------------------------------------------------------------
+# (case, M, K, N, a transposed, b transposed, dtype): the gpt2-350m MLP at
+# micro 8 x seq 1024 (M 8192; wi [1024, 4096], wo [4096, 1024]); the
+# backward's dx = g·wᵀ reads w transposed, dw = xᵀ·g reads x transposed
+GEMM_CASES = [
+    ("path-wi-fwd", 8192, 1024, 4096, False, False, "bfloat16"),
+    ("path-wo-fwd", 8192, 4096, 1024, False, False, "bfloat16"),
+    ("path-wi-dx", 8192, 4096, 1024, False, True, "bfloat16"),
+    ("path-wi-dw", 1024, 8192, 4096, True, False, "bfloat16"),
+    ("path-wo-dx", 8192, 1024, 4096, False, True, "bfloat16"),
+    ("path-wo-dw", 4096, 8192, 1024, True, False, "bfloat16"),
+    ("path-wi-fwd-fp32", 8192, 1024, 4096, False, False, "float32"),
+    ("path-wi-dw-fp32", 1024, 8192, 4096, True, False, "float32"),
+    ("llama3-8b-up", 4096, 4096, 14336, False, False, "bfloat16"),
+    ("llama3-8b-down", 4096, 14336, 4096, False, False, "bfloat16"),
+    ("ragged-64x64x256", 64, 64, 256, False, False, "bfloat16"),
+    ("ragged-130x96x72", 130, 96, 72, False, False, "bfloat16"),
+    ("ragged-8x300x128", 8, 300, 128, False, False, "bfloat16"),
+    ("ragged-64x64x256-fp32", 64, 64, 256, False, False, "float32"),
+    ("ragged-130x96x72-fp32", 130, 96, 72, False, False, "float32"),
+    ("ragged-8x300x128-fp32", 8, 300, 128, False, False, "float32"),
+]
+GEMM_ROW_CASE = "path-wi-fwd"     # the kernels line's row
+
+
+def gemm_operand(gen, rows, cols, transpose, dtype):
+    """A [rows, cols] operand on the card, a transposed view when asked."""
+    import torch
+
+    shape = (cols, rows) if transpose else (rows, cols)
+    t = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return t.T if transpose else t
+
+
+def phase_gemm_kernels(tgm):
+    """gather_matmul against its plain version at each GEMM_CASES shape:
+    max abs error against GEMM_RTOL, kernel, plain and torch.matmul ms, and
+    the bound (operations: 2MKN over the dtype's peak, against the bytes of
+    a, b and the output over the HBM rate)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for name, m, k, n, ta, tb, dt in GEMM_CASES:
+        dtype = getattr(torch, dt)
+        a = gemm_operand(gen, m, k, ta, dtype)
+        b = gemm_operand(gen, k, n, tb, dtype)
+        got = tgm.gemm(a, b)
+        torch.cuda.synchronize()
+        ref = tgm.matmul_ref(a, b)
+        diff = (got.float() - ref.float()).abs()
+        rtol = GEMM_RTOL[dt]
+        if dtype == torch.float32:
+            ok = bool(diff.max() <= rtol * ref.abs().max())
+        else:
+            ok = bool((diff <= rtol * (1 + ref.float().abs())).all())
+        ok &= bool(torch.isfinite(got.float()).all())
+        elem = a.element_size()
+        bound, by = bound_ms((m * k + k * n + m * n) * elem, 2.0 * m * k * n,
+                             BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        big = m * k * n >= 1 << 30
+        row = {"phase": "gemm-kernels", "case": name, "kernel": "gather_matmul",
+               "m": m, "k": k, "n": n, "a_transposed": ta, "b_transposed": tb,
+               "dtype": dt, "max_abs_err": float(diff.max()),
+               "max_abs_ref": float(ref.float().abs().max()),
+               "tolerance": ("max|k-r| <= rtol * max|r|" if dtype == torch.float32
+                             else "|k-r| <= rtol * (1 + |r|)") + f", rtol {rtol}",
+               "ok": ok, "ms": cuda_time_ms(lambda: tgm.gemm(a, b),
+                                            iters=10 if big else 20),
+               "plain_ms": cuda_time_ms(lambda: tgm.matmul_ref(a, b), iters=2,
+                                        warmup=1),
+               "library_ms": cuda_time_ms(lambda: torch.matmul(a, b),
+                                          iters=10 if big else 20),
+               "library_note": "torch.matmul on the same operands (cuBLAS; "
+                               "TF32 off for fp32)",
+               "bound_ms": bound, "bound_by": by}
+        row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
+        emit(row)
+        if not ok:
+            fail(f"gather_matmul disagrees with its plain version ({name})")
+        rows[name] = row
+        del a, b, got, ref, diff
+    torch.cuda.empty_cache()
+    return {"gather_matmul": rows[GEMM_ROW_CASE]}
+
+
+def _zero_counters():
+    """Every kernel counter of the port, the GEMM's included."""
+    from deepspeed_tpu_torch.ops import gather_matmul as tgm
+
+    return _ring_counters() + (tgm.gemm.launches,)
+
+
+def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
+    """One rank of the zero-reference phase: the fp32 engine over a data
+    axis of ``world`` ranks on the card, per ZeRO config, from ``params``:
+    losses, grad norms, whether the fused path is on, launch counts and
+    (rank 0) the params after, gathered."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models import registry
+
+    counters = _zero_counters()
+    model = registry.get_model_config(TRAIN_MODEL, **model_kw)
+    out = {}
+    for name, cfg in configs.items():
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params)
+        zero_counts(*counters)
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(float(eng.train_batch(batch)))
+            norms.append(eng.get_global_grad_norm())
+        launches = {k: v for c in counters for k, v in c.items()}
+        with zero.GatheredParameters(eng.params) as full:
+            gathered = full if rank == 0 else None
+        out[name] = {"losses": losses, "grad_norms": norms,
+                     "fused": bool(eng.model_config.fused_gather_matmul),
+                     "launches": launches, "params": gathered}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_rank_train(rank, world, cfg, seq, steps):
+    """One rank of the zero3-train phase: gpt2-350m at full width and depth
+    under ZeRO-3 with the fused gather-matmul, a warm-up step, ``steps``
+    timed steps (counts zeroed just before them and read just after), then
+    one step profiled on rank 0."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    counters = _zero_counters()
+    model = registry.get_model_config(TRAIN_MODEL)
+    t0 = time.perf_counter()
+    eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = (cfg["train_micro_batch_size_per_gpu"]
+            * cfg["gradient_accumulation_steps"] * world)
+    batch = train_batch_of(model.vocab_size, rows, seed=0, seq=seq)  # the global batch
+    t0 = time.perf_counter()
+    losses = [float(eng.train_batch(batch))]      # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch)))   # float() syncs
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: v for c in counters for k, v in c.items()}
+    shard_bytes = sum(p.numel() * p.element_size() for p in tf.tree_leaves(eng.params))
+    res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
+           "fused": bool(eng.model_config.fused_gather_matmul),
+           "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
+           "launches": launches, "master_shard_gb": shard_bytes / 1e9,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": bool(np.all(np.isfinite(losses)))}
+    if rank == 0:
+        wall_ms, by_name, busy_ms, prof = profile_call(
+            lambda: eng.train_batch(batch))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+        res["profile"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "collectives": comm_ms(prof, names=("comm.all_gather",
+                                                "comm.reduce_scatter",
+                                                "comm.all_reduce")),
+            "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+            "kernel_ms": {n: sum(v for k, v in by_name.items()
+                                 if all(x in k for x in parts))
+                          for n, parts in PROFILE_NAMES.items()
+                          if n.startswith("flash") or n in ("fused_adamw",
+                                                            "gather_matmul")},
+            "gemm_ms": sum(v for k, v in by_name.items()
+                           if any(x in k for x in ("gemm", "nvjet", "cutlass",
+                                                   "xmma"))),
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    else:
+        eng.train_batch(batch)    # the profiled step's partner
+    return res
+
+
+def phase_zero_reference(ds, tf_model, tf, launch):
+    """The ZeRO configs in two ranks on the card (gloo, one card) against
+    one engine in this process on the CPU at data 1, fp32, gpt2-350m width
+    cut to ZERO_REF_LAYERS: losses and grad norms of each step to
+    ZERO_REF_RTOL, the gathered params after them to ZERO_REF_PARAMS_RTOL
+    (relative L2), and each rank's launches (gather_matmul in the fused
+    run only)."""
+    import numpy as np
+    import torch
+
+    model_kw = {"num_layers": ZERO_REF_LAYERS}
+    model = tf_model.get_model_config(TRAIN_MODEL, **model_kw)
+    gas = ZERO_CFG["gradient_accumulation_steps"]
+    base = {k: v for k, v in ZERO_CFG.items()
+            if k not in ("mesh", "step_schedule", "zero_optimization")}
+    base = {**base, "bf16": {"enabled": False},
+            "train_micro_batch_size_per_gpu": ZERO_REF_MICRO}
+    host, *_ = ds.initialize(model=model, device="cpu", seed=3, config={
+        **base, "train_micro_batch_size_per_gpu": ZERO_REF_MICRO * ZERO_RANKS})
+    params = tf.tree_map_with_path(lambda _p, a: a.detach().clone(),
+                                   host.params)
+    rows = ZERO_REF_MICRO * gas * ZERO_RANKS
+    batch = train_batch_of(model.vocab_size, rows, seed=6, seq=ZERO_REF_SEQ)
+    want = []
+    for _ in range(ZERO_REF_STEPS):
+        want.append((float(host.train_batch(batch)),
+                     host.get_global_grad_norm()))
+    configs = {}
+    for name, (stage, fused) in ZERO_REF_CONFIGS.items():
+        cfg = {**base, "mesh": {"data": ZERO_RANKS},
+               "zero_optimization": {"stage": stage,
+                                     "param_persistence_threshold": 0}}
+        if fused:
+            cfg["step_schedule"] = {"fused_gather_matmul": True}
+        configs[name] = cfg
+    ranks = launch(zero_rank_reference, ZERO_RANKS,
+                   args=(model_kw, params, configs, batch, ZERO_REF_STEPS),
+                   backend=ZERO_BACKEND, device="cuda")
+    per = ZERO_REF_STEPS * gas * ZERO_REF_LAYERS
+    for name, (stage, fused) in ZERO_REF_CONFIGS.items():
+        got = [r[name] for r in ranks]
+        worst = 0.0
+        for r in got:
+            for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]), want):
+                worst = max(worst, abs(lc - lh) / abs(lh), abs(gc - gh) / gh)
+        num = den = 0.0
+        for a, b in zip(tf.tree_leaves(got[0]["params"]),
+                        tf.tree_leaves(host.params)):
+            a, b = a.double(), b.detach().double()
+            num += float(((a - b) ** 2).sum())
+            den += float((b ** 2).sum())
+        params_rel = (num / den) ** 0.5
+        wants = [{**{k: 0 for k in r["launches"]},
+                  "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                  "fused_adamw": ZERO_REF_STEPS,
+                  "gather_matmul": 6 * per if fused else 0} for r in got]
+        launches = [r["launches"] for r in got]
+        ok = (worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
+              and launches == wants and all(r["fused"] == fused for r in got)
+              and bool(np.all(np.isfinite([r["losses"] for r in got]))))
+        emit({"phase": "zero-reference", "config": name, "zero_stage": stage,
+              "fused_gather_matmul": fused, "model": TRAIN_MODEL,
+              "layers": ZERO_REF_LAYERS, "dtype": "float32",
+              "ranks": ZERO_RANKS, "backend": ZERO_BACKEND,
+              "seq": ZERO_REF_SEQ, "micro_per_rank": ZERO_REF_MICRO,
+              "gas": gas,
+              "steps": [{"loss_card": [r["losses"][i] for r in got],
+                         "loss_cpu": want[i][0],
+                         "grad_norm_card": [r["grad_norms"][i] for r in got],
+                         "grad_norm_cpu": want[i][1]}
+                        for i in range(ZERO_REF_STEPS)],
+              "check": "two ranks on the card (kernels, cuBLAS, ZeRO over "
+                       "gloo) vs one CPU process at data 1 (plain versions)",
+              "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
+              "tolerance": {"loss_grad_norm": ZERO_REF_RTOL,
+                            "params_rel_l2": ZERO_REF_PARAMS_RTOL},
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": ok})
+        if not ok:
+            fail(f"zero-reference ({name}): the card's ranks differ from the "
+                 f"CPU ({worst}, {params_rel}), launched {launches}, or the "
+                 "fused gate decided otherwise")
+    del host, params, ranks
+    torch.cuda.empty_cache()
+
+
+def phase_zero_train(tf_model, launch, card):
+    """gpt2-350m at full width and depth under ZeRO-3 with the fused
+    gather-matmul over ZERO_RANKS ranks sharing the card (gloo): seconds a
+    step (the slower rank's), tokens/s for the card, peak memory a rank, a
+    profiled step on rank 0 with the host time inside all_gather,
+    reduce_scatter and all_reduce (``comm_ms``), and each rank's launches a
+    step, which must be 6 GEMMs x layers x gas of gather_matmul, layers x
+    gas of each flash kernel, one AdamW and nothing else."""
+    import numpy as np
+
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    gas = ZERO_CFG["gradient_accumulation_steps"]
+    per = model.num_layers * gas
+    emit({"phase": "zero-backend", "backend": ZERO_BACKEND,
+          "why": "the ranks share one card, and NCCL refuses two ranks on "
+                 "one GPU; all-gather and reduce-scatter buffers go through "
+                 "pinned host memory, every computation stays on the card"})
+    ranks = launch(zero_rank_train, ZERO_RANKS,
+                   args=(ZERO_CFG, TRAIN_SEQ, ZERO_STEPS),
+                   backend=ZERO_BACKEND, device="cuda")
+    rows = ZERO_CFG["train_micro_batch_size_per_gpu"] * gas * ZERO_RANKS
+    tokens = rows * TRAIN_SEQ
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(ZERO_STEPS)]
+    want = {**{k: 0 for k in ranks[0]["launches"]},
+            "gather_matmul": 6 * per, "flash_fwd": per, "flash_bwd_dq": per,
+            "flash_bwd_dkv": per, "fused_adamw": 1}
+    per_step = [{k: v / ZERO_STEPS for k, v in r["launches"].items()}
+                for r in ranks]
+    ok = (all(r["finite"] and r["fused"] for r in ranks)
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks)
+          and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+          and all(p == want for p in per_step))
+    tps = tokens * ZERO_STEPS / sum(step_s)
+    emit({"phase": "zero3-train", "model": TRAIN_MODEL,
+          "layers": model.num_layers, "dtype": "bfloat16", "zero_stage": 3,
+          "fused_gather_matmul": True, "persistence_threshold": 0,
+          "ranks": ZERO_RANKS, "backend": ZERO_BACKEND, "seq": TRAIN_SEQ,
+          "micro_per_rank": ZERO_CFG["train_micro_batch_size_per_gpu"],
+          "gas": gas, "optimizer": ZERO_CFG["optimizer"], "remat": "none",
+          "step_s": step_s, "tokens_per_step": tokens, "tokens_per_s": tps,
+          "mfu": tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ) / BF16_FLOPS,
+          "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM), one card for both "
+                      "ranks; the formula counts dense attention",
+          "ranks_detail": [{k: v for k, v in r.items() if k != "profile"}
+                           for r in ranks],
+          "launches_per_step": per_step, "expected_per_step": want,
+          "card": card, "ok": ok})
+    prof = ranks[0]["profile"]
+    emit({"phase": "zero3-train-profile",
+          "what": "one train_batch on rank 0 (rank 1 steps beside it)",
+          "collectives_note": "host time inside comm.all_gather (issue and "
+                              "wait ranges of each stage-3 gather), "
+                              "comm.reduce_scatter (each gathered leaf's "
+                              "gradient) and comm.all_reduce (the loss sum "
+                              "and count, the grad norm); own = less this "
+                              "rank's compute kernels running",
+          **prof, "card": card})
+    if not ok:
+        fail("zero3-train: losses not finite, not equal on the ranks or not "
+             "falling, the fused path off, or the launch counts do not show "
+             "the kernels")
+    return {"gather_matmul": ranks[0]["launches"]["gather_matmul"]}
+
+
 def count_params(model):
     """Parameter count of a llama-class model (untied head, RMSNorm)."""
     h, hd = model.hidden_size, model.dim_per_head
@@ -2208,10 +2612,24 @@ def main() -> int:
 
     ring_summary = phase_ring_kernels(fm)
     phase_ring_reference(ds, tf_model, tf, launch)
+    gc.collect()     # engines of earlier phases left in reference cycles
     torch.cuda.empty_cache()
     emit({"phase": "ring-parent-memory",
           "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
     ring_train_launches = phase_ring_train(tf_model, launch, smi)
+
+    # 20. the gather-matmul GEMM, 21. ZeRO stages in two ranks on the card
+    # against the CPU, 22. gpt2-350m under ZeRO-3 with the fused
+    # gather-matmul over two ranks
+    from deepspeed_tpu_torch.ops import gather_matmul as tgm
+
+    gemm_summary = phase_gemm_kernels(tgm)
+    phase_zero_reference(ds, tf_model, tf, launch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "zero-parent-memory",
+          "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    zero_train_launches = phase_zero_train(tf_model, launch, smi)
 
     # 20. kernels line: each path's launches from its own run
     csrc = "deepspeed_tpu_torch/ops/csrc/"
@@ -2232,7 +2650,8 @@ def main() -> int:
                "fp6_matmul": csrc + "fp6_linear.cu",
                "ring_carry": csrc + "ring_attention.cu",
                "ring_bwd_dq": csrc + "ring_attention.cu",
-               "ring_bwd_dkv": csrc + "ring_attention.cu"}
+               "ring_bwd_dkv": csrc + "ring_attention.cu",
+               "gather_matmul": csrc + "gather_matmul.cu"}
     replaces = {"paged_attention": pallas + "paged_attention.py:52",
                 "paged_attention_int8": pallas + "paged_attention.py:129",
                 "flash_fwd": pallas + "flash_mha.py:147",
@@ -2249,7 +2668,8 @@ def main() -> int:
                 "fp6_matmul": pallas + "fp6_linear.py:132",
                 "ring_carry": pallas + "flash_mha.py:471",
                 "ring_bwd_dq": pallas + "flash_mha.py:699",
-                "ring_bwd_dkv": pallas + "flash_mha.py:765"}
+                "ring_bwd_dkv": pallas + "flash_mha.py:765",
+                "gather_matmul": pallas + "gather_matmul.py:133"}
     also = {"flash_fwd": pallas + "flash_mha.py:286",
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
@@ -2262,7 +2682,7 @@ def main() -> int:
                   "dequantize": int8_launches["dequantize"],
                   "fake_quantize": fake_phase_launches,
                   "fp6_matmul": fp6_launches["fp6_matmul"],
-                  **ring_train_launches}
+                  **ring_train_launches, **zero_train_launches}
     notes = {"quantize": "at construction of the q_bits 8 LoRAStack (one a "
                          "base); a train_batch launches none",
              "fake_quantize": "the linear-kernels phase's launches: the "
@@ -2271,10 +2691,15 @@ def main() -> int:
              **{k: f"rank 0 of {RING_RANKS} in the ring-train phase's "
                    f"{RING_STEPS} timed steps (each rank launched as many); "
                    f"times from the {RING_ROW_CASE} case"
-                for k in ring_train_launches}}
+                for k in ring_train_launches},
+             "gather_matmul": f"rank 0 of {ZERO_RANKS} in the zero3-train "
+                              f"phase's {ZERO_STEPS} timed steps (each rank "
+                              f"launched as many); times from the "
+                              f"{GEMM_ROW_CASE} case"}
     entries = []
     for name, row in {**summary, **train_summary, **sparse_summary,
-                      **linear_summary, **ring_summary}.items():
+                      **linear_summary, **ring_summary,
+                      **gemm_summary}.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name], "launches": launch_run[name],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],

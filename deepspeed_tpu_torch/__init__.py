@@ -34,8 +34,10 @@ def initialize(args=None,
 
     Returns the reference's 4-tuple ``(engine, optimizer, dataloader,
     lr_scheduler)``.  The reference's ``distributed_port`` and
-    ``dist_init_required`` are not taken: the port trains on one device and
-    starts no process group.  ``model`` is a :class:`TransformerConfig` from the
+    ``dist_init_required`` are not taken: ``initialize`` starts no process
+    group; a config whose mesh is above one rank (a ``data`` or ``seq``
+    axis) needs one already initialised, as the ranks that
+    ``deepspeed_tpu_torch.launcher.launch`` starts have.  ``model`` is a :class:`TransformerConfig` from the
     model registry, or a duck-typed trainable with ``init(generator) ->
     params`` and ``loss(params, batch) -> scalar`` (for example LoRA
     adapters over ``linear.OptimizedLinear`` layers with quantized frozen
@@ -53,7 +55,7 @@ def initialize(args=None,
         config = getattr(args, "deepspeed_config", None)
     if mpu is not None or mesh_param is not None:
         raise not_ported("a model-parallel unit or mesh",
-                         "Queue A items 4 and 10")
+                         "Queue A item 10")
     engine = DeepSpeedEngine(model=model, config=config,
                              model_params=model_parameters,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,

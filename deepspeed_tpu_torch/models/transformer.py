@@ -14,12 +14,26 @@ rounds in JAX and fp32 master leaves receive fp32 gradients.
 Ring sequence parallelism runs when a topology with a ``seq`` axis above
 one is passed (``topo``; the engine passes its own): each rank's forward
 takes its shard of the sequence, positions follow the ring placement, and
-attention goes through ``sequence/ring.py``.
+attention goes through ``sequence/ring.py``.  Over a data axis each rank's
+forward takes its rows of the batch.  Dropout masks are drawn over the
+global ``[B·dp, S·sp, H]`` positions and each rank keeps its rows and its
+sequence positions, so they do not depend on the split, as the masks of
+``jax.random.bernoulli`` over the global array do not under GSPMD.
+
+Under ZeRO-3 the params are this rank's shards and a
+:class:`~deepspeed_tpu_torch.zero.ParamGather` (``zero``; the engine
+passes its own) gathers each leaf when it is used: the embedding, final
+norm and head once a forward, a layer's leaves when that layer runs (one
+layer's slice of each stacked leaf, never the stack), through the
+stage-3 gather ``Function``, so the backward reduce-scatters their
+gradients.  With ``cfg.fused_gather_matmul`` the MLP's wi/wo/wg/bi stay
+shards and ``ops/gather_matmul.py`` ``fused_gather_mlp`` gathers them
+itself, its prefetches issued ahead of the matmuls.
 
 Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item: MoE layers and the ZeRO-3 fused gather-matmul, Ulysses sequence
-parallelism and the pipeline path, parameter streaming, random-LTD,
-progressive layer drop and the sequence-tiled loss.
+item: MoE layers, Ulysses sequence parallelism and the pipeline path,
+parameter streaming, random-LTD, progressive layer drop and the
+sequence-tiled loss.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ import torch.utils.checkpoint
 
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.gather_matmul import fused_gather_mlp
 from deepspeed_tpu_torch.sequence import ring
 from deepspeed_tpu_torch.utils.device import resolve_device
 
@@ -280,10 +295,6 @@ def _unsupported(cfg: TransformerConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP Queue A item 10)")
-    if cfg.fused_gather_matmul:
-        raise NotImplementedError(
-            "the ZeRO-3 fused gather-matmul is not ported yet (ROADMAP "
-            "Queue A item 8, Queue B item 6)")
 
 
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None,
@@ -440,12 +451,24 @@ def alibi_slopes(nh: int, device=None) -> torch.Tensor:
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
-def _mlp_block(x, p, cfg: TransformerConfig):
+# the MLP leaves the fused gather-matmul gathers itself
+FUSED_MLP_LEAVES = (("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"), ("mlp", "bi"))
+
+
+def _mlp_block(x, p, cfg: TransformerConfig, topo=None):
     dt0 = x.dtype
     dt = _module_dtype(cfg, "mlp", dt0)
     x = x.to(dt)
     if cfg.fused_gather_matmul and cfg.fused_gather_axes:
-        _unsupported(cfg)
+        # ZeRO-3 fused gather-matmul (step_schedule.fused_gather_matmul;
+        # ops/gather_matmul.py): p holds the MLP's shards, gathered inside
+        # with the following matmul's gather issued ahead; the engine
+        # verified the split pattern before setting the flag.  The output
+        # bias stays outside the fused region.
+        y = fused_gather_mlp(x, p, cfg, topo)
+        if p.get("bo") is not None:
+            y = y + p["bo"].to(dt)
+        return y.to(dt0)
     if cfg.activation == "swiglu":
         gate = F.silu(x @ p["wg"].to(dt))
         up = x @ p["wi"].to(dt)
@@ -647,13 +670,28 @@ def _fold(seed: int, i: int) -> int:
     return (seed * 1_000_003 + i + 1) % (1 << 62)
 
 
-def _dropout(x, rate: float, seed: Optional[int]):
+def _dp(topo) -> Tuple[int, int]:
+    return (topo.dp_size, topo.dp_rank) if topo is not None else (1, 0)
+
+
+def _dropout(x, rate: float, seed: Optional[int], topo=None, pos=None):
     """Inverted dropout from a ``torch.Generator`` seeded with ``seed``;
-    identity when no seed is threaded (eval/serve)."""
+    identity when no seed is threaded (eval/serve).  The uniforms are
+    drawn over the global ``[B·dp, S·sp, ...]`` array and this rank keeps
+    its rows (``topo``'s data rank) and its sequence positions (``pos``,
+    the shard's global positions, when a seq axis is above one), so a mask
+    does not depend on how the batch is split."""
     if seed is None or rate <= 0.0:
         return x
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    dp, rank = _dp(topo)
+    sp = _sp_size(topo)
+    b, s = x.shape[:2]
+    u = torch.rand((b * dp, s * sp) + tuple(x.shape[2:]), generator=gen,
+                   device=x.device)[rank * b:(rank + 1) * b]
+    if sp > 1:
+        u = u[:, pos]
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -663,32 +701,34 @@ def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
     """One transformer block: pre-norm, post-norm (BERT) or the parallel
     attention + MLP residual (Falcon/Phi).  ``dropout_seed``: this layer's
     seed for residual dropout (None → off); ``topo``: the mesh topology
-    (a seq axis above one runs ring attention)."""
-    def dk(i):
-        return None if dropout_seed is None else _fold(dropout_seed, i)
+    (a seq axis above one runs ring attention; the data and seq ranks pick
+    the dropout masks' slice)."""
+    pos = positions[0] if _sp_size(topo) > 1 else None
+
+    def drop(y, i):
+        seed = None if dropout_seed is None else _fold(dropout_seed, i)
+        return _dropout(y, cfg.dropout, seed, topo, pos)
 
     if cfg.parallel_block:
         n = _norm(x, layer_params["ln1"], cfg)
         n_mlp = _norm(x, layer_params["ln2"], cfg) if cfg.parallel_norms else n
         attn_out = _attn_block(n, layer_params["attn"], positions, cfg,
                                attention_mask=attention_mask, topo=topo)
-        y = _mlp_block(n_mlp, layer_params["mlp"], cfg)
-        return x + _dropout(attn_out, cfg.dropout, dk(0)) \
-            + _dropout(y, cfg.dropout, dk(1))
+        y = _mlp_block(n_mlp, layer_params["mlp"], cfg, topo)
+        return x + drop(attn_out, 0) + drop(y, 1)
     if cfg.norm_position == "post":
         attn_out = _attn_block(x, layer_params["attn"], positions, cfg,
                                attention_mask=attention_mask, topo=topo)
-        x = _norm(x + _dropout(attn_out, cfg.dropout, dk(0)),
-                  layer_params["ln1"], cfg)
-        y = _mlp_block(x, layer_params["mlp"], cfg)
-        return _norm(x + _dropout(y, cfg.dropout, dk(1)),
-                     layer_params["ln2"], cfg)
+        x = _norm(x + drop(attn_out, 0), layer_params["ln1"], cfg)
+        y = _mlp_block(x, layer_params["mlp"], cfg, topo)
+        return _norm(x + drop(y, 1), layer_params["ln2"], cfg)
     attn_out = _attn_block(_norm(x, layer_params["ln1"], cfg),
                            layer_params["attn"], positions, cfg,
                            attention_mask=attention_mask, topo=topo)
-    x = x + _dropout(attn_out, cfg.dropout, dk(0))
-    y = _mlp_block(_norm(x, layer_params["ln2"], cfg), layer_params["mlp"], cfg)
-    return x + _dropout(y, cfg.dropout, dk(1))
+    x = x + drop(attn_out, 0)
+    y = _mlp_block(_norm(x, layer_params["ln2"], cfg), layer_params["mlp"],
+                   cfg, topo)
+    return x + drop(y, 1)
 
 
 def _maybe_remat(fn, cfg: TransformerConfig):
@@ -738,7 +778,7 @@ def _embed(params: Params, input_ids, positions, cfg: TransformerConfig,
 def forward(params: Params, input_ids, cfg: TransformerConfig,
             positions=None, pld_theta=None, return_hidden: bool = False,
             token_embeds=None, dropout_seed: Optional[int] = None,
-            token_type_ids=None, attention_mask=None, topo=None):
+            token_type_ids=None, attention_mask=None, topo=None, zero=None):
     """Token ids [B, S] → logits [B, S, V].  A Python loop over the
     stacked layers takes the place of the JAX ``lax.scan``: each stacked
     leaf is unbound once into per-layer views, so its gradient is stacked
@@ -746,7 +786,9 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
     ``cfg.dropout`` (None → off, the eval contract).  ``topo``: the mesh
     topology; with a seq axis above one, ``input_ids`` is this rank's
     shard of the sequence (in the placement's order) and its positions
-    are the shard's global ones."""
+    are the shard's global ones.  ``zero``: the ZeRO-3
+    :class:`~deepspeed_tpu_torch.zero.ParamGather` when ``params`` are
+    this rank's shards."""
     _forward_unsupported(cfg, pld_theta)
     b, s = input_ids.shape
     dt = cfg.dtype
@@ -758,24 +800,32 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
             pos_row = torch.arange(s, dtype=torch.int64,
                                    device=input_ids.device)
         positions = pos_row[None, :].expand(b, s)
+    if zero is not None:
+        params = zero.top(params)
     x = _embed(params, input_ids, positions, cfg, token_embeds,
                token_type_ids=token_type_ids)
     if dropout_seed is not None and cfg.dropout > 0:
-        x = _dropout(x, cfg.dropout, _fold(dropout_seed, 10_000))
+        x = _dropout(x, cfg.dropout, _fold(dropout_seed, 10_000), topo,
+                     positions[0] if _sp_size(topo) > 1 else None)
 
     per_layer = tree_map_with_path(lambda _p, leaf: leaf.unbind(0),
                                    params["layers"])
+    skip = FUSED_MLP_LEAVES if cfg.fused_gather_matmul else ()
     for i in range(cfg.num_layers):
         lp = tree_map_with_path(lambda _p, views, i=i: views[i], per_layer)
         # GPT-Neo alternating attention: even layers attend globally
         lcfg = cfg.replace(sliding_window=None) \
             if cfg.alt_window and i % 2 == 0 else cfg
         seed = None if dropout_seed is None else _fold(dropout_seed, i)
-        step = _maybe_remat(
-            lambda h, lp=lp, lcfg=lcfg, seed=seed: transformer_layer(
-                h, lp, positions, lcfg, dropout_seed=seed,
-                attention_mask=attention_mask, topo=topo), cfg)
-        x = step(x)
+
+        def layer(h, lp=lp, lcfg=lcfg, seed=seed):
+            if zero is not None:   # this layer's leaves, when it runs
+                lp = zero.layer(lp, skip=skip)
+            return transformer_layer(h, lp, positions, lcfg,
+                                     dropout_seed=seed,
+                                     attention_mask=attention_mask, topo=topo)
+
+        x = _maybe_remat(layer, cfg)(x)
 
     if cfg.norm_position != "post":
         x = _norm(x, params["final_norm"], cfg)
@@ -809,13 +859,15 @@ def _nll_sum(logits32, labels_mb):
 
 
 def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
-            token_embeds=None, topo=None, sum_count: bool = False):
+            token_embeds=None, topo=None, sum_count: bool = False,
+            zero=None):
     """Causal LM cross-entropy.  ``batch``: input_ids [B,S], labels [B,S]
     (-100 = ignore), optional loss_mask, token_type_ids, attention_mask
-    and dropout_seed, all tensors on the params' device.  ``topo``: as in
-    :func:`forward`.  ``sum_count``: return ``(token NLL sum, token
-    count)`` of this batch instead of their ratio, for a caller that
-    reduces both over the ranks of a sequence-parallel group."""
+    and dropout_seed, all tensors on the params' device.  ``topo`` and
+    ``zero``: as in :func:`forward`.  ``sum_count``: return ``(token NLL
+    sum, token count)`` of this batch instead of their ratio, for a caller
+    that reduces both over the ranks of a data or sequence-parallel
+    group."""
     labels = batch["labels"]
     mask = labels != -100
     if "loss_mask" in batch:
@@ -828,7 +880,8 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
                   pld_theta=batch.get("pld_theta"), token_embeds=token_embeds,
                   dropout_seed=batch.get("dropout_seed"),
                   token_type_ids=batch.get("token_type_ids"),
-                  attention_mask=batch.get("attention_mask"), topo=topo)
+                  attention_mask=batch.get("attention_mask"), topo=topo,
+                  zero=zero)
     lt = torch.float32 if op_fp32(cfg, "loss") else out.dtype
     labels_eff = torch.where(mask, labels, torch.full_like(labels, -100))
     nll = _nll_sum(out.to(lt), labels_eff)

@@ -2,19 +2,20 @@
 
 Port of ``deepspeed_tpu/runtime/config.py`` over the keys the training
 path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
-``gradient_clipping``, ``zero_optimization.stage``,
-``activation_checkpointing.remat_policy``, ``steps_per_print``, ``seed``,
-``dataloader_drop_last``, the ``mesh``'s ``seq`` axis (or
-``sequence_parallel_size``; every other axis 1) and
-``step_schedule.ring_interleave``.  Those keys get the JAX config's rejections
-(:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO stage
-outside [0, 3], fp16 together with bf16).  A key that turns on a feature
-the port has not got yet raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.  Any other key of the ``fp16``, ``bf16``,
+``gradient_clipping``, ``zero_optimization.stage`` and
+``.param_persistence_threshold``, ``activation_checkpointing.remat_policy``,
+``steps_per_print``, ``seed``, ``dataloader_drop_last``, the ``mesh``'s
+``data`` and ``seq`` axes (or ``sequence_parallel_size``; every other axis
+1; data and seq not both above one) and the ``step_schedule`` keys
+``ring_interleave``, ``fused_gather_matmul`` and
+``param_persistence_threshold``.  Those keys get the JAX config's
+rejections (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO
+stage outside [0, 3], fp16 together with bf16).  A key that turns on a
+feature the port has not got yet raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.  Any other key of the ``fp16``, ``bf16``,
 ``zero_optimization`` and ``activation_checkpointing`` blocks (bucket
-sizes, overlap and persistence knobs of a sharded world, loss-scale
-settings of a disabled fp16) is logged as ignored: none of them changes a
-step on one device.
+sizes, overlap knobs, loss-scale settings of a disabled fp16) is logged as
+ignored: none of them changes the numbers of a step.
 """
 
 from __future__ import annotations
@@ -83,11 +84,13 @@ class BF16Config:
 
 @dataclass
 class ZeroConfig:
-    """The ``zero_optimization`` keys the port reads or rejects.  Stage 0
-    and stage 1 on one device are the same computation (stage 1 shards the
-    optimizer state over a data-parallel world of one), so both run; stage
-    2 and 3, offload and ZeRO++ quantization raise."""
+    """The ``zero_optimization`` keys the port reads or rejects: stages 0
+    to 3 run (over a data axis, ``runtime/engine.py``), with the ZeRO-3
+    ``param_persistence_threshold`` (elements a parameter; smaller ones stay
+    gathered, ``resilience/oracle.py``); offload and ZeRO++ quantization
+    raise."""
     stage: int = 0
+    param_persistence_threshold: int = 100_000
     offload_param: Optional[Dict[str, Any]] = None
     offload_optimizer: Optional[Dict[str, Any]] = None
     cpu_offload: Optional[bool] = None
@@ -102,9 +105,10 @@ class ZeroConfig:
         if not 0 <= self.stage <= 3:
             raise DeepSpeedConfigError(
                 f"zero_optimization.stage must be in [0,3], got {self.stage}")
-        if self.stage >= 2:
-            raise not_ported(f"zero_optimization.stage={self.stage}",
-                             "Queue A items 4 and 7")
+        if int(self.param_persistence_threshold) < 0:
+            raise DeepSpeedConfigError(
+                "zero_optimization.param_persistence_threshold must be >= 0")
+        self.param_persistence_threshold = int(self.param_persistence_threshold)
         for name, off in (("offload_param", self.offload_param),
                           ("offload_optimizer", self.offload_optimizer)):
             if off and (off.get("device", "none") != "none"):
@@ -176,9 +180,16 @@ _UNPORTED_BLOCKS = {
 class StepScheduleConfig:
     """``step_schedule``: the port reads ``ring_interleave`` (1 or 2, the
     JAX ring's hop order; accepted, and the port's ring runs attend then
-    rotate for both, ``sequence/ring.py``); any other key of the block
-    raises."""
+    rotate for both, ``sequence/ring.py``), ``fused_gather_matmul`` (the
+    ZeRO-3 fused gather-matmul MLP; the engine's gate decides whether it
+    runs, as the JAX engine's does) and ``param_persistence_threshold``
+    (None keeps the ``zero_optimization`` value; a value wins over it, as in
+    the JAX ``PartitionOracle.from_config``).  The block's other keys are
+    accepted at their defaults and raise when they ask for something else
+    (``_UNPORTED_SCHEDULE``)."""
     ring_interleave: int = 1
+    fused_gather_matmul: bool = False
+    param_persistence_threshold: Optional[int] = None
 
     RING_INTERLEAVES = (1, 2)
 
@@ -188,32 +199,59 @@ class StepScheduleConfig:
                 f"step_schedule.ring_interleave must be one of "
                 f"{list(self.RING_INTERLEAVES)}, got {self.ring_interleave}")
         self.ring_interleave = int(self.ring_interleave)
+        self.fused_gather_matmul = bool(self.fused_gather_matmul)
+        if self.param_persistence_threshold is not None:
+            if int(self.param_persistence_threshold) < 0:
+                raise DeepSpeedConfigError(
+                    "step_schedule.param_persistence_threshold must be >= 0")
+            self.param_persistence_threshold = \
+                int(self.param_persistence_threshold)
+
+
+# the JAX step_schedule keys the port has no actuator for: key -> (its
+# default, ROADMAP item)
+_UNPORTED_SCHEDULE = {
+    "mode": ("static", "Queue A item 12"),
+    "probe_steps": (3, "Queue A item 12"),
+    "overlap_threshold": (0.5, "Queue A item 12"),
+    "decisions": (None, "Queue A item 12"),
+    "gather_prefetch_depth": (1, "Queue A item 7"),
+    "prefetch_bucket_size": (None, "Queue A item 7"),
+    "weight_update": ("fused", "Queue A item 8"),
+    "fused_reduce_scatter": (False, "Queue A item 8"),
+}
 
 
 def _step_schedule(block) -> StepScheduleConfig:
     block = dict(block or {})
-    other = sorted(k for k in block if k != "ring_interleave")
-    if other:
-        raise not_ported(f"step_schedule keys {other}", "Queue A item 8")
-    return StepScheduleConfig(**block)
+    read = {f.name for f in fields(StepScheduleConfig)}
+    for key in sorted(set(block) - read):
+        default, item = _UNPORTED_SCHEDULE.get(key, (object(), "Queue A item 12"))
+        if block[key] != default:
+            raise not_ported(f"step_schedule.{key}={block[key]!r}", item)
+    return StepScheduleConfig(**{k: v for k, v in block.items() if k in read})
 
 
-def _check_world(d: Dict[str, Any]) -> int:
-    """The port's one parallel axis above one is ``seq`` (ring sequence
-    parallelism; ``sequence_parallel_size`` stands for it when the mesh
-    does not name it, as in the JAX config).  Any other mesh axis, tensor,
-    pipeline or expert parallel size above one raises.  Returns the seq
-    axis size."""
+def _check_world(d: Dict[str, Any]) -> Dict[str, int]:
+    """The port's parallel axes are ``data`` (data parallelism and ZeRO)
+    and ``seq`` (ring sequence parallelism; ``sequence_parallel_size``
+    stands for it when the mesh does not name it, as in the JAX config),
+    one of them above one at a time.  Any other mesh axis, tensor, pipeline
+    or expert parallel size above one raises.  Returns ``{"data": ...,
+    "seq": ...}`` with ``data`` resolved (``parallel/topology.py``)."""
     mesh = dict(d.get(C.MESH) or {})
     if "seq" not in mesh and d.get(C.SEQUENCE_PARALLEL_SIZE):
         mesh["seq"] = int(d[C.SEQUENCE_PARALLEL_SIZE])
     seq = int(mesh.pop("seq", 1))
     if seq < 1:
         raise DeepSpeedConfigError(f"mesh.seq must be >= 1, got {seq}")
-    sizes = {k: v for k, v in mesh.items() if v not in (1, -1)}
-    if "data" in sizes:
-        raise not_ported(f"a data-parallel mesh axis above one ({sizes})",
+    data = int(mesh.pop("data", -1))
+    if data < 1 and data != -1:
+        raise DeepSpeedConfigError(f"mesh.data must be >= 1 or -1, got {data}")
+    if data > 1 and seq > 1:
+        raise not_ported(f"a data axis ({data}) beside a seq axis ({seq})",
                          "Queue A item 4")
+    sizes = {k: v for k, v in mesh.items() if v not in (1, -1)}
     tp = d.get(C.TENSOR_PARALLEL) or {}
     for key, size in (("tensor_parallel", tp.get("autotp_size",
                                                  tp.get("tp_size", 1))),
@@ -223,17 +261,17 @@ def _check_world(d: Dict[str, Any]) -> int:
         if (size or 1) > 1:
             sizes[key] = size
     if sizes:
-        raise not_ported(f"a device mesh or parallel world above one "
-                         f"({sizes})", "Queue A items 4 and 10")
-    return seq
+        raise not_ported(f"tensor, pipeline or expert parallelism "
+                         f"({sizes})", "Queue A item 10")
+    from deepspeed_tpu_torch.parallel.topology import resolve_data_axis
+
+    return {"data": resolve_data_axis({"data": data, "seq": seq}), "seq": seq}
 
 
 class DeepSpeedConfig:
     """Parsed and validated config (JSON path or dict).  The data-parallel
-    world is one device (the ranks of a seq axis share each batch row), so
-    ``train_batch_size == micro * gas``."""
-
-    world_size = 1
+    world is the data axis (the ranks of a seq axis share each batch row),
+    so ``train_batch_size == micro * gas * dp``."""
 
     def __init__(self, config: Union[str, Dict[str, Any], None]):
         if config is None:
@@ -275,7 +313,13 @@ class DeepSpeedConfig:
         self.activation_checkpointing = _from_dict(
             ActivationCheckpointingConfig, d.get(C.ACTIVATION_CHECKPOINTING),
             "activation_checkpointing")
-        self.seq_parallel_size: int = _check_world(d)
+        world = _check_world(d)
+        self.seq_parallel_size: int = world["seq"]
+        self.world_size: int = world["data"]
+        if self.zero_config.stage >= 2 and self.seq_parallel_size > 1:
+            raise not_ported(f"zero_optimization.stage="
+                             f"{self.zero_config.stage} over a seq axis",
+                             "Queue A item 4")
         self.step_schedule = _step_schedule(d.get("step_schedule"))
         for key, (on, item) in _UNPORTED_BLOCKS.items():
             if key in d and on(d[key]):
@@ -300,38 +344,43 @@ class DeepSpeedConfig:
         return self.zero_config.stage
 
     def _resolve_batch_sizes(self) -> None:
-        """The JAX config's resolution rules at a world of one:
-        train == micro * gas; any one may be inferred."""
+        """The JAX config's resolution rules over the data-parallel world:
+        train == micro * gas * world; any one may be inferred."""
         train = self.train_batch_size
         micro = self.train_micro_batch_size_per_gpu
         gas = self.gradient_accumulation_steps
+        world = self.world_size
         if train is not None and micro is not None and gas is not None:
             pass
         elif train is not None and micro is not None:
-            if train % micro != 0:
+            if train % (micro * world) != 0:
                 raise DeepSpeedConfigError(
                     f"train_batch_size {train} not divisible by "
-                    f"micro_batch*world {micro}")
-            gas = train // micro
+                    f"micro_batch*world {micro * world}")
+            gas = train // (micro * world)
         elif train is not None and gas is not None:
-            if train % gas != 0:
+            if train % (gas * world) != 0:
                 raise DeepSpeedConfigError(
                     f"train_batch_size {train} not divisible by gas*world "
-                    f"{gas}")
-            micro = train // gas
+                    f"{gas * world}")
+            micro = train // (gas * world)
         elif micro is not None:
             gas = gas or C.GRADIENT_ACCUMULATION_STEPS_DEFAULT
-            train = micro * gas
+            train = micro * gas * world
         elif train is not None:
-            gas, micro = 1, train
+            if train % world != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {train} not divisible by world "
+                    f"{world}")
+            gas, micro = 1, train // world
         else:
             raise DeepSpeedConfigError(
                 "At least one of train_batch_size / "
                 "train_micro_batch_size_per_gpu must be set")
-        if train != micro * gas:
+        if train != micro * gas * world:
             raise DeepSpeedConfigError(
                 f"Inconsistent batch config: train_batch_size={train} != "
-                f"micro({micro}) * gas({gas}) * dp_world(1)")
+                f"micro({micro}) * gas({gas}) * dp_world({world})")
         self.train_batch_size = int(train)
         self.train_micro_batch_size_per_gpu = int(micro)
         self.gradient_accumulation_steps = int(gas)

@@ -27,15 +27,42 @@ Ring sequence parallelism (``{"mesh": {"seq": N}}`` with a built-in
 model of ``seq_impl="ring"``): every rank of the seq process group (which
 the launcher initialised) takes the same global batch, as the JAX engine
 does, keeps its shard of the sequence (striped first under
-``ring_placement="striped"``, as ``_maybe_stripe_ring``), runs its shard's
-forward and backward with attention around the ring, all-reduces each
+``ring_placement="striped"``, as ``_maybe_stripe_ring``; the port stripes
+``loss_mask`` with the labels, ROADMAP Queue C), runs its shard's forward
+and backward with attention around the ring, all-reduces each
 micro-step's token NLL sum and count and, before clipping, the fp32
-gradients over the group, and steps the same replicated params.
+gradients over the group, and steps the same replicated params.  Stage 1
+keeps its optimizer state whole over a seq axis (the JAX package also
+partitions it over seq; the numbers are the same).
+
+Data parallelism and ZeRO (``{"mesh": {"data": N}}``, a built-in model):
+each micro-step's ``micro·dp`` rows are split by data rank, as the JAX
+engine's ``BATCH_AXES`` sharding splits them, and the loss is the global
+token mean (NLL sum and token count all-reduced over the data group).
+The :class:`PartitionOracle` decides, leaf by leaf, the dim a param, its
+optimizer state and its gradient accumulator are split on (or none):
+
+* stage 0: grads are all-reduced, every rank steps the whole tree;
+* stage 1: grads are all-reduced; each rank steps its slice of each leaf
+  (its optimizer state only) and the params are all-gathered;
+* stage 2: as stage 1, but each micro-step's grads are reduce-scattered
+  into fp32 slice accumulators;
+* stage 3: the params are slices too; the forward gathers each leaf when
+  it is used and the backward reduce-scatters its gradient
+  (``zero.py``), and the update runs on the slices.  Leaves the
+  persistence threshold keeps whole are treated as in stage 2.
+
+The global grad norm counts each element once: slice sums of squares are
+all-reduced, and a leaf that stays whole on every rank is added once.
+``step_schedule.fused_gather_matmul`` goes through the JAX engine's gate
+(ZeRO 3, no other parallel axis, MLP weights split in the fsdp pattern);
+where it is refused the engine warns with the JAX reason and keeps the
+unfused stage-3 gather.
 
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
-trio, telemetry and the watchdog, checkpoints, fp16 loss scaling, ZeRO
-stage 2 and 3, offload, and data-parallel worlds above one device.  ZeRO
-stage 1 without a data-parallel world equals stage 0 and runs.
+trio, telemetry and the watchdog, checkpoints, fp16 loss scaling,
+offload, data and seq axes together, and a data axis for a duck-typed
+trainable.
 """
 
 from __future__ import annotations
@@ -45,12 +72,15 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import zero
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import transformer as tf_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                    is_norm_path,
                                                     tree_leaves,
                                                     tree_map_with_path)
-from deepspeed_tpu_torch.parallel.topology import MeshTopology
+from deepspeed_tpu_torch.parallel.topology import MeshTopology, set_topology
+from deepspeed_tpu_torch.resilience.oracle import PartitionOracle
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
                                                       build_lr_schedule,
@@ -58,7 +88,7 @@ from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
 from deepspeed_tpu_torch.runtime.optimizers import Optimizer, build_optimizer
 from deepspeed_tpu_torch.sequence.ring import stripe_sequence
 from deepspeed_tpu_torch.utils.device import resolve_device
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 Batch = Dict[str, Any]
 # batch keys with a sequence axis: striped and sharded over a seq axis
@@ -69,6 +99,12 @@ SEQ_KEYS = ("input_ids", "labels", "loss_mask", "attention_mask",
 def _as_array(v):
     """A batch value as a tensor (kept where it lies) or a numpy array."""
     return v if torch.is_tensor(v) else np.asarray(v)
+
+
+def _unflatten(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` in leaf order."""
+    it = iter(leaves)
+    return tree_map_with_path(lambda _p, _x: next(it), tree)
 
 
 def _global_norm(leaves) -> torch.Tensor:
@@ -113,7 +149,12 @@ class DeepSpeedEngine:
                 raise not_ported(f"seq_impl={model.seq_impl!r} (Ulysses) "
                                  "over a seq axis above one",
                                  "Queue A item 9")
-        self.topology = MeshTopology({"seq": cfg.seq_parallel_size})
+        if cfg.world_size > 1 and not builtin:
+            raise not_ported("a data axis with a duck-typed trainable",
+                             "Queue A item 4")
+        self.topology = MeshTopology({"data": cfg.world_size,
+                                      "seq": cfg.seq_parallel_size})
+        set_topology(self.topology)
 
         # -- model: compute dtype from the precision block, remat policy
         # from activation_checkpointing (the JAX engine's rule) ----------
@@ -126,6 +167,10 @@ class DeepSpeedEngine:
             if cfg.step_schedule.ring_interleave > 1 and mc.seq_impl == "ring":
                 mc = mc.replace(ring_interleave=cfg.step_schedule.ring_interleave)
             self.model_config = mc
+            # closes over mc, not self: an engine in a reference cycle
+            # would hold its tensors after the caller drops it.  The fused
+            # gate changes the config only over a data axis, where the
+            # loss goes through _micro_loss's sum-and-count branch.
             self._loss_fn = lambda params, batch: tf_model.loss_fn(params,
                                                                    batch, mc)
         else:
@@ -149,9 +194,7 @@ class DeepSpeedEngine:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             params = tree_map_with_path(
                 lambda _p, x: x.detach().to(self.device), model.init(gen))
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
-        self.params = params
+        self._partition(params)
 
         # -- optimizer and schedule ---------------------------------------
         if optimizer is not None:
@@ -162,7 +205,7 @@ class DeepSpeedEngine:
         else:
             self.optimizer = build_optimizer("adamw", {})
         self.base_lr = cfg.optimizer.lr if cfg.optimizer else 1e-3
-        self.opt_state = self.optimizer.init(self.params)
+        self.opt_state = self.optimizer.init(self._masters)
         if lr_scheduler is not None:
             self.lr_scheduler = lr_scheduler
         elif cfg.scheduler is not None:
@@ -176,13 +219,114 @@ class DeepSpeedEngine:
         self._last_metrics: Dict[str, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
+    # ZeRO partitioning over the data axis
+    # ------------------------------------------------------------------
+    def _partition(self, params) -> None:
+        """Decide each leaf's splits with the oracle (over a data axis
+        above one), run the fused gather-matmul gate, keep this rank's
+        slices of the stage-3 params, and build the tree the optimizer
+        steps (``_masters``): a stage-3 slice itself, a slice copy of a
+        leaf whose optimizer state alone is split, or the whole leaf."""
+        topo = self.topology
+        none = tree_map_with_path(lambda _p, _x: None, params)
+        self.param_dims = self.state_dims = none
+        self.oracle = None
+        if topo.dp_size > 1:
+            self.oracle = PartitionOracle.from_config(topo, self.config)
+            self.param_dims = self.oracle.param_specs(params)
+            self.state_dims = self.oracle.optimizer_specs(params)
+            offenders = self.oracle.audit_replicated(params)
+            if offenders:
+                desc = ", ".join(f"{p} {s} ({b / 1e6:.1f}MB)"
+                                 for p, s, b in offenders[:8])
+                log_dist(f"{len(offenders)} large param(s) could not be "
+                         "sharded (no dim divisible by the shard world) and "
+                         f"will be REPLICATED on every device: {desc}",
+                         level="warning")
+        if self.config.step_schedule.fused_gather_matmul:
+            self._fused_gate()
+        self._zero = None
+        if self.zero_stage >= 3 and self.oracle is not None:
+            with zero.Init(topology=topo, oracle=self.oracle) as zinit:
+                params = zinit.partition(params)
+            mc = self.model_config
+            self._zero = zero.ParamGather(
+                self.param_dims, topo.data_group,
+                lambda path: mc.param_dtype if is_norm_path(path) else mc.dtype)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        self.params = params
+
+        self._leaves = list(zip(tree_leaves(params),
+                                tree_leaves(self.param_dims),
+                                tree_leaves(self.state_dims)))
+        # a leaf whose state alone is split steps a slice copy, and its
+        # fp32 slice gradient (stage 1: filled after the all-reduce; stage
+        # >= 2: the accumulator the micro-steps reduce-scatter into)
+        masters, self._slice_grads = [], []
+        for p, pdim, sdim in self._leaves:
+            sliced = pdim is None and sdim is not None
+            m = zero.shard_of(p, sdim, topo.dp_rank, topo.dp_size) if sliced else p
+            masters.append(m)
+            self._slice_grads.append(torch.zeros_like(m) if sliced else None)
+        self._masters = _unflatten(params, masters)
+
+    def _fused_gate(self) -> None:
+        """The JAX engine's gate for ``step_schedule.fused_gather_matmul``
+        (``deepspeed_tpu/runtime/engine.py:369-436``), reason for reason:
+        the fused MLP runs only where the MLP weights carry the fsdp
+        pattern (wi/wg split on the embed dim 1 of the stacked leaf, wo on
+        dim 2, bi on dim 1); anything else warns and keeps the unfused
+        path."""
+        cfg, mc, topo = self.config, self.model_config, self.topology
+        zc = cfg.zero_config
+        blocked = (
+            "requires the built-in transformer model" if mc is None
+            else "requires ZeRO stage 3" if self.zero_stage < 3 else
+            "TP/PP/SP/EP mesh axes unsupported" if (
+                topo.tp_size > 1 or topo.pp_size > 1 or topo.sp_size > 1
+                or topo.ep_size > 1) else
+            "hierarchical (hpz/mics) partitioning unsupported"
+            if zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 0 else
+            "param streaming unsupported" if mc.param_stream else
+            "quantized zero3_gather (qwZ) already owns the gather"
+            if zc.zero_quantized_weights else
+            "compression masking unsupported"
+            if cfg.to_dict().get("compression_training") else
+            "MoE layers unsupported" if mc.is_moe else "")
+        if not blocked:
+            mlp = self.param_dims["layers"]["mlp"]
+            ok = mlp.get("wi") == 1 and mlp.get("wo") == 2
+            if ok and mc.activation == "swiglu":
+                ok = mlp.get("wg") == 1
+            elif ok and "bi" in mlp:
+                # the pre-activation bias rides the fused region: an
+                # indivisible bias dim must fall back
+                ok = mlp["bi"] == 1
+            if not ok:
+                blocked = ("MLP weights do not carry the expected fsdp "
+                           "sharding pattern (persistence threshold or "
+                           "indivisible dims)")
+        if blocked:
+            logger.warning("step_schedule.fused_gather_matmul: unsupported "
+                           f"with this configuration ({blocked}) — keeping "
+                           "the unfused gather path")
+            return
+        axes = self.oracle.fsdp_axes()
+        self.model_config = mc.replace(fused_gather_matmul=True,
+                                       fused_gather_axes=axes)
+        log_dist("step_schedule: fused gather-matmul — MLP all-gathers "
+                 f"issued in-region over {axes}")
+
+    # ------------------------------------------------------------------
     def _stack_micro_batches(self, data) -> Batch:
-        """Accept a stacked batch dict [gas*micro, ...] of any keys, a dict
-        already shaped [gas, micro, ...], or an iterator of micro-batches;
-        return arrays shaped [gas, micro, ...].  A dict's values may be
-        numpy arrays or tensors (tensors stay where they lie)."""
+        """Accept a stacked batch dict [gas*micro*dp, ...] of any keys, a
+        dict already shaped [gas, micro*dp, ...], or an iterator of
+        micro-batches; return arrays shaped [gas, micro*dp, ...].  A dict's
+        values may be numpy arrays or tensors (tensors stay where they
+        lie)."""
         gas = self.gradient_accumulation_steps_value
-        per_step = self.micro_batch_size
+        per_step = self.micro_batch_size * self.topology.dp_size
         if isinstance(data, dict):
             first = next(iter(data.values()))
             n = np.shape(first)[0]
@@ -200,6 +344,21 @@ class DeepSpeedEngine:
 
     def _to_device(self, batch: Batch) -> Batch:
         return {k: torch.as_tensor(_as_array(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def _data_shard(self, batch: Batch, row_axis: int) -> Batch:
+        """This data rank's rows of a global batch: the rank-th of dp
+        equal blocks along ``row_axis``."""
+        dp, rank = self.topology.dp_size, self.topology.dp_rank
+        if dp <= 1:
+            return batch
+        n = np.shape(batch["input_ids"])[row_axis]
+        if n % dp:
+            raise ValueError(f"{n} batch rows do not divide by the data "
+                             f"axis {dp}")
+        per = n // dp
+        cut = (slice(None),) * row_axis + (slice(rank * per, (rank + 1) * per),)
+        return {k: v[cut] if np.ndim(v) > row_axis else v
                 for k, v in batch.items()}
 
     def _seq_shard(self, batch: Batch, seq_axis: int) -> Batch:
@@ -226,18 +385,27 @@ class DeepSpeedEngine:
                 out[k] = v[cut]
         return out
 
+    def _groups(self):
+        """The process groups a gradient or a loss sum is reduced over."""
+        topo = self.topology
+        return [g for g, n in ((topo.data_group, topo.dp_size),
+                               (topo.seq_group, topo.sp_size)) if n > 1]
+
     def _micro_loss(self, mb: Batch):
-        """The micro-batch loss to differentiate.  Over a seq axis each
-        rank's share of the global token mean: its NLL sum over the token
-        count all-reduced with the sum (so the summed grads are the global
-        mean's); returns ``(loss to differentiate, global mean loss)``."""
-        if self.topology.sp_size <= 1:
+        """The micro-batch loss to differentiate.  Over a data or seq axis
+        each rank's share of the global token mean: its NLL sum over the
+        token count all-reduced with the sum (so the summed grads are the
+        global mean's); returns ``(loss to differentiate, global mean
+        loss)``."""
+        if self.topology.world_size <= 1:
             loss = self._loss_fn(self.params, mb)
             return loss, loss.detach().float()
         nll, count = tf_model.loss_fn(self.params, mb, self.model_config,
-                                      topo=self.topology, sum_count=True)
+                                      topo=self.topology, sum_count=True,
+                                      zero=self._zero)
         tot = torch.stack([nll.detach().float(), count.float()])
-        comm.all_reduce(tot, self.topology.seq_group)
+        for group in self._groups():
+            comm.all_reduce(tot, group)
         denom = torch.clamp(tot[1], min=1)
         return nll / denom, tot[0] / denom
 
@@ -251,11 +419,19 @@ class DeepSpeedEngine:
 
     def _accum_grads(self, batch_stack: Batch):
         """Run the gas micro-steps, accumulating fp32 gradients in each
-        master leaf's ``.grad``; returns (grad leaves, summed loss)."""
-        leaves = tree_leaves(self.params)
-        for p in leaves:
+        param's ``.grad`` (a stage-3 slice's through the gather's
+        reduce-scatter) or, at stage >= 2 for a leaf whose state alone is
+        split, in its slice accumulator; then reduce what is still this
+        rank's own sum.  Returns (the gradient of each ``_masters`` leaf,
+        summed loss)."""
+        topo = self.topology
+        for p, _pd, _sd in self._leaves:
             if p.grad is not None:
                 p.grad.zero_()
+        scatter = self.zero_stage >= 2
+        for g in self._slice_grads:
+            if g is not None:
+                g.zero_()
         gas = self.gradient_accumulation_steps_value
         seeds = self._dropout_seeds(gas)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -266,15 +442,48 @@ class DeepSpeedEngine:
             loss, value = self._micro_loss(mb)
             loss.backward()
             loss_sum += value
+            if scatter:
+                for (p, _pd, sdim), acc in zip(self._leaves, self._slice_grads):
+                    if acc is not None and p.grad is not None:
+                        acc += comm.reduce_scatter(p.grad, sdim, topo.data_group)
+                        p.grad.zero_()
         grads = []
-        for p in leaves:
+        for (p, pdim, sdim), acc in zip(self._leaves, self._slice_grads):
             if p.grad is None:   # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if self.topology.sp_size > 1:
-            for g in grads:
-                comm.all_reduce(g, self.topology.seq_group)
+            if pdim is not None:           # a stage-3 slice: reduced already
+                grads.append(p.grad)
+                continue
+            if acc is not None and scatter:
+                grads.append(acc)
+                continue
+            for group in self._groups():
+                comm.all_reduce(p.grad, group)
+            if acc is not None:            # stage 1: this rank's slice
+                acc.copy_(p.grad.chunk(topo.dp_size, dim=sdim)[topo.dp_rank])
+                grads.append(acc)
+            else:
+                grads.append(p.grad)
         return grads, loss_sum
+
+    def _grad_norm(self, grads) -> torch.Tensor:
+        """The global L2 norm, each element counted once: the sums of
+        squares of split gradients are all-reduced over the data group;
+        a gradient every rank holds whole is added once."""
+        if self.topology.dp_size <= 1:
+            return _global_norm(grads)
+        def sumsq(gs):
+            return sum((torch.sum(torch.square(g.float())) for g in gs),
+                       torch.zeros((), dtype=torch.float32, device=self.device))
+
+        split = [g for g, (_p, pdim, sdim) in zip(grads, self._leaves)
+                 if pdim is not None or sdim is not None]
+        whole = [g for g, (_p, pdim, sdim) in zip(grads, self._leaves)
+                 if pdim is None and sdim is None]
+        sq = sumsq(split)
+        if split:
+            comm.all_reduce(sq, self.topology.data_group)
+        return torch.sqrt(sq + sumsq(whole))
 
     @torch.no_grad()
     def _apply_update(self, grads, lr: float) -> torch.Tensor:
@@ -284,14 +493,19 @@ class DeepSpeedEngine:
             self.gradient_accumulation_steps_value))
         for g in grads:
             g.mul_(inv)
-        grad_norm = _global_norm(grads)
+        grad_norm = self._grad_norm(grads)
         clip = self.config.gradient_clipping
         if clip and clip > 0:
             coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(coef)
-        grad_tree = tree_map_with_path(lambda _p, p: p.grad, self.params)
-        self.optimizer.update(grad_tree, self.opt_state, self.params, lr)
+        self.optimizer.update(_unflatten(self._masters, grads), self.opt_state,
+                              self._masters, lr)
+        # a whole param whose state alone is split: gather the stepped slices
+        topo = self.topology
+        for (p, pdim, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
+            if pdim is None and sdim is not None:
+                p.copy_(comm.all_gather(m, sdim, topo.data_group))
         return grad_norm
 
     # ------------------------------------------------------------------
@@ -300,8 +514,8 @@ class DeepSpeedEngine:
     def train_batch(self, data) -> torch.Tensor:
         """One full train batch (gas micro-batches + optimizer step);
         returns the mean micro-batch loss as a 0-dim fp32 tensor."""
-        batch_stack = self._seq_shard(self._stack_micro_batches(data),
-                                      seq_axis=2)
+        batch_stack = self._seq_shard(self._data_shard(
+            self._stack_micro_batches(data), row_axis=1), seq_axis=2)
         lr = float(self.lr_scheduler(self.global_steps))
         grads, loss_sum = self._accum_grads(batch_stack)
         grad_norm = self._apply_update(grads, lr)
@@ -314,7 +528,8 @@ class DeepSpeedEngine:
         return metrics["loss"]
 
     def eval_batch(self, batch: Batch) -> torch.Tensor:
-        batch = self._seq_shard(batch, seq_axis=1)
+        batch = self._seq_shard(self._data_shard(batch, row_axis=0),
+                                seq_axis=1)
         with torch.no_grad():
             return self._micro_loss(self._to_device(batch))[1]
 

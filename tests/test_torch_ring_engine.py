@@ -120,7 +120,7 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
     ({"mesh": {"seq": 2}, "comm_quantization": {
         "enabled": True, "ring_rotation": "int8"}}, {"seq_impl": "ring"},
      "item 8"),
-    ({"mesh": {"seq": 2}, "step_schedule": {"fused_gather_matmul": True}},
+    ({"mesh": {"seq": 2}, "step_schedule": {"weight_update": "decomposed"}},
      {"seq_impl": "ring"}, "item 8"),
 ], ids=["data-with-seq", "ulysses", "sp-size-ulysses", "int8-wire",
         "step-schedule"])

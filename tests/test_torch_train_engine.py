@@ -305,9 +305,9 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"fp16": {"enabled": True}},
-    {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 2}, "mesh": {"seq": 2}},
     {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
-    {"mesh": {"data": 2}},
+    {"mesh": {"data": 2, "seq": 2}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
     {"comm_quantization": {"enabled": True}},
