@@ -11,7 +11,7 @@ Phases, each printing JSON lines:
                with its time, the plain version's time and its bound;
   4. reference — llama3-8b at full width, cut to two layers, in fp32: the
                engine's logits on the card against the same engine on the
-               CPU (plain attention), step by step;
+               CPU (plain attention), step by step, with the host's CPU;
   5. engine  — InferenceEngineV2 for llama3-8b at full width and depth in
                bf16 (random weights from a seed) generates through the
                kernels, with a bf16 and an int8 KV cache; the launch counts
@@ -23,14 +23,17 @@ Phases, each printing JSON lines:
                against their plain versions at the training path's shapes
                (gpt2-350m and llama3-8b attention geometry, a sliding
                window, a tail, fp32 bodies; AdamW over every gpt2-350m
-               leaf, bit for bit), with times, bounds and library times;
+               leaf, bit for bit), with times, bounds and library times,
+               each row naming the route its kernel took (flash_fwd:
+               wgmma for bf16, fma for fp32);
   8. train-reference — gpt2-350m width cut to two layers, fp32: two
                train_batch steps on the card against the same engine on
                the CPU (loss, grad norm, params);
   9. train   — gpt2-350m at full width and depth in bf16 with the bench
                row's step (micro 8, gas 8, seq 1024, AdamW, clip 1.0,
                ZeRO-1): a warm-up step, then three timed steps whose launch
-               counts show the path ran the kernels; a profiled step; one
+               counts show the path ran the kernels, every flash_fwd on its
+               wgmma route; a profiled step; one
                step with remat "nothing_saveable" (the forward reruns);
  10. sparse-kernels — bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv against their
                plain versions: the sparse path's shape and layout, Fixed,
@@ -91,8 +94,9 @@ Phases, each printing JSON lines:
                micro 8 x seq 1024 (forward wi and wo, and the backward's
                dx = g·wᵀ and dw = xᵀ·g through transposed views), llama3-8b
                width SwiGLU (M 4096, K 4096 <-> N 14336) and the JAX test's
-               ragged shapes, with times, bounds and torch.matmul as the
-               library time;
+               ragged shapes, with times, bounds, torch.matmul as the
+               library time and the route each case took (wgmma, or mma
+               where TMA cannot read an operand, fma for fp32);
  21. zero-reference — gpt2-350m width cut to 2 layers, fp32, in two ranks
                sharing the card over gloo ({"mesh": {"data": 2}}, micro 2 x
                seq 256 a rank, gas 2) at ZeRO stages 1, 2, 3 and 3 with the
@@ -105,7 +109,8 @@ Phases, each printing JSON lines:
                ZeRO-3 row: micro 8 a rank, seq 1024, bf16, AdamW, clip 1.0,
                persistence 0; gas 2): a warm-up step, three timed steps whose
                launch counts a rank show gather_matmul, flash, AdamW and
-               nothing else, and a profiled step on rank 0 (device busy
+               nothing else, every GEMM and attention forward on the wgmma
+               route, and a profiled step on rank 0 (device busy
                share, host time inside comm.all_gather, comm.reduce_scatter
                and comm.all_reduce).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
@@ -170,12 +175,13 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
     "type": "Lion", "params": {"lr": 3e-5, "betas": [0.9, 0.99],
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
-# roles are one template each, told apart by their mask policy
+# roles are one template each, told apart by their mask policy; flash_fwd
+# and gather_matmul on the main path are their wgmma kernels
 PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_kernel", "RingOffsets"),
-    "flash_fwd": ("attn_fwd_kernel", "CausalWindow"),
+    "flash_fwd": ("attn_fwd_wgmma_kernel",),
     "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
     "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
@@ -185,7 +191,7 @@ PROFILE_NAMES = {
     "fused_lion": ("fused_lion_kernel",),
     "fp6_matmul": ("fp6_mma_kernel",),
     "dequantize": ("dequant_kernel",),
-    "gather_matmul": ("gemm_mma_kernel",)}
+    "gather_matmul": ("gemm_wgmma_kernel",)}
 # slice 4: LoRA adapters over quantized llama3-8b-width MLP bases
 LINEAR_MODEL = "llama3-8b"
 LINEAR_BLOCKS = 4
@@ -488,7 +494,7 @@ def phase_reference(v2, tf_model, tf, pa, prompts):
           "dtype": "float32", "steps": steps,
           "prompt_tokens": sum(map(len, batch)),
           "check": "card (kernel, cuBLAS) vs CPU (plain version) logits",
-          "max_rel_err": worst, "tolerance": REF_RTOL,
+          "max_rel_err": worst, "tolerance": REF_RTOL, "host": _host_info(),
           "argmax_agreement": sum(agree) / len(agree),
           "kernel_launches": launched})
     if worst > REF_RTOL:
@@ -497,6 +503,21 @@ def phase_reference(v2, tf_model, tf, pa, prompts):
         fail(f"the card's steps launched the kernel {launched} times")
     del card, host
     torch.cuda.empty_cache()
+
+
+def _host_info():
+    """The CPU the reference side ran on: the plain CPU kernels PyTorch
+    picks follow its capability."""
+    import os
+
+    import torch
+
+    model = next((ln.split(":", 1)[1].strip() for ln in
+                  open("/proc/cpuinfo").read().splitlines()
+                  if ln.startswith("model name")), "unknown")
+    return {"cpu_model": model, "cpu_count": os.cpu_count(),
+            "torch_threads": torch.get_num_threads(),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability()}
 
 
 # ----------------------------------------------------------------------
@@ -785,13 +806,14 @@ def bshd_inputs(b, hq, hkv, s, d, dtype, seed):
     return rand(hq), rand(hkv), rand(hkv), rand(hq)
 
 
-def attn_case(row, roles, inputs, bounds, library, timed):
+def attn_case(row, roles, inputs, bounds, library, timed, routes=None):
     """Each kernel of one attention case against its plain version on the
     same inputs.  ``roles``: (name, kernel, plain) for the forward
     ``(q, k, v) -> (o, lse)``, then dq and dk/dv ``(q, k, v, do, lse,
     delta)``, the backward fed the kernel forward's lse.  ``library``:
     keyword arguments and a note for the scaled_dot_product_attention call
-    timed beside the kernels."""
+    timed beside the kernels.  ``routes``: the kernel route each role's
+    launch takes, by name, recorded in its row."""
     import torch
     import torch.nn.functional as F
 
@@ -815,7 +837,9 @@ def attn_case(row, roles, inputs, bounds, library, timed):
             err = max(err, float(diff.max()))
             ok &= bool(torch.all(diff <= rtol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g.float()).all())
-        rows[kname] = {**row, "kernel": kname, "max_abs_err": err,
+        rows[kname] = {**row, "kernel": kname,
+                       **({"route": routes[kname]} if routes else {}),
+                       "max_abs_err": err,
                        "tolerance": "|k-r| <= rtol * (1 + |r|), rtol "
                                     f"{FLASH_RTOL} by output dtype",
                        "ok": ok, "bound_ms": bound, "bound_by": by}
@@ -864,11 +888,14 @@ def flash_case(fm, case):
     row = {"phase": "train-kernel", "case": name, "B": b, "Hq": hq,
            "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
            "window": window, "pairs": pairs}
+    bwd = "fma" if dt == "float32" else "mma"   # the 64 x 64 tile walk
+    routes = {"flash_fwd": fm.fwd_route(*inputs[:3]), "flash_bwd_dq": bwd,
+              "flash_bwd_dkv": bwd}
     return attn_case(row, roles, inputs,
                      flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
                                   pairs, dt == "float32"),
                      ({"is_causal": causal}, "scaled_dot_product_attention"),
-                     timed)
+                     timed, routes)
 
 
 # name, b, hq, hkv, s, d, dtype, (sparsity config, its kwargs), causal
@@ -1233,7 +1260,9 @@ def phase_train(ds, tf_model, counters, card, phase, cfg, want, remat=False,
     remat_s = time.perf_counter() - t0
     remat_launches = {k: v for c in counters for k, v in c.items()}
     fwd = next(k for k in ("flash_fwd", "bsa_fwd") if want.get(k))
-    want_remat = {**want, fwd: 2 * want[fwd]}
+    # the forward's launches (and its route's count) double
+    want_remat = {k: 2 * v if k.split(".")[0] == fwd else v
+                  for k, v in want.items()}
     emit({"phase": phase + "-remat", "remat": "nothing_saveable",
           "step_s": remat_s, "loss": loss,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2204,6 +2233,7 @@ def phase_gemm_kernels(tgm):
                              BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
         big = m * k * n >= 1 << 30
         row = {"phase": "gemm-kernels", "case": name, "kernel": "gather_matmul",
+               "route": tgm.route(a, b),
                "m": m, "k": k, "n": n, "a_transposed": ta, "b_transposed": tb,
                "dtype": dt, "max_abs_err": float(diff.max()),
                "max_abs_ref": float(ref.float().abs().max()),
@@ -2233,6 +2263,14 @@ def _zero_counters():
     from deepspeed_tpu_torch.ops import gather_matmul as tgm
 
     return _ring_counters() + (tgm.gemm.launches,)
+
+
+def _route_counters():
+    """The per-route counts of the two kernels that have routes."""
+    from deepspeed_tpu_torch.ops import flash_mha as fm
+    from deepspeed_tpu_torch.ops import gather_matmul as tgm
+
+    return tgm.gemm.routes, fm.flash_mha.routes
 
 
 def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
@@ -2281,7 +2319,7 @@ def zero_rank_train(rank, world, cfg, seq, steps):
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.models import transformer as tf
 
-    counters = _zero_counters()
+    counters = _zero_counters() + _route_counters()
     model = registry.get_model_config(TRAIN_MODEL)
     t0 = time.perf_counter()
     eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
@@ -2300,12 +2338,14 @@ def zero_rank_train(rank, world, cfg, seq, steps):
         t0 = time.perf_counter()
         losses.append(float(eng.train_batch(batch)))   # float() syncs
         step_s.append(time.perf_counter() - t0)
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = {k: v for c in counters[:-2] for k, v in c.items()}
+    routes = {k: v for c in counters[-2:] for k, v in c.items()}
     shard_bytes = sum(p.numel() * p.element_size() for p in tf.tree_leaves(eng.params))
     res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
            "fused": bool(eng.model_config.fused_gather_matmul),
            "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
-           "launches": launches, "master_shard_gb": shard_bytes / 1e9,
+           "launches": launches, "routes": routes,
+           "master_shard_gb": shard_bytes / 1e9,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "finite": bool(np.all(np.isfinite(losses)))}
     if rank == 0:
@@ -2446,10 +2486,16 @@ def phase_zero_train(tf_model, launch, card):
             "flash_bwd_dkv": per, "fused_adamw": 1}
     per_step = [{k: v / ZERO_STEPS for k, v in r["launches"].items()}
                 for r in ranks]
+    # every GEMM and every forward attention launch on the wgmma route
+    want_routes = {**{k: 0 for k in ranks[0]["routes"]},
+                   "gather_matmul.wgmma": 6 * per, "flash_fwd.wgmma": per}
+    routes_per_step = [{k: v / ZERO_STEPS for k, v in r["routes"].items()}
+                       for r in ranks]
     ok = (all(r["finite"] and r["fused"] for r in ranks)
           and all(r["losses"] == ranks[0]["losses"] for r in ranks)
           and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
-          and all(p == want for p in per_step))
+          and all(p == want for p in per_step)
+          and all(p == want_routes for p in routes_per_step))
     tps = tokens * ZERO_STEPS / sum(step_s)
     emit({"phase": "zero3-train", "model": TRAIN_MODEL,
           "layers": model.num_layers, "dtype": "bfloat16", "zero_stage": 3,
@@ -2464,7 +2510,8 @@ def phase_zero_train(tf_model, launch, card):
           "ranks_detail": [{k: v for k, v in r.items() if k != "profile"}
                            for r in ranks],
           "launches_per_step": per_step, "expected_per_step": want,
-          "card": card, "ok": ok})
+          "routes_per_step": routes_per_step,
+          "expected_routes_per_step": want_routes, "card": card, "ok": ok})
     prof = ranks[0]["profile"]
     emit({"phase": "zero3-train-profile",
           "what": "one train_batch on rank 0 (rank 1 steps beside it)",
@@ -2477,8 +2524,8 @@ def phase_zero_train(tf_model, launch, card):
           **prof, "card": card})
     if not ok:
         fail("zero3-train: losses not finite, not equal on the ranks or not "
-             "falling, the fused path off, or the launch counts do not show "
-             "the kernels")
+             "falling, the fused path off, or the launch or route counts do "
+             "not show the kernels")
     return {"gather_matmul": ranks[0]["launches"]["gather_matmul"]}
 
 
@@ -2520,6 +2567,11 @@ def main() -> int:
     from deepspeed_tpu_torch.ops import quantize as qk
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
+    rng = np.random.default_rng(0)
+    mc = tf_model.get_model_config(MODEL)
+    prompts = [rng.integers(0, mc.vocab_size,
+                            size=int(rng.integers(64, 513))).tolist()
+               for _ in range(16)]
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2541,18 +2593,12 @@ def main() -> int:
           "ptxas": [ln.strip() for name in op_builder.KERNEL_SOURCES
                     for ln in op_builder.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]})
-
     # 3. kernels against their plain versions
-    mc = tf_model.get_model_config(MODEL)
     bs = ENGINE_CFG["memory_config"]["block_size"]
     summary = phase_kernels(pa, mc, bs,
                             ENGINE_CFG["memory_config"]["num_blocks"])
 
     # 4. reference, 5. engine, 6. server
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, mc.vocab_size,
-                            size=int(rng.integers(64, 513))).tolist()
-               for _ in range(16)]
     phase_reference(v2, tf_model, tf, pa, prompts)
     eng, launches, ref = phase_engine(pa, tf_model, v2, prompts)
     phase_profile(eng, prompts, smi)
@@ -2573,10 +2619,12 @@ def main() -> int:
         expected(counters, flash_fwd=ref_steps, flash_bwd_dq=ref_steps,
                  flash_bwd_dkv=ref_steps, fused_adamw=2))
     n = layers * micro_steps
+    # every flash_fwd launch of the step on the wgmma route
+    routed = counters + (fm.flash_mha.routes,)
     train_launches = phase_train(
-        ds, tf_model, counters, smi, "train", TRAIN_CFG,
-        expected(counters, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
-                 fused_adamw=1), remat=True)
+        ds, tf_model, routed, smi, "train", TRAIN_CFG,
+        expected(routed, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
+                 fused_adamw=1, **{"flash_fwd.wgmma": n}), remat=True)
 
     # 10. block-sparse kernels and Lion, 11. their training reference,
     # 12. training with block-sparse attention and Lion
@@ -2705,6 +2753,8 @@ def main() -> int:
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if "route" in row:     # which of the kernel's routes the row timed
+            entry["kernel_route"] = row["route"]
         if name in also:
             entry["also_replaces"] = also[name]
         if name in notes:

@@ -7,7 +7,12 @@ and ``_dkv_kernel``/``_dkv_kernel_blocked``).  On CUDA tensors the three
 roles launch the hand-written Hopper kernels of ``ops/csrc/flash_attention.cu``
 (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``); on CPU tensors the
 plain PyTorch versions below run the same tile walk.  A CUDA call never
-falls back: the kernel builds and launches, or the call raises.
+falls back: the kernel builds and launches, or the call raises.  The
+forward has routes, picked before the launch from dtype and strides
+(:func:`fwd_route`, counted in ``flash_mha.routes``): bf16 views that TMA
+can read take the wgmma/TMA forward (``ops/csrc/attention_wgmma.cuh``,
+128-key tiles), other bf16 views and fp32 the 64 x 64 tile walk of
+``ops/csrc/attention_tiles.cuh``.
 
 The TPU file has a VMEM-resident variant and a KV-blocked variant of each
 kernel; the split exists for VMEM budgets, which Hopper does not share.
@@ -52,6 +57,8 @@ NEG_INF = -1e30
 BLOCK_K = 64
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# flash_fwd's routes by their code in ops/csrc/flash_attention.cu
+FWD_ROUTES = ("fma", "mma", "wgmma")
 
 
 # ----------------------------------------------------------------------
@@ -300,22 +307,43 @@ def _empty_bshd(q: torch.Tensor, heads: int) -> torch.Tensor:
                        device=q.device).transpose(1, 2)
 
 
+def _tma_readable(x: torch.Tensor) -> bool:
+    """A [B, H, S, D] view a TMA tensor map can describe (beyond
+    :func:`_kernel_layout_ok`): no zero stride on a dim longer than one."""
+    return all(st > 0 for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1)
+
+
+def fwd_route(q, k, v) -> str:
+    """The ``flash_fwd`` kernel's route, from dtype and strides alone:
+    ``"wgmma"`` (the wgmma/TMA forward) for bf16 views TMA can read;
+    ``"mma"`` (the 64 x 64 tile walk on wmma) for other bf16 views (an
+    expanded K/V with a zero stride); ``"fma"`` for fp32 (the card-vs-CPU
+    reference).  The operands are views the kernels take
+    (:func:`_check_cuda`)."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "wgmma" if all(_tma_readable(x) for x in (q, k, v)) else "mma"
+
+
 def flash_fwd(q, k, v, causal: bool, sm_scale: float,
               window: Optional[int] = None):
     """``(o, lse)`` of one attention forward; CPU tensors take the plain
-    version, CUDA tensors the ``flash_fwd`` kernel."""
+    version, CUDA tensors the ``flash_fwd`` kernel on :func:`fwd_route`'s
+    route."""
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, causal, sm_scale, window)
     _check_cuda(q, k, v)
     b, hq, s, _ = q.shape
     o = _empty_bshd(q, hq)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    err = _lib().flash_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+    path = fwd_route(q, k, v)
+    err = _lib().flash_fwd(FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(),
                            v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                            _strides(q, k, v, o),
                            *_common(q, k, causal, sm_scale, window))
-    _raise_on(err, "flash_fwd")
+    _raise_on(err, f"flash_fwd ({path} route)")
     flash_mha.launches["flash_fwd"] += 1
+    flash_mha.routes[f"flash_fwd.{path}"] += 1
     return o, lse
 
 
@@ -453,6 +481,7 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
 
 
 flash_mha.launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+flash_mha.routes = {f"flash_fwd.{r}": 0 for r in FWD_ROUTES}
 
 
 # ----------------------------------------------------------------------

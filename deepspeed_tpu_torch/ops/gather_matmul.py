@@ -15,9 +15,10 @@ use), and each matmul is the hand-written Hopper GEMM of
 
 * :func:`gemm` — the kernel wrapper: ``[M, K] @ [K, N]`` with fp32
   accumulation and the operands' dtype out, on any strided 2-D views (a
-  transposed view is read in place).  CUDA tensors launch the kernel
-  (counted in ``gemm.launches``) or raise; CPU tensors take
-  :func:`matmul_ref`, the plain version.
+  transposed view is read in place).  CUDA tensors launch the kernel on
+  the route :func:`route` picks from the operands (counted in
+  ``gemm.launches``, in total, and ``gemm.routes``, by route) or raise;
+  CPU tensors take :func:`matmul_ref`, the plain version.
 * :func:`matmul` — the differentiable product, ``pallas_matmul`` with its
   ``_mm_fwd``/``_mm_bwd``: dx = g·wᵀ and dw = xᵀ·g through the same
   kernel, dx cast to x's dtype and dw to w's.
@@ -36,7 +37,8 @@ from deepspeed_tpu_torch import zero
 
 # the TPU kernel's block depth: the plain version sums K in these chunks
 BLK_K = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's routes by their code in ops/csrc/gather_matmul.cu
+ROUTES = ("fma", "mma", "wgmma")
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -86,6 +88,29 @@ def _strides(t: torch.Tensor) -> Tuple[int, int]:
     return (1 if t.shape[0] == 1 else sr), (1 if t.shape[1] == 1 else sc)
 
 
+def _tma_readable(t: torch.Tensor) -> bool:
+    """A 2-D bf16 view TMA can load: unit stride along one axis, the other
+    stride a positive multiple of 8 elements (16 bytes), the base 16-byte
+    aligned."""
+    sr, sc = _strides(t)
+    other = sr if sc == 1 else sc if sr == 1 else 0
+    return other > 0 and other % 8 == 0 and t.data_ptr() % 16 == 0
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel route for ``a @ b``, from dtype, strides, shape and
+    alignment alone: ``"fma"`` for fp32 (full fp32, the card-vs-CPU
+    reference); ``"wgmma"`` for bf16 operands TMA can read (see
+    :func:`_tma_readable`) with K > 0; ``"mma"`` for any other bf16
+    operands (a stride-0 gradient, a row pitch off 8 elements, a
+    misaligned base)."""
+    if a.dtype == torch.float32:
+        return "fma"
+    if a.shape[1] > 0 and _tma_readable(a) and _tma_readable(b):
+        return "wgmma"
+    return "mma"
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [M, K] @ b [K, N]`` → ``[M, N]`` contiguous in the operands'
     dtype, fp32 accumulation.  ``a`` and ``b`` may be any strided views
@@ -96,7 +121,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"gemm: no kernel for device {a.device}")
-    if a.dtype not in _DTYPE_CODE:
+    if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"gemm: the kernel takes fp32 or bf16, got {a.dtype}")
     if min(a.stride() + b.stride()) < 0:
         raise ValueError("gemm: negative strides")
@@ -105,18 +130,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    err = _lib().gather_matmul(_DTYPE_CODE[a.dtype], a.data_ptr(),
+    path = route(a, b)
+    err = _lib().gather_matmul(ROUTES.index(path), a.data_ptr(),
                                b.data_ptr(), out.data_ptr(), m, n, k,
                                *_strides(a), *_strides(b),
                                torch.cuda.current_stream(a.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gather_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"gather_matmul kernel launch failed ({path} "
+                           f"route): CUDA error {err}")
     gemm.launches["gather_matmul"] += 1
+    gemm.routes[f"gather_matmul.{path}"] += 1
     return out
 
 
 gemm.launches = {"gather_matmul": 0}
+gemm.routes = {f"gather_matmul.{r}": 0 for r in ROUTES}
 
 
 class _Matmul(torch.autograd.Function):

@@ -125,3 +125,44 @@ def test_cpu_path_counts_no_launch():
     _, (tq, tk, tv, _) = _inputs(CASES[0], "float32")
     tfm.flash_mha(tq.requires_grad_(True), tk, tv).sum().backward()
     assert tfm.flash_mha.launches == before
+
+
+# layout of q/k/v (B 2, Hq 4, Hkv 2, S 48, D 64), the bf16 route: views a
+# TMA tensor map takes (no zero stride on a dim longer than one) take
+# wgmma, an expanded K/V the 64 x 64 walk (mma)
+def _qkv(layout, dtype):
+    b, hq, hkv, s, d = 2, 4, 2, 48, 64
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype)
+
+    if layout == "bhsd":
+        return z(b, hq, s, d), z(b, hkv, s, d), z(b, hkv, s, d)
+    if layout == "bshd":
+        return tuple(z(b, s, h, d).transpose(1, 2) for h in (hq, hkv, hkv))
+    if layout == "fused-qkv":
+        q, k, v = torch.split(z(b, s, (hq + 2 * hkv) * d),
+                              [hq * d, hkv * d, hkv * d], dim=-1)
+        return tuple(x.reshape(b, s, -1, d).transpose(1, 2) for x in (q, k, v))
+    if layout == "kv-expanded-heads":
+        kv = z(b, 1, s, d).expand(b, hkv, s, d)
+    elif layout == "kv-expanded-batch":
+        kv = z(1, hkv, s, d).expand(b, hkv, s, d)
+    else:  # one KV head, stride 0: a dim of size one is never stepped
+        kv = z(b, s, d).as_strided((b, 1, s, d), (s * d, 0, d, 1))
+    return z(b, hq, s, d), kv, kv
+
+
+FWD_ROUTE_CASES = [("bhsd", "wgmma"), ("bshd", "wgmma"), ("fused-qkv", "wgmma"),
+                   ("mqa-stride0", "wgmma"), ("kv-expanded-heads", "mma"),
+                   ("kv-expanded-batch", "mma")]
+
+
+@pytest.mark.parametrize("layout,want", FWD_ROUTE_CASES,
+                         ids=[c[0] for c in FWD_ROUTE_CASES])
+def test_fwd_route_is_chosen_from_dtype_and_strides(layout, want):
+    """flash_fwd's route is a pure function of dtype and strides: bf16
+    takes wgmma or mma, never fma; the same views in fp32 always fma."""
+    assert tfm.fwd_route(*_qkv(layout, torch.bfloat16)) == want
+    assert tfm.fwd_route(*_qkv(layout, torch.float32)) == "fma"
+    assert set(tfm.flash_mha.routes) == {f"flash_fwd.{r}" for r in tfm.FWD_ROUTES}

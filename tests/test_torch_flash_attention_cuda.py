@@ -40,8 +40,12 @@ CASES = [
     (1, 4, 2, 200, 64, True, None),      # tail: S % 64 != 0
     (1, 4, 4, 384, 64, True, 100),       # sliding window
     (1, 4, 1, 130, 128, False, 48),      # window without causal, tail, MQA
+    (1, 4, 2, 1000, 64, True, None),     # tail: S % 128 != 0 over many tiles
+    (2, 4, 4, 50, 64, True, None),       # S below one tile
+    (1, 8, 2, 700, 128, True, 300),      # GQA, d=128, window over tile edges
 ]
-IDS = ["mha-causal", "mha-full", "gqa-d128", "tail", "window", "window-full-mqa"]
+IDS = ["mha-causal", "mha-full", "gqa-d128", "tail", "window", "window-full-mqa",
+       "tail-1000", "short", "gqa-d128-window"]
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
@@ -69,16 +73,59 @@ def test_cuda_flash_kernels_match_plain_version(case, dtype, cuda_device):
     q, k, v, do = _inputs(case, dtype, cuda_device)
     scale = 1.0 / np.sqrt(case[4])
     before = dict(fm.flash_mha.launches)
+    routes = dict(fm.flash_mha.routes)
     o, lse = fm.flash_fwd(q, k, v, causal, scale, window)
     dq, dk, dv = fm.flash_bwd(q, k, v, o, lse, do, causal, scale, window)
     torch.cuda.synchronize()
     assert {n: fm.flash_mha.launches[n] - before[n] for n in before} == \
         {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    want = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert {r: n - routes[r] for r, n in fm.flash_mha.routes.items()
+            if n != routes[r]} == {f"flash_fwd.{want}": 1}
     o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, scale, window)
     grads_r = fm.flash_bwd_ref(q, k, v, o_r, lse_r, do, causal, scale, window)
     for name, got, ref in [("o", o, o_r), ("lse", lse, lse_r)] + list(
             zip(("dq", "dk", "dv"), (dq, dk, dv), grads_r)):
         assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES[2:4], ids=IDS[2:4])
+def test_cuda_flash_fwd_expanded_kv_takes_the_mma_route(case, cuda_device):
+    """K/V expanded over their heads (a zero head stride) are more than a
+    TMA tensor map takes: the bf16 forward runs the 64 x 64 tile walk,
+    against the same plain version."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v, _ = _inputs(case, torch.bfloat16, cuda_device)
+    k, v = k[:, :1].expand(b, hkv, s, d), v[:, :1].expand(b, hkv, s, d)
+    assert fm.fwd_route(q, k, v) == "mma"
+    before = fm.flash_mha.routes["flash_fwd.mma"]
+    o, lse = fm.flash_fwd(q, k, v, causal, 1.0 / np.sqrt(d), window)
+    torch.cuda.synchronize()
+    assert fm.flash_mha.routes["flash_fwd.mma"] == before + 1
+    o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, 1.0 / np.sqrt(d), window)
+    for name, got, ref in (("o", o, o_r), ("lse", lse, lse_r)):
+        ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.3, -0.125], ids=["0.3", "negative"])
+@pytest.mark.parametrize("case", [CASES[0], CASES[8]], ids=[IDS[0], IDS[8]])
+def test_cuda_flash_fwd_wgmma_takes_any_scale(case, scale, cuda_device):
+    """The wgmma forward at a softmax scale other than 1/sqrt(d), negative
+    too (where a row's largest raw score is not its largest scaled one),
+    against the plain version."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v, _ = _inputs(case, torch.bfloat16, cuda_device, seed=4)
+    before = fm.flash_mha.routes["flash_fwd.wgmma"]
+    o, lse = fm.flash_fwd(q, k, v, causal, scale, window)
+    torch.cuda.synchronize()
+    assert fm.flash_mha.routes["flash_fwd.wgmma"] == before + 1
+    o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, scale, window)
+    for name, got, ref in (("o", o, o_r), ("lse", lse, lse_r)):
         ok, err = _close(got, ref, RTOL[got.dtype])
         assert ok, f"{name}: max abs err {err}"
 

@@ -78,3 +78,44 @@ def test_gemm_rejects_what_the_kernel_does_not_take():
     before = dict(tgm.gemm.launches)
     tgm.matmul(a.requires_grad_(), torch.zeros(8, 3)).sum().backward()
     assert tgm.gemm.launches == before      # CPU tensors launch nothing
+
+
+def _bf16(*shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+# name, a, b, the bf16 route: operands a TMA tensor map can describe (one
+# unit stride, the other a positive multiple of 8 elements, a 16-byte
+# aligned base, K > 0) take wgmma, any other bf16 operands mma
+ROUTE_CASES = [
+    ("plain", lambda: (_bf16(64, 128), _bf16(128, 256)), "wgmma"),
+    ("a-transposed", lambda: (_bf16(128, 64).T, _bf16(128, 256)), "wgmma"),
+    ("b-transposed", lambda: (_bf16(64, 128), _bf16(256, 128).T), "wgmma"),
+    ("both-transposed", lambda: (_bf16(136, 200).T, _bf16(264, 136).T), "wgmma"),
+    ("ragged-n72", lambda: (_bf16(130, 96), _bf16(96, 72)), "wgmma"),
+    ("aligned-column-slice", lambda: (_bf16(200, 136)[:, 8:], _bf16(128, 64)), "wgmma"),
+    ("k300-row-pitch", lambda: (_bf16(8, 300), _bf16(300, 128)), "mma"),
+    ("a-t-pitch-77", lambda: (_bf16(131, 77).T, _bf16(131, 45)), "mma"),
+    ("misaligned-base", lambda: (_bf16(200, 129)[:, 1:], _bf16(128, 72)), "mma"),
+    ("expanded-gradient", lambda: (_bf16().add(1).expand(40, 24), _bf16(24, 16)), "mma"),
+    ("b-column-vector", lambda: (_bf16(64, 128), _bf16(128, 1)), "mma"),
+    ("k-zero", lambda: (_bf16(4, 0), _bf16(0, 8)), "mma"),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_route_is_chosen_from_dtype_strides_shape_and_alignment(case):
+    """The GEMM's route is a pure function of the operands: bf16 takes
+    wgmma or mma, never fma; the same views in fp32 always take fma."""
+    _, make, want = case
+    a, b = make()
+    assert tgm.route(a, b) == want
+    assert tgm.route(a.float(), b.float()) == "fma"
+
+
+def test_route_counts_stay_untouched_on_cpu():
+    """CPU tensors take the plain version: no launch and no route count."""
+    before = (dict(tgm.gemm.launches), dict(tgm.gemm.routes))
+    tgm.gemm(_bf16(64, 128), _bf16(128, 256))
+    assert (tgm.gemm.launches, tgm.gemm.routes) == before
+    assert set(tgm.gemm.routes) == {f"gather_matmul.{r}" for r in tgm.ROUTES}

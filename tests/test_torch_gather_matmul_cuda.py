@@ -3,7 +3,9 @@ its plain PyTorch version on the card: the gpt2-350m MLP GEMMs at a cut M
 (forward wi/wo, the backward's dx = g·wᵀ and dw = xᵀ·g through transposed
 views), the JAX package's ragged shapes, a K tail, misaligned and
 expanded operands, in bf16 and fp32; then the autograd Function's
-gradients against the plain version's.
+gradients against the plain version's.  Each call is held to the route
+``gather_matmul.route`` picks (wgmma for bf16 operands TMA can read, mma
+for other bf16, fma for fp32) and counted under it.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -35,7 +37,14 @@ CASES = [
     ("ragged-130x96x72", 130, 96, 72, False, False),
     ("ragged-8x300x128", 8, 300, 128, False, False),
     ("tails-both-t", 77, 131, 45, True, True),
+    ("tails-both-t-aligned", 200, 136, 264, True, True),
+    ("narrow-a-t", 192, 64, 120, True, False),
+    ("narrow-b-t", 256, 128, 96, False, True),
+    ("short-m", 8, 64, 520, False, False),
 ]
+# the bf16 route of each case: a row pitch off 8 elements (K 300, a
+# transposed [131, 77]) is more than TMA takes
+MMA_CASES = {"ragged-8x300x128", "tails-both-t"}
 
 
 @pytest.fixture
@@ -70,10 +79,16 @@ def test_cuda_gemm_matches_plain_version(case, dtype, cuda_device):
     rng = np.random.default_rng(m * 7 + n)
     a = _operand(rng, m, k, ta, dtype, cuda_device)
     b = _operand(rng, k, n, tb, dtype, cuda_device)
+    want = ("fma" if dtype == torch.float32 else
+            "mma" if case[0] in MMA_CASES else "wgmma")
+    assert tgm.route(a, b) == want
     before = tgm.gemm.launches["gather_matmul"]
+    routes = dict(tgm.gemm.routes)
     got = tgm.gemm(a, b)
     torch.cuda.synchronize()
     assert tgm.gemm.launches["gather_matmul"] == before + 1
+    assert {r: n - routes[r] for r, n in tgm.gemm.routes.items() if n != routes[r]} \
+        == {f"gather_matmul.{want}": 1}
     assert got.dtype == dtype and got.is_contiguous()
     ok, err = _close(got, tgm.matmul_ref(a, b), RTOL[dtype])
     assert ok, err
@@ -90,9 +105,12 @@ def test_cuda_gemm_misaligned_and_expanded_operands(dtype, cuda_device):
     base = _operand(rng, 200, 129, False, dtype, cuda_device)
     a = base[:, 1:]                                  # K 128, rows misaligned
     b = _operand(rng, 128, 72, False, dtype, cuda_device)
+    bf16_route = "fma" if dtype == torch.float32 else "mma"
+    assert tgm.route(a, b) == bf16_route
     ok, err = _close(tgm.gemm(a, b), tgm.matmul_ref(a, b), RTOL[dtype])
     assert ok, err
     g = torch.ones((), dtype=dtype, device=cuda_device).expand(200, 72)
+    assert tgm.route(g, b.T) == bf16_route
     ok, err = _close(tgm.gemm(g, b.T), tgm.matmul_ref(g, b.T), RTOL[dtype])
     assert ok, err
 
