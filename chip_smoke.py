@@ -56,7 +56,8 @@ Phases, each printing JSON lines:
                a 1-D tensor) and fp6_matmul within tolerance (decode-sized
                and the path's M, M 7, bf16 and fp32 activations), with
                times, bounds and, for fp6_matmul, torch.matmul against the
-               dequantized bf16 weight as the library time;
+               dequantized bf16 weight as the library time, each row
+               naming its route (wgmma for bf16, fma for fp32);
  15. linear-reference — a LoRAStack (residual SwiGLU MLP blocks whose
                projections are OptimizedLinears over quantized frozen
                bases, adapters trained by a duck-typed engine) cut to
@@ -68,7 +69,8 @@ Phases, each printing JSON lines:
                FP6 GEMM carries the forward) and 8 (the dequantize kernel
                runs before each base product): a warm-up step, three timed
                steps whose launch counts show the kernels and no attention
-               kernel, and a profiled step, per q_bits;
+               kernel, every FP6 GEMM on its wgmma route, and a profiled
+               step, per q_bits;
  17. ring-kernels — ring_carry, ring_bwd_dq and ring_bwd_dkv against their
                plain versions: the path's shape (llama3-8b attention
                geometry, 4096 tokens a rank) for the diagonal and the
@@ -76,7 +78,10 @@ Phases, each printing JSON lines:
                a fully live hop under contiguous placement, timed beside
                the plain versions, their bounds and SDPA under the hop's
                position mask; MHA d 64, a sliding window, a non-causal hop,
-               a 1000-row shard and fp32;
+               a 1000-row shard and fp32; the carry's rows name its route
+               (wgmma for bf16); then a whole two-rank ring at S_l 1024,
+               both placements, through the wgmma carry, normalised once,
+               against flash_fwd_ref over the unsplit 2048 positions;
  18. ring-reference — the ring engine (llama3-8b head geometry at hidden
                1024, 2 layers, fp32, seq 512) in two ranks sharing the card
                over gloo against the same engine in this process on the CPU
@@ -86,7 +91,8 @@ Phases, each printing JSON lines:
                two ranks sharing the card (bench.py's longseq_ring step:
                micro 1, gas 2, bf16, AdamW, clip 1.0): a warm-up step,
                three timed steps whose launch counts a rank show the ring
-               kernels, AdamW and nothing else, and a profiled step on
+               kernels, AdamW and nothing else, every carry on its wgmma
+               route, and a profiled step on
                rank 0 (device busy share, and the host time inside the
                comm layer's ring_rotate and all_reduce ranges);
  20. gemm-kernels — gather_matmul (the ZeRO-3 fused MLP's GEMM) against
@@ -175,13 +181,14 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
     "type": "Lion", "params": {"lr": 3e-5, "betas": [0.9, 0.99],
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
-# roles are one template each, told apart by their mask policy; flash_fwd
-# and gather_matmul on the main path are their wgmma kernels
+# roles are one template each, told apart by their mask policy; flash_fwd,
+# ring_carry, fp6_matmul and gather_matmul on the main path are their
+# wgmma kernels (flash_fwd and ring_carry one template, two mask policies)
 PROFILE_NAMES = {
-    "ring_carry": ("attn_fwd_kernel", "RingOffsets"),
+    "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_kernel", "RingOffsets"),
-    "flash_fwd": ("attn_fwd_wgmma_kernel",),
+    "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
     "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
@@ -189,7 +196,7 @@ PROFILE_NAMES = {
     "bsa_bwd_dkv": ("attn_bwd_dkv_kernel", "BlockLayout"),
     "fused_adamw": ("fused_adamw_kernel",),
     "fused_lion": ("fused_lion_kernel",),
-    "fp6_matmul": ("fp6_mma_kernel",),
+    "fp6_matmul": ("fp6_wgmma_kernel",),
     "dequantize": ("dequant_kernel",),
     "gather_matmul": ("gemm_wgmma_kernel",)}
 # slice 4: LoRA adapters over quantized llama3-8b-width MLP bases
@@ -1403,7 +1410,7 @@ FP6_CASES = [
     ("decode gate/up", 16, 4096, 14336, "bfloat16", True),
     ("decode down", 16, 14336, 4096, "bfloat16", True),
     ("path gate/up", 4096, 4096, 14336, "bfloat16", True),
-    ("path down", 4096, 14336, 4096, "bfloat16", False),
+    ("path down", 4096, 14336, 4096, "bfloat16", True),
     ("M 7", 7, 4096, 14336, "bfloat16", False),
     ("fp32 x", 256, 4096, 14336, "float32", True),
 ]
@@ -1431,7 +1438,8 @@ def fp6_case(t6, case):
     ok = (bool(torch.all(diff <= rtol * (1 + ref.float().abs())))
           and bool(torch.isfinite(out.float()).all()))
     row = {"phase": "linear-kernel", "kernel": "fp6_matmul", "case": name,
-           "M": m, "K": k, "N": n, "dtype": dt, "max_abs_err": float(diff.max()),
+           "M": m, "K": k, "N": n, "dtype": dt, "route": t6.route(x, packed),
+           "max_abs_err": float(diff.max()),
            "tolerance": f"|k-r| <= {rtol} * (1 + |r|)", "ok": ok}
     if timed:
         elem = x.element_size()
@@ -1533,8 +1541,8 @@ def phase_linear_reference(ds, lin, counters, all_counters):
         micro = 2 * 2 * 3 * blocks          # steps x gas x projections x blocks
         want_built = expected(counters, quantize=3 * blocks if q_bits != 6 else 0)
         want = expected(all_counters, fused_adamw=2,
-                        **({"fp6_matmul": micro} if q_bits == 6
-                           else {"dequantize": micro}))
+                        **({"fp6_matmul": micro, "fp6_matmul.fma": micro}
+                           if q_bits == 6 else {"dequantize": micro}))
         emit({"phase": "linear-reference", "q_bits": q_bits, "hidden": hidden,
               "intermediate": inter, "blocks": blocks, "dtype": "float32",
               "micro": 2, "gas": 2, "seq": 64, "group": LINEAR_GROUP,
@@ -1678,9 +1686,10 @@ def phase_linear_train(ds, lin, all_counters, card, q_bits):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     n_proj = 3 * LINEAR_BLOCKS * gas
+    # every FP6 GEMM of the step on the wgmma route
     want = expected(all_counters, fused_adamw=1,
-                    **({"fp6_matmul": n_proj} if q_bits == 6
-                       else {"dequantize": n_proj}))
+                    **({"fp6_matmul": n_proj, "fp6_matmul.wgmma": n_proj}
+                       if q_bits == 6 else {"dequantize": n_proj}))
     # base products forward and dx backward: 2 x 2 x K x N a row a projection
     flops = 2 * 2.0 * rows * 3 * hidden * inter * LINEAR_BLOCKS
     base_bytes = stack.nbytes()
@@ -1806,6 +1815,7 @@ def ring_case(fm, case):
         return torch.randn(shape, generator=gen, device="cuda") * 0.1
 
     state, ref = fresh(), fresh()
+    carry_route = fm.fwd_route(q, k, v)
     fm.flash_carry_block(q, k, v, *state, pos, **kw)
     fm.ring_carry_ref(q, k, v, *ref, pos, causal, scale, window)
     m, l, _ = ref
@@ -1839,6 +1849,7 @@ def ring_case(fm, case):
             ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g).all())
         rows[kname] = {"phase": "ring-kernel", "case": name, "kernel": kname,
+                       **({"route": carry_route} if kname == "ring_carry" else {}),
                        "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
                        "dtype": dt, "causal": causal, "window": window,
                        "pos": list(pos), "pairs": pairs,
@@ -1909,6 +1920,67 @@ RING_ROW_CASE = "path-striped-hop1"   # the kernels line's row: a live
                                       # off-diagonal hop of the main path
 
 
+# the whole-ring check: b, hq, hkv, S_l, d of two ranks' shards
+RING_WHOLE = (1, 32, 8, 1024, 128)
+
+
+def ring_whole_check(fm):
+    """A two-rank causal ring at S_l 1024 (llama3-8b heads), both
+    placements, bf16: each rank's hops as sequence/ring.py runs them (its
+    own block, then the other's unless it is dead) through the carry on
+    the wgmma route, normalised once, against flash_fwd_ref over the
+    unsplit 2048 positions at FLASH_RTOL.  This holds the accumulate mode
+    across hops on the main path's route (the ring-reference phase runs
+    fp32, on the fma route)."""
+    import torch
+
+    b, hq, hkv, s_l, d = RING_WHOLE
+    ranks, scale = 2, d ** -0.5
+    q, k, v, _ = bshd_inputs(b, hq, hkv, ranks * s_l, d, torch.bfloat16, seed=15)
+    o_ref = fm.flash_fwd_ref(q, k, v, True, scale)[0]
+    rtol = FLASH_RTOL["bfloat16"]
+    for placement in ("striped", "contiguous"):
+        routes, hops, err, ok = dict(fm.ring_routes), 0, 0.0, True
+        for r in range(ranks):
+            def block(j):     # global positions of block j, and (off, stride)
+                if placement == "striped":
+                    return torch.arange(s_l, device="cuda") * ranks + j, (j, ranks)
+                return torch.arange(s_l, device="cuda") + j * s_l, (j * s_l, 1)
+
+            rows, q_pos = block(r)
+            m = torch.full((b, hq, s_l), fm.NEG_INF, device="cuda")
+            l = torch.zeros((b, hq, s_l), device="cuda")
+            acc = torch.zeros((b, hq, s_l, d), device="cuda")
+            for src in (r, 1 - r):
+                cols, k_pos = block(src)
+                if int(cols.min()) > int(rows.max()):   # dead: no launch
+                    continue
+                fm.flash_carry_block(q[:, :, rows], k[:, :, cols], v[:, :, cols],
+                                     m, l, acc, (*q_pos, *k_pos), causal=True,
+                                     sm_scale=scale)
+                hops += 1
+            o = (acc / l.clamp(min=1e-20)[..., None]).to(torch.bfloat16)
+            want = o_ref[:, :, rows].float()
+            diff = (o.float() - want).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool(torch.all(diff <= rtol * (1 + want.abs())))
+            ok &= bool(torch.isfinite(o.float()).all())
+        taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
+                 if c != routes[n]}
+        ok &= taken == {"ring_carry.wgmma": hops}
+        emit({"phase": "ring-whole", "placement": placement, "ranks": ranks,
+              "B": b, "Hq": hq, "Hkv": hkv, "S_l": s_l, "D": d,
+              "dtype": "bfloat16", "hops": hops, "routes": taken,
+              "check": "each rank's carried hops, normalised once, against "
+                       "flash_fwd_ref over the unsplit sequence",
+              "max_abs_err": err,
+              "tolerance": f"|k-r| <= {rtol} * (1 + |r|)", "ok": ok})
+        if not ok:
+            fail(f"ring-whole ({placement}): the carried ring differs from "
+                 "attention over the unsplit sequence, or a hop left the "
+                 "wgmma route")
+
+
 def phase_ring_kernels(fm):
     import torch
 
@@ -1918,6 +1990,8 @@ def phase_ring_kernels(fm):
         if case[0] == RING_ROW_CASE:
             summary.update(rows)
         torch.cuda.empty_cache()
+    ring_whole_check(fm)
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -1933,7 +2007,7 @@ def _ring_counters():
     return (pa.paged_decode_attention.launches, fm.flash_mha.launches,
             bsm.block_sparse_mha.launches, fo.fused_adamw.launches,
             fo.fused_lion.launches, qk.launches, t6.fp6_matmul.launches,
-            fm.ring_launches)
+            fm.ring_launches, fm.ring_routes)
 
 
 def ring_rank_reference(rank, world, model_kw, params, cfg, batch, steps):
@@ -2074,6 +2148,7 @@ def phase_ring_reference(ds, tf_model, tf, launch):
             wants.append({**{k: 0 for k in got[rank]["launches"]},
                           "ring_carry": per * live, "ring_bwd_dq": per * live,
                           "ring_bwd_dkv": per * live,
+                          "ring_carry.fma": per * live,   # fp32
                           "fused_adamw": RING_REF_STEPS})
         launches = [r["launches"] for r in got]
         emit({"phase": "ring-reference", "model": RING_MODEL,
@@ -2128,9 +2203,10 @@ def phase_ring_train(tf_model, launch, card):
     rows = RING_CFG["train_micro_batch_size_per_gpu"] * gas
     tokens = rows * RING_SEQ
     step_s = [max(r["step_s"][i] for r in ranks) for i in range(RING_STEPS)]
+    # every carry of the step on the wgmma route
     want = {**{k: 0 for k in ranks[0]["launches"]},
             "ring_carry": live, "ring_bwd_dq": live, "ring_bwd_dkv": live,
-            "fused_adamw": 1}
+            "ring_carry.wgmma": live, "fused_adamw": 1}
     per_step = [{k: v / RING_STEPS for k, v in r["launches"].items()}
                 for r in ranks]
     ok = (all(r["finite"] for r in ranks)
@@ -2647,9 +2723,11 @@ def main() -> int:
     zero_counts(*all_counters)
     linear_summary = phase_linear_kernels(qk, t6)
     fake_phase_launches = qk.launches["fake_quantize"]
-    phase_linear_reference(ds, lin, lcount, all_counters)
-    built6, fp6_launches = phase_linear_train(ds, lin, all_counters, smi, 6)
-    built8, int8_launches = phase_linear_train(ds, lin, all_counters, smi, 8)
+    # the FP6 GEMM's launches by route beside the totals
+    routed = all_counters + (t6.fp6_matmul.routes,)
+    phase_linear_reference(ds, lin, lcount, routed)
+    built6, fp6_launches = phase_linear_train(ds, lin, routed, smi, 6)
+    built8, int8_launches = phase_linear_train(ds, lin, routed, smi, 8)
 
     # 17. ring kernels, 18. ring reference (two ranks on the card against
     # the CPU), 19. ring training at llama3-8b width over two ranks.  The

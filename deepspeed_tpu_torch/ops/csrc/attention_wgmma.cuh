@@ -1,4 +1,5 @@
-// Attention forward on wgmma and TMA, Hopper: the dense `flash_fwd` at bf16.
+// Attention forward on wgmma and TMA, Hopper: the dense `flash_fwd` and the
+// ring hop's `ring_carry` at bf16.
 //
 // Computes what attn_fwd_kernel of attention_tiles.cuh computes (and what
 // the TPU kernels _fwd_kernel / _fwd_kernel_blocked of
@@ -45,6 +46,16 @@
 //    entry: a predicated-off mask test still costs its issue slots).
 //    Tiles are 128 rows on both sides: the policy is instantiated with
 //    these tile sizes.
+//  * accumulate mode (template flag ACC, `ring_carry`, the counterpart of
+//    the tile walk's ACC in attention_tiles.cuh): an item starts from the
+//    fp32 state of its rows, m and l [B, Hq, S] and acc [B, Hq, S, D]
+//    (each consumer thread loads its rows' m and l and its accumulator
+//    fragment, columns 8j + 2t and + 1, as 8-byte loads), walks its live
+//    key tiles and writes the state back unnormalised: no o, no lse.  m is
+//    kept in the tile walk's units (the running max of the scaled scores,
+//    natural log), so hops on either route compose.  Rows at or past S are
+//    never read or written, and an item with no live key tile leaves its
+//    rows untouched.
 //
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for a view TMA cannot take or
@@ -113,12 +124,15 @@ struct Item {
       : iq(nq - 1 - i / (Hq * B)), h((i % (Hq * B)) % Hq), b((i % (Hq * B)) / Hq) {}
 };
 
-template <int D, typename Mask>
+// ACC: lse is m, and l_io, acc_io (strides so, in o's place) carry the
+// running state in and out; o is not written.
+template <int D, typename Mask, bool ACC = false>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, Strides4 so, int B, int Hq, int Hkv, int S,
+                      float* __restrict__ lse, float* __restrict__ l_io,
+                      float* __restrict__ acc_io, Strides4 so, int B, int Hq, int Hkv, int S,
                       float scale, Mask mask) {
   using L = Layout<D>;
   using namespace hopper;
@@ -210,6 +224,25 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int x = 0; x < D / 2; ++x) o_acc[x] = 0.f;
     float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    const long long row_off = (static_cast<long long>(it.b) * Hq + h) * S;
+    float* acc_b = ACC ? acc_io + it.b * so.b + h * so.h : nullptr;
+    if constexpr (ACC) {
+      if (t_begin < t_end) {  // seed from the carried state
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (row[r] >= S) continue;
+          m_run[r] = lse[row_off + row[r]];
+          l_run[r] = l_io[row_off + row[r]];
+          const float* src = acc_b + static_cast<long long>(row[r]) * so.s + 2 * tq;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            const float2 a = *reinterpret_cast<const float2*>(src + 8 * j);
+            o_acc[4 * j + 2 * r] = a.x;
+            o_acc[4 * j + 2 * r + 1] = a.y;
+          }
+        }
+      }
+    }
 
     // The online softmax of the finished S of key tile k0, in registers:
     // s_acc[4j + e] is row row[e / 2], key k0 + 8j + 2tq + (e % 2).  Writes
@@ -314,42 +347,59 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
 
-    // epilogue: o times the rounded reciprocal of safe_l, rounded once;
-    // lse = m + log(safe_l).  The bf16 rows go through this warpgroup's
-    // part of the staging tile, 16-byte chunks XOR-ed by row % 8, so that
-    // each row leaves as whole 128-byte segments; rows past S are never
-    // stored.
-    float inv_l[2];
+    if constexpr (ACC) {  // the state back, unnormalised; a dead item wrote nothing
+      if (t_begin < t_end) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float safe_l = l_run[r] > 0.f ? l_run[r] : 1.f;
-      inv_l[r] = __frcp_rn(safe_l);
-      if (tq == 0 && row[r] < S)
-        lse[(static_cast<long long>(it.b) * Hq + h) * S + row[r]] = m_run[r] + logf(safe_l);
-    }
+        for (int r = 0; r < 2; ++r) {
+          if (row[r] >= S) continue;
+          if (tq == 0) {
+            lse[row_off + row[r]] = m_run[r];
+            l_io[row_off + row[r]] = l_run[r];
+          }
+          float* dst = acc_b + static_cast<long long>(row[r]) * so.s + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < D / 8; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * j) =
+                make_float2(o_acc[4 * j + 2 * r], o_acc[4 * j + 2 * r + 1]);
+        }
+      }
+    } else {
+      // epilogue: o times the rounded reciprocal of safe_l, rounded once;
+      // lse = m + log(safe_l).  The bf16 rows go through this warpgroup's
+      // part of the staging tile, 16-byte chunks XOR-ed by row % 8, so that
+      // each row leaves as whole 128-byte segments; rows past S are never
+      // stored.
+      float inv_l[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int lr = 16 * w + g + 8 * r;  // row within the warpgroup's 64
-        const int chunk = (j % 8) ^ (lr % 8);
-        *reinterpret_cast<__nv_bfloat162*>(stage_o + (j / 8) * kBox + lr * 128 + chunk * 16 +
-                                           4 * tq) =
-            __floats2bfloat162_rn(o_acc[4 * j + 2 * r] * inv_l[r],
-                                  o_acc[4 * j + 2 * r + 1] * inv_l[r]);
+        const float safe_l = l_run[r] > 0.f ? l_run[r] : 1.f;
+        inv_l[r] = __frcp_rn(safe_l);
+        if (tq == 0 && row[r] < S) lse[row_off + row[r]] = m_run[r] + logf(safe_l);
       }
-    }
-    named_sync(1 + wgi, 128);
-    __nv_bfloat16* ob = o + it.b * so.b + h * so.h;
 #pragma unroll
-    for (int x = 0; x < D / 16; ++x) {  // 64 rows x D/8 chunks of 16 bytes, D/16 a thread
-      const int v = tid + 128 * x, lr = v / (D / 8), c = v % (D / 8);
-      if (rq0 + lr < S)
-        *reinterpret_cast<uint4*>(ob + static_cast<long long>(rq0 + lr) * so.s + 8 * c) =
-            *reinterpret_cast<const uint4*>(stage_o + (c / 8) * kBox + lr * 128 +
-                                            ((c % 8) ^ (lr % 8)) * 16);
+      for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int lr = 16 * w + g + 8 * r;  // row within the warpgroup's 64
+          const int chunk = (j % 8) ^ (lr % 8);
+          *reinterpret_cast<__nv_bfloat162*>(stage_o + (j / 8) * kBox + lr * 128 + chunk * 16 +
+                                             4 * tq) =
+              __floats2bfloat162_rn(o_acc[4 * j + 2 * r] * inv_l[r],
+                                    o_acc[4 * j + 2 * r + 1] * inv_l[r]);
+        }
+      }
+      named_sync(1 + wgi, 128);
+      __nv_bfloat16* ob = o + it.b * so.b + h * so.h;
+#pragma unroll
+      for (int x = 0; x < D / 16; ++x) {  // 64 rows x D/8 chunks of 16 bytes, D/16 a thread
+        const int v = tid + 128 * x, lr = v / (D / 8), c = v % (D / 8);
+        if (rq0 + lr < S)
+          *reinterpret_cast<uint4*>(ob + static_cast<long long>(rq0 + lr) * so.s + 8 * c) =
+              *reinterpret_cast<const uint4*>(stage_o + (c / 8) * kBox + lr * 128 +
+                                              ((c % 8) ^ (lr % 8)) * 16);
+      }
+      named_sync(1 + wgi, 128);  // the staging tile is free for the next item
     }
-    named_sync(1 + wgi, 128);  // the staging tile is free for the next item
   }
 }
 
@@ -372,16 +422,22 @@ inline bool attn_map(CUtensorMap* map, const void* p, int B, int H, int S, int D
   return hopper_host::encode_bf16(map, p, 4, dims, strides, box);
 }
 
-// strides: (b, h, s) of q, k, v, o in that order
-template <int D, typename Mask>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const long long* strides, int B, int Hq, int Hkv, int S, float scale, Mask mask,
-           cudaStream_t stream) {
+// strides: (b, h, s) of q, k, v, o (acc under ACC) in that order; ACC: lse
+// is m, and o is unused
+template <int D, bool ACC, typename Mask>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* l_io,
+           float* acc_io, const long long* strides, int B, int Hq, int Hkv, int S, float scale,
+           Mask mask, cudaStream_t stream) {
+  if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0) return 0;
   CUtensorMap mq, mk, mv;
   if (!attn_map(&mq, q, B, Hq, S, D, strides) || !attn_map(&mk, k, B, Hkv, S, D, strides + 3) ||
       !attn_map(&mv, v, B, Hkv, S, D, strides + 6))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = attn_fwd_wgmma_kernel<D, Mask>;
+  if (ACC && reinterpret_cast<uintptr_t>(acc_io) % 8 != 0)  // 8-byte state loads
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = attn_fwd_wgmma_kernel<D, Mask, ACC>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(Layout<D>::kSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -389,7 +445,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const int items = (S + kBQ - 1) / kBQ * Hq * B;  // persistent: one block an SM at most
   const int grid = std::min(items, hopper_host::sm_count());
   kern<<<grid, kThreads, Layout<D>::kSmem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o),
-                                                     lse, so, B, Hq, Hkv, S, scale, mask);
+                                                     lse, l_io, acc_io, so, B, Hq, Hkv, S, scale,
+                                                     mask);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,15 +78,15 @@ extern "C" int flash_fwd(int route, const void* q, const void* k, const void* v,
     a.lse_out = static_cast<float*>(lse);
     return launch(Role::kFwd, route, D, a, CausalWindow{S, causal, window});
   }
-  if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || (D != 64 && D != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || S == 0) return 0;
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   using Wide = CausalWindowT<flash_wg::kBQ, flash_wg::kBK>;
   const Wide mask{S, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return D == 64 ? flash_wg::launch<64>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, mask, s)
-                 : flash_wg::launch<128>(q, k, v, o, l, strides, B, Hq, Hkv, S, scale, mask, s);
+  return D == 64 ? flash_wg::launch<64, false>(q, k, v, o, l, nullptr, nullptr, strides, B, Hq,
+                                               Hkv, S, scale, mask, s)
+                 : flash_wg::launch<128, false>(q, k, v, o, l, nullptr, nullptr, strides, B, Hq,
+                                                Hkv, S, scale, mask, s);
 }
 
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,

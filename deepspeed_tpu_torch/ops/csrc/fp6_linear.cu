@@ -8,33 +8,80 @@
 //   B0 = v0<<2 | v1>>4;  B1 = (v1&15)<<4 | v2>>2;  B2 = (v2&3)<<6 | v3.
 // That is the Pallas kernel's function, not its plane-split layout: the
 // TPU kernel pre-splits x into 4 K-strided planes because its tiles cannot
-// interleave along sublanes; here each block decodes its packed bytes into
-// a K-major tile in shared memory, so x is read in place.
+// interleave along sublanes; here the packed bytes are decoded into a
+// K-by-N tile in shared memory, so x is read in place.
 //
 // Bound: the operations at the training path's shapes (M 4096: 481 GFLOP
 // for 4096 -> 14336, 0.49 ms at 989 TFLOP/s bf16), the packed bytes at
-// decode shapes (M 16: 44 MB of weight, 0.013 ms at 3.35 TB/s).  The
-// design is the simple one: one 256-thread block per 128x128 output tile
-// walks K in 64-deep chunks; each chunk's x tile is copied and its packed
-// bytes decoded (through a 64-entry table in shared memory; e3m2 values are
-// exact in bf16 and fp16) into shared memory, and 8 warps, each owning a
-// 64x32 sub-tile as 4x2 wmma 16x16x16 fragments, multiply with fp32
-// accumulation.  The next chunk's global loads are issued into registers
-// before the current chunk's products, so loads overlap the tensor cores.
-// The epilogue multiplies by the column scale in fp32 and rounds once to x's
-// type.  fp32 x takes FMA loops over 64x64 tiles (4x4 outputs a thread).
-// Tails in M, N and K are masked: rows past M and codes past N or K read as
-// zero and are never stored.  Split-K for decode-sized M, cp.async/TMA and
-// wgmma are later work.
+// decode shapes (M 16: 44 MB of weight, 0.013 ms at 3.35 TB/s).
+//
+// Three routes, chosen by the caller before the launch (ops/fp6_linear.py
+// `route`):
+//  * wgmma (bf16 x, K % 8 == 0, N % 16 == 0, 16-byte-aligned x and
+//    packed): a persistent kernel, one block per SM walking output tiles of
+//    256 x 128, grouped 8 tiles down M so that neighbouring tiles share a
+//    packed panel in L2.  One producer thread keeps TMA loads of 64-deep
+//    chunks in flight through a ring of 4 stages, each behind its own
+//    mbarrier: x through a 2-D bf16 tensor map (128-byte swizzle, the
+//    K-major A operand of wgmma as it lands) and the chunk's 16 packed rows
+//    of all three planes through one 3-D uint8 tensor map over
+//    [3, K/4, N].  TMA's zero fill gives the tails: rows past M, columns
+//    past K, and packed rows past K/4, whose zero bytes decode to +0.  The
+//    two consumer warpgroups (128 output rows each, as two m64n128 wgmma
+//    products sharing each k16 step's B) decode every chunk's packed bytes
+//    into a bf16 tile of 64 K rows x 128 columns laid out exactly as TMA
+//    lays out an MN-major operand with 128-byte swizzle, so wgmma reads it
+//    through the same descriptor as a TMA-loaded one (transpose bit set).
+//    The decode is word arithmetic, not table lookups: a thread takes one
+//    packed row and 8 columns (three 8-byte loads), spreads each column
+//    pair's bytes into the two halves of a word, and places each code's
+//    sign, exponent and mantissa bits into bf16's sign, low exponent and
+//    high mantissa bits; one bf16x2 multiply by 2^124 then gives the exact
+//    e3m2 value (the four subnormal codes included), and each K row of 8
+//    columns leaves as one conflict-free 16-byte store.  Decode runs K * N
+//    * ceil(M / 256) times, so the tile is tall (256 x 128 rather than
+//    128 x 256: each code is decoded half as often, for the same 128
+//    accumulator registers a thread).  Three decoded tiles rotate: chunk
+//    c + 1 is decoded while chunk c's wgmma runs, every thread fences its
+//    stores to the async proxy (fence.proxy.async) and one named barrier
+//    over the consumers a chunk publishes the tile; the third buffer lets
+//    that one barrier also guarantee that both warpgroups have finished
+//    the products that last read the buffer being overwritten.  The
+//    epilogue loads each column's scale once a tile, computes
+//    __fmul_rn(sum, scale), rounds once to bf16 and stores whole 128-byte
+//    row segments through a padded staging tile.  What the decode costs is
+//    shared-memory bandwidth, not arithmetic: a 64-deep chunk of a plain
+//    GEMM moves about 134 KB through shared memory (wgmma's operand reads
+//    and the TMA writes), and the decode's packed loads and decoded stores
+//    add 22 KB to it.  Swap-AB (out^T = W^T x^T with the decoded W^T as a
+//    register operand) would drop the decoded tile, but the plane layout
+//    makes each thread gather bytes from rows 128 bytes apart (bank
+//    conflicts); it stays later work, as does split-K for decode-sized M.
+//  * mma (fp16 x, and bf16 that the wgmma route does not take): one
+//    256-thread block per 128x128 output tile walks K in 64-deep chunks;
+//    each chunk's x tile is copied and its packed bytes decoded (through a
+//    64-entry table in shared memory; e3m2 values are exact in bf16 and
+//    fp16) into shared memory, and 8 warps, each owning a 64x32 sub-tile
+//    as 4x2 wmma 16x16x16 fragments, multiply with fp32 accumulation.  The
+//    next chunk's global loads are issued into registers before the
+//    current chunk's products.  Tails in M, N and K are masked.
+//  * fma (fp32 x, the card-vs-CPU reference): FMA loops over 64x64 tiles
+//    (4x4 outputs a thread).
 //
 // Launches on the caller's stream, allocates nothing, returns
-// cudaGetLastError().  dtype codes: 0 fp32, 1 bf16, 2 fp16.
+// cudaGetLastError() (cudaErrorInvalidValue for operands the route does
+// not take, or a tensor map cuTensorMapEncodeTiled refuses).  Route codes:
+// 0 fma, 1 mma, 2 wgmma; dtype codes: 0 fp32, 1 bf16, 2 fp16.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -288,26 +335,276 @@ fp6_fma_kernel(Fp6Args a) {
   }
 }
 
+// ---- wgmma path (bf16 x that TMA can read) ------------------------------
+namespace wg {
+
+constexpr int kBM = 256, kBN = 128, kBK = 64;  // output tile, K chunk
+constexpr int kConsumers = 2;                  // warpgroups of 128 output rows
+constexpr int kThreads = 128 * (kConsumers + 1);  // the consumers, then the producer
+constexpr int kStages = 4;                     // chunks in flight
+constexpr int kDecBufs = 3;                    // decoded B tiles
+constexpr int kGroupM = 8;                     // tiles walked down M before stepping along N
+constexpr int kABytes = kBM * kBK * 2;         // 32 KB: 256 rows x 128 bytes
+constexpr int kPRows = kBK / 4;                // packed rows a chunk: 16
+constexpr int kPlane = kPRows * kBN;           // 2 KB: one plane's bytes of a chunk
+constexpr int kPBytes = 3 * kPlane;            // 6 KB
+constexpr int kStageBytes = kABytes + kPBytes;  // 38 KB, a multiple of 1024
+constexpr uint32_t kBox = 64 * 64 * 2;         // 64 K rows x 64 columns of the decoded tile
+constexpr int kDecBytes = kBK * kBN * 2;       // 16 KB: two boxes
+constexpr uint32_t kAtomRows = 1024;           // bytes of 8 swizzled 128-byte rows (SBO)
+constexpr int kEpiPitch = 72;                  // bf16 a staged output row: 64 + 8 spreads the banks
+constexpr int kEpiBytes = 64 * kEpiPitch * 2;  // one consumer's 64 x 64 output chunk
+// 1024 to align; the ring; the decoded tiles; the staging tiles; the barriers
+constexpr size_t kSmem = 1024 + kStages * kStageBytes + kDecBufs * kDecBytes +
+                         kConsumers * kEpiBytes + 2 * kStages * sizeof(uint64_t);
+static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+static_assert(kSmem <= 232448, "fits a block's shared memory");
+
+// e3m2 codes in the low 6 bits of each 16-bit half -> their bf16 values:
+// sign to bit 15, exponent and mantissa to bits 9..5 (bf16's low exponent
+// and high mantissa bits), then times 2^124 (bias 127 -> 3), exact for
+// every code, the subnormal ones (exponent 0) included
+__device__ __forceinline__ uint32_t e3m2_bf16x2(uint32_t v) {
+  const uint32_t bits = ((v & 0x00200020u) << 10) | ((v & 0x001F001Fu) << 5);
+  const uint32_t two124 = 0x7D807D80u;  // 2^124 in both bf16 halves
+  const __nv_bfloat162 y = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&two124));
+  return *reinterpret_cast<const uint32_t*>(&y);
+}
+
+// One packed row of 4 columns (b_p: the 4 bytes of plane p) -> the bf16
+// pairs of columns (0, 1) and (2, 3) of its 4 K rows: o[i][h], i the K row
+// within the 4, h the column pair
+__device__ __forceinline__ void decode4(uint32_t b0, uint32_t b1, uint32_t b2,
+                                        uint32_t (&o)[4][2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // byte 2h to bits 0..7 and byte 2h + 1 to bits 16..23
+    const uint32_t sel = h == 0 ? 0x4140u : 0x4342u;
+    const uint32_t x0 = __byte_perm(b0, 0, sel), x1 = __byte_perm(b1, 0, sel),
+                   x2 = __byte_perm(b2, 0, sel);
+    o[0][h] = e3m2_bf16x2((x0 >> 2) & 0x003F003Fu);
+    o[1][h] = e3m2_bf16x2(((x0 & 0x00030003u) << 4) | ((x1 >> 4) & 0x000F000Fu));
+    o[2][h] = e3m2_bf16x2(((x1 & 0x000F000Fu) << 2) | ((x2 >> 6) & 0x00030003u));
+    o[3][h] = e3m2_bf16x2(x2 & 0x003F003Fu);
+  }
+}
+
+// A chunk's packed bytes (planes [3][16][128] at shared address p) -> its
+// decoded bf16 tile at shared address d (64 K rows x 128 columns, two
+// 64-column boxes of 64 rows x 128 bytes, 16-byte chunk c of row k at
+// chunk c ^ (k % 8)).  Thread u of the 256 consumers decodes packed row
+// u / 16, columns 8 (u % 16) .. + 7.
+__device__ __forceinline__ void decode_chunk(uint32_t p, uint32_t d, int u) {
+  const int r = u / 16, cg = u % 16;
+  const uint32_t src = p + r * kBN + 8 * cg;
+  const uint2 w0 = hopper::lds_v2(src), w1 = hopper::lds_v2(src + kPlane),
+              w2 = hopper::lds_v2(src + 2 * kPlane);
+  uint32_t lo[4][2], hi[4][2];
+  decode4(w0.x, w1.x, w2.x, lo);
+  decode4(w0.y, w1.y, w2.y, hi);
+  const uint32_t box = d + (cg / 8) * kBox;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 4 * r + i;
+    hopper::sts_v4(box + k * 128 + (((cg % 8) ^ (k % 8)) * 16),
+                   make_uint4(lo[i][0], lo[i][1], hi[i][0], hi[i][1]));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fp6_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_p, const float* __restrict__ scale,
+                 __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-aligned by an offset from smem_raw, so accesses stay shared ones
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* dec = ring + kStages * kStageBytes;
+  unsigned char* staging = dec + kDecBufs * kDecBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + kConsumers * kEpiBytes);
+  uint64_t* empty = full + kStages;
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int ntm = (M + kBM - 1) / kBM, ntn = (N + kBN - 1) / kBN, ntiles = ntm * ntn;
+  const int nk = (K + kBK - 1) / kBK;
+  if (wgi == kConsumers) {
+    // producer: one thread issues every load; the warpgroup gives its registers away
+    reg_dealloc<40>();
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int m0, n0;
+        grouped_tile(t, ntm, ntn, kGroupM, kBM, kBN, m0, n0);
+        for (int kc = 0; kc < nk; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* a = ring + stage * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          tma_load_2d(a, &map_x, &full[stage], kc * kBK, m0);
+          tma_load_3d(a + kABytes, &map_p, &full[stage], n0, kc * kPRows, 0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wgi: rows 128 wgi .. 128 wgi + 127 of every tile,
+  // as two m64 products; chunks are numbered across this block's tiles
+  reg_alloc<232>();
+  const int w = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
+  __nv_bfloat16* epi = reinterpret_cast<__nv_bfloat16*>(staging + wgi * kEpiBytes);
+  const int total = (ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * nk;
+  // decode chunk c of the stream once its stage has landed
+  auto decode = [&](int c) {
+    const int s = c % kStages;
+    mbar_wait(&full[s], (c / kStages) & 1);
+    decode_chunk(smem_addr(ring + s * kStageBytes + kABytes),
+                 smem_addr(dec + (c % kDecBufs) * kDecBytes), threadIdx.x);
+    fence_proxy_async();
+  };
+  if (total > 0) decode(0);
+  named_sync(1, kConsumers * 128);
+
+  float acc[2][kBN / 2];
+  int c = 0, prev = -1;  // c: the chunk's number in this block's stream
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    int m0, n0;
+    grouped_tile(t, ntm, ntn, kGroupM, kBM, kBN, m0, n0);
+    for (int kc = 0; kc < nk; ++kc, ++c) {
+      const int s = c % kStages;
+      const uint32_t a = smem_addr(ring + s * kStageBytes) + wgi * 16384;
+      const uint32_t b = smem_addr(dec + (c % kDecBufs) * kDecBytes);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_fence();
+      // a tile's first product overwrites the sums (scale-d 0)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t db = desc_sw128(b + kk * 2048, kBox, kAtomRows);
+        const int keep = kc > 0 || kk > 0;
+        wgmma_ss_n128<0, 1>(acc[0], desc_sw128(a + kk * 32, 16, kAtomRows), db, keep);
+        wgmma_ss_n128<0, 1>(acc[1], desc_sw128(a + 8192 + kk * 32, 16, kAtomRows), db, keep);
+      }
+      wgmma_commit();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      wgmma_wait<1>();  // the previous chunk's products are done: free its stage
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (c + 1 < total) decode(c + 1);  // while this chunk's products run
+      named_sync(1, kConsumers * 128);   // chunk c + 1's tile is written and fenced
+    }
+
+    // the tile's products are done: epilogue
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    mbar_arrive(&empty[prev]);
+    prev = -1;
+#pragma unroll
+    for (int cc = 0; cc < kBN / 64; ++cc) {
+      float2 sc[8];  // each column's scale once a tile
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = n0 + 64 * cc + 8 * jj + 2 * tq;
+        sc[jj] = col < N ? *reinterpret_cast<const float2*>(scale + col) : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int ms = 0; ms < 2; ++ms) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * cc + jj;
+          __nv_bfloat16* e = epi + (w * 16 + g) * kEpiPitch + 8 * jj + 2 * tq;
+          *reinterpret_cast<__nv_bfloat162*>(e) =
+              __floats2bfloat162_rn(__fmul_rn(acc[ms][4 * j], sc[jj].x),
+                                    __fmul_rn(acc[ms][4 * j + 1], sc[jj].y));
+          *reinterpret_cast<__nv_bfloat162*>(e + 8 * kEpiPitch) =
+              __floats2bfloat162_rn(__fmul_rn(acc[ms][4 * j + 2], sc[jj].x),
+                                    __fmul_rn(acc[ms][4 * j + 3], sc[jj].y));
+        }
+        named_sync(2 + wgi, 128);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // 64 rows x 8 vectors of 8 columns
+          const int v = tid + 128 * i, r = v / 8, cv = (v % 8) * 8;
+          const int row = m0 + wgi * 128 + ms * 64 + r, col = n0 + 64 * cc + cv;
+          if (row < M && col < N)  // N % 16 == 0: a vector is inside or outside whole
+            *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * N + col) =
+                *reinterpret_cast<const uint4*>(epi + r * kEpiPitch + cv);
+        }
+        named_sync(2 + wgi, 128);
+      }
+    }
+  }
+}
+
+// x [M, K] bf16 contiguous, packed uint8 [3, K/4, N] contiguous
+int run(const void* x, const void* packed, const float* scale, __nv_bfloat16* out, int M, int N,
+        int K, cudaStream_t s) {
+  if (K <= 0 || K % 8 != 0 || N % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mp;
+  const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xs[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t xb[2] = {static_cast<uint32_t>(kBK), static_cast<uint32_t>(kBM)};
+  const uint64_t pd[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K / 4), 3};
+  const uint64_t ps[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K / 4) * N};
+  const uint32_t pb[3] = {static_cast<uint32_t>(kBN), static_cast<uint32_t>(kPRows), 3};
+  if (!hopper_host::encode_bf16(&mx, x, 2, xd, xs, xb) ||
+      !hopper_host::encode_u8(&mp, packed, 3, pd, ps, pb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(fp6_wgmma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int grid = std::min(tiles, hopper_host::sm_count());
+  fp6_wgmma_kernel<<<grid, kThreads, kSmem, s>>>(mx, mp, scale, out, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// x [M, K] (dtype), packed uint8 [3, K/4, N], scale fp32 [N] -> out [M, N] (dtype)
-extern "C" int fp6_matmul(int dtype, const void* x, const void* packed, const void* scale,
-                          void* out, int M, int N, int K, void* stream) {
+// x [M, K] (dtype), packed uint8 [3, K/4, N], scale fp32 [N] -> out [M, N]
+// (dtype), by route 0 (fma: fp32), 1 (mma: bf16 or fp16) or 2 (wgmma: bf16
+// that TMA can read)
+extern "C" int fp6_matmul(int route, int dtype, const void* x, const void* packed,
+                          const void* scale, void* out, int M, int N, int K, void* stream) {
   if (M < 0 || N < 0 || K < 0 || K % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool dtype_ok = route == 0 ? dtype == 0 : route == 1 ? (dtype == 1 || dtype == 2)
+                                                 : route == 2 && dtype == 1;
+  if (!dtype_ok) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   const Fp6Args a{x, static_cast<const uint8_t*>(packed), static_cast<const float*>(scale), out, M,
                   N, K};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((M + kFM - 1) / kFM > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.y
-  switch (dtype) {
+  switch (route) {
     case 0: {
       const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
+      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
       fp6_fma_kernel<<<grid, kThreads, 0, s>>>(a);
       break;
     }
-    case 1:
-    case 2: {
+    case 1: {
       const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+      if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
       if (dtype == 1) {
         fp6_mma_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
       } else {
@@ -316,7 +613,8 @@ extern "C" int fp6_matmul(int dtype, const void* x, const void* packed, const vo
       break;
     }
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return wg::run(x, packed, static_cast<const float*>(scale),
+                     static_cast<__nv_bfloat16*>(out), M, N, K, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

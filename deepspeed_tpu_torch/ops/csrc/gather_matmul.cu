@@ -301,16 +301,6 @@ struct Tile {
                                   2 * kStages * sizeof(uint64_t);
 };
 
-// origin of tile t: groups of kGroupM tile rows, each walked down M first
-__device__ __forceinline__ void tile_origin(int t, int ntm, int ntn, int bn, int& m0, int& n0) {
-  const int per_group = kGroupM * ntn;
-  const int first = (t / per_group) * kGroupM;
-  const int rows = min(ntm - first, kGroupM);
-  const int r = t % per_group;
-  m0 = (first + r % rows) * kBM;
-  n0 = (r / rows) * bn;
-}
-
 template <int BN, int TA, int TB>
 __device__ __forceinline__ void tile_mma(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256)
@@ -354,7 +344,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
         int m0, n0;
-        tile_origin(t, ntm, ntn, BN, m0, n0);
+        grouped_tile(t, ntm, ntn, kGroupM, kBM, BN, m0, n0);
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* a = ring + stage * L::kStageBytes;
@@ -392,7 +382,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t phase = 0;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       int m0, n0;
-      tile_origin(t, ntm, ntn, BN, m0, n0);
+      grouped_tile(t, ntm, ntn, kGroupM, kBM, BN, m0, n0);
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       int prev = -1;

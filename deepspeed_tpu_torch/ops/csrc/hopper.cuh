@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the wgmma kernels of the port
-// (gather_matmul.cu, attention_wgmma.cuh): mbarriers, TMA tile loads,
-// warpgroup matrix multiply (wgmma) with its shared-memory descriptors,
+// (gather_matmul.cu, fp6_linear.cu, attention_wgmma.cuh): mbarriers, TMA
+// tile loads, warpgroup matrix multiply (wgmma) with its shared-memory
+// descriptors, the proxy fence between threads' stores and wgmma's reads,
 // register handover between warpgroups (setmaxnreg), and the host-side
-// tensor-map encoder.
+// tensor-map encoders (bf16 with 128-byte swizzle, uint8 unswizzled).
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // a box whose inner extent is 64 bf16 (128 bytes) lands as rows of 128
@@ -85,6 +86,49 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// shared-memory loads and stores at 32-bit shared addresses (smem_addr): a
+// pointer that went through an integer cast would compile to generic
+// accesses
+__device__ __forceinline__ uint2 lds_v2(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Orders this thread's generic-proxy stores to shared memory before later
+// async-proxy reads of it (wgmma operands): a tile the threads wrote
+// themselves is read by wgmma only after this fence and a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Origin of output tile t of a persistent GEMM over ntm x ntn tiles of
+// bm x bn: groups of group_m tile rows, each walked down M first, so that
+// tiles in flight together share their B panel in L2.
+__device__ __forceinline__ void grouped_tile(int t, int ntm, int ntn, int group_m, int bm, int bn,
+                                             int& m0, int& n0) {
+  const int per_group = group_m * ntn;
+  const int first = (t / per_group) * group_m;
+  const int rows = min(ntm - first, group_m);
+  const int r = t % per_group;
+  m0 = (first + r % rows) * bm;
+  n0 = (r / rows) * bn;
 }
 
 // barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
@@ -258,17 +302,30 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, element counts),
-// byte strides of dims 1.., a box of `box` elements, 128-byte swizzle,
-// zeros outside the tensor.  Returns false if cuTensorMapEncodeTiled refuses it.
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                        const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first, element counts), byte
+// strides of dims 1.., a box of `box` elements, zeros outside the tensor.
+// Returns false if cuTensorMapEncodeTiled refuses it.
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                   const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
+                   const uint32_t* box) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+// bf16 with 128-byte swizzle: the layout wgmma reads
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                        const uint64_t* strides, const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
+                dims, strides, box);
+}
+// uint8 bytes, unswizzled: rows of the box land one after another
+inline bool encode_u8(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, base, rank, dims,
+                strides, box);
 }
 
 // streaming multiprocessors of the current device

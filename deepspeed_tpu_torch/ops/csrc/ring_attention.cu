@@ -9,8 +9,8 @@
 // blocks hold global positions off + stride * i (contiguous placement:
 // stride 1, off = shard * S; striped placement: stride sp, off = shard), so
 // the causal and window tests run on positions, not indices.  The kernels
-// are the tile walk of attention_tiles.cuh in accumulate mode under the
-// offset mask below:
+// are the tile walks of attention_tiles.cuh (and, for ring_carry at bf16,
+// attention_wgmma.cuh) in accumulate mode under the offset mask below:
 //   * ring_carry reads the running (m, l, acc) of its query tile, walks the
 //     live key tiles with the online softmax and writes (m, l, acc) back in
 //     place, unnormalised (the caller divides once after the last hop);
@@ -33,8 +33,19 @@
 // placements, so the kernels are bound by their matrix products; the score
 // tiles stay in shared memory, and the carry and fp32 accumulators are read
 // and written once per hop.
+//
+// ring_carry has three routes, chosen by the caller (ops/flash_mha.py
+// `flash_carry_block`, by `fwd_route`'s rule): 2 (wgmma) for bf16 views
+// TMA can read, the persistent wgmma/TMA forward of attention_wgmma.cuh in
+// accumulate mode on 128 x 128 tiles, whose interior tiles (every pair
+// visible, `full`) take the softmax without the mask test; 1 (mma) for
+// other bf16 views and 0 (fma) for fp32, attn_fwd_kernel of
+// attention_tiles.cuh on 64 x 64 tiles.  Both keep m in natural units, so
+// the hops of one ring may take either.  The backward kernels take dtype
+// codes (0 fp32, 1 bf16).
 
 #include "attention_tiles.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -48,11 +59,15 @@ __device__ __forceinline__ long long ceil_div(long long a, long long d) {
 
 // Causal and sliding-window masking on global positions: query row r sits
 // at q_off + q_stride * r, key col c at k_off + k_stride * c; key visible
-// iff kpos <= qpos (causal) and qpos - kpos < window (window > 0).
-struct RingOffsets {
+// iff kpos <= qpos (causal) and qpos - kpos < window (window > 0).  TQ, TK:
+// the walk's query and key tile rows (64 x 64 for attention_tiles.cuh,
+// 128 x 128 for the wgmma carry).
+template <int TQ, int TK>
+struct RingOffsetsT {
   int S, causal, window, q_off, k_off, q_stride, k_stride;
 
-  __device__ int n_tiles() const { return (S + kTile - 1) / kTile; }
+  __device__ int n_q() const { return (S + TQ - 1) / TQ; }
+  __device__ int n_k() const { return (S + TK - 1) / TK; }
   __device__ long long qpos(int r) const { return q_off + static_cast<long long>(q_stride) * r; }
   __device__ long long kpos(int c) const { return k_off + static_cast<long long>(k_stride) * c; }
 
@@ -60,27 +75,27 @@ struct RingOffsets {
   // its first row to the last column the causal triangle of its last row keeps
   __device__ int k_begin(int, int iq) const {
     if (window <= 0) return 0;
-    const long long c = ceil_div(qpos(iq * kTile) - window + 1 - k_off, k_stride);
-    return c <= 0 ? 0 : static_cast<int>(min(c, static_cast<long long>(S)) / kTile);
+    const long long c = ceil_div(qpos(iq * TQ) - window + 1 - k_off, k_stride);
+    return c <= 0 ? 0 : static_cast<int>(min(c, static_cast<long long>(S)) / TK);
   }
   __device__ int k_end(int, int iq) const {
-    if (!causal) return n_tiles();
-    const long long c = floor_div(qpos(min(iq * kTile + kTile - 1, S - 1)) - k_off, k_stride);
-    return c < 0 ? 0 : static_cast<int>(min(c / kTile + 1, static_cast<long long>(n_tiles())));
+    if (!causal) return n_k();
+    const long long c = floor_div(qpos(min(iq * TQ + TQ - 1, S - 1)) - k_off, k_stride);
+    return c < 0 ? 0 : static_cast<int>(min(c / TK + 1, static_cast<long long>(n_k())));
   }
   __device__ int k_tile(int t) const { return t; }
   // query tiles of key tile ik: from the first row the causal triangle lets
   // see its first column to the last row whose window reaches its last column
   __device__ int q_begin(int, int ik) const {
     if (!causal) return 0;
-    const long long r = ceil_div(kpos(ik * kTile) - q_off, q_stride);
-    return r <= 0 ? 0 : static_cast<int>(min(r, static_cast<long long>(S)) / kTile);
+    const long long r = ceil_div(kpos(ik * TK) - q_off, q_stride);
+    return r <= 0 ? 0 : static_cast<int>(min(r, static_cast<long long>(S)) / TQ);
   }
   __device__ int q_end(int, int ik) const {
-    if (window <= 0) return n_tiles();
+    if (window <= 0) return n_q();
     const long long r =
-        floor_div(kpos(min(ik * kTile + kTile - 1, S - 1)) + window - 1 - q_off, q_stride);
-    return r < 0 ? 0 : static_cast<int>(min(r / kTile + 1, static_cast<long long>(n_tiles())));
+        floor_div(kpos(min(ik * TK + TK - 1, S - 1)) + window - 1 - q_off, q_stride);
+    return r < 0 ? 0 : static_cast<int>(min(r / TQ + 1, static_cast<long long>(n_q())));
   }
   __device__ int q_tile(int t) const { return t; }
   // per element: 32-bit positions (the wrapper checks that every global
@@ -90,7 +105,16 @@ struct RingOffsets {
     const int qp = q_off + q_stride * row, kp = k_off + k_stride * col;
     return (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
   }
+  // every (row, col) of rows [r0, r0 + rows) x cols [c0, c0 + cols)
+  // visible.  Positions rise with the index (positive strides), so the
+  // causal test takes the last column against the first row and the window
+  // test the last row against the first column.
+  __device__ bool full(int, int r0, int rows, int c0, int cols) const {
+    return r0 + rows <= S && c0 + cols <= S && (!causal || kpos(c0 + cols - 1) <= qpos(r0)) &&
+           (window <= 0 || qpos(r0 + rows - 1) - kpos(c0) < window);
+  }
 };
+using RingOffsets = RingOffsetsT<kTile, kTile>;
 
 int ring(Role role, int dtype, int D, const AttnCall& a, int causal, int window, int q_off,
          int k_off, int q_stride, int k_stride) {
@@ -101,20 +125,33 @@ int ring(Role role, int dtype, int D, const AttnCall& a, int causal, int window,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, do).  m, l: fp32
-// [B, Hq, S] contiguous; acc, dq: fp32 [B, Hq, S, D]; dk, dv: fp32
-// [B, Hkv, S, D]; all updated in place.  strides: (b, h, s) of each
-// [B, H, S, D] operand in argument order (q, k, v, acc / do, dq / do, dk,
-// dv).  lse, delta: fp32 [B, Hq, S] contiguous.
-extern "C" int ring_carry(int dtype, const void* q, const void* k, const void* v, void* m,
+// ring_carry's route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA
+// reads); the backward's dtype codes: 0 = float32, 1 = bfloat16 (q, k, v,
+// do).  m, l: fp32 [B, Hq, S] contiguous; acc, dq: fp32 [B, Hq, S, D]; dk,
+// dv: fp32 [B, Hkv, S, D]; all updated in place.  strides: (b, h, s) of
+// each [B, H, S, D] operand in argument order (q, k, v, acc / do, dq / do,
+// dk, dv).  lse, delta: fp32 [B, Hq, S] contiguous.
+extern "C" int ring_carry(int route, const void* q, const void* k, const void* v, void* m,
                           void* l, void* acc, const long long* strides, int B, int Hq, int Hkv,
                           int S, int D, float scale, int causal, int window, int q_off, int k_off,
                           int q_stride, int k_stride, void* stream) {
-  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
-  a.lse_out = static_cast<float*>(m);
-  a.l_io = static_cast<float*>(l);
-  a.acc_io = static_cast<float*>(acc);
-  return ring(Role::kFwd, dtype, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  if (route != 2) {  // the 64 x 64 tile walk: its route code is its dtype code
+    AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+    a.lse_out = static_cast<float*>(m);
+    a.l_io = static_cast<float*>(l);
+    a.acc_io = static_cast<float*>(acc);
+    return ring(Role::kFwd, route, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  }
+  if ((D != 64 && D != 128) || q_stride <= 0 || k_stride <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Wide = RingOffsetsT<flash_wg::kBQ, flash_wg::kBK>;
+  const Wide mask{S, causal, window, q_off, k_off, q_stride, k_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float *mm = static_cast<float*>(m), *ll = static_cast<float*>(l), *aa = static_cast<float*>(acc);
+  return D == 64 ? flash_wg::launch<64, true>(q, k, v, nullptr, mm, ll, aa, strides, B, Hq, Hkv,
+                                              S, scale, mask, s)
+                 : flash_wg::launch<128, true>(q, k, v, nullptr, mm, ll, aa, strides, B, Hq, Hkv,
+                                               S, scale, mask, s);
 }
 
 extern "C" int ring_bwd_dq(int dtype, const void* q, const void* k, const void* v,

@@ -34,7 +34,9 @@ walk in accumulate mode, under a mask on global positions ``off + stride
 ``ring_bwd_dkv`` of ``ops/csrc/ring_attention.cu`` on CUDA tensors, and
 their plain versions run the per-hop math of the JAX ring's XLA path
 (``sequence/ring.py`` ``_ring_fwd_xla``/``_ring_bwd_xla``) over the same
-key tiles on CPU tensors.  Each updates its fp32 state in place.
+key tiles on CPU tensors.  Each updates its fp32 state in place.  The
+carry takes :func:`fwd_route`'s route (counted in ``ring_routes``): bf16
+views TMA can read run the ``wgmma`` forward in accumulate mode.
 
 Layout contract (the JAX function's): q is ``[B, Hq, S, D]``, k/v are
 ``[B, Hkv, S, D]`` with Hq a multiple of Hkv; the kernels read any such
@@ -489,6 +491,8 @@ flash_mha.routes = {f"flash_fwd.{r}": 0 for r in FWD_ROUTES}
 # flash_ring_dq_block / flash_ring_dkv_block)
 # ----------------------------------------------------------------------
 ring_launches = {"ring_carry": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
+# ring_carry's launches by route (codes in ops/csrc/ring_attention.cu)
+ring_routes = {f"ring_carry.{r}": 0 for r in FWD_ROUTES}
 
 
 def _ring_lib():
@@ -541,19 +545,22 @@ def flash_carry_block(q, k, v, m, l, acc, pos, causal: bool = True,
     q_stride, k_off, k_stride)``: the global position of query row r is
     ``q_off + q_stride·r``, of key col c ``k_off + k_stride·c``.  CPU
     tensors take the plain version, CUDA tensors the ``ring_carry``
-    kernel.  Returns ``(m, l, acc)``."""
+    kernel on :func:`fwd_route`'s route (counted in ``ring_launches`` and
+    ``ring_routes``).  Returns ``(m, l, acc)``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return ring_carry_ref(q, k, v, m, l, acc, pos, causal, scale, window)
     _check_cuda(q, k, v)
     _check_state(q, q.shape[1], m, l, rows_only=True)
     _check_state(q, q.shape[1], acc)
+    path = fwd_route(q, k, v)
     err = _ring_lib().ring_carry(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(), _strides(q, k, v, acc),
         *_ring_args(q, k, pos, causal, scale, window))
-    _raise_on(err, "ring_carry")
+    _raise_on(err, f"ring_carry ({path} route)")
     ring_launches["ring_carry"] += 1
+    ring_routes[f"ring_carry.{path}"] += 1
     return m, l, acc
 
 

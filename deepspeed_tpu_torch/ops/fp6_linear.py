@@ -14,10 +14,14 @@ step 2^-4.
 
 On CUDA tensors :func:`fp6_matmul` launches the hand-written Hopper kernel
 of ``ops/csrc/fp6_linear.cu`` for any M and N (tails are masked in the
-kernel); only ``K % 4 != 0`` raises, as packing does.  There is no
-dequantize-then-dot path on the card: the JAX fallbacks exist for the
-TPU's tiling and for running off the TPU.  On CPU tensors the plain
-version :func:`fp6_matmul_ref` computes the kernel's function.
+kernel); only ``K % 4 != 0`` raises, as packing does.  The kernel has
+routes, picked before the launch from dtype, shape and alignment
+(:func:`route`, counted in ``fp6_matmul.routes``): bf16 activations that
+TMA can read take the ``wgmma``/TMA kernel, other bf16 and fp16 the
+``wmma`` kernel, fp32 the FMA body.  There is no dequantize-then-dot path
+on the card: the JAX fallbacks exist for the TPU's tiling and for running
+off the TPU.  On CPU tensors the plain version :func:`fp6_matmul_ref`
+computes the kernel's function.
 
 :func:`fp6_quantize` gives codes bit-equal to the JAX package's (the same
 nearest-value search over the stably sorted table, ties to the lower
@@ -35,6 +39,8 @@ import torch
 _BIAS = 3
 _MAX_VAL = 28.0  # (2 - 2^-2) * 2^(7-3): full exponent range, no inf/nan
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernel's routes by their code in ops/csrc/fp6_linear.cu
+ROUTES = ("fma", "mma", "wgmma")
 
 
 def _decode_table() -> np.ndarray:
@@ -160,17 +166,34 @@ def _lib():
 
     lib = op_builder.load("fp6_linear")
     if not getattr(lib, "_bound", False):
-        lib.fp6_matmul.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _P]
+        lib.fp6_matmul.argtypes = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P]
         lib.fp6_matmul.restype = _I
         lib._bound = True
     return lib
+
+
+def route(x2: torch.Tensor, packed: torch.Tensor) -> str:
+    """The kernel route for the rows ``x2 [M, K]`` (contiguous) against
+    ``packed [3, K/4, N]``, from dtype, shape and alignment alone:
+    ``"fma"`` for fp32 (the card-vs-CPU reference); ``"wgmma"`` for bf16
+    that TMA can read (K > 0 and a multiple of 8, so an x row is a whole
+    number of 16-byte units; N a multiple of 16, so a packed row is; both
+    bases 16-byte aligned); ``"mma"`` for fp16 and any other bf16."""
+    if x2.dtype == torch.float32:
+        return "fma"
+    k, n = x2.shape[1], packed.shape[2]
+    if (x2.dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and n % 16 == 0
+            and x2.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma"
 
 
 def fp6_matmul(x: torch.Tensor, packed: torch.Tensor,
                scale: torch.Tensor) -> torch.Tensor:
     """``x [..., K] @ fp6_weight [K, N]`` reading only the packed bytes;
     the output has x's dtype and leading shape.  CPU tensors take the plain
-    version, CUDA tensors the kernel (counted in ``fp6_matmul.launches``)."""
+    version, CUDA tensors the kernel on :func:`route`'s route (counted in
+    ``fp6_matmul.launches``, in total, and ``fp6_matmul.routes``)."""
     if x.device.type == "cpu":
         return fp6_matmul_ref(x, packed, scale)
     _check(x, packed, scale)
@@ -189,14 +212,18 @@ def fp6_matmul(x: torch.Tensor, packed: torch.Tensor,
     m, k = x2.shape
     n = packed.shape[2]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    err = _lib().fp6_matmul(_DTYPE_CODE[x.dtype], x2.data_ptr(),
-                            packed.data_ptr(), scale.data_ptr(),
+    path = route(x2, packed)
+    err = _lib().fp6_matmul(ROUTES.index(path), _DTYPE_CODE[x.dtype],
+                            x2.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                             out.data_ptr(), m, n, k,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"fp6_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fp6_matmul kernel launch failed ({path} route): "
+                           f"CUDA error {err}")
     fp6_matmul.launches["fp6_matmul"] += 1
+    fp6_matmul.routes[f"fp6_matmul.{path}"] += 1
     return out.reshape(lead + (n,))
 
 
 fp6_matmul.launches = {"fp6_matmul": 0}
+fp6_matmul.routes = {f"fp6_matmul.{r}": 0 for r in ROUTES}

@@ -142,3 +142,46 @@ def test_cpu_call_launches_no_kernel():
     p, s = t6.fp6_quantize(torch.randn(64, 32))
     t6.fp6_matmul(torch.randn(3, 64), p, s)
     assert t6.fp6_matmul.launches == before
+
+
+def _x2(m, k, dtype=torch.bfloat16, misalign=False):
+    """Contiguous [m, k] rows; ``misalign``: based 2 bytes off 16."""
+    if misalign:
+        return torch.zeros(m * k + 1, dtype=dtype)[1:].view(m, k)
+    return torch.zeros((m, k), dtype=dtype)
+
+
+def _packed(k, n):
+    return torch.zeros((3, k // 4, n), dtype=torch.uint8)
+
+
+# name, x2, packed, route: bf16 rows with K % 8 == 0 and N % 16 == 0 on
+# 16-byte-aligned bases take wgmma (TMA reads an x row and a packed row as
+# whole 16-byte units), any other bf16 and fp16 mma, fp32 fma
+FP6_ROUTE_CASES = [
+    ("bf16", lambda: (_x2(64, 4096), _packed(4096, 14336)), "wgmma"),
+    ("bf16-decode-m16", lambda: (_x2(16, 14336), _packed(14336, 4096)), "wgmma"),
+    ("bf16-n4104", lambda: (_x2(64, 256), _packed(256, 4104)), "mma"),
+    ("bf16-k4100", lambda: (_x2(64, 4100), _packed(4100, 256)), "mma"),
+    ("fp16", lambda: (_x2(64, 256, torch.float16), _packed(256, 512)), "mma"),
+    ("fp32", lambda: (_x2(64, 256, torch.float32), _packed(256, 512)), "fma"),
+    ("misaligned-base", lambda: (_x2(64, 256, misalign=True), _packed(256, 512)),
+     "mma"),
+]
+
+
+@pytest.mark.parametrize("case", FP6_ROUTE_CASES, ids=[c[0] for c in FP6_ROUTE_CASES])
+def test_route_is_chosen_from_dtype_shape_and_alignment(case):
+    """The GEMM's route is a pure function of dtype, shape and alignment."""
+    _, make, want = case
+    x2, packed = make()
+    assert t6.route(x2, packed) == want
+
+
+def test_route_counts_stay_untouched_on_cpu():
+    """CPU tensors take the plain version: no launch and no route count."""
+    before = (dict(t6.fp6_matmul.launches), dict(t6.fp6_matmul.routes))
+    p, s = t6.fp6_quantize(torch.randn(64, 32))
+    t6.fp6_matmul(torch.randn(3, 64).bfloat16(), p, s)
+    assert (t6.fp6_matmul.launches, t6.fp6_matmul.routes) == before
+    assert set(t6.fp6_matmul.routes) == {f"fp6_matmul.{r}" for r in t6.ROUTES}

@@ -6,8 +6,11 @@ against their plain PyTorch versions on the card.
 fp32 inputs, groups from 128 to 2048 (above 1024 the kernel's second pass
 reads the group again), row counts that are not a multiple of a block and a
 1-D tensor; ``fp6_matmul`` (``ops/csrc/fp6_linear.cu``) over tails in M, N
-and K, decode-sized and large M, bf16, fp16 and fp32 activations; and the
-``linear`` layers on CUDA tensors, which must launch the kernels.
+and K, decode-sized and large M, bf16, fp16 and fp32 activations, each
+call held to the route ``fp6_linear.route`` picks (wgmma for bf16 rows TMA
+can read, mma for fp16 and other bf16, fma for fp32), and every e3m2 code
+through the wgmma route's decode, value for value; and the ``linear``
+layers on CUDA tensors, which must launch the kernels.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -83,27 +86,73 @@ def test_cuda_quantize_unaligned_view_and_facade(cuda_device):
     assert tqk.launches["quantize"] == before["quantize"] + 1
 
 
-FP6_CASES = [(16, 512, 1024), (7, 256, 384), (300, 1000, 260), (514, 64, 130),
-             (5, 12, 40), (1, 4096, 512), (256, 1024, 4096)]
+# m, k, n, the bf16 route: K % 8 == 0 and N % 16 == 0 take wgmma (K 4104:
+# a K tail inside a 64-deep chunk; M 300: an M tail), other shapes mma
+# (K 4100 and K 12: rows off 16 bytes; N 260, 130, 4104: packed rows off
+# 16 bytes)
+FP6_CASES = [(16, 512, 1024, "wgmma"), (7, 256, 384, "wgmma"),
+             (300, 1000, 260, "mma"), (514, 64, 130, "mma"), (5, 12, 40, "mma"),
+             (1, 4096, 512, "wgmma"), (256, 1024, 4096, "wgmma"),
+             (64, 4100, 256, "mma"), (48, 4104, 512, "wgmma"),
+             (32, 256, 4104, "mma"), (300, 4096, 14336, "wgmma")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", FP6_CASES)
+@pytest.mark.parametrize("m,k,n,bf16_route", FP6_CASES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16", "fp32"])
-def test_cuda_fp6_matmul_matches_plain_version(m, k, n, dtype, cuda_device):
+def test_cuda_fp6_matmul_matches_plain_version(m, k, n, bf16_route, dtype,
+                                               cuda_device):
     w = _x((k, n), torch.float32, cuda_device, seed=1, scale=0.02)
     packed, scale = t6.fp6_quantize(w)
     x = _x((m, k), dtype, cuda_device, seed=2, scale=1.0)
+    want = {torch.bfloat16: bf16_route, torch.float16: "mma",
+            torch.float32: "fma"}[dtype]
+    assert t6.route(x, packed) == want
     before = t6.fp6_matmul.launches["fp6_matmul"]
+    routes = dict(t6.fp6_matmul.routes)
     out = t6.fp6_matmul(x, packed, scale)
     ref = t6.fp6_matmul_ref(x, packed, scale)
     torch.cuda.synchronize()
     assert t6.fp6_matmul.launches["fp6_matmul"] == before + 1
+    assert {r: c - routes[r] for r, c in t6.fp6_matmul.routes.items()
+            if c != routes[r]} == {f"fp6_matmul.{want}": 1}
     assert out.dtype == dtype and out.shape == (m, n)
     rtol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     diff = (out.float() - ref.float()).abs()
     assert torch.isfinite(out.float()).all()
     assert bool((diff <= rtol * (1 + ref.float().abs())).all()), float(diff.max())
+
+
+def _pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """[K, N] e3m2 codes -> the planes [3, K/4, N] (fp6_quantize's packing)."""
+    v = codes.to(torch.uint8).reshape(codes.shape[0] // 4, 4, codes.shape[1])
+    v0, v1, v2, v3 = v[:, 0], v[:, 1], v[:, 2], v[:, 3]
+    return torch.stack([(v0 << 2) | (v1 >> 4), ((v1 & 15) << 4) | (v2 >> 2),
+                        ((v2 & 3) << 6) | v3]).contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_fp6_wgmma_decodes_every_code_exactly(cuda_device):
+    """x = I (bf16), scale 1 and every code 0-63 in every column and in
+    every 8-row band: the wgmma route's output is the decode table itself,
+    value for value (the subnormal codes 1-3 and 33-35 included), across
+    both consumer warpgroups' rows and both 64-column boxes."""
+    k, n = 256, 128
+    kk = torch.arange(k, device=cuda_device)[:, None]
+    nn = torch.arange(n, device=cuda_device)[None, :]
+    codes = (3 * kk + nn) % 64
+    packed = _pack_codes(codes)
+    scale = torch.ones(n, device=cuda_device)
+    x = torch.eye(k, device=cuda_device, dtype=torch.bfloat16)
+    assert t6.route(x, packed) == "wgmma"
+    before = t6.fp6_matmul.routes["fp6_matmul.wgmma"]
+    out = t6.fp6_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    assert t6.fp6_matmul.routes["fp6_matmul.wgmma"] == before + 1
+    table = torch.from_numpy(t6.DECODE_TABLE).to(cuda_device)
+    want = table[codes]
+    assert torch.equal(out.float(), want), \
+        sorted(set(codes[out.float() != want].tolist()))
 
 
 @pytest.mark.cuda

@@ -152,6 +152,48 @@ def test_cpu_hops_never_launch_a_kernel():
     assert tfm.ring_launches == before
 
 
+def _carry_operands(layout, dtype):
+    """q, k, v of one hop (B 1, Hq 4, Hkv 2, S_l 32, D 64) as the ring
+    hands them to the carry: its [B, S, H, D] projections read through
+    [B, H, S, D] views, a rotated (contiguous) K/V block, or an expanded
+    K/V whose head stride is 0."""
+    b, hq, hkv, s, d = 1, 4, 2, 32, 64
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype)
+
+    q = z(b, s, hq, d).transpose(1, 2)
+    if layout == "bshd-views":
+        k, v = (z(b, s, hkv, d).transpose(1, 2) for _ in range(2))
+    elif layout == "rotated-block":
+        k, v = z(b, hkv, s, d), z(b, hkv, s, d)
+    else:
+        k = v = z(b, 1, s, d).expand(b, hkv, s, d)
+    return q, k, v
+
+
+CARRY_ROUTE_CASES = [("bshd-views", "wgmma"), ("rotated-block", "wgmma"),
+                     ("kv-expanded", "mma")]
+
+
+@pytest.mark.parametrize("layout,want", CARRY_ROUTE_CASES,
+                         ids=[c[0] for c in CARRY_ROUTE_CASES])
+def test_carry_route_is_chosen_from_dtype_and_strides(layout, want):
+    """ring_carry's route follows fwd_route's rule: bf16 views a TMA
+    tensor map takes run the wgmma forward in accumulate mode, an expanded
+    K/V the 64 x 64 tile walk, fp32 the FMA body; CPU calls take the plain
+    version and count no launch and no route."""
+    assert tfm.fwd_route(*_carry_operands(layout, torch.bfloat16)) == want
+    q, k, v = _carry_operands(layout, torch.float32)
+    assert tfm.fwd_route(q, k, v) == "fma"
+    assert set(tfm.ring_routes) == {f"ring_carry.{r}" for r in tfm.FWD_ROUTES}
+    before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
+    m = torch.full(q.shape[:3], tfm.NEG_INF)
+    tfm.flash_carry_block(q, k, v, m, torch.zeros_like(m),
+                          torch.zeros(q.shape), (1, 2, 0, 2))
+    assert (tfm.ring_launches, tfm.ring_routes) == before
+
+
 def test_placement_helpers_match_jax():
     for s, sp in ((16, 4), (24, 2), (12, 1)):
         for placement in ("contiguous", "striped"):

@@ -4,6 +4,9 @@ versions on the card: ``ring_carry``, ``ring_bwd_dq`` and ``ring_bwd_dkv``
 block on the diagonal, a striped neighbour, a fully live contiguous
 source), MHA and GQA, head_dim 64 and 128, a sliding window, non-causal
 hops and a shard length that is not a multiple of 64, in bf16 and fp32.
+The carry's route is asserted: bf16 views take the wgmma forward in
+accumulate mode, an expanded K/V (stride 0) the 64 x 64 tile walk (mma),
+fp32 the FMA body.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -13,8 +16,9 @@ Without a card every test skips.  Tolerances, by the operands' dtype:
 bf16 2^-7 and fp32 1e-4, as |kernel - plain| <= rtol * (1 + |plain|) on
 the normalised carry ``acc / l``, on ``l`` and on the fp32 accumulators
 dq, dk and dv (the two sum in other orders before p and ds round to
-bf16), and 1e-4 on ``m`` (a max of fp32 scores).  A dead hop leaves the
-state bit for bit as it was.
+bf16), and 1e-4 on ``m`` (a max of fp32 scores).  A dead hop, and on the
+wgmma route every 128-row item with no live key tile, leaves the state bit
+for bit as it was.
 """
 
 import numpy as np
@@ -72,6 +76,10 @@ def _fresh_state(b, hq, s, d, dev):
             torch.zeros((b, hq, s, d), device=dev))
 
 
+def _route_delta(before):
+    return {r: n - before[r] for r, n in fm.ring_routes.items() if n != before[r]}
+
+
 def _check_carry(state, ref, rtol):
     (m, l, acc), (m_r, l_r, acc_r) = state, ref
     ok_m, e_m = _close(m, m_r, 1e-4)
@@ -98,6 +106,9 @@ def test_cuda_ring_kernels_match_plain_version(case, dtype, cuda_device):
     state = _fresh_state(b, hq, s, d, cuda_device)
     ref = tuple(t.clone() for t in state)
     before = dict(fm.ring_launches)
+    routes = dict(fm.ring_routes)
+    want = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert fm.fwd_route(q, k, v) == want
     for hop in (pos, own):
         fm.flash_carry_block(q, k, v, *state, hop, **kw)
         fm.ring_carry_ref(q, k, v, *ref, hop, causal, scale, window)
@@ -119,6 +130,7 @@ def test_cuda_ring_kernels_match_plain_version(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert {n: fm.ring_launches[n] - before[n] for n in before} == \
         {"ring_carry": 2, "ring_bwd_dq": 1, "ring_bwd_dkv": 1}
+    assert _route_delta(routes) == {f"ring_carry.{want}": 2}
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         ok, err = _close(got, want, RTOL[dtype])
         assert ok, f"{name}: max abs err {err}"
@@ -141,12 +153,67 @@ def test_cuda_ring_dead_hop_leaves_state_unchanged(dtype, cuda_device):
     dv, dq = dk.clone() * 2, _rand(rng, cuda_device, torch.float32, b, hq, s, d)
     before = [t.clone() for t in (m, l, acc, dq, dk, dv)]
     lse, delta = m.clone(), torch.zeros_like(m)
+    routes = dict(fm.ring_routes)
     fm.flash_carry_block(q, k, v, m, l, acc, pos, causal=causal)
     fm.flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal=causal)
     fm.flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos, causal=causal)
     torch.cuda.synchronize()
+    want_route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert _route_delta(routes) == {f"ring_carry.{want_route}": 1}
     for got, want in zip((m, l, acc, dq, dk, dv), before):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_carry_expanded_kv_takes_the_mma_route(cuda_device):
+    """An expanded K/V (stride 0 over the KV heads) is no view a TMA tensor
+    map takes: the carry runs the 64 x 64 tile walk and matches its plain
+    version, from a fresh carry and from the carried state."""
+    b, hq, hkv, s, d = 1, 8, 2, 256, 128
+    rng = np.random.default_rng(3)
+    q = _rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+    k = _rand(rng, cuda_device, torch.bfloat16, b, 1, s, d).expand(b, hkv, s, d)
+    v = _rand(rng, cuda_device, torch.bfloat16, b, 1, s, d).expand(b, hkv, s, d)
+    assert fm.fwd_route(q, k, v) == "mma"
+    state = _fresh_state(b, hq, s, d, cuda_device)
+    ref = tuple(t.clone() for t in state)
+    routes = dict(fm.ring_routes)
+    for hop in ((1, 2, 0, 2), (1, 2, 1, 2)):
+        fm.flash_carry_block(q, k, v, *state, hop, sm_scale=d ** -0.5)
+        fm.ring_carry_ref(q, k, v, *ref, hop, True, d ** -0.5)
+        torch.cuda.synchronize()
+        _check_carry(state, ref, RTOL[torch.bfloat16])
+    assert _route_delta(routes) == {"ring_carry.mma": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_ring_carry_dead_items_keep_their_rows(cuda_device):
+    """A windowed contiguous hop (rank 1 <- block 0, window 100) from a
+    seeded state: on the wgmma route each 128-row item past the window's
+    reach has no live key tile, and its rows' m, l and acc come back bit
+    for bit; the live rows match the plain version."""
+    b, hq, hkv, s, d, window = 1, 4, 2, 512, 128, 100
+    pos = (s, 1, 0, 1)
+    rng = np.random.default_rng(4)
+    q = _rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+    k = _rand(rng, cuda_device, torch.bfloat16, b, hkv, s, d)
+    v = _rand(rng, cuda_device, torch.bfloat16, b, hkv, s, d)
+    m = _rand(rng, cuda_device, torch.float32, b, hq, s)
+    l = _rand(rng, cuda_device, torch.float32, b, hq, s).abs() + 1
+    acc = _rand(rng, cuda_device, torch.float32, b, hq, s, d)
+    before = [t.clone() for t in (m, l, acc)]
+    ref = [t.clone() for t in (m, l, acc)]
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, k, v, m, l, acc, pos, window=window)
+    fm.ring_carry_ref(q, k, v, *ref, pos, True, d ** -0.5, window)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {"ring_carry.wgmma": 1}
+    # row r sees block 0 only while s + r - (s - 1) < window: rows < 99;
+    # items (128 rows) from row 128 on have no live tile
+    dead = slice(128, None)
+    for got, was in zip((m, l, acc), before):
+        assert torch.equal(got[:, :, dead], was[:, :, dead])
+    _check_carry((m, l, acc), ref, RTOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
