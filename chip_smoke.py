@@ -78,10 +78,13 @@ Phases, each printing JSON lines:
                a fully live hop under contiguous placement, timed beside
                the plain versions, their bounds and SDPA under the hop's
                position mask; MHA d 64, a sliding window, a non-causal hop,
-               a 1000-row shard and fp32; the carry's rows name its route
-               (wgmma for bf16); then a whole two-rank ring at S_l 1024,
-               both placements, through the wgmma carry, normalised once,
-               against flash_fwd_ref over the unsplit 2048 positions;
+               a 1000-row shard and fp32; every row names its kernel's
+               route (wgmma for bf16, fma for fp32); then a whole two-rank
+               ring at S_l 1024, both placements, on the wgmma route: each
+               rank's carried hops, normalised once, against flash_fwd_ref,
+               and each rank's dq and the dk/dv carried back to their
+               block's owner against flash_bwd_ref, over the unsplit 2048
+               positions;
  18. ring-reference — the ring engine (llama3-8b head geometry at hidden
                1024, 2 layers, fp32, seq 512) in two ranks sharing the card
                over gloo against the same engine in this process on the CPU
@@ -91,8 +94,8 @@ Phases, each printing JSON lines:
                two ranks sharing the card (bench.py's longseq_ring step:
                micro 1, gas 2, bf16, AdamW, clip 1.0): a warm-up step,
                three timed steps whose launch counts a rank show the ring
-               kernels, AdamW and nothing else, every carry on its wgmma
-               route, and a profiled step on
+               kernels, AdamW and nothing else, every carry, dq and dk/dv
+               launch on its wgmma route, and a profiled step on
                rank 0 (device busy share, and the host time inside the
                comm layer's ring_rotate and all_reduce ranges);
  20. gemm-kernels — gather_matmul (the ZeRO-3 fused MLP's GEMM) against
@@ -182,12 +185,13 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
 # roles are one template each, told apart by their mask policy; flash_fwd,
-# ring_carry, fp6_matmul and gather_matmul on the main path are their
-# wgmma kernels (flash_fwd and ring_carry one template, two mask policies)
+# the three ring kernels, fp6_matmul and gather_matmul on the main path are
+# their wgmma kernels (flash_fwd and ring_carry one template, two mask
+# policies)
 PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
-    "ring_bwd_dq": ("attn_bwd_dq_kernel", "RingOffsets"),
-    "ring_bwd_dkv": ("attn_bwd_dkv_kernel", "RingOffsets"),
+    "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
+    "ring_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
@@ -1789,6 +1793,74 @@ def ring_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
     return [bound_ms(nbytes, flops, peak) for nbytes, flops in work]
 
 
+def ring_walks(s, causal, window, pos, tq, tk):
+    """Each query tile's live key tiles and each key tile's live query
+    tiles (counts) of a hop on tq x tk tiles: the bounds RingOffsetsT of
+    ops/csrc/ring_attention.cu computes (k_begin/k_end, q_begin/q_end)."""
+    q_off, q_stride, k_off, k_stride = pos
+    nq, nk = -(-s // tq), -(-s // tk)
+
+    def ceil_div(a, d):
+        return -((-a) // d)
+
+    def k_range(iq):
+        lo = 0
+        if window:
+            c = ceil_div(q_off + q_stride * iq * tq - window + 1 - k_off, k_stride)
+            lo = 0 if c <= 0 else min(c, s) // tk
+        hi = nk
+        if causal:
+            c = (q_off + q_stride * min(iq * tq + tq - 1, s - 1) - k_off) // k_stride
+            hi = 0 if c < 0 else min(c // tk + 1, nk)
+        return max(hi - lo, 0)
+
+    def q_range(ik):
+        lo = 0
+        if causal:
+            r = ceil_div(k_off + k_stride * ik * tk - q_off, q_stride)
+            lo = 0 if r <= 0 else min(r, s) // tq
+        hi = nq
+        if window:
+            r = (k_off + k_stride * min(ik * tk + tk - 1, s - 1) + window - 1
+                 - q_off) // q_stride
+            hi = 0 if r < 0 else min(r // tq + 1, nq)
+        return max(hi - lo, 0)
+
+    return [k_range(i) for i in range(nq)], [q_range(i) for i in range(nk)]
+
+
+def snake_tail(lengths, sms):
+    """The persistent kernels' schedule (attention_wgmma_bwd.cuh `snake`):
+    item i of len(lengths) on block r*G + x or r*G + G-1-x by round parity,
+    G = min(items, sms).  Returns the largest and the mean of the blocks'
+    summed walks (tiles), the tail being their ratio."""
+    n = len(lengths)
+    g = min(n, sms)
+    load = [0] * g
+    for i, length in enumerate(lengths):
+        r, x = divmod(i, g)
+        load[x if r % 2 == 0 else g - 1 - x] += length
+    return max(load), sum(load) / g
+
+
+def ring_schedule(s, hq, hkv, b, causal, window, pos, sms):
+    """The two backward kernels' schedule tails at a case's shape: dq items
+    are 128-row query tiles (longest walks first) walking 64-key tiles,
+    dk/dv items 128-key tiles (low tiles first) walking their group's
+    64-row query tiles."""
+    dq_walk, _ = ring_walks(s, causal, window, pos, 128, 64)
+    _, dkv_walk = ring_walks(s, causal, window, pos, 64, 128)
+    dq_items = [w for w in reversed(dq_walk) for _ in range(hq * b)]
+    dkv_items = [w * (hq // hkv) for w in dkv_walk for _ in range(hkv * b)]
+    out = {}
+    for name, items in (("ring_bwd_dq", dq_items), ("ring_bwd_dkv", dkv_items)):
+        worst, mean = snake_tail(items, sms)
+        out[name] = {"items": len(items), "blocks": min(len(items), sms),
+                     "max_block_tiles": worst, "mean_block_tiles": mean,
+                     "tail": worst / mean if mean else None}
+    return out
+
+
 def ring_case(fm, case):
     """The three hop kernels of one case against their plain versions on
     the same inputs: the hop from a fresh carry, dq and dk/dv into seeded
@@ -1815,7 +1887,10 @@ def ring_case(fm, case):
         return torch.randn(shape, generator=gen, device="cuda") * 0.1
 
     state, ref = fresh(), fresh()
-    carry_route = fm.fwd_route(q, k, v)
+    route = {"ring_carry": fm.fwd_route(q, k, v),
+             "ring_bwd_dq": fm.bwd_route(q, k, v, do),
+             "ring_bwd_dkv": fm.bwd_route(q, k, v, do)}
+    routes = dict(fm.ring_routes)
     fm.flash_carry_block(q, k, v, *state, pos, **kw)
     fm.ring_carry_ref(q, k, v, *ref, pos, causal, scale, window)
     m, l, _ = ref
@@ -1830,6 +1905,10 @@ def ring_case(fm, case):
     fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal, scale, window)
     fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal, scale, window)
     torch.cuda.synchronize()
+    taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
+             if c != routes[n]}
+    if taken != {f"{n}.{r}": 1 for n, r in route.items()}:
+        fail(f"ring-kernel ({name}): routes {taken}, expected {route}")
     rtol = FLASH_RTOL[dt]
     safe = [x[1].clamp(min=1e-20)[..., None] for x in (state, ref)]
     checks = {
@@ -1849,7 +1928,7 @@ def ring_case(fm, case):
             ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g).all())
         rows[kname] = {"phase": "ring-kernel", "case": name, "kernel": kname,
-                       **({"route": carry_route} if kname == "ring_carry" else {}),
+                       "route": route[kname],
                        "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
                        "dtype": dt, "causal": causal, "window": window,
                        "pos": list(pos), "pairs": pairs,
@@ -1872,6 +1951,11 @@ def ring_case(fm, case):
         for kname, (kern, plain) in calls.items():
             rows[kname]["ms"] = cuda_time_ms(kern)
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for kname, sched in ring_schedule(s, hq, hkv, b, causal, window, pos,
+                                          sms).items():
+            if route[kname] == "wgmma":    # the persistent walks' balance
+                rows[kname]["schedule"] = sched
         mask = ring_mask(s, causal, window, pos, "cuda")
         lib = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         sdpa = (lambda: F.scaled_dot_product_attention(
@@ -1926,59 +2010,106 @@ RING_WHOLE = (1, 32, 8, 1024, 128)
 
 def ring_whole_check(fm):
     """A two-rank causal ring at S_l 1024 (llama3-8b heads), both
-    placements, bf16: each rank's hops as sequence/ring.py runs them (its
-    own block, then the other's unless it is dead) through the carry on
-    the wgmma route, normalised once, against flash_fwd_ref over the
-    unsplit 2048 positions at FLASH_RTOL.  This holds the accumulate mode
-    across hops on the main path's route (the ring-reference phase runs
-    fp32, on the fma route)."""
+    placements, bf16, every hop on the wgmma route.  Forward: each rank's
+    hops as sequence/ring.py runs them (its own block, then the other's
+    unless it is dead) through the carry, normalised once, against
+    flash_fwd_ref over the unsplit 2048 positions.  Backward: from each
+    rank's carried o and lse, the same hops through ring_bwd_dq into the
+    rank's dq and through ring_bwd_dkv into the visiting block's dk/dv,
+    which travel with it and end at the block's owner, against
+    flash_bwd_ref over the unsplit positions.  Both at FLASH_RTOL.  This
+    holds the accumulate mode across hops on the main path's route (the
+    ring-reference phase runs fp32, on the fma route)."""
     import torch
 
     b, hq, hkv, s_l, d = RING_WHOLE
     ranks, scale = 2, d ** -0.5
-    q, k, v, _ = bshd_inputs(b, hq, hkv, ranks * s_l, d, torch.bfloat16, seed=15)
-    o_ref = fm.flash_fwd_ref(q, k, v, True, scale)[0]
+    q, k, v, do = bshd_inputs(b, hq, hkv, ranks * s_l, d, torch.bfloat16,
+                              seed=15)
+    o_ref, lse_ref = fm.flash_fwd_ref(q, k, v, True, scale)
+    grads_ref = fm.flash_bwd_ref(q, k, v, o_ref, lse_ref, do, True, scale)
     rtol = FLASH_RTOL["bfloat16"]
-    for placement in ("striped", "contiguous"):
-        routes, hops, err, ok = dict(fm.ring_routes), 0, 0.0, True
-        for r in range(ranks):
-            def block(j):     # global positions of block j, and (off, stride)
-                if placement == "striped":
-                    return torch.arange(s_l, device="cuda") * ranks + j, (j, ranks)
-                return torch.arange(s_l, device="cuda") + j * s_l, (j * s_l, 1)
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
 
+    def close(got, want):
+        want = want.float()
+        diff = (got.float() - want).abs()
+        return (float(diff.max()),
+                bool(torch.all(diff <= rtol * (1 + want.abs())))
+                and bool(torch.isfinite(got.float()).all()))
+
+    for placement in ("striped", "contiguous"):
+        def block(j):     # global positions of block j, and (off, stride)
+            if placement == "striped":
+                return torch.arange(s_l, device="cuda") * ranks + j, (j, ranks)
+            return torch.arange(s_l, device="cuda") + j * s_l, (j * s_l, 1)
+
+        def hops_of(r):   # rank r's live hops in ring order: (src, pos)
             rows, q_pos = block(r)
+            for src in (r, 1 - r):
+                cols, k_pos = block(src)
+                if int(cols.min()) <= int(rows.max()):   # else dead: no launch
+                    yield src, (*q_pos, *k_pos)
+
+        routes, hops = dict(fm.ring_routes), 0
+        err = {"o": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+        ok = True
+        shard = [{n: x[:, :, block(r)[0]].contiguous()
+                  for n, x in (("q", q), ("k", k), ("v", v), ("do", do))}
+                 for r in range(ranks)]
+        for r in range(ranks):
+            sh = shard[r]
             m = torch.full((b, hq, s_l), fm.NEG_INF, device="cuda")
             l = torch.zeros((b, hq, s_l), device="cuda")
             acc = torch.zeros((b, hq, s_l, d), device="cuda")
-            for src in (r, 1 - r):
-                cols, k_pos = block(src)
-                if int(cols.min()) > int(rows.max()):   # dead: no launch
-                    continue
-                fm.flash_carry_block(q[:, :, rows], k[:, :, cols], v[:, :, cols],
-                                     m, l, acc, (*q_pos, *k_pos), causal=True,
-                                     sm_scale=scale)
+            for src, pos in hops_of(r):
+                fm.flash_carry_block(sh["q"], shard[src]["k"], shard[src]["v"],
+                                     m, l, acc, pos, causal=True, sm_scale=scale)
                 hops += 1
-            o = (acc / l.clamp(min=1e-20)[..., None]).to(torch.bfloat16)
-            want = o_ref[:, :, rows].float()
-            diff = (o.float() - want).abs()
-            err = max(err, float(diff.max()))
-            ok &= bool(torch.all(diff <= rtol * (1 + want.abs())))
-            ok &= bool(torch.isfinite(o.float()).all())
+            safe = l.clamp(min=1e-20)
+            sh["o"] = (acc / safe[..., None]).to(torch.bfloat16)
+            sh["lse"] = (m + torch.log(safe)).contiguous()
+            sh["delta"] = fm.attn_delta(sh["o"], sh["do"]).contiguous()
+            e, good = close(sh["o"], o_ref[:, :, block(r)[0]])
+            err["o"], ok = max(err["o"], e), ok and good
+        dq = [torch.zeros((b, hq, s_l, d), device="cuda") for _ in range(ranks)]
+        dkv = [[torch.zeros((b, hkv, s_l, d), device="cuda") for _ in range(2)]
+               for _ in range(ranks)]
+        for hop in range(2):     # every rank's hop 0, then every rank's hop 1
+            for r in range(ranks):
+                live = list(hops_of(r))
+                if hop >= len(live):
+                    continue
+                src, pos = live[hop]
+                sh = shard[r]
+                bwd = (sh["q"], shard[src]["k"], shard[src]["v"], sh["do"],
+                       sh["lse"], sh["delta"])
+                fm.flash_ring_dq_block(*bwd, dq[r], pos, causal=True,
+                                       sm_scale=scale)
+                fm.flash_ring_dkv_block(*bwd, *dkv[src], pos, causal=True,
+                                        sm_scale=scale)
+        for r in range(ranks):
+            rows = block(r)[0]
+            for name, got, want in (("dq", dq[r], grads_ref[0]),
+                                    ("dk", dkv[r][0], grads_ref[1]),
+                                    ("dv", dkv[r][1], grads_ref[2])):
+                e, good = close(got.to(torch.bfloat16), want[:, :, rows])
+                err[name], ok = max(err[name], e), ok and good
         taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
                  if c != routes[n]}
-        ok &= taken == {"ring_carry.wgmma": hops}
+        ok &= taken == {f"{n}.wgmma": hops for n in kernels}
         emit({"phase": "ring-whole", "placement": placement, "ranks": ranks,
               "B": b, "Hq": hq, "Hkv": hkv, "S_l": s_l, "D": d,
               "dtype": "bfloat16", "hops": hops, "routes": taken,
               "check": "each rank's carried hops, normalised once, against "
-                       "flash_fwd_ref over the unsplit sequence",
+                       "flash_fwd_ref; each rank's dq and each block's dk/dv "
+                       "(carried back to its owner) against flash_bwd_ref; "
+                       "over the unsplit sequence",
               "max_abs_err": err,
               "tolerance": f"|k-r| <= {rtol} * (1 + |r|)", "ok": ok})
         if not ok:
-            fail(f"ring-whole ({placement}): the carried ring differs from "
-                 "attention over the unsplit sequence, or a hop left the "
-                 "wgmma route")
+            fail(f"ring-whole ({placement}): the ring differs from attention "
+                 "over the unsplit sequence, or a hop left the wgmma route")
 
 
 def phase_ring_kernels(fm):
@@ -2148,7 +2279,9 @@ def phase_ring_reference(ds, tf_model, tf, launch):
             wants.append({**{k: 0 for k in got[rank]["launches"]},
                           "ring_carry": per * live, "ring_bwd_dq": per * live,
                           "ring_bwd_dkv": per * live,
-                          "ring_carry.fma": per * live,   # fp32
+                          **{f"{k}.fma": per * live       # fp32
+                             for k in ("ring_carry", "ring_bwd_dq",
+                                       "ring_bwd_dkv")},
                           "fused_adamw": RING_REF_STEPS})
         launches = [r["launches"] for r in got]
         emit({"phase": "ring-reference", "model": RING_MODEL,
@@ -2203,10 +2336,11 @@ def phase_ring_train(tf_model, launch, card):
     rows = RING_CFG["train_micro_batch_size_per_gpu"] * gas
     tokens = rows * RING_SEQ
     step_s = [max(r["step_s"][i] for r in ranks) for i in range(RING_STEPS)]
-    # every carry of the step on the wgmma route
+    # every carry, dq and dk/dv launch of the step on the wgmma route
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
     want = {**{k: 0 for k in ranks[0]["launches"]},
-            "ring_carry": live, "ring_bwd_dq": live, "ring_bwd_dkv": live,
-            "ring_carry.wgmma": live, "fused_adamw": 1}
+            **{k: live for k in kernels},
+            **{f"{k}.wgmma": live for k in kernels}, "fused_adamw": 1}
     per_step = [{k: v / RING_STEPS for k, v in r["launches"].items()}
                 for r in ranks]
     ok = (all(r["finite"] for r in ranks)

@@ -404,10 +404,10 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // A 4-D tensor map over one [B, H, S, D] operand (element strides st: b,
-// h, s; D contiguous), boxes of 64 columns x 128 rows of one head.  A dim
-// of size one is never stepped: it gets the packed stride.
+// h, s; D contiguous), boxes of 64 columns x `rows` rows of one head.  A
+// dim of size one is never stepped: it gets the packed stride.
 inline bool attn_map(CUtensorMap* map, const void* p, int B, int H, int S, int D,
-                     const long long* st) {
+                     const long long* st, int rows = kBQ) {
   const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
   uint64_t strides[3];
@@ -418,7 +418,7 @@ inline bool attn_map(CUtensorMap* map, const void* p, int B, int H, int S, int D
   for (uint64_t x : strides)
     if (x == 0 || x % 16 != 0) return false;
   if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  const uint32_t box[4] = {64, static_cast<uint32_t>(kBQ), 1, 1};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
   return hopper_host::encode_bf16(map, p, 4, dims, strides, box);
 }
 

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the wgmma kernels of the port
-// (gather_matmul.cu, fp6_linear.cu, attention_wgmma.cuh): mbarriers, TMA
-// tile loads, warpgroup matrix multiply (wgmma) with its shared-memory
-// descriptors, the proxy fence between threads' stores and wgmma's reads,
-// register handover between warpgroups (setmaxnreg), and the host-side
-// tensor-map encoders (bf16 with 128-byte swizzle, uint8 unswizzled).
+// (gather_matmul.cu, fp6_linear.cu, attention_wgmma.cuh,
+// attention_wgmma_bwd.cuh): mbarriers, TMA tile loads, warpgroup matrix
+// multiply (wgmma) with its shared-memory descriptors, the proxy fence
+// between threads' stores and wgmma's reads, register handover between
+// warpgroups (setmaxnreg), and the host-side tensor-map encoders (bf16
+// with 128-byte swizzle, fp32 and uint8 unswizzled).
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // a box whose inner extent is 64 bf16 (128 bytes) lands as rows of 128
@@ -70,6 +71,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- TMA ------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
   asm volatile(
@@ -235,6 +244,37 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64 x 64] = A . B, or A . B + D with ACC, both from shared memory
+// (descriptors); TA/TB: MN-major.  Without ACC the old D is never read
+// (scale-d false, the registers are outputs only), so nothing holds them
+// live between the last read of one product and the next.
+template <int TA, int TB, bool ACC>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (ACC) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+  }
+}
+
 // D[64 x 64] = A . B + (scale_d ? D : 0), A from registers (the m16n8k16 A fragment of each
 // warp's 16 rows), B from shared memory; TB: B is MN-major
 template <int TB>
@@ -320,6 +360,12 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const uint
                         const uint64_t* strides, const uint32_t* box) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
                 dims, strides, box);
+}
+// fp32, unswizzled: the box lands as it is laid out
+inline bool encode_f32(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, base, rank, dims,
+                strides, box);
 }
 // uint8 bytes, unswizzled: rows of the box land one after another
 inline bool encode_u8(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,

@@ -9,8 +9,9 @@
 // blocks hold global positions off + stride * i (contiguous placement:
 // stride 1, off = shard * S; striped placement: stride sp, off = shard), so
 // the causal and window tests run on positions, not indices.  The kernels
-// are the tile walks of attention_tiles.cuh (and, for ring_carry at bf16,
-// attention_wgmma.cuh) in accumulate mode under the offset mask below:
+// are the tile walks of attention_tiles.cuh (and, at bf16, the wgmma walks
+// of attention_wgmma.cuh and attention_wgmma_bwd.cuh) in accumulate mode
+// under the offset mask below:
 //   * ring_carry reads the running (m, l, acc) of its query tile, walks the
 //     live key tiles with the online softmax and writes (m, l, acc) back in
 //     place, unnormalised (the caller divides once after the last hop);
@@ -31,21 +32,25 @@
 // At the training shape (S = 4096 a rank, d = 128, 32 query heads over 8 KV
 // heads, bf16) a causal hop keeps about half of its S x S pairs under both
 // placements, so the kernels are bound by their matrix products; the score
-// tiles stay in shared memory, and the carry and fp32 accumulators are read
-// and written once per hop.
+// tiles stay on chip (shared memory on the tile walk, registers on the
+// wgmma route), and the carry and fp32 accumulators are read and written
+// once per hop.
 //
-// ring_carry has three routes, chosen by the caller (ops/flash_mha.py
-// `flash_carry_block`, by `fwd_route`'s rule): 2 (wgmma) for bf16 views
-// TMA can read, the persistent wgmma/TMA forward of attention_wgmma.cuh in
-// accumulate mode on 128 x 128 tiles, whose interior tiles (every pair
-// visible, `full`) take the softmax without the mask test; 1 (mma) for
-// other bf16 views and 0 (fma) for fp32, attn_fwd_kernel of
-// attention_tiles.cuh on 64 x 64 tiles.  Both keep m in natural units, so
-// the hops of one ring may take either.  The backward kernels take dtype
-// codes (0 fp32, 1 bf16).
+// Each kernel has three routes, chosen by the caller (ops/flash_mha.py,
+// by `fwd_route`'s rule for the carry and `bwd_route`'s, which adds do,
+// for the backward): 2 (wgmma) for bf16 views TMA can read, 1 (mma) for
+// other bf16 views and 0 (fma) for fp32.  On the wgmma route ring_carry is
+// the persistent wgmma/TMA forward of attention_wgmma.cuh in accumulate
+// mode on 128 x 128 tiles, ring_bwd_dq the dq walk of
+// attention_wgmma_bwd.cuh on 128-row query by 64-key tiles and
+// ring_bwd_dkv its dk/dv walk on 128-key by 64-row query tiles, whose
+// interior tiles (every pair visible, `full`) skip the mask test; the
+// other two routes are the kernels of attention_tiles.cuh on 64 x 64
+// tiles.  Every route keeps m in natural units and the sums in fp32, so
+// the hops of one ring may take any of them.
 
 #include "attention_tiles.cuh"
-#include "attention_wgmma.cuh"
+#include "attention_wgmma_bwd.cuh"
 
 namespace {
 
@@ -61,7 +66,8 @@ __device__ __forceinline__ long long ceil_div(long long a, long long d) {
 // at q_off + q_stride * r, key col c at k_off + k_stride * c; key visible
 // iff kpos <= qpos (causal) and qpos - kpos < window (window > 0).  TQ, TK:
 // the walk's query and key tile rows (64 x 64 for attention_tiles.cuh,
-// 128 x 128 for the wgmma carry).
+// 128 x 128 for the wgmma carry, 128 x 64 for the wgmma dq and 64 x 128
+// for the wgmma dk/dv).
 template <int TQ, int TK>
 struct RingOffsetsT {
   int S, causal, window, q_off, k_off, q_stride, k_stride;
@@ -123,14 +129,18 @@ int ring(Role role, int dtype, int D, const AttnCall& a, int causal, int window,
                       RingOffsets{a.S, causal, window, q_off, k_off, q_stride, k_stride});
 }
 
+// what the wgmma route takes beyond its launchers' own checks
+bool wgmma_args_ok(int D, int q_stride, int k_stride) {
+  return (D == 64 || D == 128) && q_stride > 0 && k_stride > 0;
+}
+
 }  // namespace
 
-// ring_carry's route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA
-// reads); the backward's dtype codes: 0 = float32, 1 = bfloat16 (q, k, v,
-// do).  m, l: fp32 [B, Hq, S] contiguous; acc, dq: fp32 [B, Hq, S, D]; dk,
-// dv: fp32 [B, Hkv, S, D]; all updated in place.  strides: (b, h, s) of
-// each [B, H, S, D] operand in argument order (q, k, v, acc / do, dq / do,
-// dk, dv).  lse, delta: fp32 [B, Hq, S] contiguous.
+// route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA reads).  m, l: fp32
+// [B, Hq, S] contiguous; acc, dq: fp32 [B, Hq, S, D]; dk, dv: fp32
+// [B, Hkv, S, D]; all updated in place.  strides: (b, h, s) of each
+// [B, H, S, D] operand in argument order (q, k, v, acc / do, dq / do, dk,
+// dv).  lse, delta: fp32 [B, Hq, S] contiguous.
 extern "C" int ring_carry(int route, const void* q, const void* k, const void* v, void* m,
                           void* l, void* acc, const long long* strides, int B, int Hq, int Hkv,
                           int S, int D, float scale, int causal, int window, int q_off, int k_off,
@@ -142,8 +152,7 @@ extern "C" int ring_carry(int route, const void* q, const void* k, const void* v
     a.acc_io = static_cast<float*>(acc);
     return ring(Role::kFwd, route, D, a, causal, window, q_off, k_off, q_stride, k_stride);
   }
-  if ((D != 64 && D != 128) || q_stride <= 0 || k_stride <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!wgmma_args_ok(D, q_stride, k_stride)) return static_cast<int>(cudaErrorInvalidValue);
   using Wide = RingOffsetsT<flash_wg::kBQ, flash_wg::kBK>;
   const Wide mask{S, causal, window, q_off, k_off, q_stride, k_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -154,29 +163,53 @@ extern "C" int ring_carry(int route, const void* q, const void* k, const void* v
                                                S, scale, mask, s);
 }
 
-extern "C" int ring_bwd_dq(int dtype, const void* q, const void* k, const void* v,
+extern "C" int ring_bwd_dq(int route, const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* delta, void* dq,
                            const long long* strides, int B, int Hq, int Hkv, int S, int D,
                            float scale, int causal, int window, int q_off, int k_off,
                            int q_stride, int k_stride, void* stream) {
-  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = dq;
-  return ring(Role::kBwdDq, dtype, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  const float *ls = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  if (route != 2) {
+    AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+    a.dout = dout;
+    a.lse_in = ls;
+    a.delta = dl;
+    a.dq = dq;
+    return ring(Role::kBwdDq, route, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  }
+  if (!wgmma_args_ok(D, q_stride, k_stride)) return static_cast<int>(cudaErrorInvalidValue);
+  using Mask = RingOffsetsT<flash_wg::kBQ, flash_wg::kBKd>;
+  const Mask mask{S, causal, window, q_off, k_off, q_stride, k_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(dq);
+  return D == 64 ? flash_wg::launch_bwd_dq<64>(q, k, v, dout, ls, dl, g, strides, B, Hq, Hkv, S,
+                                               scale, mask, s)
+                 : flash_wg::launch_bwd_dq<128>(q, k, v, dout, ls, dl, g, strides, B, Hq, Hkv, S,
+                                                scale, mask, s);
 }
 
-extern "C" int ring_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
+extern "C" int ring_bwd_dkv(int route, const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* delta, void* dk,
                             void* dv, const long long* strides, int B, int Hq, int Hkv, int S,
                             int D, float scale, int causal, int window, int q_off, int k_off,
                             int q_stride, int k_stride, void* stream) {
-  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dk = dk;
-  a.dv = dv;
-  return ring(Role::kBwdDkv, dtype, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  const float *ls = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  if (route != 2) {
+    AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+    a.dout = dout;
+    a.lse_in = ls;
+    a.delta = dl;
+    a.dk = dk;
+    a.dv = dv;
+    return ring(Role::kBwdDkv, route, D, a, causal, window, q_off, k_off, q_stride, k_stride);
+  }
+  if (!wgmma_args_ok(D, q_stride, k_stride)) return static_cast<int>(cudaErrorInvalidValue);
+  using Mask = RingOffsetsT<flash_wg::kBQd, flash_wg::kBK>;
+  const Mask mask{S, causal, window, q_off, k_off, q_stride, k_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float *gk = static_cast<float*>(dk), *gv = static_cast<float*>(dv);
+  return D == 64 ? flash_wg::launch_bwd_dkv<64>(q, k, v, dout, ls, dl, gk, gv, strides, B, Hq,
+                                                Hkv, S, scale, mask, s)
+                 : flash_wg::launch_bwd_dkv<128>(q, k, v, dout, ls, dl, gk, gv, strides, B, Hq,
+                                                 Hkv, S, scale, mask, s);
 }

@@ -35,8 +35,10 @@ walk in accumulate mode, under a mask on global positions ``off + stride
 their plain versions run the per-hop math of the JAX ring's XLA path
 (``sequence/ring.py`` ``_ring_fwd_xla``/``_ring_bwd_xla``) over the same
 key tiles on CPU tensors.  Each updates its fp32 state in place.  The
-carry takes :func:`fwd_route`'s route (counted in ``ring_routes``): bf16
-views TMA can read run the ``wgmma`` forward in accumulate mode.
+carry takes :func:`fwd_route`'s route and the backward :func:`bwd_route`'s,
+which adds ``do`` to the operands (counted in ``ring_routes``): bf16 views
+TMA can read run the ``wgmma`` walks (``attention_wgmma.cuh``, the
+forward in accumulate mode; ``attention_wgmma_bwd.cuh``, dq and dk/dv).
 
 Layout contract (the JAX function's): q is ``[B, Hq, S, D]``, k/v are
 ``[B, Hkv, S, D]`` with Hq a multiple of Hkv; the kernels read any such
@@ -327,6 +329,14 @@ def fwd_route(q, k, v) -> str:
     return "wgmma" if all(_tma_readable(x) for x in (q, k, v)) else "mma"
 
 
+def bwd_route(q, k, v, do) -> str:
+    """The ring backward kernels' route (``ring_bwd_dq``, ``ring_bwd_dkv``):
+    :func:`fwd_route`'s rule over ``do`` as well, whose view (an expanded
+    gradient) TMA must read too."""
+    route = fwd_route(q, k, v)
+    return "mma" if route == "wgmma" and not _tma_readable(do) else route
+
+
 def flash_fwd(q, k, v, causal: bool, sm_scale: float,
               window: Optional[int] = None):
     """``(o, lse)`` of one attention forward; CPU tensors take the plain
@@ -491,8 +501,8 @@ flash_mha.routes = {f"flash_fwd.{r}": 0 for r in FWD_ROUTES}
 # flash_ring_dq_block / flash_ring_dkv_block)
 # ----------------------------------------------------------------------
 ring_launches = {"ring_carry": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
-# ring_carry's launches by route (codes in ops/csrc/ring_attention.cu)
-ring_routes = {f"ring_carry.{r}": 0 for r in FWD_ROUTES}
+# each ring kernel's launches by route (codes in ops/csrc/ring_attention.cu)
+ring_routes = {f"{n}.{r}": 0 for n in ring_launches for r in FWD_ROUTES}
 
 
 def _ring_lib():
@@ -571,20 +581,23 @@ def flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal: bool = True,
     visiting block into the fp32 ``dq`` [B, Hq, S, D] in place, from the
     shard's final ``lse`` and ``delta`` ([B, Hq, S] fp32).  ``pos`` as in
     :func:`flash_carry_block`.  CPU tensors take the plain version, CUDA
-    tensors the ``ring_bwd_dq`` kernel.  Returns ``dq``."""
+    tensors the ``ring_bwd_dq`` kernel on :func:`bwd_route`'s route
+    (counted in ``ring_launches`` and ``ring_routes``).  Returns ``dq``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal,
                                scale, window)
     _check_cuda(q, k, v, do, lse, delta)
     _check_state(q, q.shape[1], dq)
+    path = bwd_route(q, k, v, do)
     err = _ring_lib().ring_bwd_dq(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq), *_ring_args(q, k, pos, causal, scale,
                                                window))
-    _raise_on(err, "ring_bwd_dq")
+    _raise_on(err, f"ring_bwd_dq ({path} route)")
     ring_launches["ring_bwd_dq"] += 1
+    ring_routes[f"ring_bwd_dq.{path}"] += 1
     return dq
 
 
@@ -594,18 +607,22 @@ def flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos,
     """One ring hop, backward dk/dv side: add the visiting block's dk and
     dv into the traveling fp32 ``dk/dv`` [B, Hkv, S, D] in place.  ``pos``
     as in :func:`flash_carry_block`.  CPU tensors take the plain version,
-    CUDA tensors the ``ring_bwd_dkv`` kernel.  Returns ``(dk, dv)``."""
+    CUDA tensors the ``ring_bwd_dkv`` kernel on :func:`bwd_route`'s route
+    (counted in ``ring_launches`` and ``ring_routes``).  Returns
+    ``(dk, dv)``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return ring_bwd_dkv_ref(q, k, v, do, lse, delta, dk, dv, pos, causal,
                                 scale, window)
     _check_cuda(q, k, v, do, lse, delta)
     _check_state(q, k.shape[1], dk, dv)
+    path = bwd_route(q, k, v, do)
     err = _ring_lib().ring_bwd_dkv(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dk, dv),
         *_ring_args(q, k, pos, causal, scale, window))
-    _raise_on(err, "ring_bwd_dkv")
+    _raise_on(err, f"ring_bwd_dkv ({path} route)")
     ring_launches["ring_bwd_dkv"] += 1
+    ring_routes[f"ring_bwd_dkv.{path}"] += 1
     return dk, dv

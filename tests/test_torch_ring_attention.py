@@ -163,13 +163,28 @@ def _carry_operands(layout, dtype):
         return torch.zeros(shape, dtype=dtype)
 
     q = z(b, s, hq, d).transpose(1, 2)
-    if layout == "bshd-views":
+    if layout in ("bshd-views", "do-expanded"):
         k, v = (z(b, s, hkv, d).transpose(1, 2) for _ in range(2))
     elif layout == "rotated-block":
         k, v = z(b, hkv, s, d), z(b, hkv, s, d)
     else:
         k = v = z(b, 1, s, d).expand(b, hkv, s, d)
     return q, k, v
+
+
+def _bwd_operands(layout, dtype):
+    """q, k, v, do of one backward hop: the carry's layouts, with do the
+    [B, S, H, D] gradient read through a [B, H, S, D] view; or, for
+    ``do-expanded``, the gradient of a sum, expanded from one row (every
+    stride but the last 0), a view the kernels read in place and TMA
+    cannot."""
+    q, k, v = _carry_operands(layout, dtype)
+    b, hq, s, d = q.shape
+    if layout == "do-expanded":
+        do = torch.ones((1, 1, 1, d), dtype=dtype).expand(b, hq, s, d)
+    else:
+        do = torch.zeros((b, s, hq, d), dtype=dtype).transpose(1, 2)
+    return q, k, v, do
 
 
 CARRY_ROUTE_CASES = [("bshd-views", "wgmma"), ("rotated-block", "wgmma"),
@@ -186,11 +201,37 @@ def test_carry_route_is_chosen_from_dtype_and_strides(layout, want):
     assert tfm.fwd_route(*_carry_operands(layout, torch.bfloat16)) == want
     q, k, v = _carry_operands(layout, torch.float32)
     assert tfm.fwd_route(q, k, v) == "fma"
-    assert set(tfm.ring_routes) == {f"ring_carry.{r}" for r in tfm.FWD_ROUTES}
+    assert set(tfm.ring_routes) == {f"{n}.{r}" for n in RING_KERNELS
+                                    for r in tfm.FWD_ROUTES}
     before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
     m = torch.full(q.shape[:3], tfm.NEG_INF)
     tfm.flash_carry_block(q, k, v, m, torch.zeros_like(m),
                           torch.zeros(q.shape), (1, 2, 0, 2))
+    assert (tfm.ring_launches, tfm.ring_routes) == before
+
+
+RING_KERNELS = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+BWD_ROUTE_CASES = CARRY_ROUTE_CASES + [("do-expanded", "mma")]
+
+
+@pytest.mark.parametrize("layout,want", BWD_ROUTE_CASES,
+                         ids=[c[0] for c in BWD_ROUTE_CASES])
+def test_bwd_route_is_chosen_from_dtype_and_strides(layout, want):
+    """ring_bwd_dq's and ring_bwd_dkv's route follows fwd_route's rule
+    over do as well: bf16 views a TMA tensor map takes run the wgmma
+    backward, an expanded K/V or do the 64 x 64 tile walk, fp32 the FMA
+    body; CPU calls take the plain version and count no launch and no
+    route."""
+    assert tfm.bwd_route(*_bwd_operands(layout, torch.bfloat16)) == want
+    q, k, v, do = _bwd_operands(layout, torch.float32)
+    assert tfm.bwd_route(q, k, v, do) == "fma"
+    before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
+    rows = torch.zeros(q.shape[:3])
+    dk = torch.zeros(k.shape)
+    tfm.flash_ring_dq_block(q, k, v, do, rows, rows, torch.zeros(q.shape),
+                            (1, 2, 0, 2))
+    tfm.flash_ring_dkv_block(q, k, v, do, rows, rows, dk, dk.clone(),
+                             (1, 2, 0, 2))
     assert (tfm.ring_launches, tfm.ring_routes) == before
 
 

@@ -3,10 +3,12 @@ versions on the card: ``ring_carry``, ``ring_bwd_dq`` and ``ring_bwd_dkv``
 (``ops/csrc/ring_attention.cu``) over hops of both placements (the own
 block on the diagonal, a striped neighbour, a fully live contiguous
 source), MHA and GQA, head_dim 64 and 128, a sliding window, non-causal
-hops and a shard length that is not a multiple of 64, in bf16 and fp32.
-The carry's route is asserted: bf16 views take the wgmma forward in
-accumulate mode, an expanded K/V (stride 0) the 64 x 64 tile walk (mma),
-fp32 the FMA body.
+hops and shard lengths that are not a multiple of 64 (200, 1000), in
+bf16 and fp32.  Every kernel's route is asserted: bf16 views take the
+wgmma walks (the forward in accumulate mode, the dq and dk/dv backward),
+an expanded K/V or do (stride 0) the 64 x 64 tile walk (mma), fp32 the
+FMA body.  Two hops of the backward on the wgmma route compose as the
+plain version's do.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -17,8 +19,9 @@ bf16 2^-7 and fp32 1e-4, as |kernel - plain| <= rtol * (1 + |plain|) on
 the normalised carry ``acc / l``, on ``l`` and on the fp32 accumulators
 dq, dk and dv (the two sum in other orders before p and ds round to
 bf16), and 1e-4 on ``m`` (a max of fp32 scores).  A dead hop, and on the
-wgmma route every 128-row item with no live key tile, leaves the state bit
-for bit as it was.
+wgmma route every item with no live tile (a 128-row query tile of the
+carry or dq, a 128-key tile of dk/dv), leaves the state bit for bit as it
+was.
 """
 
 import numpy as np
@@ -38,9 +41,15 @@ CASES = [
     (1, 4, 4, 256, 64, True, 100, (256, 1, 0, 1)),      # sliding window
     (1, 4, 2, 192, 64, False, None, (192, 1, 0, 1)),    # non-causal
     (1, 4, 2, 200, 128, True, None, (1, 2, 0, 2)),      # tail: S_l % 64 != 0
+    (1, 4, 2, 1000, 128, True, None, (1, 2, 0, 2)),     # tail: S_l % 128 != 0
+    (1, 8, 2, 384, 64, True, None, (384, 1, 0, 1)),     # GQA d = 64, fully live
+    (1, 8, 2, 320, 64, True, 90, (1, 2, 0, 2)),         # striped, window, d = 64
+    (2, 8, 4, 256, 128, False, None, (0, 2, 1, 2)),     # striped, non-causal
 ]
 IDS = ["striped-own", "striped-1from0", "striped-0from1", "contig-own",
-       "contig-live", "mha-d64", "window", "noncausal", "tail"]
+       "contig-live", "mha-d64", "window", "noncausal", "tail",
+       "tail-1000", "gqa-d64-live", "striped-window-d64",
+       "striped-noncausal"]
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
@@ -109,6 +118,7 @@ def test_cuda_ring_kernels_match_plain_version(case, dtype, cuda_device):
     routes = dict(fm.ring_routes)
     want = "wgmma" if dtype == torch.bfloat16 else "fma"
     assert fm.fwd_route(q, k, v) == want
+    assert fm.bwd_route(q, k, v, do) == want
     for hop in (pos, own):
         fm.flash_carry_block(q, k, v, *state, hop, **kw)
         fm.ring_carry_ref(q, k, v, *ref, hop, causal, scale, window)
@@ -130,7 +140,9 @@ def test_cuda_ring_kernels_match_plain_version(case, dtype, cuda_device):
     torch.cuda.synchronize()
     assert {n: fm.ring_launches[n] - before[n] for n in before} == \
         {"ring_carry": 2, "ring_bwd_dq": 1, "ring_bwd_dkv": 1}
-    assert _route_delta(routes) == {f"ring_carry.{want}": 2}
+    assert _route_delta(routes) == {f"ring_carry.{want}": 2,
+                                    f"ring_bwd_dq.{want}": 1,
+                                    f"ring_bwd_dkv.{want}": 1}
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         ok, err = _close(got, want, RTOL[dtype])
         assert ok, f"{name}: max abs err {err}"
@@ -159,7 +171,8 @@ def test_cuda_ring_dead_hop_leaves_state_unchanged(dtype, cuda_device):
     fm.flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos, causal=causal)
     torch.cuda.synchronize()
     want_route = "wgmma" if dtype == torch.bfloat16 else "fma"
-    assert _route_delta(routes) == {f"ring_carry.{want_route}": 1}
+    assert _route_delta(routes) == {f"{n}.{want_route}": 1 for n in
+                                    ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}
     for got, want in zip((m, l, acc, dq, dk, dv), before):
         assert torch.equal(got, want)
 
@@ -214,6 +227,133 @@ def test_cuda_ring_carry_dead_items_keep_their_rows(cuda_device):
     for got, was in zip((m, l, acc), before):
         assert torch.equal(got[:, :, dead], was[:, :, dead])
     _check_carry((m, l, acc), ref, RTOL[torch.bfloat16])
+
+
+def _bwd_state(rng, dev, b, hq, hkv, s, d):
+    """Seeded fp32 dq, dk, dv and [B, Hq, S] delta of a backward hop."""
+    return (_rand(rng, dev, torch.float32, b, hq, s, d, scale=0.1),
+            _rand(rng, dev, torch.float32, b, hkv, s, d, scale=0.1),
+            _rand(rng, dev, torch.float32, b, hkv, s, d, scale=0.1),
+            _rand(rng, dev, torch.float32, b, hq, s, scale=0.1))
+
+
+def _lse_of(q, k, v, pos, causal, window):
+    """The lse a hop's rows end the forward with, by the plain carry."""
+    b, hq, s, d = q.shape
+    m, l, acc = _fresh_state(b, hq, s, d, q.device)
+    fm.ring_carry_ref(q, k, v, m, l, acc, pos, causal, d ** -0.5, window)
+    return (m + torch.log(l.clamp(min=1e-20))).contiguous()
+
+
+def _check_grads(got, want, rtol):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        ok, err = _close(g, w, rtol)
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+def test_cuda_ring_bwd_dead_items_keep_their_rows(cuda_device):
+    """A windowed contiguous hop (rank 1 <- block 0, window 100) into
+    seeded accumulators: query row r sees keys 413 + r .. 511, so on the
+    wgmma route each 128-row dq item from row 128 on and each 128-key
+    dk/dv item below key 384 has no live tile, and their rows come back
+    bit for bit; the live rows match the plain version."""
+    b, hq, hkv, s, d, window = 1, 4, 2, 512, 128, 100
+    pos = (s, 1, 0, 1)
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_rand(rng, cuda_device, torch.bfloat16, b, h, s, d)
+                   for h in (hq, hkv, hkv, hq))
+    lse = _lse_of(q, k, v, pos, True, window)
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    before = [t.clone() for t in (dq, dk, dv)]
+    want = [t.clone() for t in (dq, dk, dv)]
+    routes = dict(fm.ring_routes)
+    fm.flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, window=window)
+    fm.flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos,
+                            window=window)
+    fm.ring_bwd_dq_ref(q, k, v, do, lse, delta, want[0], pos, True,
+                       d ** -0.5, window)
+    fm.ring_bwd_dkv_ref(q, k, v, do, lse, delta, want[1], want[2], pos,
+                        True, d ** -0.5, window)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {"ring_bwd_dq.wgmma": 1,
+                                    "ring_bwd_dkv.wgmma": 1}
+    assert torch.equal(dq[:, :, 128:], before[0][:, :, 128:])
+    for got, was in zip((dk, dv), before[1:]):
+        assert torch.equal(got[:, :, :384], was[:, :, :384])
+    _check_grads((dq, dk, dv), want, RTOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expanded", ["kv", "do"])
+def test_cuda_ring_bwd_expanded_operand_takes_the_mma_route(expanded,
+                                                             cuda_device):
+    """An expanded K/V, or an expanded do (the gradient of a sum), is no
+    view a TMA tensor map takes: the backward runs the 64 x 64 tile walk
+    and matches its plain version."""
+    b, hq, hkv, s, d = 1, 8, 2, 256, 128
+    pos = (1, 2, 0, 2)
+    rng = np.random.default_rng(6)
+    q = _rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+    if expanded == "kv":
+        k, v = (_rand(rng, cuda_device, torch.bfloat16, b, 1, s, d)
+                .expand(b, hkv, s, d) for _ in range(2))
+        do = _rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+    else:
+        k, v = (_rand(rng, cuda_device, torch.bfloat16, b, hkv, s, d)
+                for _ in range(2))
+        do = _rand(rng, cuda_device, torch.bfloat16, 1, 1, 1, d).expand(
+            b, hq, s, d)
+    assert fm.bwd_route(q, k, v, do) == "mma"
+    lse = _lse_of(q, k, v, pos, True, None)
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    want = [t.clone() for t in (dq, dk, dv)]
+    routes = dict(fm.ring_routes)
+    fm.flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos)
+    fm.flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos)
+    fm.ring_bwd_dq_ref(q, k, v, do, lse, delta, want[0], pos, True, d ** -0.5)
+    fm.ring_bwd_dkv_ref(q, k, v, do, lse, delta, want[1], want[2], pos, True,
+                        d ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {"ring_bwd_dq.mma": 1,
+                                    "ring_bwd_dkv.mma": 1}
+    _check_grads((dq, dk, dv), want, RTOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_ring_bwd_hops_compose(d, cuda_device):
+    """Two striped ranks' backward around block 1 (bf16, wgmma route):
+    rank 1's dq takes its own block's hop and then block 0's; block 1's
+    traveling dk/dv take rank 1's hop (its owner) and then rank 0's.  The
+    sums after both hops equal the same two hops through the plain
+    version."""
+    b, hq, hkv, s = 1, 8, 2, 320
+    rng = np.random.default_rng(7)
+    q0, q1, do0, do1 = (_rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+                        for _ in range(4))
+    k0, v0, k1, v1 = (_rand(rng, cuda_device, torch.bfloat16, b, hkv, s, d)
+                      for _ in range(4))
+    lse1 = _lse_of(q1, k1, v1, (1, 2, 1, 2), True, None)
+    lse0 = _lse_of(q0, k1, v1, (0, 2, 1, 2), True, None)
+    dq, dk, dv, delta1 = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    delta0 = _rand(rng, cuda_device, torch.float32, b, hq, s, scale=0.1)
+    want = [t.clone() for t in (dq, dk, dv)]
+    routes = dict(fm.ring_routes)
+
+    def two_hops(run_dq, run_dkv, sums, *plain):
+        for kk, vv, pos in ((k1, v1, (1, 2, 1, 2)), (k0, v0, (1, 2, 0, 2))):
+            run_dq(q1, kk, vv, do1, lse1, delta1, sums[0], pos, *plain)
+        for qq, dd, ll, de, pos in ((q1, do1, lse1, delta1, (1, 2, 1, 2)),
+                                    (q0, do0, lse0, delta0, (0, 2, 1, 2))):
+            run_dkv(qq, k1, v1, dd, ll, de, sums[1], sums[2], pos, *plain)
+
+    two_hops(fm.flash_ring_dq_block, fm.flash_ring_dkv_block, (dq, dk, dv))
+    two_hops(fm.ring_bwd_dq_ref, fm.ring_bwd_dkv_ref, want, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {"ring_bwd_dq.wgmma": 2,
+                                    "ring_bwd_dkv.wgmma": 2}
+    _check_grads((dq, dk, dv), want, RTOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
