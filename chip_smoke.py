@@ -22,18 +22,21 @@ Phases, each printing JSON lines:
   7. train-kernels — flash_fwd, flash_bwd_dq, flash_bwd_dkv and fused_adamw
                against their plain versions at the training path's shapes
                (gpt2-350m and llama3-8b attention geometry, a sliding
-               window, a tail, fp32 bodies; AdamW over every gpt2-350m
-               leaf, bit for bit), with times, bounds and library times,
-               each row naming the route its kernel took (flash_fwd:
-               wgmma for bf16, fma for fp32);
+               window, a tail, a bidirectional windowed GQA case at D 128,
+               fp32 bodies; AdamW over every gpt2-350m leaf, bit for bit),
+               with times, bounds and library times (the three flash
+               kernels beside SDPA's forward and backward in the same
+               call), each row naming the route its kernel took (wgmma for
+               bf16, fma for fp32);
   8. train-reference — gpt2-350m width cut to two layers, fp32: two
                train_batch steps on the card against the same engine on
                the CPU (loss, grad norm, params);
   9. train   — gpt2-350m at full width and depth in bf16 with the bench
                row's step (micro 8, gas 8, seq 1024, AdamW, clip 1.0,
                ZeRO-1): a warm-up step, then three timed steps whose launch
-               counts show the path ran the kernels, every flash_fwd on its
-               wgmma route; a profiled step; one
+               counts show the path ran the kernels, every flash_fwd,
+               flash_bwd_dq and flash_bwd_dkv on its wgmma route; a
+               profiled step; one
                step with remat "nothing_saveable" (the forward reruns);
  10. sparse-kernels — bsa_fwd, bsa_bwd_dq and bsa_bwd_dkv against their
                plain versions: the sparse path's shape and layout, Fixed,
@@ -118,7 +121,7 @@ Phases, each printing JSON lines:
                ZeRO-3 row: micro 8 a rank, seq 1024, bf16, AdamW, clip 1.0,
                persistence 0; gas 2): a warm-up step, three timed steps whose
                launch counts a rank show gather_matmul, flash, AdamW and
-               nothing else, every GEMM and attention forward on the wgmma
+               nothing else, every GEMM and attention kernel on the wgmma
                route, and a profiled step on rank 0 (device busy
                share, host time inside comm.all_gather, comm.reduce_scatter
                and comm.all_reduce).
@@ -184,17 +187,17 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
     "type": "Lion", "params": {"lr": 3e-5, "betas": [0.9, 0.99],
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
-# roles are one template each, told apart by their mask policy; flash_fwd,
-# the three ring kernels, fp6_matmul and gather_matmul on the main path are
-# their wgmma kernels (flash_fwd and ring_carry one template, two mask
-# policies)
+# roles are one template each, told apart by their mask policy; the three
+# flash kernels, the three ring kernels, fp6_matmul and gather_matmul on the
+# main path are their wgmma kernels (flash and ring one template a role,
+# two mask policies)
 PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
-    "flash_bwd_dq": ("attn_bwd_dq_kernel", "CausalWindow"),
-    "flash_bwd_dkv": ("attn_bwd_dkv_kernel", "CausalWindow"),
+    "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
+    "flash_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "CausalWindow"),
     "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
     "bsa_bwd_dq": ("attn_bwd_dq_kernel", "BlockLayout"),
     "bsa_bwd_dkv": ("attn_bwd_dkv_kernel", "BlockLayout"),
@@ -801,6 +804,7 @@ FLASH_CASES = [
     ("tail", 4, 16, 16, 1000, 64, "bfloat16", True, None, False),
     ("fp32", 2, 16, 16, 1024, 64, "float32", True, None, True),
     ("fp32-gqa-d128", 1, 8, 2, 520, 128, "float32", False, 200, False),
+    ("bidir-window-gqa", 2, 16, 4, 1530, 128, "bfloat16", False, 384, False),
 ]
 
 
@@ -899,14 +903,20 @@ def flash_case(fm, case):
     row = {"phase": "train-kernel", "case": name, "B": b, "Hq": hq,
            "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
            "window": window, "pairs": pairs}
-    bwd = "fma" if dt == "float32" else "mma"   # the 64 x 64 tile walk
+    bwd = fm.bwd_route(*inputs)
     routes = {"flash_fwd": fm.fwd_route(*inputs[:3]), "flash_bwd_dq": bwd,
               "flash_bwd_dkv": bwd}
-    return attn_case(row, roles, inputs,
+    before = dict(fm.flash_mha.routes)
+    rows = attn_case(row, roles, inputs,
                      flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
                                   pairs, dt == "float32"),
                      ({"is_causal": causal}, "scaled_dot_product_attention"),
                      timed, routes)
+    taken = {r for r, c in fm.flash_mha.routes.items() if c != before[r]}
+    if taken != {f"{n}.{r}" for n, r in routes.items()}:
+        fail(f"train-kernel ({name}): launches on {sorted(taken)}, "
+             f"expected {routes}")
+    return rows
 
 
 # name, b, hq, hkv, s, d, dtype, (sparsity config, its kwargs), causal
@@ -2696,9 +2706,10 @@ def phase_zero_train(tf_model, launch, card):
             "flash_bwd_dkv": per, "fused_adamw": 1}
     per_step = [{k: v / ZERO_STEPS for k, v in r["launches"].items()}
                 for r in ranks]
-    # every GEMM and every forward attention launch on the wgmma route
+    # every GEMM and every attention launch on the wgmma route
     want_routes = {**{k: 0 for k in ranks[0]["routes"]},
-                   "gather_matmul.wgmma": 6 * per, "flash_fwd.wgmma": per}
+                   "gather_matmul.wgmma": 6 * per, "flash_fwd.wgmma": per,
+                   "flash_bwd_dq.wgmma": per, "flash_bwd_dkv.wgmma": per}
     routes_per_step = [{k: v / ZERO_STEPS for k, v in r["routes"].items()}
                        for r in ranks]
     ok = (all(r["finite"] and r["fused"] for r in ranks)
@@ -2829,12 +2840,14 @@ def main() -> int:
         expected(counters, flash_fwd=ref_steps, flash_bwd_dq=ref_steps,
                  flash_bwd_dkv=ref_steps, fused_adamw=2))
     n = layers * micro_steps
-    # every flash_fwd launch of the step on the wgmma route
+    # every flash launch of the step on the wgmma route
     routed = counters + (fm.flash_mha.routes,)
     train_launches = phase_train(
         ds, tf_model, routed, smi, "train", TRAIN_CFG,
         expected(routed, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n,
-                 fused_adamw=1, **{"flash_fwd.wgmma": n}), remat=True)
+                 fused_adamw=1, **{"flash_fwd.wgmma": n,
+                                   "flash_bwd_dq.wgmma": n,
+                                   "flash_bwd_dkv.wgmma": n}), remat=True)
 
     # 10. block-sparse kernels and Lion, 11. their training reference,
     # 12. training with block-sparse attention and Lion

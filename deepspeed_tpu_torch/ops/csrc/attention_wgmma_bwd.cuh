@@ -1,19 +1,26 @@
-// Attention backward on wgmma and TMA, Hopper: the ring hop's `ring_bwd_dq`
-// and `ring_bwd_dkv` at bf16, in accumulate mode.
+// Attention backward on wgmma and TMA, Hopper: the dense `flash_bwd_dq`
+// and `flash_bwd_dkv` and the ring hop's `ring_bwd_dq` and `ring_bwd_dkv`
+// at bf16.
 //
 // Computes what attn_bwd_dq_kernel / attn_bwd_dkv_kernel of
-// attention_tiles.cuh compute under ACC (and what the TPU kernels
-// _ring_dq_kernel / _ring_dkv_kernel of deepspeed_tpu/ops/pallas/
-// flash_mha.py compute): fp32 scores, p = exp(s * scale - lse) against the
-// shard's final lse, zeroed where the mask says no, ds = p * (dp - delta) *
-// scale, p rounded to bf16 before p^T.do, ds rounded to bf16 before ds.k
-// and ds^T.q; the incoming fp32 dq [B, Hq, S, D] and the traveling fp32
-// dk, dv [B, Hkv, S, D] seed the sums and receive them in place.  Only the
-// walk and where the numbers live differ.
+// attention_tiles.cuh compute (and what the TPU kernels _dq_kernel(_blocked)
+// / _dkv_kernel(_blocked) and _ring_dq_kernel / _ring_dkv_kernel of
+// deepspeed_tpu/ops/pallas/flash_mha.py compute): fp32 scores, p =
+// exp(s * scale - lse) against the final lse, zeroed where the mask says
+// no, ds = p * (dp - delta) * scale, p rounded to bf16 before p^T.do, ds
+// rounded to bf16 before ds.k and ds^T.q.  Only the walk and where the
+// numbers live differ.  The output's type is the mode, a template
+// parameter of the kernels and their launchers:
+//  * fp32 (accumulate, the ring): the incoming fp32 dq [B, Hq, S, D] and
+//    the traveling fp32 dk, dv [B, Hkv, S, D] seed the sums and receive
+//    them in place;
+//  * bf16 (store, flash): the sums start at zero and the item's rows are
+//    written once, rounded to bf16 (as the TPU kernels cast their fp32
+//    scratch at the last tile); rows past S are not written.
 //
-// Bound: the products, 3 (dq) and 4 (dk/dv) of pairs x D a head (a causal
-// hop of the ring at llama3-8b, S 4096 a rank: 0.21 and 0.28 ms at 989
-// TFLOP/s), far above the bytes of q, k, v, do and the fp32 sums.  So the
+// Bound: the products, 3 (dq) and 4 (dk/dv) of pairs x D a head (llama3-8b
+// causal at S 4096, or a causal hop of the ring there: 0.21 and 0.28 ms at
+// 989 TFLOP/s), far above the bytes of q, k, v, do and the sums.  So the
 // design keeps the tensor cores fed and every score tile in registers:
 //  * persistent kernels of three warpgroups, one block an SM walking work
 //    items; rounds of items alternate direction over the blocks (`snake`),
@@ -34,9 +41,10 @@
 //    rounded to bf16 in registers, where the accumulator's layout is
 //    already the A fragment; dQ += dS.K by wgmma with K read MN-major from
 //    the same shared tile (the transpose bit: no second copy of K).  dq
-//    lives in registers for the item, seeded from and written back to the
-//    fp32 buffer as 8-byte accesses in the fragment's layout.  Registers a
-//    consumer thread at D 128: S 32 + dP 32 + dq 64 + dS 16 fp32/bf16x2.
+//    lives in registers for the item and leaves (or, accumulating, is
+//    seeded) as 8-byte fp32 or 4-byte bf16 accesses in the fragment's
+//    layout.  Registers a consumer thread at D 128: S 32 + dP 32 + dq 64 +
+//    dS 16 fp32/bf16x2.
 //  * dk/dv (attn_bwd_dkv_wgmma_kernel): an item is a 128-key tile (two
 //    consumer warpgroups of 64 keys) of one KV head and batch, low key
 //    tiles (the longest causal walks) first; it keeps K and V and walks its
@@ -45,9 +53,12 @@
 //    consumer: S^T = K.Q^T and dP^T = V.dO^T by wgmma (K-major) with the
 //    query tile as wgmma's N; P^T and dS^T in registers against the query
 //    columns' lse and delta, which the producer loads beside the Q tile
-//    (1-D tensor maps over the flat [B * Hq * S] rows: the columns of a
-//    tail tile past S read the next head's values, finite, and the mask
-//    zeroes their p; past the array's end TMA fills zeros); dV += P^T.dO
+//    (1-D tensor maps over the flat [B * Hq * S] rows; a box starts at the
+//    16-byte boundary at or before the tile's first row, since TMA faults
+//    on any other start, and is 4 floats wider, the consumers reading it
+//    from that offset; the columns of a tail tile past S read the next
+//    head's values, finite, and the mask zeroes their p; past the array's
+//    end TMA fills zeros); dV += P^T.dO
 //    and dK += dS^T.Q by
 //    wgmma with dO and Q read MN-major from the tiles that fed the first
 //    two products.  Registers a consumer thread at D 128: dK 64 + dV 64 +
@@ -55,16 +66,36 @@
 //    accumulators by wgmma's scale-d (wgmma_ss_n64 without ACC), so no
 //    score register is live across the dK/dV products, and the query tile
 //    is 64 wide to stay inside the 240 registers setmaxnreg gives.
+//  * the store mode's epilogue writes bf16 pairs straight from the
+//    accumulator fragment (a quad's four threads cover 16 contiguous bytes
+//    of a row), the layout the accumulate mode reads and writes.  A staged
+//    epilogue (whole 128-byte rows through shared memory, as the forward's)
+//    has no room: at D 128 the dk/dv kernel's K, V and 4 stages of Q, dO
+//    take about 196 of the 227 KiB, and the K/V tiles it could reuse are
+//    the next item's as soon as KV-empty is released, so staging there
+//    would hold that release, and with it the next item's K/V and first
+//    Q/dO loads, until the rows are out: a TMA round trip exposed at every
+//    item instead of hidden behind the epilogue.  The direct store keeps
+//    that overlap and costs the consumers D / 4 stores a thread an output.
+//    What an epilogue costs here follows its bytes: at llama3-8b causal
+//    (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W) the accumulate mode,
+//    which reads and writes fp32 where store mode writes bf16 once (96 and
+//    48 MB more for dq and dk/dv), runs the same walk 0.029 and 0.020 ms
+//    slower, about those bytes at the HBM rate; at that rate the bf16 rows
+//    take about 0.01 ms of the 0.36 / 0.46, the most a staged epilogue
+//    could hide.
 //  * the mask policy is the walk's, as in the forward: k_begin/k_end (dq)
 //    and q_begin/q_end (dk/dv) bound the tiles, dead tiles are never
 //    visited, ok masks diagonal and edge tiles in registers, and `full`
 //    sends interior tiles down a body compiled without the test.  An item
-//    with no live tile reads and writes nothing, so its rows of dq, dk, dv
-//    stay bit for bit as they were.
+//    with no live tile reads nothing; accumulating, it writes nothing, so
+//    its rows of dq, dk, dv stay bit for bit as they were; storing, it
+//    writes zeros, so no row of the output is left unwritten.
 //
 // Launches on the caller's stream, allocates nothing, returns
-// cudaGetLastError() (cudaErrorInvalidValue for a view TMA cannot take or
-// a tensor map cuTensorMapEncodeTiled refuses).
+// cudaGetLastError() (cudaErrorInvalidValue for a view TMA cannot take, a
+// tensor map cuTensorMapEncodeTiled refuses or an output the 8-byte (fp32)
+// or 4-byte (bf16) accesses cannot take).
 
 #pragma once
 
@@ -74,6 +105,10 @@ namespace flash_wg {
 
 constexpr int kBKd = 64;                // dq: keys a tile
 constexpr int kBQd = 64;                // dk/dv: query rows a tile
+// dk/dv: a query tile's lse (or delta) box, floats: the tile's rows from the
+// 16-byte boundary at or before its first, and the box's pitch in shared
+// memory (128-byte aligned)
+constexpr int kLdBox = kBQd + 4, kLdPitch = 96;
 constexpr uint32_t kBox64 = 64 * 128;   // one 64-column box of 64 rows, bytes
 
 template <int D>
@@ -90,7 +125,7 @@ struct BwdLayout {
   // of the query rows' lse and delta; the KV-full, KV-empty, full and
   // empty barriers
   static constexpr size_t kDkvSmem = 1024 + 2 * kWide + 2 * kStages * kNarrow +
-                                     kStages * 2 * kBQd * sizeof(float) +
+                                     kStages * 2 * kLdPitch * sizeof(float) +
                                      (2 + 2 * kStages) * sizeof(uint64_t);
 };
 
@@ -134,8 +169,14 @@ __device__ __forceinline__ void scores(float (&c)[32], uint32_t a, uint32_t a_bo
   }
 }
 
+// The mode of an output type: fp32 sums accumulate in place (the ring),
+// bf16 outputs are written once (flash)
+template <typename Out>
+constexpr bool kAccumulate = std::is_same<Out, float>::value;
+
 // Loads the fp32 rows `row` of a [.., S, D] sum into the accumulator
-// fragment (columns 8j + 2t, + 1), 0 past S; and stores them back.
+// fragment (columns 8j + 2t, + 1), 0 past S; and stores them back, as fp32
+// or rounded to bf16.
 template <int D>
 __device__ __forceinline__ void seed_rows(float (&acc)[D / 2], const float* base, long long ss,
                                           const int (&row)[2], int S, int tq) {
@@ -163,17 +204,42 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float* bas
       *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloat16* base,
+                                           long long ss, const int (&row)[2], int S, int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= S) continue;
+    __nv_bfloat16* dst = base + static_cast<long long>(row[r]) * ss + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// The start of an item's sums: seeded from the fp32 rows (accumulate) or 0
+template <int D, typename Out>
+__device__ __forceinline__ void start_rows(float (&acc)[D / 2], const Out* base, long long ss,
+                                           const int (&row)[2], int S, int tq) {
+  if constexpr (kAccumulate<Out>) {
+    seed_rows<D>(acc, base, ss, row, S, tq);
+  } else {
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // dq
 // ---------------------------------------------------------------------------
-template <int D, typename Mask>
+template <int D, typename Mask, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
-                         const float* __restrict__ delta, float* __restrict__ dq, Strides4 sdq,
+                         const float* __restrict__ delta, Out* __restrict__ dq, Strides4 sdq,
                          int B, int Hq, int Hkv, int S, float scale, Mask mask) {
   using L = BwdLayout<D>;
   using namespace hopper;
@@ -264,7 +330,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const Item it(i, nq, Hq, B);
     const int h = it.h;
     const int t_begin = mask.k_begin(h, it.iq), t_end = mask.k_end(h, it.iq);
-    if (t_begin >= t_end) continue;  // nothing read, nothing written
+    if (kAccumulate<Out> && t_begin >= t_end) continue;  // nothing read, nothing written
     const int rq0 = it.iq * kBQ + 64 * wgi;  // this warpgroup's first row
     const int row[2] = {rq0 + 16 * w + g, rq0 + 16 * w + g + 8};
     const long long row_off = (static_cast<long long>(it.b) * Hq + h) * S;
@@ -274,8 +340,14 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       lse2[x] = row[x] < S ? lse[row_off + row[x]] * kLog2e : 0.f;
       dl[x] = row[x] < S ? delta[row_off + row[x]] : 0.f;
     }
-    float* dq_b = dq + it.b * sdq.b + h * sdq.h;
-    seed_rows<D>(dq_acc, dq_b, sdq.s, row, S, tq);
+    Out* dq_b = dq + it.b * sdq.b + h * sdq.h;
+    start_rows<D>(dq_acc, dq_b, sdq.s, row, S, tq);
+    if constexpr (!kAccumulate<Out>) {
+      if (t_begin >= t_end) {  // nothing read; zeros written
+        store_rows<D>(dq_acc, dq_b, sdq.s, row, S, tq);
+        continue;
+      }
+    }
 
     // p and ds of the finished S and dP of key tile k0, in registers:
     // s_acc[4j + e] is row row[e / 2], key k0 + 8j + 2tq + (e % 2).  MASKED
@@ -342,15 +414,15 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // ---------------------------------------------------------------------------
 // dk, dv
 // ---------------------------------------------------------------------------
-template <int D, typename Mask>
+template <int D, typename Mask, typename Out>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do,
                           const __grid_constant__ CUtensorMap map_lse,
-                          const __grid_constant__ CUtensorMap map_delta, float* __restrict__ dk,
-                          float* __restrict__ dv, Strides4 sdk, Strides4 sdv, int B, int Hq,
+                          const __grid_constant__ CUtensorMap map_delta, Out* __restrict__ dk,
+                          Out* __restrict__ dv, Strides4 sdk, Strides4 sdv, int B, int Hq,
                           int Hkv, int S, float scale, Mask mask) {
   using L = BwdLayout<D>;
   using namespace hopper;
@@ -360,8 +432,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   unsigned char* vs = ks + L::kWide;
   unsigned char* qs = vs + L::kWide;  // stage s: qs + s * kNarrow
   unsigned char* dos = qs + L::kStages * L::kNarrow;
-  float* lds = reinterpret_cast<float*>(dos + L::kStages * L::kNarrow);  // stage s: lds + 2 s kBQd
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lds + L::kStages * 2 * kBQd);
+  // stage s: lse at lds + 2 s kLdPitch, delta kLdPitch after it
+  float* lds = reinterpret_cast<float*>(dos + L::kStages * L::kNarrow);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(lds + L::kStages * 2 * kLdPitch);
   uint64_t* kv_empty = kv_full + 1;
   uint64_t* full = kv_empty + 1;
   uint64_t* empty = full + L::kStages;
@@ -414,7 +487,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           for (int t = mask.q_begin(h, it.ik); t < t_end; ++t) {
             const int q0 = mask.q_tile(t) * kBQd;
             mbar_wait(&empty[stage], phase ^ 1);
-            mbar_expect_tx(&full[stage], 2 * L::kNarrow + 2 * kBQd * sizeof(float));
+            mbar_expect_tx(&full[stage], 2 * L::kNarrow + 2 * kLdBox * sizeof(float));
             unsigned char* qt = qs + stage * L::kNarrow;
             unsigned char* dt = dos + stage * L::kNarrow;
 #pragma unroll
@@ -422,9 +495,10 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
               tma_load_4d(qt + j * kBox64, &map_q, &full[stage], 64 * j, q0, h, it.b);
               tma_load_4d(dt + j * kBox64, &map_do, &full[stage], 64 * j, q0, h, it.b);
             }
-            float* ld = lds + stage * 2 * kBQd;
-            tma_load_1d(ld, &map_lse, &full[stage], row_off + q0);
-            tma_load_1d(ld + kBQd, &map_delta, &full[stage], row_off + q0);
+            float* ld = lds + stage * 2 * kLdPitch;
+            const int c0 = (row_off + q0) & ~3;  // 16-byte aligned
+            tma_load_1d(ld, &map_lse, &full[stage], c0);
+            tma_load_1d(ld + kLdPitch, &map_delta, &full[stage], c0);
             if (++stage == L::kStages) {
               stage = 0;
               phase ^= 1;
@@ -450,32 +524,41 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int i = snake(r, blockIdx.x, gridDim.x);
     if (i >= items) break;
     const KvItem it(i, Hkv, B);
-    if (!live(it)) continue;  // nothing read, nothing written
+    const bool alive = live(it);
+    if (kAccumulate<Out> && !alive) continue;  // nothing read, nothing written
     const int kr0 = it.ik * kBK + 64 * wgi;  // this warpgroup's first key
     const int key[2] = {kr0 + 16 * w + g8, kr0 + 16 * w + g8 + 8};
-    float* dk_b = dk + it.b * sdk.b + it.hk * sdk.h;
-    float* dv_b = dv + it.b * sdv.b + it.hk * sdv.h;
-    seed_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
-    seed_rows<D>(dv_acc, dv_b, sdv.s, key, S, tq);
+    Out* dk_b = dk + it.b * sdk.b + it.hk * sdk.h;
+    Out* dv_b = dv + it.b * sdv.b + it.hk * sdv.h;
+    start_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
+    start_rows<D>(dv_acc, dv_b, sdv.s, key, S, tq);
+    if constexpr (!kAccumulate<Out>) {
+      if (!alive) {  // nothing read; zeros written
+        store_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
+        store_rows<D>(dv_acc, dv_b, sdv.s, key, S, tq);
+        continue;
+      }
+    }
     mbar_wait(kv_full, n++ & 1);
 
     for (int g = 0; g < group; ++g) {
       const int h = it.hk * group + g;
+      const int row_off = (it.b * Hq + h) * S;
       // P^T and dS^T of the finished S^T and dP^T of query tile q0:
       // st[4j + e] is key key[e / 2], query q0 + 8j + 2tq + (e % 2), whose
-      // lse and delta the producer left in ld
+      // lse and delta the producer left in ld (lse at ld[c], delta at
+      // ld[kLdPitch + c] for column c of the tile)
       auto dscore = [&](auto masked, int q0, const float* ld) {
         constexpr bool MASKED = decltype(masked)::value;
 #pragma unroll
         for (int j = 0; j < kBQd / 8; ++j) {
           const int c = 8 * j + 2 * tq;
-          const float2 l2 = *reinterpret_cast<const float2*>(ld + c);
-          const float2 d2 = *reinterpret_cast<const float2*>(ld + kBQd + c);
-          const float lq2[2] = {l2.x * kLog2e, l2.y * kLog2e};
+          const float lq2[2] = {ld[c] * kLog2e, ld[c + 1] * kLog2e};
+          const float dl2[2] = {ld[kLdPitch + c], ld[kLdPitch + c + 1]};
           float pe[4], de[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float lq = lq2[e % 2], dq_ = e % 2 ? d2.y : d2.x;
+            const float lq = lq2[e % 2], dq_ = dl2[e % 2];
             float p = exp2f(fmaf(st[4 * j + e], scale_log2, -lq));
             if constexpr (MASKED) p = mask.ok(h, q0 + c + (e % 2), key[e / 2]) ? p : 0.f;
             pe[e] = p;
@@ -503,7 +586,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_regs(st);
         fence_regs(dpt);
 
-        const float* ld = lds + stage * 2 * kBQd;
+        // the box starts (row_off + q0) % 4 rows before the tile
+        const float* ld = lds + stage * 2 * kLdPitch + ((row_off + q0) & 3);
         if (mask.full(h, q0, kBQd, kr0, 64))
           dscore(std::false_type{}, q0, ld);
         else
@@ -538,10 +622,20 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// strides: (b, h, s) of q, k, v, do, dq in that order
-template <int D, typename Mask>
+// An output the epilogue's accesses take: 8-byte fp32 pairs, or 4-byte
+// bf16 pairs on even strides
+template <typename Out>
+bool out_ok(const Out* p, const Strides4& st) {
+  if (kAccumulate<Out>) return reinterpret_cast<uintptr_t>(p) % 8 == 0;
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0 && st.b % 2 == 0 && st.h % 2 == 0 &&
+         st.s % 2 == 0;
+}
+
+// strides: (b, h, s) of q, k, v, do, dq in that order.  Out: float
+// accumulates into dq, __nv_bfloat16 writes it.
+template <int D, typename Mask, typename Out>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                  const float* delta, float* dq, const long long* strides, int B, int Hq, int Hkv,
+                  const float* delta, Out* dq, const long long* strides, int B, int Hq, int Hkv,
                   int S, float scale, Mask mask, cudaStream_t stream) {
   if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -552,14 +646,13 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
       !attn_map(&mv, v, B, Hkv, S, D, strides + 6, kBKd) ||
       !attn_map(&mdo, dout, B, Hq, S, D, strides + 9, kBQ))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(dq) % 8 != 0)  // 8-byte sum loads
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = attn_bwd_dq_wgmma_kernel<D, Mask>;
+  const Strides4 sdq{strides[12], strides[13], strides[14]};
+  if (!out_ok(dq, sdq)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = attn_bwd_dq_wgmma_kernel<D, Mask, Out>;
   constexpr size_t smem = BwdLayout<D>::kDqSmem;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Strides4 sdq{strides[12], strides[13], strides[14]};
   const int items = (S + kBQ - 1) / kBQ * Hq * B;  // persistent: one block an SM at most
   const int grid = std::min(items, hopper_host::sm_count());
   kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, lse, delta, dq, sdq, B, Hq, Hkv, S,
@@ -567,10 +660,11 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// strides: (b, h, s) of q, k, v, do, dk, dv in that order
-template <int D, typename Mask>
+// strides: (b, h, s) of q, k, v, do, dk, dv in that order.  Out: float
+// accumulates into dk and dv, __nv_bfloat16 writes them.
+template <int D, typename Mask, typename Out>
 int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, float* dk, float* dv, const long long* strides, int B,
+                   const float* delta, Out* dk, Out* dv, const long long* strides, int B,
                    int Hq, int Hkv, int S, float scale, Mask mask, cudaStream_t stream) {
   if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -581,25 +675,25 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
       !attn_map(&mv, v, B, Hkv, S, D, strides + 6, kBK) ||
       !attn_map(&mdo, dout, B, Hq, S, D, strides + 9, kBQd))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(dk) % 8 != 0 || reinterpret_cast<uintptr_t>(dv) % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // lse and delta: 1-D maps over the B * Hq * S rows, 64 a box, 32-bit coordinates
+  const Strides4 sdk{strides[12], strides[13], strides[14]};
+  const Strides4 sdv{strides[15], strides[16], strides[17]};
+  if (!out_ok(dk, sdk) || !out_ok(dv, sdv)) return static_cast<int>(cudaErrorInvalidValue);
+  // lse and delta: 1-D maps over the B * Hq * S rows, kLdBox a box, 32-bit
+  // coordinates
   const long long rows = static_cast<long long>(B) * Hq * S;
-  if (rows + kBQd >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows + kLdBox >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ml, md;
   const uint64_t dims[1] = {static_cast<uint64_t>(rows)};
   const uint64_t unused[1] = {0};
-  const uint32_t box[1] = {static_cast<uint32_t>(kBQd)};
+  const uint32_t box[1] = {static_cast<uint32_t>(kLdBox)};
   if (!hopper_host::encode_f32(&ml, lse, 1, dims, unused, box) ||
       !hopper_host::encode_f32(&md, delta, 1, dims, unused, box))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = attn_bwd_dkv_wgmma_kernel<D, Mask>;
+  auto kern = attn_bwd_dkv_wgmma_kernel<D, Mask, Out>;
   constexpr size_t smem = BwdLayout<D>::kDkvSmem;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Strides4 sdk{strides[12], strides[13], strides[14]};
-  const Strides4 sdv{strides[15], strides[16], strides[17]};
   const int items = (S + kBK - 1) / kBK * Hkv * B;
   const int grid = std::min(items, hopper_host::sm_count());
   kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, ml, md, dk, dv, sdk, sdv, B, Hq, Hkv, S,

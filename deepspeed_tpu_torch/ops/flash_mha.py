@@ -7,12 +7,18 @@ and ``_dkv_kernel``/``_dkv_kernel_blocked``).  On CUDA tensors the three
 roles launch the hand-written Hopper kernels of ``ops/csrc/flash_attention.cu``
 (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``); on CPU tensors the
 plain PyTorch versions below run the same tile walk.  A CUDA call never
-falls back: the kernel builds and launches, or the call raises.  The
-forward has routes, picked before the launch from dtype and strides
-(:func:`fwd_route`, counted in ``flash_mha.routes``): bf16 views that TMA
-can read take the wgmma/TMA forward (``ops/csrc/attention_wgmma.cuh``,
-128-key tiles), other bf16 views and fp32 the 64 x 64 tile walk of
-``ops/csrc/attention_tiles.cuh``.
+falls back: the kernel builds and launches, or the call raises.  Each
+role has routes, picked before the launch from dtype and strides
+(:func:`fwd_route` for the forward, :func:`bwd_route`, which adds ``do``,
+for the backward; counted in ``flash_mha.routes`` as
+``"flash_fwd.wgmma"``, ``"flash_bwd_dq.mma"``, ...): bf16 views that TMA
+can read take the ``wgmma`` walks (the forward of
+``ops/csrc/attention_wgmma.cuh`` on 128-key tiles; dq and dk/dv of
+``ops/csrc/attention_wgmma_bwd.cuh``, their sums from zero and written once
+in bf16), other bf16 views (``mma``) and fp32 (``fma``) the 64 x 64 tile
+walk of ``ops/csrc/attention_tiles.cuh``.  :func:`flash_bwd` makes a ``do``
+that TMA cannot read (an expanded gradient) contiguous first, so the bf16
+backward of the autograd function always takes ``wgmma``.
 
 The TPU file has a VMEM-resident variant and a KV-blocked variant of each
 kernel; the split exists for VMEM budgets, which Hopper does not share.
@@ -61,7 +67,7 @@ NEG_INF = -1e30
 BLOCK_K = 64
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# flash_fwd's routes by their code in ops/csrc/flash_attention.cu
+# the attention kernels' routes by their code in ops/csrc/*_attention.cu
 FWD_ROUTES = ("fma", "mma", "wgmma")
 
 
@@ -330,9 +336,9 @@ def fwd_route(q, k, v) -> str:
 
 
 def bwd_route(q, k, v, do) -> str:
-    """The ring backward kernels' route (``ring_bwd_dq``, ``ring_bwd_dkv``):
-    :func:`fwd_route`'s rule over ``do`` as well, whose view (an expanded
-    gradient) TMA must read too."""
+    """The backward kernels' route (``flash_bwd_dq``, ``flash_bwd_dkv``,
+    ``ring_bwd_dq``, ``ring_bwd_dkv``): :func:`fwd_route`'s rule over
+    ``do`` as well, whose view (an expanded gradient) TMA must read too."""
     route = fwd_route(q, k, v)
     return "mma" if route == "wgmma" and not _tma_readable(do) else route
 
@@ -362,47 +368,62 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float,
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                  window: Optional[int] = None):
     """dq from the saved lse and ``delta = attn_delta(o, do)``; CPU tensors
-    take the plain version, CUDA tensors the ``flash_bwd_dq`` kernel."""
+    take the plain version, CUDA tensors the ``flash_bwd_dq`` kernel on
+    :func:`bwd_route`'s route."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, sm_scale,
                                 window)
     _check_cuda(q, k, v, do, lse, delta)
     dq = _empty_bshd(q, q.shape[1])
+    path = bwd_route(q, k, v, do)
     err = _lib().flash_bwd_dq(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq), *_common(q, k, causal, sm_scale, window))
-    _raise_on(err, "flash_bwd_dq")
+    _raise_on(err, f"flash_bwd_dq ({path} route)")
     flash_mha.launches["flash_bwd_dq"] += 1
+    flash_mha.routes[f"flash_bwd_dq.{path}"] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                   window: Optional[int] = None):
     """(dk, dv) from the saved lse and delta; CPU tensors take the plain
-    version, CUDA tensors the ``flash_bwd_dkv`` kernel."""
+    version, CUDA tensors the ``flash_bwd_dkv`` kernel on
+    :func:`bwd_route`'s route."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, sm_scale,
                                  window)
     _check_cuda(q, k, v, do, lse, delta)
     dk, dv = _empty_bshd(k, k.shape[1]), _empty_bshd(v, k.shape[1])
+    path = bwd_route(q, k, v, do)
     err = _lib().flash_bwd_dkv(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dk, dv),
         *_common(q, k, causal, sm_scale, window))
-    _raise_on(err, "flash_bwd_dkv")
+    _raise_on(err, f"flash_bwd_dkv ({path} route)")
     flash_mha.launches["flash_bwd_dkv"] += 1
+    flash_mha.routes[f"flash_bwd_dkv.{path}"] += 1
     return dk, dv
+
+
+def readable_do(do: torch.Tensor) -> torch.Tensor:
+    """``do`` as :func:`flash_bwd` hands it to the kernels: autograd's
+    gradient may come in any layout (an expanded one has zero strides), and
+    one that the kernels cannot read in place, or a TMA tensor map cannot
+    describe, is made contiguous.  One copy of ``do`` costs far less than
+    the bf16 backward on the ``mma`` walk."""
+    if _kernel_layout_ok(do) and _tma_readable(do):
+        return do
+    return do.contiguous()
 
 
 def flash_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
               window: Optional[int] = None):
-    """``(dq, dk, dv)`` from the saved residuals.  ``do`` from autograd
-    may come in any layout (an expanded gradient has zero strides): on the
-    card it is made contiguous when the kernels cannot read it in place."""
-    if do.device.type == "cuda" and not _kernel_layout_ok(do):
-        do = do.contiguous()
+    """``(dq, dk, dv)`` from the saved residuals, ``do`` through
+    :func:`readable_do`."""
+    do = readable_do(do)
     # the row sum over [B, S, H, D]-laid views comes out [B, S, H]-strided
     delta = attn_delta(o, do).contiguous()
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale, window)
@@ -493,7 +514,9 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
 
 
 flash_mha.launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-flash_mha.routes = {f"flash_fwd.{r}": 0 for r in FWD_ROUTES}
+# each kernel's launches by route (codes in ops/csrc/flash_attention.cu)
+flash_mha.routes = {f"{n}.{r}": 0 for n in flash_mha.launches
+                    for r in FWD_ROUTES}
 
 
 # ----------------------------------------------------------------------

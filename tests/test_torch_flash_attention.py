@@ -165,4 +165,58 @@ def test_fwd_route_is_chosen_from_dtype_and_strides(layout, want):
     takes wgmma or mma, never fma; the same views in fp32 always fma."""
     assert tfm.fwd_route(*_qkv(layout, torch.bfloat16)) == want
     assert tfm.fwd_route(*_qkv(layout, torch.float32)) == "fma"
-    assert set(tfm.flash_mha.routes) == {f"flash_fwd.{r}" for r in tfm.FWD_ROUTES}
+    assert set(tfm.flash_mha.routes) == {
+        f"{n}.{r}" for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for r in tfm.FWD_ROUTES}
+
+
+@pytest.mark.parametrize("layout,want", FWD_ROUTE_CASES,
+                         ids=[c[0] for c in FWD_ROUTE_CASES])
+def test_bwd_route_follows_the_forward_over_qkv(layout, want):
+    """With a do the kernels read in place, the flash backward takes the
+    forward's route over the same q/k/v: an expanded K/V keeps the bf16
+    backward on the 64 x 64 walk too."""
+    q, k, v = _qkv(layout, torch.bfloat16)
+    do = torch.zeros(q.shape, dtype=torch.bfloat16)
+    assert tfm.bwd_route(q, k, v, do) == want
+    assert tfm.bwd_route(*_qkv(layout, torch.float32),
+                         do.float()) == "fma"
+
+
+# do [B 2, Hq 4, S 48, D 64] as autograd may hand it, and whether the
+# kernels read it in place
+def _do(layout, dtype):
+    b, hq, s, d = 2, 4, 48, 64
+    if layout == "bhsd":
+        return torch.ones((b, hq, s, d), dtype=dtype)
+    if layout == "bshd":
+        return torch.ones((b, s, hq, d), dtype=dtype).transpose(1, 2)
+    if layout == "expanded":          # the gradient of out.sum()
+        return torch.ones((), dtype=dtype).expand(b, hq, s, d)
+    if layout == "expanded-heads":
+        return torch.ones((b, 1, s, d), dtype=dtype).expand(b, hq, s, d)
+    return torch.ones((b, hq, s, d + 4), dtype=dtype)[..., :d]  # odd pitch
+
+
+DO_LAYOUTS = [("bhsd", True), ("bshd", True), ("expanded", False),
+              ("expanded-heads", False), ("odd-pitch", False)]
+
+
+@pytest.mark.parametrize("layout,in_place", DO_LAYOUTS,
+                         ids=[c[0] for c in DO_LAYOUTS])
+def test_flash_bwd_hands_the_kernels_a_do_they_read_on_wgmma(layout,
+                                                            in_place):
+    """The flash backward's route is bwd_route over the do that flash_bwd
+    passes on (readable_do): a view TMA reads in place goes as it is, any
+    other is made contiguous first, so bf16 takes wgmma (an expanded do
+    as it came would take mma) and fp32 fma; the values are do's."""
+    q, k, v = _qkv("bhsd", torch.bfloat16)
+    do = _do(layout, torch.bfloat16)
+    got = tfm.readable_do(do)
+    assert (got is do) == in_place
+    assert torch.equal(got, do)
+    assert tfm.bwd_route(q, k, v, got) == "wgmma"
+    if layout.startswith("expanded"):
+        assert tfm.bwd_route(q, k, v, do) == "mma"
+    do32 = tfm.readable_do(_do(layout, torch.float32))
+    assert tfm.bwd_route(*_qkv("bhsd", torch.float32), do32) == "fma"

@@ -1,8 +1,9 @@
 """The port's CUDA training kernels against their plain PyTorch versions on
 the card: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 (``ops/csrc/flash_attention.cu``) over MHA and GQA, head_dim 64 and 128,
-causal and not, sliding windows and sequence tails, in bf16 and fp32; and
-``fused_adamw`` (``ops/csrc/fused_adamw.cu``) bit for bit.
+causal and not, sliding windows and sequence tails, in bf16 (every role on
+its ``wgmma`` route) and fp32 (``fma``); and ``fused_adamw``
+(``ops/csrc/fused_adamw.cu``) bit for bit.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -43,9 +44,12 @@ CASES = [
     (1, 4, 2, 1000, 64, True, None),     # tail: S % 128 != 0 over many tiles
     (2, 4, 4, 50, 64, True, None),       # S below one tile
     (1, 8, 2, 700, 128, True, 300),      # GQA, d=128, window over tile edges
+    (1, 8, 2, 1000, 128, False, 256),    # GQA, d=128, window without causal, tail
+    (2, 8, 4, 640, 64, False, None),     # GQA, bidirectional, 5 query tiles
 ]
 IDS = ["mha-causal", "mha-full", "gqa-d128", "tail", "window", "window-full-mqa",
-       "tail-1000", "short", "gqa-d128-window"]
+       "tail-1000", "short", "gqa-d128-window", "gqa-d128-bidir-window-tail",
+       "gqa-bidir"]
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
@@ -81,7 +85,7 @@ def test_cuda_flash_kernels_match_plain_version(case, dtype, cuda_device):
         {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     want = "wgmma" if dtype == torch.bfloat16 else "fma"
     assert {r: n - routes[r] for r, n in fm.flash_mha.routes.items()
-            if n != routes[r]} == {f"flash_fwd.{want}": 1}
+            if n != routes[r]} == {f"{n}.{want}": 1 for n in before}
     o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, scale, window)
     grads_r = fm.flash_bwd_ref(q, k, v, o_r, lse_r, do, causal, scale, window)
     for name, got, ref in [("o", o, o_r), ("lse", lse, lse_r)] + list(
@@ -108,6 +112,57 @@ def test_cuda_flash_fwd_expanded_kv_takes_the_mma_route(case, cuda_device):
     o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, 1.0 / np.sqrt(d), window)
     for name, got, ref in (("o", o, o_r), ("lse", lse, lse_r)):
         ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CASES[0], CASES[9]], ids=[IDS[0], IDS[9]])
+def test_cuda_flash_bwd_expanded_do_takes_the_wgmma_route(case, cuda_device):
+    """An expanded do (the gradient of out.sum(): every stride 0) goes
+    through flash_bwd made contiguous and takes the wgmma backward, against
+    the plain versions on the same do."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v, _ = _inputs(case, torch.bfloat16, cuda_device, seed=5)
+    scale = 1.0 / np.sqrt(d)
+    do = torch.ones((), dtype=torch.bfloat16, device=cuda_device).expand(q.shape)
+    assert fm.bwd_route(q, k, v, do) == "mma"
+    o, lse = fm.flash_fwd(q, k, v, causal, scale, window)
+    routes = dict(fm.flash_mha.routes)
+    grads = fm.flash_bwd(q, k, v, o, lse, do, causal, scale, window)
+    torch.cuda.synchronize()
+    assert {r: n - routes[r] for r, n in fm.flash_mha.routes.items()
+            if n != routes[r]} == {"flash_bwd_dq.wgmma": 1, "flash_bwd_dkv.wgmma": 1}
+    grads_r = fm.flash_bwd_ref(q, k, v, o, lse, do, causal, scale, window)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_r):
+        ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{name}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CASES[3], CASES[5], CASES[9]],
+                         ids=[IDS[3], IDS[5], IDS[9]])
+def test_cuda_flash_bwd_wgmma_writes_every_output_row(case, cuda_device,
+                                                      monkeypatch):
+    """The wgmma backward's store mode writes every element of dq, dk and
+    dv once: outputs allocated full of NaN come back finite and equal to
+    the plain versions (tails, a window, GQA)."""
+    b, hq, hkv, s, d, causal, window = case
+    q, k, v, do = _inputs(case, torch.bfloat16, cuda_device, seed=6)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = fm.flash_fwd(q, k, v, causal, scale, window)
+    delta = fm.attn_delta(o, do).contiguous()
+    empty = fm._empty_bshd
+    monkeypatch.setattr(fm, "_empty_bshd",
+                        lambda x, heads: empty(x, heads).fill_(float("nan")))
+    assert fm.bwd_route(q, k, v, do) == "wgmma"
+    got = (fm.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, window),
+           *fm.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale, window))
+    torch.cuda.synchronize()
+    ref = (fm.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale, window),
+           *fm.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale, window))
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        ok, err = _close(g, r, RTOL[g.dtype])
         assert ok, f"{name}: max abs err {err}"
 
 

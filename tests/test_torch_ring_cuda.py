@@ -45,11 +45,13 @@ CASES = [
     (1, 8, 2, 384, 64, True, None, (384, 1, 0, 1)),     # GQA d = 64, fully live
     (1, 8, 2, 320, 64, True, 90, (1, 2, 0, 2)),         # striped, window, d = 64
     (2, 8, 4, 256, 128, False, None, (0, 2, 1, 2)),     # striped, non-causal
+    (1, 4, 2, 130, 128, True, None, (1, 2, 0, 2)),      # S_l % 4 != 0: lse rows
+    (2, 4, 4, 50, 64, False, None, (50, 1, 0, 1)),      # off 16-byte boundaries
 ]
 IDS = ["striped-own", "striped-1from0", "striped-0from1", "contig-own",
        "contig-live", "mha-d64", "window", "noncausal", "tail",
        "tail-1000", "gqa-d64-live", "striped-window-d64",
-       "striped-noncausal"]
+       "striped-noncausal", "tail-130", "short-noncausal"]
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
