@@ -188,9 +188,9 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
 # roles are one template each, told apart by their mask policy; the three
-# flash kernels, the three ring kernels, fp6_matmul and gather_matmul on the
-# main path are their wgmma kernels (flash and ring one template a role,
-# two mask policies)
+# flash kernels, the three ring kernels, the block-sparse backward pair,
+# fp6_matmul and gather_matmul on the main path are their wgmma kernels
+# (flash, ring and block-sparse one template a role, three mask policies)
 PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
@@ -199,13 +199,29 @@ PROFILE_NAMES = {
     "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "CausalWindow"),
     "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
-    "bsa_bwd_dq": ("attn_bwd_dq_kernel", "BlockLayout"),
-    "bsa_bwd_dkv": ("attn_bwd_dkv_kernel", "BlockLayout"),
+    "bsa_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "BlockLayout"),
+    "bsa_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "BlockLayout"),
     "fused_adamw": ("fused_adamw_kernel",),
     "fused_lion": ("fused_lion_kernel",),
     "fp6_matmul": ("fp6_wgmma_kernel",),
     "dequantize": ("dequant_kernel",),
     "gather_matmul": ("gemm_wgmma_kernel",)}
+# slice 11: head dims off the kernels' 64/128 lanes, at the registry's
+# geometries (one sequence; D 32 the *-tiny configs'): name, b, hq, hkv, S, D.
+# Flash runs them causal, the ring hop as the striped path's hop 1 on S/2 a
+# rank, block-sparse under the training path's BSLongformer layout; bf16
+# and fp32, bf16 timed.
+HEAD_DIM_CASES = [
+    ("tiny-d32", 2, 4, 4, 256, 32),
+    ("phi-2", 1, 32, 32, 2048, 80),
+    ("gptneox-20b", 1, 64, 64, 2048, 96),
+    ("gptj-6b", 1, 16, 16, 2048, 256),
+]
+# train-reference-d80: phi-2 (head_dim 80, padded to the 128 lane) at its
+# width, 2 layers, fp32, card vs CPU as the train-reference phase does, at
+# seq 512 to keep the CPU's steps short
+D80_MODEL = "phi-2"
+D80_SEQ = 512
 # slice 4: LoRA adapters over quantized llama3-8b-width MLP bases
 LINEAR_MODEL = "llama3-8b"
 LINEAR_BLOCKS = 4
@@ -821,25 +837,42 @@ def bshd_inputs(b, hq, hkv, s, d, dtype, seed):
     return rand(hq), rand(hkv), rand(hkv), rand(hq)
 
 
-def attn_case(row, roles, inputs, bounds, library, timed, routes=None):
+def lane_pad(lane):
+    """The zero-pad of a [.., D] operand to a head_dim lane (the entries'
+    ``flash_mha.head_dim_padded``), the identity where D is the lane."""
+    import torch.nn.functional as F
+
+    return lambda x: x if x.shape[-1] == lane else F.pad(x, (0, lane - x.shape[-1]))
+
+
+def attn_case(row, roles, inputs, bounds, library, timed, routes=None,
+              lane=None):
     """Each kernel of one attention case against its plain version on the
     same inputs.  ``roles``: (name, kernel, plain) for the forward
     ``(q, k, v) -> (o, lse)``, then dq and dk/dv ``(q, k, v, do, lse,
     delta)``, the backward fed the kernel forward's lse.  ``library``:
     keyword arguments and a note for the scaled_dot_product_attention call
     timed beside the kernels.  ``routes``: the kernel route each role's
-    launch takes, by name, recorded in its row."""
+    launch takes, by name, recorded in its row.  ``lane``: the kernels'
+    head_dim when the inputs' D is off the lanes: the kernels take q, k, v,
+    do zero-padded to it once (and are timed so), their outputs are sliced
+    back to D, and the plain versions run at D."""
     import torch
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.flash_mha import attn_delta
 
     q, k, v, do = inputs
+    d = q.shape[-1]
+    pad = lane_pad(lane or d)
+    qp, kp, vp, dop = (pad(x) for x in inputs)
     (fwd, fwd_k, fwd_p), (dqn, dq_k, dq_p), (dkvn, dkv_k, dkv_p) = roles
-    o, lse = fwd_k(q, k, v)
+    o, lse = fwd_k(qp, kp, vp)
+    o = o[..., :d]
     bwd = (q, k, v, do, lse, attn_delta(o, do).contiguous())
-    dq = dq_k(*bwd)
-    dk, dv = dkv_k(*bwd)
+    bwd_k = (qp, kp, vp, dop, *bwd[4:])
+    dq = dq_k(*bwd_k)[..., :d]
+    dk, dv = (x[..., :d] for x in dkv_k(*bwd_k))
     torch.cuda.synchronize()
     checks = {fwd: ((o, lse), fwd_p(q, k, v)), dqn: ((dq,), (dq_p(*bwd),)),
               dkvn: ((dk, dv), dkv_p(*bwd))}
@@ -854,14 +887,16 @@ def attn_case(row, roles, inputs, bounds, library, timed, routes=None):
             ok &= bool(torch.isfinite(g.float()).all())
         rows[kname] = {**row, "kernel": kname,
                        **({"route": routes[kname]} if routes else {}),
+                       "lane": ("native" if (lane or d) == d
+                                else f"padded to {lane}"),
                        "max_abs_err": err,
                        "tolerance": "|k-r| <= rtol * (1 + |r|), rtol "
                                     f"{FLASH_RTOL} by output dtype",
                        "ok": ok, "bound_ms": bound, "bound_by": by}
     if timed:
-        calls = {fwd: (lambda: fwd_k(q, k, v), lambda: fwd_p(q, k, v)),
-                 dqn: (lambda: dq_k(*bwd), lambda: dq_p(*bwd)),
-                 dkvn: (lambda: dkv_k(*bwd), lambda: dkv_p(*bwd))}
+        calls = {fwd: (lambda: fwd_k(qp, kp, vp), lambda: fwd_p(q, k, v)),
+                 dqn: (lambda: dq_k(*bwd_k), lambda: dq_p(*bwd)),
+                 dkvn: (lambda: dkv_k(*bwd_k), lambda: dkv_p(*bwd))}
         for kname, (kern, plain) in calls.items():
             rows[kname]["ms"] = cuda_time_ms(kern)
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
@@ -887,11 +922,13 @@ def attn_case(row, roles, inputs, bounds, library, timed, routes=None):
     return rows
 
 
-def flash_case(fm, case):
+def flash_case(fm, case, phase="train-kernel"):
     import torch
 
     name, b, hq, hkv, s, d, dt, causal, window, timed = case
     inputs = bshd_inputs(b, hq, hkv, s, d, getattr(torch, dt), seed=7)
+    lane = fm.head_dim_lane(d)
+    padded = [lane_pad(lane)(x) for x in inputs]
     args = (causal, 1.0 / d ** 0.5, window)
     roles = [("flash_fwd", lambda q, k, v: fm.flash_fwd(q, k, v, *args),
               lambda q, k, v: fm.flash_fwd_ref(q, k, v, *args)),
@@ -900,21 +937,21 @@ def flash_case(fm, case):
              ("flash_bwd_dkv", lambda *a: fm.flash_bwd_dkv(*a, *args),
               lambda *a: fm.flash_bwd_dkv_ref(*a, *args))]
     pairs = attn_pairs(s, causal, window)
-    row = {"phase": "train-kernel", "case": name, "B": b, "Hq": hq,
+    row = {"phase": phase, "case": name, "B": b, "Hq": hq,
            "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
            "window": window, "pairs": pairs}
-    bwd = fm.bwd_route(*inputs)
-    routes = {"flash_fwd": fm.fwd_route(*inputs[:3]), "flash_bwd_dq": bwd,
+    bwd = fm.bwd_route(*padded)
+    routes = {"flash_fwd": fm.fwd_route(*padded[:3]), "flash_bwd_dq": bwd,
               "flash_bwd_dkv": bwd}
     before = dict(fm.flash_mha.routes)
     rows = attn_case(row, roles, inputs,
                      flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
                                   pairs, dt == "float32"),
                      ({"is_causal": causal}, "scaled_dot_product_attention"),
-                     timed, routes)
+                     timed, routes, lane)
     taken = {r for r, c in fm.flash_mha.routes.items() if c != before[r]}
     if taken != {f"{n}.{r}" for n, r in routes.items()}:
-        fail(f"train-kernel ({name}): launches on {sorted(taken)}, "
+        fail(f"{phase} ({name}): launches on {sorted(taken)}, "
              f"expected {routes}")
     return rows
 
@@ -942,10 +979,43 @@ SPARSE_CASES = [
 ]
 
 
-def sparse_case(bsm, sa, case):
+def sparse_schedule(plan, b, hkv, sms):
+    """The wgmma backward walks' schedule tails for a layout: dq items are
+    (128-row query tile, head, batch) in attention_wgmma.cuh's Item order
+    (longest causal walks first) walking their live 64-key tiles; dk/dv
+    items (128-key tile, KV head, batch) in KvItem order walking their
+    group's live 64-row query tiles."""
+    import numpy as np
+
+    hq = plan.heads
+    dq = np.diff(plan.dq_walk[0].cpu().numpy()).reshape(hq, -1)   # [h, iq]
+    dkv = np.diff(plan.dkv_walk[0].cpu().numpy()).reshape(hq, -1)  # [h, ik]
+    dkv = dkv.reshape(hkv, hq // hkv, -1).sum(1)                   # [hk, ik]
+    dq_items = [int(dq[h, iq]) for iq in reversed(range(dq.shape[1]))
+                for _b in range(b) for h in range(hq)]
+    dkv_items = [int(dkv[h, ik]) for ik in range(dkv.shape[1])
+                 for _b in range(b) for h in range(hkv)]
+    out = {}
+    for name, items in (("bsa_bwd_dq", dq_items), ("bsa_bwd_dkv", dkv_items)):
+        worst, mean = snake_tail(items, sms)
+        out[name] = {"items": len(items), "blocks": min(len(items), sms),
+                     "live_tiles": sum(items), "max_block_tiles": worst,
+                     "mean_block_tiles": mean,
+                     "tail": worst / mean if mean else None}
+    return out
+
+
+def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
     """A block-sparse case: the layout of a DeepSpeed sparsity config, its
     bound from the pairs the layout (and causal) keeps, and SDPA under the
-    expanded boolean mask as the library time."""
+    expanded boolean mask as the library time; each row names its route
+    (and lane), timed bf16 rows the wgmma walks' schedule, the dense
+    causal flash backward on the same inputs (the pair the sparse one
+    should beat: it computes a fraction of the same tiles) and the same
+    walks with every tile's full flag set (the maskless body everywhere:
+    wrong numbers, timed only, to show what the mask test costs)."""
+    import copy
+
     import torch
 
     name, b, hq, hkv, s, d, dt, (cls, kw), causal = case
@@ -953,6 +1023,8 @@ def sparse_case(bsm, sa, case):
     layout = getattr(sa, cls)(num_heads=hq, **kw).make_layout(s)
     plan = bsm.SparseLayout(layout, kw["block"], causal, "cuda")
     scale = d ** -0.5
+    lane = fm.head_dim_lane(d)
+    padded = [lane_pad(lane)(x) for x in inputs]
     roles = [("bsa_fwd", lambda q, k, v: bsm.bsa_fwd(q, k, v, plan, scale),
               lambda q, k, v: bsm.bsa_fwd_ref(q, k, v, plan, scale)),
              ("bsa_bwd_dq", lambda *a: bsm.bsa_bwd_dq(*a, plan, scale),
@@ -962,18 +1034,65 @@ def sparse_case(bsm, sa, case):
     mask = plan.token_mask()
     pairs = int(mask.sum()) / hq     # mean over the heads
     n = plan.live.shape[1]
-    row = {"phase": "sparse-kernel", "case": name, "B": b, "Hq": hq,
+    bwd = bsm.bwd_route(*padded, plan)
+    routes = {"bsa_fwd": "fma" if dt == "float32" else "mma",
+              "bsa_bwd_dq": bwd, "bsa_bwd_dkv": bwd}
+    row = {"phase": phase, "case": name, "B": b, "Hq": hq,
            "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
            "layout": cls, "block": kw["block"], "pairs_per_head": pairs,
            "dense_pairs_per_head": attn_pairs(s, causal, None),
            "live_tiles": int(plan.live.sum()),
            "visited_tiles_dense": hq * (n * (n + 1) // 2 if causal else n * n)}
-    return attn_case(row, roles, inputs,
+    if plan.wgmma:
+        row["live_tiles_wgmma"] = {
+            "dq_128x64": int(plan.dq_walk[1].numel()),
+            "dkv_64x128": int(plan.dkv_walk[1].numel()),
+            "full_64x64": int(plan.full.sum())}
+    before = dict(bsm.block_sparse_mha.routes)
+    timed = dt == "bfloat16" or phase == "sparse-kernel"
+    rows = attn_case(row, roles, inputs,
                      flash_bounds(b, hq, hkv, s, d, inputs[0].element_size(),
                                   pairs, dt == "float32"),
                      ({"attn_mask": mask[None]},
                       "scaled_dot_product_attention with the layout's "
-                      "boolean mask"), True)
+                      "boolean mask"), timed, routes, lane)
+    taken = {r for r, c in bsm.block_sparse_mha.routes.items()
+             if c != before[r]}
+    if taken != {f"{n_}.{r}" for n_, r in routes.items()}:
+        fail(f"{phase} ({name}): launches on {sorted(taken)}, expected "
+             f"{routes}")
+    if timed and dt == "bfloat16" and lane == d:
+        # the dense causal flash backward on the same inputs, same call
+        q, k, v, do = inputs
+        o, lse = fm.flash_fwd(q, k, v, True, scale)
+        delta = fm.attn_delta(o, do).contiguous()
+        dense = {"flash_bwd_dq": cuda_time_ms(lambda: fm.flash_bwd_dq(
+                     q, k, v, do, lse, delta, True, scale)),
+                 "flash_bwd_dkv": cuda_time_ms(lambda: fm.flash_bwd_dkv(
+                     q, k, v, do, lse, delta, True, scale)),
+                 "route": fm.bwd_route(q, k, v, do)}
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        sched = sparse_schedule(plan, b, hkv, sms) if bwd == "wgmma" else {}
+        maskless = {}
+        if bwd == "wgmma":
+            bare = copy.copy(plan)
+            bare.full = torch.ones_like(plan.full)
+            o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
+            args = (q, k, v, do, lse, fm.attn_delta(o, do).contiguous())
+            maskless = {
+                "bsa_bwd_dq": cuda_time_ms(lambda: bsm.bsa_bwd_dq(*args, bare, scale)),
+                "bsa_bwd_dkv": cuda_time_ms(lambda: bsm.bsa_bwd_dkv(*args, bare, scale))}
+        for kname in ("bsa_bwd_dq", "bsa_bwd_dkv"):
+            rows[kname]["dense_causal_flash_bwd_ms"] = dense
+            if kname in sched:
+                rows[kname]["schedule"] = sched[kname]
+            emit({"phase": phase + "-beside", "case": name, "kernel": kname,
+                  "ms": rows[kname]["ms"],
+                  "sdpa_masked_bwd_ms": rows[kname]["library_ms"],
+                  "dense_causal_flash_bwd_ms": dense,
+                  "all_tiles_maskless_ms": maskless.get(kname),
+                  "schedule": sched.get(kname)})
+    return rows
 
 
 def phase_adamw(fo, tf_model, tf):
@@ -1077,17 +1196,38 @@ def phase_lion(fo, tf_model, tf):
     return row
 
 
-def phase_sparse_kernels(bsm, sa, fo, tf_model, tf):
+def phase_sparse_kernels(bsm, fm, sa, fo, tf_model, tf):
     import torch
 
     summary = {}
     for case in SPARSE_CASES:
-        rows = sparse_case(bsm, sa, case)
+        rows = sparse_case(bsm, fm, sa, case)
         if case[0] == TRAIN_MODEL:
             summary.update(rows)
         torch.cuda.empty_cache()
     summary["fused_lion"] = phase_lion(fo, tf_model, tf)
     return summary
+
+
+def phase_head_dim_kernels(fm, bsm, sa):
+    """Flash, one ring hop and block-sparse at head dims off the 64/128
+    lanes: each kernel on operands zero-padded to the lane (D 256 native on
+    the 64 x 64 walk) against its plain version at the real D, each row
+    naming its lane and route; bf16 timed beside SDPA at the same shape."""
+    import torch
+
+    for name, b, hq, hkv, s, d in HEAD_DIM_CASES:
+        for dt in ("bfloat16", "float32"):
+            timed = dt == "bfloat16"
+            flash_case(fm, (name, b, hq, hkv, s, d, dt, True, None, timed),
+                       phase="head-dim-kernel")
+            ring_case(fm, (name, b, hq, hkv, s // 2, d, dt, True, None,
+                           (1, 2, 0, 2), timed), phase="head-dim-kernel")
+            sparse_case(bsm, fm, sa, (name, b, hq, hkv, s, d, dt,
+                                      ("BSLongformerSparsityConfig",
+                                       SPARSE_KW), True),
+                        phase="head-dim-kernel")
+            torch.cuda.empty_cache()
 
 
 def phase_train_kernels(fm, fo, tf_model, tf):
@@ -1126,16 +1266,17 @@ def expected(counters, **nonzero):
 
 
 def phase_train_reference(ds, tf_model, tf, counters, phase, cfg, want,
-                          **model_kw):
-    """gpt2-350m width cut to REF_LAYERS layers, fp32 weights and compute:
-    the engine on the card (kernels, cuBLAS with TF32 off) and the same
-    engine on the CPU (plain versions) take two train_batch steps on one
-    batch; loss, grad norm and params must agree to REF_RTOL (summation
-    order only), and the card's steps launch ``want``."""
+                          model_name=TRAIN_MODEL, seq=TRAIN_SEQ, **model_kw):
+    """``model_name`` (gpt2-350m) at its width cut to REF_LAYERS layers,
+    fp32 weights and compute: the engine on the card (kernels, cuBLAS with
+    TF32 off) and the same engine on the CPU (plain versions) take two
+    train_batch steps on one batch of ``seq`` tokens a row; loss, grad norm
+    and params must agree to REF_RTOL (summation order only), and the
+    card's steps launch ``want``."""
     import numpy as np
     import torch
 
-    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=REF_LAYERS,
+    model = tf_model.get_model_config(model_name, num_layers=REF_LAYERS,
                                       **model_kw)
     cfg = {**cfg, "bf16": {"enabled": False},
            "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2}
@@ -1145,7 +1286,7 @@ def phase_train_reference(ds, tf_model, tf, counters, phase, cfg, want,
         model_parameters=tf.tree_map_with_path(
             lambda _p, a: a.detach().cpu(), card.params))
     p0 = tf.tree_map_with_path(lambda _p, a: a.detach().clone(), host.params)
-    batch = train_batch_of(model.vocab_size, 4, seed=3)
+    batch = train_batch_of(model.vocab_size, 4, seed=3, seq=seq)
     zero_counts(*counters)
     rows = []
     worst = 0.0
@@ -1168,8 +1309,9 @@ def phase_train_reference(ds, tf_model, tf, counters, phase, cfg, want,
         upd_max = max(upd_max, float((a - b).abs().max()))
     params_rel = (num / den) ** 0.5
     update_rel = (num / upd_den) ** 0.5   # |(a - p0) - (b - p0)| / |b - p0|
-    emit({"phase": phase, "model": TRAIN_MODEL, "layers": REF_LAYERS,
-          "dtype": "float32", "micro": 2, "gas": 2, "seq": TRAIN_SEQ,
+    emit({"phase": phase, "model": model_name, "layers": REF_LAYERS,
+          "head_dim": model.dim_per_head,
+          "dtype": "float32", "micro": 2, "gas": 2, "seq": seq,
           "attn_impl": model.attn_impl, "optimizer": cfg["optimizer"]["type"],
           "steps": rows,
           "check": "card (kernels, cuBLAS) vs CPU (plain versions)",
@@ -1871,14 +2013,16 @@ def ring_schedule(s, hq, hkv, b, causal, window, pos, sms):
     return out
 
 
-def ring_case(fm, case):
+def ring_case(fm, case, phase="ring-kernel"):
     """The three hop kernels of one case against their plain versions on
     the same inputs: the hop from a fresh carry, dq and dk/dv into seeded
     fp32 accumulators from the carry's lse.  Path-shape cases are timed
     (CUDA events; the in-place kernels re-run on their own output), beside
     the plain versions and scaled_dot_product_attention under the hop's
     position mask (one hop's attention without the carry merge, forward
-    and backward)."""
+    and backward).  A head_dim off the lanes hops as ring_attention runs
+    it: q, k, v, do and the fp32 state zero-padded to the lane once (the
+    kernels timed so), compared on the real D."""
     import torch
     import torch.nn.functional as F
 
@@ -1887,45 +2031,50 @@ def ring_case(fm, case):
     scale = d ** -0.5
     kw = dict(causal=causal, sm_scale=scale, window=window)
     gen = torch.Generator(device="cuda").manual_seed(14)
+    lane = fm.head_dim_lane(d)
+    pad = lane_pad(lane)
+    qp, kp, vp, dop = (pad(x) for x in (q, k, v, do))
 
-    def fresh():
+    def fresh(width=d):
         return (torch.full((b, hq, s), fm.NEG_INF, device="cuda"),
                 torch.zeros((b, hq, s), device="cuda"),
-                torch.zeros((b, hq, s, d), device="cuda"))
+                torch.zeros((b, hq, s, width), device="cuda"))
 
     def small(*shape):
         return torch.randn(shape, generator=gen, device="cuda") * 0.1
 
-    state, ref = fresh(), fresh()
-    route = {"ring_carry": fm.fwd_route(q, k, v),
-             "ring_bwd_dq": fm.bwd_route(q, k, v, do),
-             "ring_bwd_dkv": fm.bwd_route(q, k, v, do)}
+    state, ref = fresh(lane), fresh()
+    route = {"ring_carry": fm.fwd_route(qp, kp, vp),
+             "ring_bwd_dq": fm.bwd_route(qp, kp, vp, dop),
+             "ring_bwd_dkv": fm.bwd_route(qp, kp, vp, dop)}
     routes = dict(fm.ring_routes)
-    fm.flash_carry_block(q, k, v, *state, pos, **kw)
+    fm.flash_carry_block(qp, kp, vp, *state, pos, **kw)
     fm.ring_carry_ref(q, k, v, *ref, pos, causal, scale, window)
     m, l, _ = ref
     lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
     delta = small(b, hq, s)
     acc0 = [small(b, hq, s, d), small(b, hkv, s, d), small(b, hkv, s, d)]
-    got = [t.clone() for t in acc0]
+    got = [pad(t).clone() for t in acc0]
     want = [t.clone() for t in acc0]
     bwd = (q, k, v, do, lse, delta)
-    fm.flash_ring_dq_block(*bwd, got[0], pos, **kw)
-    fm.flash_ring_dkv_block(*bwd, got[1], got[2], pos, **kw)
+    bwd_k = (qp, kp, vp, dop, lse, delta)
+    fm.flash_ring_dq_block(*bwd_k, got[0], pos, **kw)
+    fm.flash_ring_dkv_block(*bwd_k, got[1], got[2], pos, **kw)
     fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal, scale, window)
     fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal, scale, window)
     torch.cuda.synchronize()
     taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
              if c != routes[n]}
     if taken != {f"{n}.{r}": 1 for n, r in route.items()}:
-        fail(f"ring-kernel ({name}): routes {taken}, expected {route}")
+        fail(f"{phase} ({name}): routes {taken}, expected {route}")
     rtol = FLASH_RTOL[dt]
     safe = [x[1].clamp(min=1e-20)[..., None] for x in (state, ref)]
+    cut = [x[..., :d] for x in got]
     checks = {
         "ring_carry": [(state[0], ref[0], 1e-4), (state[1], ref[1], rtol),
-                       (state[2] / safe[0], ref[2] / safe[1], rtol)],
-        "ring_bwd_dq": [(got[0], want[0], rtol)],
-        "ring_bwd_dkv": [(got[1], want[1], rtol), (got[2], want[2], rtol)]}
+                       (state[2][..., :d] / safe[0], ref[2] / safe[1], rtol)],
+        "ring_bwd_dq": [(cut[0], want[0], rtol)],
+        "ring_bwd_dkv": [(cut[1], want[1], rtol), (cut[2], want[2], rtol)]}
     pairs = ring_pairs(s, causal, window, pos)
     bounds = ring_bounds(b, hq, hkv, s, d, q.element_size(), pairs,
                          dt == "float32")
@@ -1937,8 +2086,9 @@ def ring_case(fm, case):
             err = max(err, float(diff.max()))
             ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g).all())
-        rows[kname] = {"phase": "ring-kernel", "case": name, "kernel": kname,
+        rows[kname] = {"phase": phase, "case": name, "kernel": kname,
                        "route": route[kname],
+                       "lane": "native" if lane == d else f"padded to {lane}",
                        "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
                        "dtype": dt, "causal": causal, "window": window,
                        "pos": list(pos), "pairs": pairs,
@@ -1947,16 +2097,16 @@ def ring_case(fm, case):
                                     f"l, acc/l, dq, dk, dv (rtol {rtol})",
                        "bound_ms": bound, "bound_by": by}
     if timed:
-        st = fresh()
-        calls = {"ring_carry": (lambda: fm.flash_carry_block(q, k, v, *st, pos, **kw),
-                                lambda: fm.ring_carry_ref(q, k, v, *st, pos, causal,
+        st, st_r = fresh(lane), fresh()
+        calls = {"ring_carry": (lambda: fm.flash_carry_block(qp, kp, vp, *st, pos, **kw),
+                                lambda: fm.ring_carry_ref(q, k, v, *st_r, pos, causal,
                                                           scale, window)),
-                 "ring_bwd_dq": (lambda: fm.flash_ring_dq_block(*bwd, got[0], pos, **kw),
-                                 lambda: fm.ring_bwd_dq_ref(*bwd, got[0], pos, causal,
+                 "ring_bwd_dq": (lambda: fm.flash_ring_dq_block(*bwd_k, got[0], pos, **kw),
+                                 lambda: fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal,
                                                             scale, window)),
                  "ring_bwd_dkv": (lambda: fm.flash_ring_dkv_block(
-                     *bwd, got[1], got[2], pos, **kw),
-                     lambda: fm.ring_bwd_dkv_ref(*bwd, got[1], got[2], pos, causal,
+                     *bwd_k, got[1], got[2], pos, **kw),
+                     lambda: fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal,
                                                  scale, window))}
         for kname, (kern, plain) in calls.items():
             rows[kname]["ms"] = cuda_time_ms(kern)
@@ -2834,11 +2984,21 @@ def main() -> int:
     layers = tf_model.get_model_config(TRAIN_MODEL).num_layers
     micro_steps = TRAIN_CFG["gradient_accumulation_steps"]
     train_summary = phase_train_kernels(fm, fo, tf_model, tf)
+    # 7b. the head-dim lanes' kernels
+    phase_head_dim_kernels(fm, bsm, sa)
     ref_steps = 2 * 2 * REF_LAYERS    # 2 steps x gas 2 x layers
     phase_train_reference(
         ds, tf_model, tf, counters, "train-reference", TRAIN_CFG,
         expected(counters, flash_fwd=ref_steps, flash_bwd_dq=ref_steps,
                  flash_bwd_dkv=ref_steps, fused_adamw=2))
+    # 8b. phi-2 (head_dim 80: flash_mha pads it to the 128 lane) card vs CPU
+    routed = counters + (fm.flash_mha.routes,)
+    phase_train_reference(
+        ds, tf_model, tf, routed, "train-reference-d80", TRAIN_CFG,
+        expected(routed, flash_fwd=ref_steps, flash_bwd_dq=ref_steps,
+                 flash_bwd_dkv=ref_steps, fused_adamw=2,
+                 **{f"{n}.fma": ref_steps for n in fm.flash_mha.launches}),
+        model_name=D80_MODEL, seq=D80_SEQ)
     n = layers * micro_steps
     # every flash launch of the step on the wgmma route
     routed = counters + (fm.flash_mha.routes,)
@@ -2852,15 +3012,18 @@ def main() -> int:
     # 10. block-sparse kernels and Lion, 11. their training reference,
     # 12. training with block-sparse attention and Lion
     sparse = {"attn_impl": "sparse", "sparse_attention": SPARSE}
-    sparse_summary = phase_sparse_kernels(bsm, sa, fo, tf_model, tf)
+    sparse_summary = phase_sparse_kernels(bsm, fm, sa, fo, tf_model, tf)
     phase_train_reference(
         ds, tf_model, tf, counters, "train-sparse-reference", SPARSE_TRAIN_CFG,
         expected(counters, bsa_fwd=ref_steps, bsa_bwd_dq=ref_steps,
                  bsa_bwd_dkv=ref_steps, fused_lion=2), **sparse)
+    # every backward launch of the step on the wgmma walks, none on mma
+    routed = counters + (bsm.block_sparse_mha.routes,)
     sparse_launches = phase_train(
-        ds, tf_model, counters, smi, "train-sparse", SPARSE_TRAIN_CFG,
-        expected(counters, bsa_fwd=n, bsa_bwd_dq=n, bsa_bwd_dkv=n,
-                 fused_lion=1), **sparse)
+        ds, tf_model, routed, smi, "train-sparse", SPARSE_TRAIN_CFG,
+        expected(routed, bsa_fwd=n, bsa_bwd_dq=n, bsa_bwd_dkv=n,
+                 fused_lion=1, **{"bsa_fwd.mma": n, "bsa_bwd_dq.wgmma": n,
+                                  "bsa_bwd_dkv.wgmma": n}), **sparse)
 
     # 14. quantize and FP6 kernels, 15. their training reference,
     # 16. LoRA training over quantized llama3-8b-width bases

@@ -12,7 +12,22 @@
 //       tile ik for query head h (dk/dv);
 //   ok(h, row, col): whether query row `row` sees key `col` (rows and
 //       columns at or past S never do).
-// Tiles are kTile = 64 rows on both sides.
+// Tiles are kTile = 64 rows on both sides: the policies' tile indices and
+// the blocks' grid count 64-row tiles.
+//
+// Head dims: D 64, 128 and 256 (the callers zero-pad any other D up to one
+// of them, ops/flash_mha.py).  At D 256 a 64-row tile of every operand no
+// longer fits beside the score buffers, so a layout may hold fewer rows
+// than a tile (BQ query rows, BK keys) and a block walks its 64-row tile in
+// passes of that many: the forward and dq hold BQ of their query tile's
+// rows a pass (fp32 forward 32, fp32 dq 16), dk/dv BK of its key tile's
+// keys a pass (fp32 32) and BQ rows of each visited query tile at a time.
+// The policy is asked about 64-row tiles as before; a pass re-reads the
+// tiles it walks, which costs the fp32 lane (the card-vs-CPU reference)
+// its K/V traffic twice or four times over.  bf16 at D 256 keeps 64-row
+// tiles and stages its register sums over the K/V (dq) or Q/dO (dk/dv)
+// tiles after the walk, the score buffers being too small for them.  Every
+// layout is held to the 227 KiB a block may take.
 //
 // Accumulate mode (template flag ACC, the ring hops): the walk starts from
 // fp32 state in device memory and writes it back, in place, instead of
@@ -72,6 +87,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // query and key rows per tile (the online softmax step)
 constexpr float kNegInf = -1e30f;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may take (227 KiB)
 
 struct Strides {
   long long b, h, s;
@@ -294,7 +310,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 struct FwdLayout {
-  static constexpr int BQ = kTile, BK = kTile;
+  // fp32 at D 256: two passes of 32 query rows a tile
+  static constexpr int BQ = sizeof(T) == 4 && D > 128 ? kTile / 2 : kTile, BK = kTile;
   static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
   static constexpr size_t bytes() {
     return r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
@@ -313,11 +330,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 int Hq, int Hkv, int S, float scale, Mask mask) {
   using L = FwdLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + kTile - 1) / kTile;
   const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal walks first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int q0 = iq * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -335,6 +351,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
+  for (int pass = 0; pass < kTile / BQ; ++pass) {  // one pass unless BQ < kTile
+  const int q0 = iq * kTile + pass * BQ;
   load_tile<T, D, BQ>(qs, qb, sq.s, q0, S);
   if constexpr (ACC) {
     const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
@@ -415,22 +433,24 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         l_io[row_off + q0 + r] = l_s[r];
       }
     }
-    return;
-  }
-  T* ob = o + b * so.b + h * so.h;
-  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < S) {
-      const float l = l_s[r];
-      ob[static_cast<long long>(q0 + r) * so.s + c] = from_f<T>(os[r * L::LDO + c] / (l > 0.f ? l : 1.f));
+  } else {
+    T* ob = o + b * so.b + h * so.h;
+    for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      if (q0 + r < S) {
+        const float l = l_s[r];
+        ob[static_cast<long long>(q0 + r) * so.s + c] = from_f<T>(os[r * L::LDO + c] / (l > 0.f ? l : 1.f));
+      }
+    }
+    float* lb = lse + (static_cast<long long>(b) * Hq + h) * S;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      if (q0 + r < S) {
+        const float l = l_s[r];
+        lb[q0 + r] = m_s[r] + logf(l > 0.f ? l : 1.f);
+      }
     }
   }
-  float* lb = lse + (static_cast<long long>(b) * Hq + h) * S;
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    if (q0 + r < S) {
-      const float l = l_s[r];
-      lb[q0 + r] = m_s[r] + logf(l > 0.f ? l : 1.f);
-    }
+  if constexpr (BQ < kTile) __syncthreads();  // the pass's buffers are read out
   }
 }
 
@@ -439,12 +459,18 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 struct DqLayout {
-  static constexpr int BQ = kTile, BK = kTile;
+  // fp32 at D 256: four passes of 16 query rows a tile
+  static constexpr int BQ = sizeof(T) == 4 && D > 128 ? kTile / 4 : kTile, BK = kTile;
   static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
-  // bf16 keeps dq in registers and stages it over the two score buffers
+  // bf16 keeps dq in registers and stages it over the two score buffers, or
+  // at D 256 over the K and V tiles (free once the walk is done)
   static constexpr size_t kAccBytes = kRegAcc<T> ? 0 : r128(BQ * LDO * sizeof(float));
-  static_assert(!kRegAcc<T> || BQ * LDO * sizeof(float) <= 2 * r128(BQ * LDS * sizeof(float)),
-                "dq staging must fit the score buffers");
+  static constexpr bool kStageKV =
+      kRegAcc<T> && BQ * LDO * sizeof(float) > 2 * r128(BQ * LDS * sizeof(float));
+  static_assert(!kRegAcc<T> || BQ * LDO * sizeof(float) <=
+                                   (kStageKV ? 2 * r128(BK * LDT * sizeof(T))
+                                             : 2 * r128(BQ * LDS * sizeof(float))),
+                "dq staging must fit the score buffers or the K/V tiles");
   static constexpr size_t bytes() {
     return 2 * r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
            2 * r128(BQ * LDS * sizeof(float)) + r128(BQ * LDP * sizeof(T)) + kAccBytes +
@@ -463,11 +489,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    float scale, Mask mask) {
   using L = DqLayout<T, D>;
   constexpr int BQ = L::BQ, BK = L::BK;
-  const int nq = (S + BQ - 1) / BQ;
+  const int nq = (S + kTile - 1) / kTile;
   const int iq = nq - 1 - static_cast<int>(blockIdx.x);
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const int q0 = iq * BQ;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem sm{smem_raw};
@@ -481,14 +506,18 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   Acc<T, BQ, D> dq_acc(kRegAcc<T> ? nullptr : sm.take<float>(BQ * L::LDO), L::LDO);
   float* lse_s = sm.take<float>(BQ);
   float* dl_s = sm.take<float>(BQ);
+  // where the register sums pass through shared memory (bf16)
+  float* stage = L::kStageKV ? reinterpret_cast<float*>(ks) : ss;
 
   const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
+  for (int pass = 0; pass < kTile / BQ; ++pass) {  // one pass unless BQ < kTile
+  const int q0 = iq * kTile + pass * BQ;
   load_tile<T, D, BQ>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
   load_tile<T, D, BQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
   load_rows(lse_s, lse + row_off, q0, BQ, S);
   load_rows(dl_s, delta + row_off, q0, BQ, S);
   if constexpr (ACC)
-    dq_acc.seed(ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);  // ss is free yet
+    dq_acc.seed(stage, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);  // free yet
   else
     dq_acc.zero();
   const T* kb = k + b * sk.b + hk * sk.h;
@@ -514,8 +543,10 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     __syncthreads();
     dq_acc.template mma<BK, true, true>(dss, L::LDP, ks, L::LDT);
   }
-  // the score buffers are free: stage dq over them
-  store_acc<D, BQ>(dq_acc, ss, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
+  // the score buffers (or K and V) are free: stage dq over them
+  store_acc<D, BQ>(dq_acc, stage, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
+  if constexpr (BQ < kTile) __syncthreads();  // the pass's buffers are read out
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -524,13 +555,20 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 template <typename T, int D>
 struct DkvLayout {
   // fp32 tiles at d = 128 would overrun shared memory with 64-row q tiles:
-  // fp32 walks each 64-row q tile as two 32-row halves
-  static constexpr int BQ = sizeof(T) == 4 ? kTile / 2 : kTile, BK = kTile;
+  // fp32 walks each 64-row q tile as two 32-row halves, and at D 256 its
+  // 64-key tile in two passes of 32 keys
+  static constexpr int BQ = sizeof(T) == 4 ? kTile / 2 : kTile;
+  static constexpr int BK = sizeof(T) == 4 && D > 128 ? kTile / 2 : kTile;
   static constexpr int LDT = ld<T>(D), LDS = ld<float>(BK), LDP = ld<T>(BK), LDO = ld<float>(D);
-  // bf16 keeps dk, dv in registers and stages each over the score buffers
+  // bf16 keeps dk, dv in registers and stages each over the score buffers,
+  // or at D 256 over the Q and dO tiles (free once the walk is done)
   static constexpr size_t kAccBytes = kRegAcc<T> ? 0 : 2 * r128(BK * LDO * sizeof(float));
-  static_assert(!kRegAcc<T> || BK * LDO * sizeof(float) <= 2 * r128(BQ * LDS * sizeof(float)),
-                "dk/dv staging must fit the score buffers");
+  static constexpr bool kStageQ =
+      kRegAcc<T> && BK * LDO * sizeof(float) > 2 * r128(BQ * LDS * sizeof(float));
+  static_assert(!kRegAcc<T> || BK * LDO * sizeof(float) <=
+                                   (kStageQ ? 2 * r128(BQ * LDT * sizeof(T))
+                                            : 2 * r128(BQ * LDS * sizeof(float))),
+                "dk/dv staging must fit the score buffers or the Q/dO tiles");
   static constexpr size_t bytes() {
     return 2 * r128(BK * LDT * sizeof(T)) + kAccBytes + 2 * r128(BQ * LDT * sizeof(T)) +
            2 * r128(BQ * LDS * sizeof(float)) + 2 * r128(BQ * LDP * sizeof(T)) +
@@ -555,7 +593,6 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int ik = blockIdx.x;  // low k tiles have the longest causal walks: first
   const int hk = blockIdx.y, b = blockIdx.z;
   const int group = Hq / Hkv;
-  const int k0 = ik * BK;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem sm{smem_raw};
@@ -571,12 +608,16 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   T* dss = sm.take<T>(BQ * L::LDP);
   float* lse_s = sm.take<float>(BQ);
   float* dl_s = sm.take<float>(BQ);
+  // where the register sums pass through shared memory (bf16)
+  float* stage = L::kStageQ ? reinterpret_cast<float*>(qs) : ss;
 
+  for (int pass = 0; pass < kTile / BK; ++pass) {  // one pass unless BK < kTile
+  const int k0 = ik * kTile + pass * BK;
   load_tile<T, D, BK>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
   load_tile<T, D, BK>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
-  if constexpr (ACC) {  // the score buffers are free yet: stage through them
-    dk_acc.seed(ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
-    dv_acc.seed(ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
+  if constexpr (ACC) {  // the staging buffer is free yet
+    dk_acc.seed(stage, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
+    dv_acc.seed(stage, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
   } else {
     dk_acc.zero();
     dv_acc.zero();
@@ -615,9 +656,11 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
   }
-  // the score buffers are free: stage dk, then dv, over them
-  store_acc<D, BK>(dk_acc, ss, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
-  store_acc<D, BK>(dv_acc, ss, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
+  // the score buffers (or Q and dO) are free: stage dk, then dv, over them
+  store_acc<D, BK>(dk_acc, stage, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
+  store_acc<D, BK>(dv_acc, stage, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
+  if constexpr (BK < kTile) __syncthreads();  // the pass's buffers are read out
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -666,10 +709,11 @@ cudaError_t allow_smem(Kernel kern, size_t bytes) {
 template <typename T, int D, typename Mask, bool ACC>
 int launch_fwd(const AttnCall& a, Mask mask) {
   using L = FwdLayout<T, D>;
+  static_assert(L::bytes() <= kSmemLimit, "forward layout overruns shared memory");
   auto kern = attn_fwd_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.S + L::BQ - 1) / L::BQ, a.Hq, a.B);
+  dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.o), a.lse_out, a.l_io, a.acc_io, a.at(0), a.at(1), a.at(2), a.at(3),
@@ -680,11 +724,12 @@ int launch_fwd(const AttnCall& a, Mask mask) {
 template <typename T, int D, typename Mask, bool ACC>
 int launch_bwd_dq(const AttnCall& a, Mask mask) {
   using L = DqLayout<T, D>;
+  static_assert(L::bytes() <= kSmemLimit, "dq layout overruns shared memory");
   using Out = typename std::conditional<ACC, float, T>::type;
   auto kern = attn_bwd_dq_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.S + L::BQ - 1) / L::BQ, a.Hq, a.B);
+  dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dq), a.at(0),
@@ -695,11 +740,12 @@ int launch_bwd_dq(const AttnCall& a, Mask mask) {
 template <typename T, int D, typename Mask, bool ACC>
 int launch_bwd_dkv(const AttnCall& a, Mask mask) {
   using L = DkvLayout<T, D>;
+  static_assert(L::bytes() <= kSmemLimit, "dk/dv layout overruns shared memory");
   using Out = typename std::conditional<ACC, float, T>::type;
   auto kern = attn_bwd_dkv_kernel<T, D, Mask, ACC>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.S + L::BK - 1) / L::BK, a.Hkv, a.B);
+  dim3 grid((a.S + kTile - 1) / kTile, a.Hkv, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dk),
@@ -713,11 +759,11 @@ enum class Role { kFwd, kBwdDq, kBwdDkv };
 template <typename T> struct Tag { using type = T; };
 
 // Check the shape, then launch `role` for dtype code (0 = float32,
-// 1 = bfloat16) and head_dim D (64 or 128); ACC: accumulate mode.
+// 1 = bfloat16) and head_dim D (64, 128 or 256); ACC: accumulate mode.
 template <bool ACC = false, typename Mask>
 int launch(Role role, int dtype, int D, const AttnCall& a, Mask mask) {
   if (a.B < 0 || a.S < 0 || a.Hkv <= 0 || a.Hq <= 0 || a.Hq % a.Hkv != 0 ||
-      (D != 64 && D != 128) || (dtype != 0 && dtype != 1))
+      (D != 64 && D != 128 && D != 256) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B == 0 || a.S == 0) return 0;
   auto run = [&](auto t, auto d) {
@@ -731,9 +777,12 @@ int launch(Role role, int dtype, int D, const AttnCall& a, Mask mask) {
   };
   using D64 = std::integral_constant<int, 64>;
   using D128 = std::integral_constant<int, 128>;
+  using D256 = std::integral_constant<int, 256>;
   if (dtype == 1)
-    return D == 64 ? run(Tag<bf16>{}, D64{}) : run(Tag<bf16>{}, D128{});
-  return D == 64 ? run(Tag<float>{}, D64{}) : run(Tag<float>{}, D128{});
+    return D == 64 ? run(Tag<bf16>{}, D64{})
+                   : D == 128 ? run(Tag<bf16>{}, D128{}) : run(Tag<bf16>{}, D256{});
+  return D == 64 ? run(Tag<float>{}, D64{})
+                 : D == 128 ? run(Tag<float>{}, D128{}) : run(Tag<float>{}, D256{});
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 // Attention backward on wgmma and TMA, Hopper: the dense `flash_bwd_dq`
-// and `flash_bwd_dkv` and the ring hop's `ring_bwd_dq` and `ring_bwd_dkv`
-// at bf16.
+// and `flash_bwd_dkv`, the ring hop's `ring_bwd_dq` and `ring_bwd_dkv` and
+// the block-sparse `bsa_bwd_dq` and `bsa_bwd_dkv` at bf16.
 //
 // Computes what attn_bwd_dq_kernel / attn_bwd_dkv_kernel of
 // attention_tiles.cuh compute (and what the TPU kernels _dq_kernel(_blocked)
@@ -87,7 +87,14 @@
 //  * the mask policy is the walk's, as in the forward: k_begin/k_end (dq)
 //    and q_begin/q_end (dk/dv) bound the tiles, dead tiles are never
 //    visited, ok masks diagonal and edge tiles in registers, and `full`
-//    sends interior tiles down a body compiled without the test.  An item
+//    sends interior tiles down a body compiled without the test.  A policy
+//    with a `tile` member (the block layout's) narrows itself to each
+//    visited tile before the tile's products are issued: `tile(h, t,
+//    walk0, sub0, fixed)` (list entry t, the walked tile's first row or
+//    key, the warpgroup's first fixed one, the thread's two fixed rows or
+//    keys) returns what `full` and `ok` are asked for that tile, so its
+//    loads from device memory overlap the wait for the tile and the
+//    products; every other policy answers for itself.  An item
 //    with no live tile reads nothing; accumulating, it writes nothing, so
 //    its rows of dq, dk, dv stay bit for bit as they were; storing, it
 //    writes zeros, so no row of the output is left unwritten.
@@ -169,8 +176,24 @@ __device__ __forceinline__ void scores(float (&c)[32], uint32_t a, uint32_t a_bo
   }
 }
 
+// What a walked tile's `full` and `ok` are asked of: the policy narrowed to
+// tile t (its `tile` member, see the header) or the policy itself
+template <typename M, typename = void>
+struct HasTile : std::false_type {};
+template <typename M>
+struct HasTile<M, std::void_t<decltype(&M::tile)>> : std::true_type {};
+
+template <typename Mask>
+__device__ __forceinline__ decltype(auto) tile_of(const Mask& mask, int h, int t, int walk0,
+                                                  int sub0, const int (&fixed)[2]) {
+  if constexpr (HasTile<Mask>::value)
+    return mask.tile(h, t, walk0, sub0, fixed);
+  else
+    return (mask);
+}
+
 // The mode of an output type: fp32 sums accumulate in place (the ring),
-// bf16 outputs are written once (flash)
+// bf16 outputs are written once (flash, block-sparse)
 template <typename Out>
 constexpr bool kAccumulate = std::is_same<Out, float>::value;
 
@@ -352,7 +375,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // p and ds of the finished S and dP of key tile k0, in registers:
     // s_acc[4j + e] is row row[e / 2], key k0 + 8j + 2tq + (e % 2).  MASKED
     // (diagonal, edge and tail tiles) tests every entry against the mask.
-    auto dscore = [&](auto masked, int k0) {
+    auto dscore = [&](auto masked, int k0, const auto& tm) {
       constexpr bool MASKED = decltype(masked)::value;
 #pragma unroll
       for (int j = 0; j < kBKd / 8; ++j) {
@@ -361,7 +384,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 4; ++e) {
           float p = exp2f(fmaf(s_acc[4 * j + e], scale_log2, -lse2[e / 2]));
           if constexpr (MASKED)
-            p = mask.ok(h, row[e / 2], k0 + 8 * j + 2 * tq + (e % 2)) ? p : 0.f;
+            p = tm.ok(h, row[e / 2], k0 + 8 * j + 2 * tq + (e % 2)) ? p : 0.f;
           de[e] = p * (dp_acc[4 * j + e] - dl[e / 2]) * scale;
         }
         ds[j / 2][2 * (j % 2)] = pack_bf16(de[0], de[1]);
@@ -372,6 +395,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(q_full, n++ & 1);
     for (int t = t_begin; t < t_end; ++t) {
       const int k0 = mask.k_tile(t) * kBKd;
+      const auto& tm = tile_of(mask, h, t, k0, rq0, row);
       const uint32_t k_addr = smem_addr(ks + stage * L::kNarrow);
       const uint32_t v_addr = smem_addr(vs + stage * L::kNarrow);
       // S = Q . K^T and dP = dO . V^T, D/16 steps of 16 each
@@ -386,10 +410,10 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dp_acc);
       if (t + 1 == t_end) mbar_arrive(q_empty);  // Q and dO are read: the next item's may load
 
-      if (mask.full(h, rq0, 64, k0, kBKd))
-        dscore(std::false_type{}, k0);
+      if (tm.full(h, rq0, 64, k0, kBKd))
+        dscore(std::false_type{}, k0, tm);
       else
-        dscore(std::true_type{}, k0);
+        dscore(std::true_type{}, k0, tm);
 
       // dQ += dS . K: K is MN-major (rows are keys, D contiguous), 16 keys a step
       fence_regs(ds);
@@ -548,7 +572,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // st[4j + e] is key key[e / 2], query q0 + 8j + 2tq + (e % 2), whose
       // lse and delta the producer left in ld (lse at ld[c], delta at
       // ld[kLdPitch + c] for column c of the tile)
-      auto dscore = [&](auto masked, int q0, const float* ld) {
+      auto dscore = [&](auto masked, int q0, const float* ld, const auto& tm) {
         constexpr bool MASKED = decltype(masked)::value;
 #pragma unroll
         for (int j = 0; j < kBQd / 8; ++j) {
@@ -560,7 +584,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           for (int e = 0; e < 4; ++e) {
             const float lq = lq2[e % 2], dq_ = dl2[e % 2];
             float p = exp2f(fmaf(st[4 * j + e], scale_log2, -lq));
-            if constexpr (MASKED) p = mask.ok(h, q0 + c + (e % 2), key[e / 2]) ? p : 0.f;
+            if constexpr (MASKED) p = tm.ok(h, q0 + c + (e % 2), key[e / 2]) ? p : 0.f;
             pe[e] = p;
             de[e] = p * (dpt[4 * j + e] - dq_) * scale;
           }
@@ -574,6 +598,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const int t_end = mask.q_end(h, it.ik);
       for (int t = mask.q_begin(h, it.ik); t < t_end; ++t) {
         const int q0 = mask.q_tile(t) * kBQd;
+        const auto& tm = tile_of(mask, h, t, q0, kr0, key);
         const uint32_t q_addr = smem_addr(qs + stage * L::kNarrow);
         const uint32_t do_addr = smem_addr(dos + stage * L::kNarrow);
         // S^T = K . Q^T and dP^T = V . dO^T, D/16 steps of 16 each
@@ -588,10 +613,10 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
         // the box starts (row_off + q0) % 4 rows before the tile
         const float* ld = lds + stage * 2 * kLdPitch + ((row_off + q0) & 3);
-        if (mask.full(h, q0, kBQd, kr0, 64))
-          dscore(std::false_type{}, q0, ld);
+        if (tm.full(h, q0, kBQd, kr0, 64))
+          dscore(std::false_type{}, q0, ld, tm);
         else
-          dscore(std::true_type{}, q0, ld);
+          dscore(std::true_type{}, q0, ld, tm);
 
         // dV += P^T . dO and dK += dS^T . Q: dO and Q MN-major, 16 query rows a step
         fence_regs(pf);

@@ -7,30 +7,63 @@
 //   bsa_bwd_dkv <- _dkv_kernel (:211, launched at :380)
 // A layout [Hq, S/block, S/block] of 0/1 blocks, block 16 to 256 tokens (any
 // block that divides S), gates which (query, key) pairs attend; causal
-// composes on top.  The kernels are the tile walk of attention_tiles.cuh
-// (the flash kernels' arithmetic) under the layout mask below.
+// composes on top.  The kernels are the tile walks of attention_tiles.cuh
+// and attention_wgmma_bwd.cuh (the flash kernels' arithmetic) under the
+// layout masks below.
 //
 // What differs from the TPU kernels:
 //  * the TPU runs every grid step and skips dead tiles with pl.when, its
 //    K/V DMAs clamped to the last live tile (_kv_pick).  Here a block walks
 //    only its live tiles, from lists the host builds once per layout
-//    (ops/block_sparse_mha.py SparseLayout): per (query head, q tile) the
-//    live k tiles (fwd, dq), per (query head, k tile) the live q tiles
-//    (dk/dv).  A dead tile costs nothing, and a dk/dv block skips a head of
-//    its group for which the tile is dead (the TPU runs it under an
-//    all-false mask when another head of the group is live: the same sums).
+//    (ops/block_sparse_mha.py SparseLayout), at each walk's tile shape.  A
+//    dead tile costs nothing, and a dk/dv item skips a head of its group
+//    for which the tile is dead (the TPU runs it under an all-false mask
+//    when another head of the group is live: the same sums).
 //  * inside a live tile the TPU expands the [tq, tk] layout slab to a token
-//    mask with two 0/1 matmuls (_expand_mask); here each (row, col) reads
-//    its layout block directly.  A 64-token tile may hold several layout
-//    blocks or lie inside one, so any block size works.
+//    mask with two 0/1 matmuls (_expand_mask).  Here the 64 x 64 walk reads
+//    each (row, col)'s layout byte, and the wgmma walks test a bit held in
+//    registers (below).
 //
-// Bound: the work is the live tiles' products.  At the gpt2-350m training
-// shape (S = 1024, d = 64, BSLongformer block 16, 3 window blocks, global
-// block 0, causal) 45 of the 136 causal 64 x 64 tiles are live, so the
-// kernels read q, k, v, do about as often as flash attention does for a
-// third of the tiles; the scores stay in shared memory as in flash.
+// Routes: bsa_fwd runs the 64 x 64 tile walk, its code the dtype's (0 fma
+// for fp32, 1 mma for bf16).  bsa_bwd_dq and bsa_bwd_dkv take a route code,
+// chosen by the caller before the launch (ops/block_sparse_mha.py): 0 fma
+// and 1 mma, the 64 x 64 walk; 2 wgmma, the persistent walks of
+// attention_wgmma_bwd.cuh in store mode (sums from zero, written once in
+// bf16) under BlockLayoutT, for bf16 views TMA reads, D 64 or 128 and
+// layout blocks of at least 16.
+//
+// Bound, and what the wgmma design does about it: the work is the live
+// tiles' products.  At the gpt2-350m training shape (B 8, H 16, S 1024, D
+// 64, BSLongformer block 16, 3 window blocks, global block 0, causal) the
+// layout keeps 40,704 of a head's 524,800 causal pairs, and the bytes of q,
+// k, v, do and the outputs bound the backward pair (0.025 / 0.030 ms at
+// 3.35 TB/s) above its products.  The 64 x 64 walk visited 45 tiles a head
+// with a block a tile and a layout byte read from device memory, with a
+// division by the block, for every score entry: every tile of that layout
+// is masked (none is full at block 16).  The wgmma walks visit 30 (dq:
+// 128-row items over 64-key tiles, at most 4 an item) and 36 (dk/dv:
+// 128-key items over 64-row query tiles; the item holding global key
+// block 0 walks 16) live tiles a head, one persistent block an SM, and
+// test the mask in registers: the host stores with each list entry the
+// tile's layout as one 64-bit word per layout block of the item's fixed
+// side (a dq item's rows, a dk/dv item's keys; at most 9 blocks of at
+// least 16 span 128 rows), bit c set where column (dq) or row (dk/dv) c
+// of the walked 64-row tile lies in a live block.  A thread loads its two
+// rows' (keys') words when the tile is taken, before its products, shifts
+// them to its own columns, and then pays one bit test and the causal
+// compare for each of its 32 entries (the bit's index folds to an
+// immediate shift).  A host-built flag for each 64 x 64 tile (every block
+// live, inside S, below the diagonal when causal) sends such tiles down the
+// maskless body.  Blocks under 16 would need more words than a thread
+// keeps: the caller routes them to the 64 x 64 walk.  What the mask test
+// costs shows in chip_smoke.py's sparse rows beside the kernel's time
+// (all_tiles_maskless_ms: the same walks with every full flag set, wrong
+// numbers, timed only; PERF.md §6 records both): a small share, the rest
+// being per item, since a dq item walks at most 4 tiles at block 16 and
+// its Q/dO loads and epilogue weigh as much as its products.
 
 #include "attention_tiles.cuh"
+#include "attention_wgmma_bwd.cuh"
 
 namespace {
 
@@ -70,12 +103,112 @@ int sparse(Role role, int dtype, int D, AttnCall a, const void* layout, const vo
   return launch(role, dtype, D, a, mask);
 }
 
+// layout words a list entry of the wgmma walks holds: the layout blocks a
+// 128-row (or 128-key) item spans at blocks of at least kMinBlock
+constexpr int kSlots = 9, kMinBlock = 16;
+
+// The block layout on the wgmma walks' TQ x TK tiles: 128 x 64 for dq (an
+// item holds 128 query rows and walks 64-key tiles), 64 x 128 for dk/dv
+// (an item holds 128 keys and walks 64-row query tiles).  ptr/idx list the
+// live walked tiles of each (query head, item); bits holds kSlots words an
+// entry, word j for layout block first + j of the item's fixed side, bit c
+// for row or column c of the walked tile; full64 [Hq, n64, n64] flags the
+// 64 x 64 tiles whose every pair is visible.
+template <int TQ, int TK>
+struct BlockLayoutT {
+  static constexpr bool kRowsFixed = TQ > TK;  // dq: the item's side is rows
+  static constexpr int kItem = kRowsFixed ? TQ : TK;
+  int S, causal, block, n_items, n64;
+  const int* ptr;
+  const int* idx;
+  const unsigned long long* bits;
+  const uint8_t* full64;
+
+  __device__ int k_begin(int h, int iq) const { return ptr[h * n_items + iq]; }
+  __device__ int k_end(int h, int iq) const { return ptr[h * n_items + iq + 1]; }
+  __device__ int k_tile(int t) const { return idx[t]; }
+  __device__ int q_begin(int h, int ik) const { return ptr[h * n_items + ik]; }
+  __device__ int q_end(int h, int ik) const { return ptr[h * n_items + ik + 1]; }
+  __device__ int q_tile(int t) const { return idx[t]; }
+
+  // One walked tile as a thread sees it: its two fixed rows' (keys') words,
+  // shifted to the thread's first column (row) of the walked tile, 2 * (lane
+  // % 4) past the tile's first, where both walks' fragments start.
+  struct Tile {
+    unsigned long long w0, w1;
+    int f0, c0, causal;
+    bool all;
+    __device__ bool full(int, int, int, int, int) const { return all; }
+    __device__ bool ok(int, int row, int col) const {
+      const int fixed = kRowsFixed ? row : col, walked = kRowsFixed ? col : row;
+      const unsigned long long w = fixed == f0 ? w0 : w1;
+      return (static_cast<unsigned>(w >> (walked - c0)) & 1u) != 0 && (!causal || col <= row);
+    }
+  };
+  // t: the list entry; walk0: the walked tile's first column (row); sub0:
+  // the warpgroup's first fixed row (key); fixed: the thread's two
+  __device__ Tile tile(int h, int t, int walk0, int sub0, const int (&fixed)[2]) const {
+    const int first = (sub0 - sub0 % kItem) / block;  // the item's first layout block
+    const int lane2 = 2 * (static_cast<int>(threadIdx.x) & 3);
+    const unsigned long long* e = bits + static_cast<long long>(t) * kSlots;
+    Tile r;
+    r.w0 = fixed[0] < S ? e[fixed[0] / block - first] >> lane2 : 0ull;
+    r.w1 = fixed[1] < S ? e[fixed[1] / block - first] >> lane2 : 0ull;
+    r.f0 = fixed[0];
+    r.c0 = walk0 + lane2;
+    r.causal = causal;
+    const int q64 = (kRowsFixed ? sub0 : walk0) / 64, k64 = (kRowsFixed ? walk0 : sub0) / 64;
+    r.all = sub0 < S && full64[(static_cast<long long>(h) * n64 + q64) * n64 + k64] != 0;
+    return r;
+  }
+};
+
+// The wgmma route of bsa_bwd_dq (DQ) or bsa_bwd_dkv: the store-mode walks
+// of attention_wgmma_bwd.cuh at D 64 or 128 under BlockLayoutT.
+template <bool DQ>
+int sparse_wgmma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, void* out0, void* out1, const long long* strides, int B,
+                 int Hq, int Hkv, int S, int D, int block, float scale, int causal,
+                 const void* ptr, const void* idx, const void* bits, const void* full,
+                 cudaStream_t stream) {
+  if ((D != 64 && D != 128) || block < kMinBlock || S % block != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const int n_items = (S + 127) / 128, n64 = (S + 63) / 64;
+  const auto* p = static_cast<const int*>(ptr);
+  const auto* ix = static_cast<const int*>(idx);
+  const auto* w = static_cast<const unsigned long long*>(bits);
+  const auto* f = static_cast<const uint8_t*>(full);
+  if constexpr (DQ) {
+    using Mask = BlockLayoutT<flash_wg::kBQ, flash_wg::kBKd>;
+    const Mask mask{S, causal, block, n_items, n64, p, ix, w, f};
+    auto* g = static_cast<bf*>(out0);
+    return D == 64 ? flash_wg::launch_bwd_dq<64>(q, k, v, dout, lse, delta, g, strides, B, Hq,
+                                                 Hkv, S, scale, mask, stream)
+                   : flash_wg::launch_bwd_dq<128>(q, k, v, dout, lse, delta, g, strides, B, Hq,
+                                                  Hkv, S, scale, mask, stream);
+  } else {
+    using Mask = BlockLayoutT<flash_wg::kBQd, flash_wg::kBK>;
+    const Mask mask{S, causal, block, n_items, n64, p, ix, w, f};
+    auto *gk = static_cast<bf*>(out0), *gv = static_cast<bf*>(out1);
+    return D == 64 ? flash_wg::launch_bwd_dkv<64>(q, k, v, dout, lse, delta, gk, gv, strides, B,
+                                                  Hq, Hkv, S, scale, mask, stream)
+                   : flash_wg::launch_bwd_dkv<128>(q, k, v, dout, lse, delta, gk, gv, strides,
+                                                   B, Hq, Hkv, S, scale, mask, stream);
+  }
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  strides: (b, h, s) of each
-// [B, H, S, D] operand in argument order (q, k, v, o / do, dq / dk, dv).
-// layout: uint8 [Hq, S/block, S/block]; k_ptr/k_idx and q_ptr/q_idx: int32
-// live-tile lists over 64-row tiles (see BlockLayout).
+// bsa_fwd: dtype code 0 = float32, 1 = bfloat16 (the 64 x 64 walk's fma and
+// mma routes).  bsa_bwd_dq / bsa_bwd_dkv: route 0 fma (fp32), 1 mma (bf16),
+// 2 wgmma (bf16 TMA reads, D 64 or 128, block >= 16).  strides: (b, h, s)
+// of each [B, H, S, D] operand in argument order (q, k, v, o / do, dq /
+// dk, dv).  layout: uint8 [Hq, S/block, S/block]; k_ptr/k_idx and
+// q_ptr/q_idx: int32 live-tile lists over 64 x 64 tiles (see BlockLayout);
+// wg_ptr/wg_idx/wg_bits/wg_full: the wgmma walk's lists, uint64 layout
+// words and uint8 full flags (see BlockLayoutT; dq's at 128 x 64, dk/dv's
+// at 64 x 128), read on route 2 only.
 extern "C" int bsa_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
                        const long long* strides, const void* layout, const void* k_ptr,
                        const void* k_idx, const void* q_ptr, const void* q_idx, int B, int Hq,
@@ -86,31 +219,43 @@ extern "C" int bsa_fwd(int dtype, const void* q, const void* k, const void* v, v
   return sparse(Role::kFwd, dtype, D, a, layout, k_ptr, k_idx, q_ptr, q_idx, block, causal);
 }
 
-extern "C" int bsa_bwd_dq(int dtype, const void* q, const void* k, const void* v,
+extern "C" int bsa_bwd_dq(int route, const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta, void* dq,
                           const long long* strides, const void* layout, const void* k_ptr,
-                          const void* k_idx, const void* q_ptr, const void* q_idx, int B, int Hq,
-                          int Hkv, int S, int D, int block, float scale, int causal,
-                          void* stream) {
+                          const void* k_idx, const void* q_ptr, const void* q_idx,
+                          const void* wg_ptr, const void* wg_idx, const void* wg_bits,
+                          const void* wg_full, int B, int Hq, int Hkv, int S, int D, int block,
+                          float scale, int causal, void* stream) {
+  const float *ls = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  if (route == 2)
+    return sparse_wgmma<true>(q, k, v, dout, ls, dl, dq, nullptr, strides, B, Hq, Hkv, S, D,
+                              block, scale, causal, wg_ptr, wg_idx, wg_bits, wg_full,
+                              static_cast<cudaStream_t>(stream));
   AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
   a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.lse_in = ls;
+  a.delta = dl;
   a.dq = dq;
-  return sparse(Role::kBwdDq, dtype, D, a, layout, k_ptr, k_idx, q_ptr, q_idx, block, causal);
+  return sparse(Role::kBwdDq, route, D, a, layout, k_ptr, k_idx, q_ptr, q_idx, block, causal);
 }
 
-extern "C" int bsa_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
+extern "C" int bsa_bwd_dkv(int route, const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* delta, void* dk,
                            void* dv, const long long* strides, const void* layout,
                            const void* k_ptr, const void* k_idx, const void* q_ptr,
-                           const void* q_idx, int B, int Hq, int Hkv, int S, int D, int block,
-                           float scale, int causal, void* stream) {
+                           const void* q_idx, const void* wg_ptr, const void* wg_idx,
+                           const void* wg_bits, const void* wg_full, int B, int Hq, int Hkv,
+                           int S, int D, int block, float scale, int causal, void* stream) {
+  const float *ls = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  if (route == 2)
+    return sparse_wgmma<false>(q, k, v, dout, ls, dl, dk, dv, strides, B, Hq, Hkv, S, D, block,
+                               scale, causal, wg_ptr, wg_idx, wg_bits, wg_full,
+                               static_cast<cudaStream_t>(stream));
   AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
   a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
+  a.lse_in = ls;
+  a.delta = dl;
   a.dk = dk;
   a.dv = dv;
-  return sparse(Role::kBwdDkv, dtype, D, a, layout, k_ptr, k_idx, q_ptr, q_idx, block, causal);
+  return sparse(Role::kBwdDkv, route, D, a, layout, k_ptr, k_idx, q_ptr, q_idx, block, causal);
 }

@@ -72,7 +72,8 @@ using CausalWindow = CausalWindowT<kTile, kTile>;
 
 }  // namespace
 
-// route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA reads; D 64 or 128).
+// route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA reads).  D: 64 or 128 on
+// every route, 256 on routes 0 and 1 (ops/flash_mha.py pads any other D).
 // strides: (b, h, s) of each [B, H, S, D] operand in argument order (q, k,
 // v, o / do, dq / dk, dv).  lse, delta: fp32 [B, Hq, S] contiguous.
 extern "C" int flash_fwd(int route, const void* q, const void* k, const void* v, void* o,

@@ -136,7 +136,9 @@ bool wgmma_args_ok(int D, int q_stride, int k_stride) {
 
 }  // namespace
 
-// route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA reads).  m, l: fp32
+// route: 0 fma (fp32), 1 mma (bf16), 2 wgmma (bf16 TMA reads); D 64 or 128
+// on every route, 256 on routes 0 and 1 (sequence/ring.py pads any other D
+// before its hops).  m, l: fp32
 // [B, Hq, S] contiguous; acc, dq: fp32 [B, Hq, S, D]; dk, dv: fp32
 // [B, Hkv, S, D]; all updated in place.  strides: (b, h, s) of each
 // [B, H, S, D] operand in argument order (q, k, v, acc / do, dq / do, dk,

@@ -52,6 +52,17 @@ view whose last dim is contiguous (the model hands them transposed
 ``[B, S, H, D]`` projections, read in place).  The residual lse is plain
 ``[B, Hq, S]`` fp32 (the TPU's 128-lane replication, ``_lanes``, has no
 reason to exist here).
+
+Head dims (the JAX kernels take the whole D as one block, any D): the
+kernels have lanes for D 64 and 128 on every route and D 256 on the 64 x 64
+tile walk (``mma`` for bf16, ``fma`` for fp32; a bf16 call at D 256 takes
+``mma``).  The differentiable entries (:func:`flash_mha`, the block-sparse
+``block_sparse_mha`` and the ring's ``ring_attention``) zero-pad any other
+D up to its lane (:func:`head_dim_lane`: 64, 128 or 256) on CUDA tensors
+with :func:`head_dim_padded`, ``sm_scale`` taken from the real D, and slice
+the output back: zero columns add nothing to q·kᵀ or p·v, and their
+gradients come out zero.  D above 256 raises.  The kernel wrappers take a
+lane's D only; the plain versions take any D.
 """
 
 from __future__ import annotations
@@ -65,7 +76,10 @@ import torch
 NEG_INF = -1e30
 # key rows per step of the online softmax (kernel and plain version alike)
 BLOCK_K = 64
-HEAD_DIMS = (64, 128)
+# the kernels' head_dim lanes: every route takes 64 and 128, the 64 x 64
+# tile walk (mma, fma) 256 too; the entries pad any D up to the next lane
+LANES = (64, 128, 256)
+WGMMA_LANES = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the attention kernels' routes by their code in ops/csrc/*_attention.cu
 FWD_ROUTES = ("fma", "mma", "wgmma")
@@ -257,10 +271,38 @@ def _kernel_layout_ok(x: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+def head_dim_lane(d: int) -> int:
+    """The kernel lane a head_dim ``d`` runs in: ``d`` itself when it is a
+    lane (64, 128, 256), else the next lane up, which the entries zero-pad
+    ``d`` to.  D above 256 raises (the reference's kernels take any D that
+    fits their S·D bound)."""
+    for lane in LANES:
+        if 0 < d <= lane:
+            return lane
+    raise ValueError(f"head_dim {d}: the attention kernels take D from 1 to "
+                     f"{LANES[-1]} (zero-padded to a lane of {LANES})")
+
+
+def head_dim_padded(attn, q, k, v):
+    """``attn(q, k, v)`` over the last dim zero-padded to its lane
+    (:func:`head_dim_lane`), the output sliced back to the real D: exact,
+    since zero columns add nothing to q·kᵀ or p·v, and differentiable, the
+    pad's and the slice's gradients slicing and padding.  ``attn`` must take
+    its ``sm_scale`` from the real D, not from the padded operands.  The
+    entries call it on CUDA tensors; on the CPU it runs the padded path
+    through the plain versions."""
+    d = q.shape[-1]
+    lane = head_dim_lane(d)
+    if lane == d:
+        return attn(q, k, v)
+    q, k, v = (torch.nn.functional.pad(x, (0, lane - d)) for x in (q, k, v))
+    return attn(q, k, v)[..., :d]
+
+
 def _check_cuda(q, k, v, do=None, lse=None, delta=None):
-    """What the kernels take: CUDA tensors, fp32 or bf16, head_dim 64 or
-    128, Hq a multiple of Hkv, rows readable in place; lse/delta
-    contiguous fp32 [B, Hq, S]."""
+    """What the kernels take: CUDA tensors, fp32 or bf16, head_dim a lane
+    (64, 128 or 256), Hq a multiple of Hkv, rows readable in place;
+    lse/delta contiguous fp32 [B, Hq, S]."""
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     b, hq, s, d = q.shape
@@ -271,8 +313,10 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None):
     if hq % k.shape[1]:
         raise ValueError(f"{hq} query heads do not group over {k.shape[1]} "
                          "KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d}: the kernels take {HEAD_DIMS}")
+    if d not in LANES:
+        raise ValueError(f"head_dim {d}: the kernels take {LANES}; "
+                         "flash_mha, block_sparse_mha and ring_attention "
+                         f"zero-pad any D up to {LANES[-1]} to its lane")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {q.dtype}: the kernels take fp32 and bf16")
     ops = [x for x in (k, v, do) if x is not None]
@@ -324,14 +368,16 @@ def _tma_readable(x: torch.Tensor) -> bool:
 
 
 def fwd_route(q, k, v) -> str:
-    """The ``flash_fwd`` kernel's route, from dtype and strides alone:
-    ``"wgmma"`` (the wgmma/TMA forward) for bf16 views TMA can read;
-    ``"mma"`` (the 64 x 64 tile walk on wmma) for other bf16 views (an
-    expanded K/V with a zero stride); ``"fma"`` for fp32 (the card-vs-CPU
-    reference).  The operands are views the kernels take
-    (:func:`_check_cuda`)."""
+    """The ``flash_fwd`` kernel's route, from dtype, head_dim and strides
+    alone: ``"wgmma"`` (the wgmma/TMA forward) for bf16 views TMA can read
+    at D 64 or 128; ``"mma"`` (the 64 x 64 tile walk on wmma) for other
+    bf16 views (an expanded K/V with a zero stride) and for D 256; ``"fma"``
+    for fp32 (the card-vs-CPU reference).  The operands are views the
+    kernels take (:func:`_check_cuda`)."""
     if q.dtype == torch.float32:
         return "fma"
+    if q.shape[-1] not in WGMMA_LANES:
+        return "mma"
     return "wgmma" if all(_tma_readable(x) for x in (q, k, v)) else "mma"
 
 
@@ -504,13 +550,21 @@ def flash_mha(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
     """Flash attention over ``q [B, Hq, S, D]``, ``k/v [B, Hkv, S, D]``
     (GQA folded in the kernels, KV never repeated); ``window``: sliding
     window (key visible iff ``qpos - kpos < window``).  Returns
-    ``o [B, Hq, S, D]``, differentiable in q, k and v.  Kernel launches
-    are counted in ``flash_mha.launches`` by kernel name."""
+    ``o [B, Hq, S, D]``, differentiable in q, k and v.  On CUDA tensors a
+    D off the kernels' lanes is zero-padded to its lane
+    (:func:`head_dim_padded`).  Kernel launches are counted in
+    ``flash_mha.launches`` by kernel name."""
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive (got {window}); pass "
                          "None to disable sliding-window masking")
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
-    return _FlashAttention.apply(q, k, v, causal, scale, window)
+
+    def attn(q_, k_, v_):
+        return _FlashAttention.apply(q_, k_, v_, causal, scale, window)
+
+    if q.device.type == "cuda":
+        return head_dim_padded(attn, q, k, v)
+    return attn(q, k, v)
 
 
 flash_mha.launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}

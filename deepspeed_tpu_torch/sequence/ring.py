@@ -29,6 +29,11 @@ the transfer is done, so issuing it before the hop's attend would overlap
 nothing, and every hop runs attend-then-rotate.  The quantized wire
 (``wire_dtype`` "int8"/"fp8", ``comm/quantized.py``) is not ported
 (ROADMAP Queue A item 8).
+
+Head dims off the kernels' lanes (``flash_mha.head_dim_lane``) are
+zero-padded once, before the hop loop, on CUDA tensors: K/V rotate padded,
+so the wire carries lane / D times the bytes (D 80 and 96 pad to 128, 1.6x
+and 1.33x; D 32 pads to 64, 2x), and ``sm_scale`` comes from the real D.
 """
 
 from __future__ import annotations
@@ -265,7 +270,13 @@ def ring_attention(q, k, v, topo=None, causal: bool = True,
                                window=window)
     spec = _RingSpec(sp=sp, idx=topo.sp_rank, scale=float(scale),
                      causal=causal, window=window, placement=placement)
-    return _RingAttention.apply(q, k, v, spec, topo.seq_group)
+
+    def attn(q_, k_, v_):
+        return _RingAttention.apply(q_, k_, v_, spec, topo.seq_group)
+
+    if q.device.type == "cuda":
+        return fm.head_dim_padded(attn, q, k, v)
+    return attn(q, k, v)
 
 
 def shard_positions(s_l: int, topo, placement: str, device=None):

@@ -2,8 +2,13 @@
 plain PyTorch versions on the card: ``bsa_fwd``, ``bsa_bwd_dq`` and
 ``bsa_bwd_dkv`` (``ops/csrc/block_sparse_attention.cu``) over every
 sparsity mode, per-head layouts, GQA, head_dim 64 and 128, causal and not,
-layout blocks from 16 to 256 tokens and sequence tails, in bf16 and fp32;
-and ``fused_lion`` (``ops/csrc/fused_lion.cu``) bit for bit.
+layout blocks from 16 to 256 tokens and sequence tails, in bf16 (the
+backward pair on its ``wgmma`` route, the forward on ``mma``) and fp32
+(``fma``); the wgmma walks' store mode on outputs full of NaN under a
+layout with dead items and a row that sees no key; the head_dim lanes (D
+32, 80, 96 zero-padded, D 256 on the 64 x 64 walk) against the plain
+versions at the real D; and ``fused_lion`` (``ops/csrc/fused_lion.cu``)
+bit for bit.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import block_sparse_mha as bsm
+from deepspeed_tpu_torch.ops import flash_mha as fm
 from deepspeed_tpu_torch.ops import fused_optimizer as fo
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 
@@ -52,6 +58,11 @@ IDS = ["bslongformer", "fixed-gqa-bidir", "bigbird-per-head-gqa-d128",
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
+def _route_delta(before):
+    return {r: n - before[r] for r, n in bsm.block_sparse_mha.routes.items()
+            if n != before[r]}
+
+
 def _close(got, ref, rtol):
     diff = (got.float() - ref.float()).abs()
     return bool((diff <= rtol * (1 + ref.float().abs())).all()), float(diff.max())
@@ -80,6 +91,7 @@ def test_cuda_block_sparse_kernels_match_plain_version(case, dtype,
     q, k, v, do = _inputs(case, dtype, cuda_device)
     scale = d ** -0.5
     before = dict(bsm.block_sparse_mha.launches)
+    routes = dict(bsm.block_sparse_mha.routes)
     o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     dq = bsm.bsa_bwd_dq(q, k, v, do.contiguous(), lse, delta, plan, scale)
@@ -88,6 +100,10 @@ def test_cuda_block_sparse_kernels_match_plain_version(case, dtype,
     torch.cuda.synchronize()
     assert {n: bsm.block_sparse_mha.launches[n] - before[n] for n in before} \
         == {"bsa_fwd": 1, "bsa_bwd_dq": 1, "bsa_bwd_dkv": 1}
+    fwd, bwd = ("mma", "wgmma") if dtype == torch.bfloat16 else ("fma", "fma")
+    assert _route_delta(routes) == {f"bsa_fwd.{fwd}": 1,
+                                    f"bsa_bwd_dq.{bwd}": 1,
+                                    f"bsa_bwd_dkv.{bwd}": 1}
     o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, scale)
     dq_r = bsm.bsa_bwd_dq_ref(q, k, v, do, lse, delta, plan, scale)
     dk_r, dv_r = bsm.bsa_bwd_dkv_ref(q, k, v, do, lse, delta, plan, scale)
@@ -138,6 +154,122 @@ def test_cuda_empty_rows_and_autograd_through_sparse_attention(cuda_device):
     for got, ref in ((out_k, out_r), (g_k, g_r)):
         ok, err = _close(got, ref, RTOL[torch.bfloat16])
         assert ok, err
+
+
+@pytest.mark.cuda
+def test_cuda_block_sparse_wgmma_store_mode_writes_every_row(cuda_device,
+                                                             monkeypatch):
+    """The wgmma backward's store mode under a hand-built causal layout
+    (block 32, S 384, GQA): keys 128-255 dead in every head (a whole dk/dv
+    item with no live tile), query block 2 sees no key (a dead row inside a
+    live dq item), and head 1's rows 256-383 see nothing (a dead dq item).
+    Outputs allocated full of NaN come back finite, zero on the dead rows
+    and keys, and equal to the plain versions."""
+    b, hq, hkv, s, d, block = 1, 4, 2, 384, 64, 32
+    nb = s // block
+    layout = np.tril(np.ones((hq, nb, nb), np.int64))
+    layout[:, :, 4:8] = 0
+    layout[:, 2, :] = 0
+    layout[1, 8:12, :] = 0
+    plan = bsm.SparseLayout(layout, block, True, cuda_device)
+    case = (b, hq, hkv, s, d)
+    q, k, v, do = _inputs(case, torch.bfloat16, cuda_device, seed=2)
+    do = do.contiguous()
+    scale = d ** -0.5
+    o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
+    delta = fm.attn_delta(o, do).contiguous()
+    empty = fm._empty_bshd
+    monkeypatch.setattr(fm, "_empty_bshd",
+                        lambda x, heads: empty(x, heads).fill_(float("nan")))
+    assert bsm.bwd_route(q, k, v, do, plan) == "wgmma"
+    got = (bsm.bsa_bwd_dq(q, k, v, do, lse, delta, plan, scale),
+           *bsm.bsa_bwd_dkv(q, k, v, do, lse, delta, plan, scale))
+    torch.cuda.synchronize()
+    ref = (bsm.bsa_bwd_dq_ref(q, k, v, do, lse, delta, plan, scale),
+           *bsm.bsa_bwd_dkv_ref(q, k, v, do, lse, delta, plan, scale))
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert bool(torch.isfinite(g).all()), name
+        ok, err = _close(g, r, RTOL[g.dtype])
+        assert ok, f"{name}: max abs err {err}"
+    dq, dk, dv = got
+    assert bool((dq[:, :, 2 * block:3 * block] == 0).all())
+    assert bool((dq[:, 1, 8 * block:] == 0).all())
+    assert bool((dk[:, :, 4 * block:8 * block] == 0).all())
+    assert bool((dv[:, :, 4 * block:8 * block] == 0).all())
+
+
+# b, hq, hkv, s, d, causal, config class, kwargs: the head-dim lanes
+D_CASES = [
+    (1, 4, 4, 256, 32, True, "BSLongformerSparsityConfig",
+     dict(block=16, attention="unidirectional")),
+    (1, 4, 2, 256, 80, False, "FixedSparsityConfig",
+     dict(block=16, num_local_blocks=4, num_global_blocks=1)),
+    (1, 4, 4, 384, 96, True, "BigBirdSparsityConfig",
+     dict(block=32, num_random_blocks=1, different_layout_per_head=True,
+          seed=5)),
+    (1, 4, 2, 256, 256, True, "BSLongformerSparsityConfig",
+     dict(block=16, attention="unidirectional")),
+]
+D_IDS = ["d32", "d80-gqa-bidir", "d96-per-head", "d256-gqa"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D_CASES, ids=D_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_cuda_block_sparse_head_dim_lanes_match_plain_version(case, dtype,
+                                                              cuda_device):
+    """Each kernel on q, k, v, do zero-padded to the head_dim's lane,
+    sliced back, against the plain versions at the real D, on the lane's
+    routes (bf16: the backward on wgmma at lanes 64/128, mma at 256; fp32:
+    fma); and block_sparse_mha's autograd, which pads itself, against the
+    same function on the plain versions."""
+    b, hq, hkv, s, d, causal, name, kw = case
+    lane = fm.head_dim_lane(d)
+    layout = getattr(sa, name)(num_heads=hq, **kw).make_layout(s)
+    plan = bsm.SparseLayout(layout, kw["block"], causal, cuda_device)
+    q, k, v, do = _inputs(case, dtype, cuda_device, seed=7)
+    scale = d ** -0.5
+    pad = lambda x: torch.nn.functional.pad(x, (0, lane - d))  # noqa: E731
+    qp, kp, vp, dop = (pad(x) for x in (q, k, v, do))
+    routes = dict(bsm.block_sparse_mha.routes)
+    o, lse = bsm.bsa_fwd(qp, kp, vp, plan, scale)
+    delta = fm.attn_delta(o, dop).contiguous()
+    dq = bsm.bsa_bwd_dq(qp, kp, vp, dop, lse, delta, plan, scale)
+    dk, dv = bsm.bsa_bwd_dkv(qp, kp, vp, dop, lse, delta, plan, scale)
+    torch.cuda.synchronize()
+    fwd = "fma" if dtype == torch.float32 else "mma"
+    bwd = "fma" if dtype == torch.float32 else "mma" if lane == 256 else "wgmma"
+    assert _route_delta(routes) == {f"bsa_fwd.{fwd}": 1,
+                                    f"bsa_bwd_dq.{bwd}": 1,
+                                    f"bsa_bwd_dkv.{bwd}": 1}
+    o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, scale)
+    dq_r = bsm.bsa_bwd_dq_ref(q, k, v, do, lse, delta, plan, scale)
+    dk_r, dv_r = bsm.bsa_bwd_dkv_ref(q, k, v, do, lse, delta, plan, scale)
+    for what, got, ref in (("o", o[..., :d], o_r), ("lse", lse, lse_r),
+                           ("dq", dq[..., :d], dq_r), ("dk", dk[..., :d], dk_r),
+                           ("dv", dv[..., :d], dv_r)):
+        ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{what}: max abs err {err}"
+
+    def run():
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = bsm.block_sparse_mha(*xs, plan, kw["block"], causal)
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in xs]
+
+    got = run()
+    saved = bsm.bsa_fwd, bsm.bsa_bwd_dq, bsm.bsa_bwd_dkv
+    try:
+        bsm.bsa_fwd, bsm.bsa_bwd_dq, bsm.bsa_bwd_dkv = (
+            bsm.bsa_fwd_ref, bsm.bsa_bwd_dq_ref, bsm.bsa_bwd_dkv_ref)
+        ref = run()
+    finally:
+        bsm.bsa_fwd, bsm.bsa_bwd_dq, bsm.bsa_bwd_dkv = saved
+    for what, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape, what
+        ok, err = _close(g, r, RTOL[dtype])
+        assert ok, f"autograd {what}: max abs err {err}"
 
 
 @pytest.mark.cuda

@@ -4,7 +4,11 @@ configs, the live-tile lists, and the plain versions of ``bsa_fwd``,
 ``bsa_bwd_dq`` and ``bsa_bwd_dkv`` behind the autograd function) against
 the JAX package on the CPU: the configs' numpy layouts, ``_tile_live``,
 and the Pallas ``block_sparse_mha`` run through the Pallas interpreter,
-forward, log-sum-exp and ``jax.vjp`` gradients.
+forward, log-sum-exp and ``jax.vjp`` gradients, at head dims 32 to 256.
+Besides: the wgmma walks' tile lists, layout words and full flags against
+the brute-force token mask (exactly), the backward pair's route rule, and
+the zero-padded head-dim path against the unpadded plain versions (fp32,
+1e-6).
 
 Tolerances, |port - jax| <= tol * (1 + |jax|), fp32: 2e-5 (summation
 order: the port walks 64-key tiles, the JAX kernel 128-key ones).  Layouts
@@ -82,7 +86,7 @@ def test_gpt2_path_layout_skips_tiles():
     causal 64x64 tiles are live, 21 of 36 at the JAX kernel's 128."""
     layout = tsa.BSLongformerSparsityConfig(**LAYOUTS[3][1]).make_layout(1024)
     assert int(tbsm.tile_live(layout, 16, True)[0].sum()) == 45
-    assert int(tbsm.tile_live(layout, 16, True, tile=128)[0].sum()) == 21
+    assert int(tbsm.tile_live(layout, 16, True, tq=128)[0].sum()) == 21
 
 
 @pytest.mark.parametrize("block,tile", [(16, 64), (32, 64), (64, 64),
@@ -99,7 +103,7 @@ def test_tile_lists_match_jax_tile_live(block, tile, causal):
         num_sliding_window_blocks=1, different_layout_per_head=True,
         seed=3).make_layout(s)
     ref = jbsm._tile_live(layout, tile, tile, block, causal)
-    live = tbsm.tile_live(layout, block, causal, tile=tile)
+    live = tbsm.tile_live(layout, block, causal, tq=tile)
     assert live.shape == ref.shape and np.array_equal(live, ref)
 
     plan = tbsm.SparseLayout(layout, block, causal, "cpu")
@@ -132,9 +136,21 @@ CASES = [
     (2, 2, 1, 80, 32, "BSLongformerSparsityConfig", dict(block=16), False),
     (1, 2, 2, 128, 32, "VariableSparsityConfig",
      dict(block=16, local_window_blocks=[1, 3]), True),
+    # head dims off the kernels' 64/128 lanes (the registry's phi-2,
+    # gptneox-20b, gptj-6b and *-tiny)
+    (1, 2, 2, 128, 32, "BSLongformerSparsityConfig",
+     dict(block=32, attention="unidirectional"), True),
+    (1, 2, 1, 256, 80, "BSLongformerSparsityConfig",
+     dict(block=16, attention="unidirectional"), True),
+    (1, 2, 2, 128, 96, "FixedSparsityConfig",
+     dict(block=32, num_local_blocks=2, num_global_blocks=1), False),
+    (1, 2, 1, 128, 256, "BigBirdSparsityConfig",
+     dict(block=64, num_random_blocks=1, num_sliding_window_blocks=1,
+          different_layout_per_head=True, seed=2), True),
 ]
 IDS = ["bslongformer-causal", "fixed-gqa-bidir-b64", "bigbird-gqa-b128",
-       "tail-s80-bidir", "variable-per-head"]
+       "tail-s80-bidir", "variable-per-head", "d32-b32", "d80-gqa",
+       "d96-bidir", "d256-gqa-per-head"]
 
 
 def _inputs(case, seed=0):
@@ -262,3 +278,167 @@ def test_cpu_path_counts_no_launch():
     tbsm.block_sparse_mha(q.requires_grad_(True), k, v, layout, 16,
                           causal=True).sum().backward()
     assert tbsm.block_sparse_mha.launches == before
+
+
+# ----------------------------------------------------------------------
+# the wgmma walks' host structures, the route rule, the padded head dim
+# ----------------------------------------------------------------------
+def _token_mask(layout, block, causal):
+    m = tsa.layout_to_token_mask(layout, block).numpy()
+    return m & np.tril(np.ones(m.shape[1:], bool))[None] if causal else m
+
+
+def _tiles_any(mask, tq, tk):
+    h, s, _ = mask.shape
+    nq, nk = -(-s // tq), -(-s // tk)
+    pad = np.zeros((h, nq * tq, nk * tk), bool)
+    pad[:, :s, :s] = mask
+    return pad.reshape(h, nq, tq, nk, tk).any((2, 4))
+
+
+def _walk_masks(plan, walk, rows_fixed):
+    """Yield (h, fixed rows or keys, walked cols or rows, the mask the
+    kernel applies there) for every entry of a wgmma list, from its layout
+    words and the causal test, as BlockLayoutT::Tile::ok computes it."""
+    ptr, idx, words = (x.numpy() for x in walk)
+    words = words.view(np.uint64)
+    s, item, tile = plan.seq, tbsm.WG_ITEM, tbsm.TILE
+    n_items = -(-s // item)
+    for e_h in range(plan.heads):
+        for i in range(n_items):
+            fixed = i * item + np.arange(item)
+            fixed = fixed[fixed < s]
+            slot = fixed // plan.block - i * item // plan.block
+            for t in range(ptr[e_h * n_items + i], ptr[e_h * n_items + i + 1]):
+                walked = idx[t] * tile + np.arange(tile)
+                shift = (walked - idx[t] * tile).astype(np.uint64)
+                bits = (words[t][slot][:, None] >> shift[None, :]) & np.uint64(1)
+                ok = bits.astype(bool) & (walked < s)[None, :]
+                rows, cols = (fixed[:, None], walked[None, :]) if rows_fixed \
+                    else (walked[None, :], fixed[:, None])
+                if plan.causal:
+                    ok &= cols <= rows
+                yield e_h, fixed, walked[walked < s], ok[:, walked < s]
+
+
+@pytest.mark.parametrize("block", [16, 32, 40, 64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("kind", ["random", "tril"])
+def test_wgmma_tile_lists_words_and_flags_match_the_token_mask(block, causal,
+                                                                kind):
+    """tile_live at the wgmma walks' (128, 64) and (64, 128) tiles keeps
+    every tile in which the token mask keeps a pair (exactly those for a
+    lower-triangular layout or without causal); SparseLayout's lists hold
+    those tiles, each entry's layout words with the causal test give the
+    token mask on the whole tile, and the 64 x 64 full flags are set where
+    the tile keeps every pair."""
+    s, h = 640, 3
+    rng = np.random.default_rng(block + 7 * causal)
+    layout = (rng.random((h, s // block, s // block)) < 0.3).astype(np.int64)
+    if kind == "tril":
+        layout = np.tril(layout)
+    mask = _token_mask(layout, block, causal)
+    plan = tbsm.SparseLayout(layout, block, causal, "cpu")
+    assert plan.wgmma
+    # the kernels index every array flat, in C order
+    assert all(x.is_contiguous() for x in (*plan.dq_walk, *plan.dkv_walk,
+                                           plan.full, plan.layout))
+    for (tq, tk), walk, rows_fixed in (((128, 64), plan.dq_walk, True),
+                                       ((64, 128), plan.dkv_walk, False)):
+        live = tbsm.tile_live(layout, block, causal, tq, tk)
+        brute = _tiles_any(mask, tq, tk)
+        assert live.shape == brute.shape and not np.any(brute & ~live)
+        if kind == "tril" or not causal:
+            assert np.array_equal(live, brute)
+        listed = np.zeros_like(live)
+        for e_h, fixed, walked, ok in _walk_masks(plan, walk, rows_fixed):
+            want = (mask[e_h][np.ix_(fixed, walked)] if rows_fixed
+                    else mask[e_h][np.ix_(walked, fixed)].T)
+            assert np.array_equal(ok, want)
+            tiles = (fixed[0] // tq, walked[0] // tk) if rows_fixed \
+                else (walked[0] // tq, fixed[0] // tk)
+            listed[(e_h, *tiles)] = True
+        assert np.array_equal(listed, live)
+    full = plan.full.numpy().astype(bool)
+    n = -(-s // 64)
+    want = np.zeros((h, n, n), bool)
+    for a in range(n):
+        for b in range(n):
+            r, c = slice(a * 64, (a + 1) * 64), slice(b * 64, (b + 1) * 64)
+            inside = (a + 1) * 64 <= s and (b + 1) * 64 <= s
+            want[:, a, b] = inside & mask[:, r, c].all((1, 2))
+    assert np.array_equal(full, want)
+
+
+def test_gpt2_path_wgmma_walks():
+    """The training path's layout (gpt2-350m, S 1024, block 16): the dq
+    walk visits 30 live 128 x 64 tiles a head (at most 4 an item), the
+    dk/dv walk 36 live 64 x 128 ones (16 for the item holding global key
+    block 0), and no 64 x 64 tile is full."""
+    layout = tsa.BSLongformerSparsityConfig(**LAYOUTS[3][1]).make_layout(1024)
+    plan = tbsm.SparseLayout(layout, 16, True, "cpu")
+    dq_ptr, dkv_ptr = plan.dq_walk[0].numpy(), plan.dkv_walk[0].numpy()
+    assert dq_ptr[8] == 30 and np.diff(dq_ptr[:9]).max() == 4
+    assert dkv_ptr[8] == 36 and np.diff(dkv_ptr[:9])[0] == 16
+    assert not plan.full.any()
+    assert plan.dq_walk[2].shape == (16 * 30, tbsm.WG_SLOTS)
+
+
+def _bf16_views(d=64, block=16):
+    b, h, s = 1, 2, 128
+    layout = np.tril(np.ones((h, s // block, s // block), np.int64))
+    plan = tbsm.SparseLayout(layout, block, True, "cpu")
+    q, k, v = (torch.zeros((b, h, s, d), dtype=torch.bfloat16)
+               for _ in range(3))
+    return q, k, v, plan
+
+
+def test_bsa_backward_route_rule():
+    """The backward pair's route, before the launch: fp32 takes fma; bf16
+    views TMA reads take wgmma; an expanded do (autograd's gradient of
+    out.sum()) takes mma as it comes and wgmma once readable_do has made it
+    contiguous, as the autograd function does; D 256 and layout blocks
+    under 16 take mma; the forward has no wgmma route."""
+    q, k, v, plan = _bf16_views()
+    do = torch.ones((), dtype=torch.bfloat16).expand(q.shape)
+    assert tbsm.bwd_route(q, k, v, do, plan) == "mma"
+    assert tbsm.bwd_route(q, k, v, tbsm.fm.readable_do(do), plan) == "wgmma"
+    assert tbsm.bwd_route(q.float(), k.float(), v.float(),
+                          tbsm.fm.readable_do(do.float()), plan) == "fma"
+    q8, k8, v8, plan8 = _bf16_views(block=8)
+    assert not plan8.wgmma and plan8.dq_walk is None
+    assert tbsm.bwd_route(q8, k8, v8, q8, plan8) == "mma"
+    q2, k2, v2, plan2 = _bf16_views(d=256)
+    assert tbsm.bwd_route(q2, k2, v2, q2, plan2) == "mma"
+    assert set(tbsm.block_sparse_mha.routes) == {
+        "bsa_fwd.fma", "bsa_fwd.mma"} | {
+        f"{n}.{r}" for n in ("bsa_bwd_dq", "bsa_bwd_dkv")
+        for r in ("fma", "mma", "wgmma")}
+
+
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200])
+def test_padded_head_dim_equals_the_unpadded_plain_versions(d):
+    """block_sparse_mha through head_dim_padded (the path a CUDA call
+    takes: D zero-padded to its lane, sm_scale from the real D, the output
+    sliced back) equals the unpadded plain versions in fp32, forward and
+    gradients, within 1e-6; the padded columns' gradients are dropped."""
+    b, hq, hkv, s = 1, 2, 1, 128
+    layout = tsa.BSLongformerSparsityConfig(
+        num_heads=hq, block=16, attention="unidirectional").make_layout(s)
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs((b, hq, hkv, s, d), 11))
+
+    def run(padded):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def attn(q_, k_, v_):
+            return tbsm.block_sparse_mha(q_, k_, v_, layout, 16, causal=True,
+                                         sm_scale=d ** -0.5)
+
+        out = tbsm.fm.head_dim_padded(attn, *xs) if padded else attn(*xs)
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in xs]
+
+    for what, got, want in zip(("o", "dq", "dk", "dv"), run(True), run(False)):
+        assert got.shape == want.shape
+        err = (got - want).abs()
+        assert bool((err <= 1e-6 * (1 + want.abs())).all()), (what, float(err.max()))

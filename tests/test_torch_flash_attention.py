@@ -36,8 +36,15 @@ CASES = [
     (1, 2, 1, 130, 128, True, None),     # MQA, d=128, tail
     (1, 2, 2, 320, 64, True, 96),        # sliding window
     (2, 2, 2, 100, 64, False, 40),       # window without causal, tail
+    # head dims off the kernels' 64/128 lanes: the *-tiny configs' 32,
+    # phi-2's 80, gptneox-20b's 96, gptj-6b's 256
+    (1, 2, 2, 192, 32, True, None),
+    (1, 4, 2, 130, 80, True, None),      # GQA, tail
+    (1, 2, 2, 128, 96, False, 48),       # window without causal
+    (1, 2, 1, 128, 256, True, None),     # MQA
 ]
-IDS = ["mha-causal", "gqa-full", "mqa-d128-tail", "window", "window-full-tail"]
+IDS = ["mha-causal", "gqa-full", "mqa-d128-tail", "window", "window-full-tail",
+       "d32", "d80-gqa-tail", "d96-window", "d256-mqa"]
 TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
 
 
@@ -220,3 +227,62 @@ def test_flash_bwd_hands_the_kernels_a_do_they_read_on_wgmma(layout,
         assert tfm.bwd_route(q, k, v, do) == "mma"
     do32 = tfm.readable_do(_do(layout, torch.float32))
     assert tfm.bwd_route(*_qkv("bhsd", torch.float32), do32) == "fma"
+
+
+# head_dim -> (its kernel lane, the bf16 route of contiguous views there)
+HEAD_DIM_RULE = [(16, 64, "wgmma"), (32, 64, "wgmma"), (64, 64, "wgmma"),
+                 (80, 128, "wgmma"), (96, 128, "wgmma"), (128, 128, "wgmma"),
+                 (200, 256, "mma"), (256, 256, "mma")]
+
+
+@pytest.mark.parametrize("d,lane,route", HEAD_DIM_RULE,
+                         ids=[f"d{c[0]}" for c in HEAD_DIM_RULE])
+def test_head_dim_rule(d, lane, route):
+    """One head-dim rule for flash, the ring and block-sparse: D 64 and 128
+    are lanes of every route, 256 of the 64 x 64 walk only (bf16 mma, fp32
+    fma); any other D up to 128 pads to 64 or 128, up to 256 to 256; the
+    wrappers take a lane's D and name the entries that pad any other."""
+    assert tfm.head_dim_lane(d) == lane
+    assert (lane == d) == (d in tfm.LANES)
+    q = torch.zeros((1, 2, 8, lane), dtype=torch.bfloat16)
+    assert tfm.fwd_route(q, q, q) == route
+    assert tfm.bwd_route(q, q, q, q) == route
+    assert tfm.fwd_route(q.float(), q.float(), q.float()) == "fma"
+    padded = tfm.head_dim_padded(lambda *x: x[0], *(q[..., :d],) * 3)
+    assert padded.shape[-1] == d
+
+
+def test_head_dim_above_256_raises():
+    """D 320 has no lane: the entries raise naming the limit, as do the
+    ring's and block-sparse entries through the same rule."""
+    with pytest.raises(ValueError, match="256"):
+        tfm.head_dim_lane(320)
+    q = torch.zeros((1, 2, 8, 320))
+    with pytest.raises(ValueError, match="256"):
+        tfm.head_dim_padded(lambda *x: x[0], q, q, q)
+
+
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200])
+@pytest.mark.parametrize("window", [None, 24], ids=["causal", "window"])
+def test_padded_head_dim_equals_the_unpadded_plain_versions(d, window):
+    """flash_mha through head_dim_padded (the path a CUDA call takes: D
+    zero-padded to its lane, sm_scale from the real D, the output sliced
+    back) equals the unpadded plain versions in fp32, forward and
+    gradients, within 1e-6."""
+    case = (1, 4, 2, 72, d, True, window)
+    _, (tq, tk, tv, tdo) = _inputs(case, "float32", seed=3)
+
+    def run(padded):
+        xs = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+
+        def attn(q_, k_, v_):
+            return tfm.flash_mha(q_, k_, v_, True, d ** -0.5, window)
+
+        out = tfm.head_dim_padded(attn, *xs) if padded else attn(*xs)
+        out.backward(tdo)
+        return [out.detach()] + [x.grad for x in xs]
+
+    for what, got, want in zip(("o", "dq", "dk", "dv"), run(True), run(False)):
+        assert got.shape == want.shape
+        err = (got - want).abs()
+        assert bool((err <= 1e-6 * (1 + want.abs())).all()), (what, float(err.max()))

@@ -2,8 +2,10 @@
 the card: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv``
 (``ops/csrc/flash_attention.cu``) over MHA and GQA, head_dim 64 and 128,
 causal and not, sliding windows and sequence tails, in bf16 (every role on
-its ``wgmma`` route) and fp32 (``fma``); and ``fused_adamw``
-(``ops/csrc/fused_adamw.cu``) bit for bit.
+its ``wgmma`` route) and fp32 (``fma``); the head_dim lanes (D 32, 80 and
+96 zero-padded to 64 or 128, D 256 on the 64 x 64 walk) against the plain
+versions at the real D; and ``fused_adamw`` (``ops/csrc/fused_adamw.cu``)
+bit for bit.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -53,9 +55,10 @@ IDS = ["mha-causal", "mha-full", "gqa-d128", "tail", "window", "window-full-mqa"
 RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 
 
-def _close(got, ref, rtol):
+def _close(got, ref, rtol, atol=0.0):
     diff = (got.float() - ref.float()).abs()
-    return bool((diff <= rtol * (1 + ref.float().abs())).all()), float(diff.max())
+    return (bool((diff <= atol + rtol * (1 + ref.float().abs())).all()),
+            float(diff.max()))
 
 
 def _inputs(case, dtype, dev, seed=0):
@@ -217,6 +220,93 @@ def test_cuda_flash_attention_autograd_in_model_layout(dtype, cuda_device,
     for got, ref in ((out_k, out_r), (g_k, g_r)):
         ok, err = _close(got, ref, RTOL[dtype])
         assert ok, err
+
+
+# b, hq, hkv, s, d, causal, window: head dims off the 64/128 lanes, at the
+# registry's geometries cut to a few heads (phi-2 D 80, gptneox-20b D 96,
+# gptj-6b D 256, the *-tiny configs' D 32)
+D_CASES = [
+    (1, 4, 4, 320, 32, True, None),
+    (1, 4, 2, 200, 80, True, None),
+    (1, 4, 4, 256, 96, False, 100),
+    (1, 4, 2, 192, 256, True, None),
+]
+D_IDS = ["d32", "d80-gqa-tail", "d96-window", "d256-gqa"]
+
+
+def _pad(x, lane):
+    return torch.nn.functional.pad(x, (0, lane - x.shape[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D_CASES, ids=D_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_cuda_flash_head_dim_lanes_match_plain_version(case, dtype,
+                                                       cuda_device):
+    """Each role on q, k, v and do zero-padded to the head_dim's lane,
+    sliced back, against the plain versions at the real D (sm_scale from
+    the real D): the lane's route (bf16: wgmma at lanes 64/128, mma at 256;
+    fp32: fma), and flash_mha's autograd, which pads itself, against the
+    same function on the plain versions.
+
+    bf16 dq and dk go through ds rounded to bf16 on both sides.  Where the
+    two fp32 sums put a ds on either side of a rounding midpoint (more
+    likely at D 256, whose sums are longer), dq (dk) moves by one ulp of
+    ds times a k (q) element: one such flip, ulp(max |ds|) * max |k| (|q|),
+    is allowed beyond 2^-7 (1 + |r|)."""
+    b, hq, hkv, s, d, causal, window = case
+    lane = fm.head_dim_lane(d)
+    q, k, v, do = _inputs(case, dtype, cuda_device, seed=8)
+    scale = 1.0 / np.sqrt(d)
+    qp, kp, vp, dop = (_pad(x, lane) for x in (q, k, v, do))
+    routes = dict(fm.flash_mha.routes)
+    o, lse = fm.flash_fwd(qp, kp, vp, causal, scale, window)
+    dq, dk, dv = fm.flash_bwd(qp, kp, vp, o, lse, dop, causal, scale, window)
+    torch.cuda.synchronize()
+    want = ("fma" if dtype == torch.float32
+            else "mma" if lane == 256 else "wgmma")
+    assert {r: n - routes[r] for r, n in fm.flash_mha.routes.items()
+            if n != routes[r]} == {f"{n}.{want}": 1 for n in fm.flash_mha.launches}
+    o_r, lse_r = fm.flash_fwd_ref(q, k, v, causal, scale, window)
+    # the backward's plain versions on the kernels' own lse and delta
+    delta = fm.attn_delta(o[..., :d], do).contiguous()
+    grads_r = (fm.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale, window),
+               *fm.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale, window))
+    flip = {}
+    if dtype == torch.bfloat16:
+        ds_max = max(float(ds.abs().max()) for *_, ds in fm._bwd_tiles(
+            q, k, v, do, lse, delta, causal, scale, window, None))
+        ulp = 2.0 ** (np.floor(np.log2(ds_max)) - 7)
+        flip = {"dq": ulp * float(k.float().abs().max()),
+                "dk": ulp * float(q.float().abs().max())}
+    for name, got, ref in [("o", o[..., :d], o_r), ("lse", lse, lse_r)] + list(
+            zip(("dq", "dk", "dv"), (x[..., :d] for x in (dq, dk, dv)), grads_r)):
+        ok, err = _close(got, ref, RTOL[got.dtype], flip.get(name, 0.0))
+        assert ok, f"{name}: max abs err {err}"
+    for name, pad in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        assert bool((pad[..., d:] == 0).all()), f"{name}: padded columns not 0"
+
+    def run():
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fm.flash_mha(*xs, causal, None, window)
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in xs]
+
+    if lane != d:      # the wrappers take a lane's D only
+        with pytest.raises(ValueError, match="zero-pad"):
+            fm.flash_fwd(q, k, v, causal, scale, window)
+    got = run()
+    saved = fm.flash_fwd, fm.flash_bwd
+    try:
+        fm.flash_fwd, fm.flash_bwd = fm.flash_fwd_ref, fm.flash_bwd_ref
+        ref = run()
+    finally:
+        fm.flash_fwd, fm.flash_bwd = saved
+    for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape, name
+        ok, err = _close(g, r, RTOL[dtype], flip.get(name, 0.0))
+        assert ok, f"autograd {name}: max abs err {err}"
 
 
 @pytest.mark.cuda

@@ -80,9 +80,15 @@ HOPS = [
     (4, 2, 64, 32, True, 24, "contiguous", 2, 1, 0),      # sliding window
     (4, 1, 64, 32, False, None, "contiguous", 2, 0, 1),   # non-causal, MQA
     (4, 2, 64, 32, True, None, "striped", 4, 2, 1),       # sp 4
+    # head dims off the kernels' 64/128 lanes (phi-2 80, gptneox-20b 96,
+    # gptj-6b 256)
+    (4, 2, 64, 80, True, None, "striped", 2, 1, 0),
+    (4, 4, 80, 96, True, 24, "contiguous", 2, 1, 0),      # window, tail
+    (2, 1, 64, 256, True, None, "contiguous", 2, 1, 0),   # MQA
 ]
 HOP_IDS = ["contig-live-tail", "contig-own", "striped-0from1",
-           "striped-mha-tail", "window", "noncausal-mqa", "striped-sp4"]
+           "striped-mha-tail", "window", "noncausal-mqa", "striped-sp4",
+           "d80-striped", "d96-window-tail", "d256-mqa"]
 
 
 def _offset(block, s_l, sp, placement):
@@ -142,6 +148,47 @@ def test_hop_plain_versions_match_interpreted_pallas(hop, interpret):
                              scale, window)
     for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
         _close(got.numpy(), np.asarray(want)[:, :, :s_l])
+
+
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 200])
+def test_padded_head_dim_hop_equals_the_unpadded_plain_versions(d):
+    """One hop as ring_attention runs it on a CUDA tensor whose head_dim is
+    off the lanes: q, k, v, do and the fp32 state zero-padded to the lane
+    (flash_mha.head_dim_lane), sm_scale from the real D.  The carry and
+    dq, dk/dv into seeded accumulators equal the unpadded plain versions in
+    fp32 within 1e-6, and the padded columns stay 0."""
+    rng = np.random.default_rng(d)
+    b, hq, hkv, s_l, scale = 1, 4, 2, 72, d ** -0.5
+    lane = tfm.head_dim_lane(d)
+    pad = lambda x: torch.nn.functional.pad(x, (0, lane - x.shape[-1]))  # noqa: E731
+    q, do = (torch.tensor(_rand(rng, b, hq, s_l, d)) for _ in range(2))
+    k, v = (torch.tensor(_rand(rng, b, hkv, s_l, d)) for _ in range(2))
+    pos = (1, 2, 0, 2)     # striped, rank 1 <- block 0
+
+    def state(width):
+        return (torch.full((b, hq, s_l), tfm.NEG_INF), torch.zeros((b, hq, s_l)),
+                torch.zeros((b, hq, s_l, width)))
+
+    got, want = state(lane), state(d)
+    tfm.flash_carry_block(*map(pad, (q, k, v)), *got, pos, True, scale)
+    tfm.flash_carry_block(q, k, v, *want, pos, True, scale)
+    lse = (want[0] + torch.log(want[1].clamp(min=1e-20))).contiguous()
+    delta = torch.tensor(_rand(rng, b, hq, s_l, scale=0.1))
+    acc = [torch.tensor(_rand(rng, b, h, s_l, d, scale=0.1))
+           for h in (hq, hkv, hkv)]
+    got_g, want_g = [pad(x) for x in acc], [x.clone() for x in acc]
+    bwd_p = (*map(pad, (q, k, v, do)), lse, delta)
+    tfm.flash_ring_dq_block(*bwd_p, got_g[0], pos, True, scale)
+    tfm.flash_ring_dkv_block(*bwd_p, got_g[1], got_g[2], pos, True, scale)
+    tfm.flash_ring_dq_block(q, k, v, do, lse, delta, want_g[0], pos, True, scale)
+    tfm.flash_ring_dkv_block(q, k, v, do, lse, delta, want_g[1], want_g[2], pos,
+                             True, scale)
+    pairs = [(got[0], want[0]), (got[1], want[1]), (got[2][..., :d], want[2])] \
+        + [(g[..., :d], w) for g, w in zip(got_g, want_g)]
+    for g, w in pairs:
+        _close(g.numpy(), w.numpy(), rtol=1e-6)
+    for x in (got[2], *got_g):
+        assert bool((x[..., d:] == 0).all())
 
 
 def test_cpu_hops_never_launch_a_kernel():

@@ -8,7 +8,9 @@ bf16 and fp32.  Every kernel's route is asserted: bf16 views take the
 wgmma walks (the forward in accumulate mode, the dq and dk/dv backward),
 an expanded K/V or do (stride 0) the 64 x 64 tile walk (mma), fp32 the
 FMA body.  Two hops of the backward on the wgmma route compose as the
-plain version's do.
+plain version's do.  Head dims off the 64/128 lanes (D 32, 80, 96 zero-
+padded to 64 or 128; D 256 on the 64 x 64 walk) hop against the plain
+versions at the real D.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -148,6 +150,69 @@ def test_cuda_ring_kernels_match_plain_version(case, dtype, cuda_device):
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
         ok, err = _close(got, want, RTOL[dtype])
         assert ok, f"{name}: max abs err {err}"
+
+
+# b, hq, hkv, s_l, d, causal, window, pos: the head-dim lanes
+D_CASES = [
+    (1, 4, 4, 192, 32, True, None, (1, 2, 0, 2)),
+    (1, 4, 2, 200, 80, True, None, (200, 1, 0, 1)),
+    (1, 4, 2, 256, 96, True, 100, (1, 2, 0, 2)),
+    (1, 4, 2, 192, 256, True, None, (1, 2, 0, 2)),
+]
+D_IDS = ["d32-striped", "d80-contig-tail", "d96-window", "d256-gqa"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D_CASES, ids=D_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_cuda_ring_head_dim_lanes_match_plain_version(case, dtype,
+                                                      cuda_device):
+    """One hop (carry, dq, dk/dv) on q, k, v, do and the fp32 state
+    zero-padded to the head_dim's lane, as ring_attention pads before its
+    hop loop, against the plain versions at the real D: the padded columns
+    of acc, dq, dk, dv stay 0, and the lane's route is taken (bf16: wgmma
+    at lanes 64/128, mma at 256; fp32: fma)."""
+    b, hq, hkv, s, d, causal, window, pos = case
+    lane = fm.head_dim_lane(d)
+    rng, q, k, v, do = _case(case, dtype, cuda_device, seed=3)
+    scale = d ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    pad = lambda x: torch.nn.functional.pad(x, (0, lane - d))  # noqa: E731
+    qp, kp, vp, dop = (pad(x) for x in (q, k, v, do))
+    state = _fresh_state(b, hq, s, lane, cuda_device)
+    ref = _fresh_state(b, hq, s, d, cuda_device)
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(qp, kp, vp, *state, pos, **kw)
+    fm.ring_carry_ref(q, k, v, *ref, pos, causal, scale, window)
+    torch.cuda.synchronize()
+    _check_carry((state[0], state[1], state[2][..., :d]), ref, RTOL[dtype])
+    m, l, _ = ref
+    lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
+    delta = _rand(rng, cuda_device, torch.float32, b, hq, s, scale=0.1)
+    grads = [_rand(rng, cuda_device, torch.float32, b, h, s, d, scale=0.1)
+             for h in (hq, hkv, hkv)]
+    got = [pad(g) for g in grads]
+    fm.flash_ring_dq_block(qp, kp, vp, dop, lse, delta, got[0], pos, **kw)
+    fm.flash_ring_dkv_block(qp, kp, vp, dop, lse, delta, got[1], got[2], pos,
+                            **kw)
+    fm.ring_bwd_dq_ref(q, k, v, do, lse, delta, grads[0], pos, causal, scale,
+                       window)
+    fm.ring_bwd_dkv_ref(q, k, v, do, lse, delta, grads[1], grads[2], pos,
+                        causal, scale, window)
+    torch.cuda.synchronize()
+    want = ("fma" if dtype == torch.float32
+            else "mma" if lane == 256 else "wgmma")
+    assert _route_delta(routes) == {f"{n}.{want}": 1 for n in fm.ring_launches}
+    for name, g, r in zip(("dq", "dk", "dv"), got, grads):
+        ok, err = _close(g[..., :d], r, RTOL[dtype])
+        assert ok, f"{name}: max abs err {err}"
+    for name, x in (("acc", state[2]), ("dq", got[0]), ("dk", got[1]),
+                    ("dv", got[2])):
+        assert bool((x[..., d:] == 0).all()), f"{name}: padded columns not 0"
+    if lane != d:
+        with pytest.raises(ValueError, match="zero-pad"):
+            fm.flash_carry_block(q, k, v, *ref, pos, **kw)
 
 
 @pytest.mark.cuda
