@@ -7,15 +7,19 @@ Phases, each printing JSON lines:
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
   2. build   — every CUDA kernel built from the sources in this checkout;
   3. kernels — each kernel against its plain PyTorch version on the card
-               at the serving path's shapes (llama3-8b attention geometry),
-               with its time, the plain version's time and its bound;
+               at the serving path's shapes (llama3-8b attention geometry:
+               decode, prefill, window, garbage, and a long-context decode
+               of 8 tokens at 2048 over pages of their own), each row naming
+               its route and split count, with its device time (a CUDA
+               graph), the plain version's time and its bound;
   4. reference — llama3-8b at full width, cut to two layers, in fp32: the
                engine's logits on the card against the same engine on the
                CPU (plain attention), step by step, with the host's CPU;
   5. engine  — InferenceEngineV2 for llama3-8b at full width and depth in
                bf16 (random weights from a seed) generates through the
                kernels, with a bf16 and an int8 KV cache; the launch counts
-               of that run show the path went through the kernels; then a
+               of that run show the path went through the kernels (every
+               launch on the mma route); then a
                profiled generate and the kernel path's logits against the
                gather path's;
   6. server  — InferenceServer answers 8 requests from 4 threads;
@@ -51,8 +55,8 @@ Phases, each printing JSON lines:
  13. train-sparse — phase 9's step with block-sparse attention and Lion
                (lr 3e-5, betas 0.9/0.99, weight decay 0.1): a warm-up
                step, three timed steps whose launch counts show the
-               block-sparse and Lion kernels and no flash kernel, and a
-               profiled step;
+               block-sparse and Lion kernels (all three on their wgmma
+               routes) and no flash kernel, and a profiled step;
  14. linear-kernels — quantize, dequantize and fake_quantize bit for bit
                against their plain versions (llama3-8b projection weights,
                bf16 int8/int4 at group 512, fp32 at group 128, a row tail,
@@ -188,7 +192,7 @@ SPARSE_TRAIN_CFG = {**TRAIN_CFG, "optimizer": {
                                "weight_decay": 0.1}}}
 # kernel name -> the parts of its name in a profiler trace: the attention
 # roles are one template each, told apart by their mask policy; the three
-# flash kernels, the three ring kernels, the block-sparse backward pair,
+# flash kernels, the three ring kernels, the three block-sparse kernels,
 # fp6_matmul and gather_matmul on the main path are their wgmma kernels
 # (flash, ring and block-sparse one template a role, three mask policies)
 PROFILE_NAMES = {
@@ -198,7 +202,7 @@ PROFILE_NAMES = {
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "CausalWindow"),
-    "bsa_fwd": ("attn_fwd_kernel", "BlockLayout"),
+    "bsa_fwd": ("attn_fwd_wgmma_kernel", "BlockLayoutT"),
     "bsa_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "BlockLayout"),
     "bsa_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "BlockLayout"),
     "fused_adamw": ("fused_adamw_kernel",),
@@ -331,7 +335,9 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def stream_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time of one call of ``fn`` on the stream, between CUDA events: the
+    caller's host work included wherever it is longer than the kernels."""
     import torch
 
     for _ in range(warmup):
@@ -344,6 +350,72 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# calls a CUDA graph could not capture, timed on the stream instead (the
+# caller's line and the error), emitted before the kernels line
+STREAM_TIMED = []
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, stream=None) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph (on ``stream`` if given), the graph replayed between CUDA events,
+    ``iters // 4`` times (at least once).  Every kernel row, plain version
+    and library call is timed so, so that no time carries the wrapper's
+    host work.  A call the graph cannot capture (a host sync, a copy from
+    pageable memory) is timed on the stream and listed in STREAM_TIMED."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        caller = sys._getframe(1)
+        STREAM_TIMED.append(f"{caller.f_code.co_name}:{caller.f_lineno}: "
+                            f"{str(e).splitlines()[0][:160]}")
+        del graph
+        return stream_time_ms(fn, iters, 0)
+    reps = max(1, iters // 4)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
+
+
+def kernel_ms(fn, iters: int = 20) -> dict:
+    """A kernel row's times: ``ms`` its device time (:func:`cuda_time_ms`),
+    ``stream_ms`` the same calls on the stream, host work included."""
+    return {"ms": cuda_time_ms(fn, iters), "stream_ms": stream_time_ms(fn, iters)}
+
+
+def grad_time_ms(forward, inputs, grad):
+    """Device time of ``torch.autograd.grad(out, inputs, grad)`` for the
+    ``out`` that ``forward()`` gives: the forward runs on a side stream,
+    which the graph then captures, since autograd runs each backward op on
+    its forward's stream."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+    torch.cuda.current_stream().wait_stream(side)
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        out, inputs, grad, retain_graph=True), stream=side)
 
 
 # ----------------------------------------------------------------------
@@ -361,10 +433,13 @@ def quantize_rows(x):
 
 def make_case(gen, t, nkv, nh, d, bs, num_blocks, nb, kind):
     """Inputs at the serving path's shapes.  ``kind``: decode (ragged
-    contexts up to nb*bs, one token each), prefill (a 256-token chunk at
-    the end of one 2048-token prompt), window (decode under a sliding
-    window), garbage (tables past the context and padding tokens point at
-    page 0, which holds huge values that must never leak)."""
+    contexts up to nb*bs, one token each), long (decode with every token at
+    context nb*bs, each over pages of its own: t*nb distinct pages, so
+    that the unique-page bound is the per-token bytes), prefill (a
+    256-token chunk at the end of one 2048-token prompt), window (decode
+    under a sliding window), garbage (tables past the context and padding
+    tokens point at page 0, which holds huge values that must never
+    leak)."""
     import torch
 
     dev = "cuda"
@@ -379,6 +454,11 @@ def make_case(gen, t, nkv, nh, d, bs, num_blocks, nb, kind):
         pos = torch.arange(ctx - t, ctx, device=dev, dtype=torch.int32)
         clen = torch.full((t,), ctx, device=dev, dtype=torch.int32)
         pages = pages[:1].expand(t, nb).contiguous()
+    elif kind == "long":
+        pages = torch.randperm(num_blocks, generator=gen, device=dev)[:t * nb] \
+            .reshape(t, nb).to(torch.int32)
+        clen = torch.full((t,), nb * bs, device=dev, dtype=torch.int32)
+        pos = clen - 1
     else:
         clen = torch.randint(1, nb * bs + 1, (t,), generator=gen, device=dev,
                              dtype=torch.int32)
@@ -427,9 +507,10 @@ def phase_kernels(pa, mc, bs, num_blocks):
     nh, nkv, d = mc.num_heads, mc.kv_heads, mc.dim_per_head
     nb = ENGINE_CFG["max_context"] // bs
     scale = 1.0 / d ** 0.5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     summary = {}
     for kind, t in (("decode", 32), ("prefill", 256), ("window", 32),
-                    ("garbage", 32)):
+                    ("garbage", 32), ("long", 8)):
         q, kp, vp, pages, pos, clen, window = make_case(
             gen, t, nkv, nh, d, bs, num_blocks, nb, kind)
         kq, ks = quantize_rows(kp)
@@ -440,7 +521,12 @@ def phase_kernels(pa, mc, bs, num_blocks):
                  {"k_scales": ks, "v_scales": vs})):
             call = (lambda fn, a=args, k=kw: fn(
                 *a, pages, pos, clen, bs, scale, window, **k))
+            path = pa.route(q, args[1], bs, nb)
+            before = dict(pa.paged_decode_attention.routes)
             out = call(pa.paged_decode_attention)
+            if pa.paged_decode_attention.routes[f"{name}.{path}"] \
+                    != before[f"{name}.{path}"] + 1:
+                fail(f"{name} ({kind}) did not launch on its {path} route")
             torch.cuda.synchronize()
             ref = call(pa.paged_decode_attention_ref)
             diff = (out.float() - ref.float()).abs()
@@ -449,16 +535,19 @@ def phase_kernels(pa, mc, bs, num_blocks):
             finite = bool(torch.isfinite(out.float()).all())
             row = {"phase": "kernel", "kernel": name, "case": kind, "T": t,
                    "nh": nh, "nkv": nkv, "d": d, "bs": bs, "NB": nb,
-                   "window": window, "max_abs_err": err,
+                   "window": window, "route": path,
+                   "splits": pa.split_plan(t, nkv, nb, sms,
+                                           f"{name}.{path}"),
+                   "max_abs_err": err,
                    "tolerance": "|k-r| <= 2^-7 * (1 + |r|)", "ok": ok,
                    "finite": finite}
-            if kind in ("decode", "prefill"):
+            if kind in ("decode", "prefill", "long"):
                 bound, by, nbytes = kernel_bound(
                     pages, pos, clen, nkv, nh, d, bs, window,
                     args[1].element_size(), "k_scales" in kw,
                     q.numel() * q.element_size())
                 row.update(
-                    ms=cuda_time_ms(lambda: call(pa.paged_decode_attention)),
+                    **kernel_ms(lambda: call(pa.paged_decode_attention)),
                     plain_ms=cuda_time_ms(
                         lambda: call(pa.paged_decode_attention_ref), iters=3,
                         warmup=1),
@@ -571,23 +660,33 @@ def phase_engine(pa, tf_model, v2, prompts):
                 **ENGINE_CFG["memory_config"], "kv_dtype": "int8"}}
             # shares eng's device weights (already bf16: no copy)
             engine = v2.InferenceEngineV2(model, cfg, model_params=eng.params)
-        for k in counts:
-            counts[k] = 0
+        zero_counts(counts, pa.paged_decode_attention.routes,
+                    pa.paged_decode_attention.merges)
         t0 = time.perf_counter()
         out = engine.generate(prompts, max_new_tokens=new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[kv] = dict(counts)
+        # the merge kernel's launches (calls of more than one split)
+        launches[kv + "_merges"] = dict(pa.paged_decode_attention.merges)
+        routes = {r: n for r, n in pa.paged_decode_attention.routes.items() if n}
         outs[kv] = out
         ok = (all(len(o) == new for o in out)
               and all(0 <= x < model.vocab_size for o in out for x in o))
         emit({"phase": "engine", "model": MODEL, "layers": model.num_layers,
               "kv_dtype": kv, "prompts": len(prompts),
               "prompt_tokens": sum(map(len, prompts)), "new_tokens": new,
-              "wall_s": wall, "launches": launches[kv], "ok": ok,
-              "init_s": init_s if kv == "bf16" else None})
+              "wall_s": wall, "launches": launches[kv], "routes": routes,
+              "merge_launches": launches[kv + "_merges"],
+              "ok": ok, "init_s": init_s if kv == "bf16" else None})
         if not ok:
             fail(f"{kv} engine produced malformed tokens")
+        # bf16 and int8 pages of 16 rows at llama3-8b's geometry: every
+        # launch on mma
+        name = "paged_attention" if kv == "bf16" else "paged_attention_int8"
+        want = {f"{name}.mma": launches[kv][name]}
+        if routes != want:
+            fail(f"{kv} engine launched on {routes}, expected {want}")
         if engine is not eng:
             del engine
     if launches["bf16"]["paged_attention"] == 0:
@@ -898,7 +997,7 @@ def attn_case(row, roles, inputs, bounds, library, timed, routes=None,
                  dqn: (lambda: dq_k(*bwd_k), lambda: dq_p(*bwd)),
                  dkvn: (lambda: dkv_k(*bwd_k), lambda: dkv_p(*bwd))}
         for kname, (kern, plain) in calls.items():
-            rows[kname]["ms"] = cuda_time_ms(kern)
+            rows[kname].update(kernel_ms(kern))
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
         # one PyTorch call for the same function, timed as a yardstick only
         kw, note = library
@@ -907,9 +1006,7 @@ def attn_case(row, roles, inputs, bounds, library, timed, routes=None,
             *lib, enable_gqa=q.shape[1] != k.shape[1], **kw))
         with torch.no_grad():
             rows[fwd]["library_ms"] = cuda_time_ms(sdpa)
-        out = sdpa()
-        pair_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            out, lib, do, retain_graph=True))
+        pair_ms = grad_time_ms(sdpa, lib, do)
         rows[fwd]["library_note"] = note
         for kname in (dqn, dkvn):
             rows[kname]["library_ms"] = pair_ms
@@ -979,25 +1076,39 @@ SPARSE_CASES = [
 ]
 
 
+def strided_tail(lengths, sms):
+    """The forward's persistent schedule: block x of min(n, sms) takes
+    items x, x + blocks, ... (no snake): (largest, mean) tiles a block."""
+    blocks = min(len(lengths), sms)
+    loads = [sum(lengths[x::blocks]) for x in range(blocks)]
+    return max(loads), sum(loads) / blocks
+
+
 def sparse_schedule(plan, b, hkv, sms):
-    """The wgmma backward walks' schedule tails for a layout: dq items are
-    (128-row query tile, head, batch) in attention_wgmma.cuh's Item order
-    (longest causal walks first) walking their live 64-key tiles; dk/dv
-    items (128-key tile, KV head, batch) in KvItem order walking their
-    group's live 64-row query tiles."""
+    """The wgmma walks' schedule tails for a layout: forward and dq items
+    are (128-row query tile, head, batch) in attention_wgmma.cuh's Item
+    order (longest causal walks first) walking their live 128-key
+    (forward) or 64-key (dq) tiles; dk/dv items (128-key tile, KV head,
+    batch) in KvItem order walking their group's live 64-row query tiles."""
     import numpy as np
 
     hq = plan.heads
-    dq = np.diff(plan.dq_walk[0].cpu().numpy()).reshape(hq, -1)   # [h, iq]
+
+    def q_items(walk):     # [h, iq] lengths in Item order
+        n = np.diff(walk[0].cpu().numpy()).reshape(hq, -1)
+        return [int(n[h, iq]) for iq in reversed(range(n.shape[1]))
+                for _b in range(b) for h in range(hq)]
+
     dkv = np.diff(plan.dkv_walk[0].cpu().numpy()).reshape(hq, -1)  # [h, ik]
     dkv = dkv.reshape(hkv, hq // hkv, -1).sum(1)                   # [hk, ik]
-    dq_items = [int(dq[h, iq]) for iq in reversed(range(dq.shape[1]))
-                for _b in range(b) for h in range(hq)]
     dkv_items = [int(dkv[h, ik]) for ik in range(dkv.shape[1])
                  for _b in range(b) for h in range(hkv)]
     out = {}
-    for name, items in (("bsa_bwd_dq", dq_items), ("bsa_bwd_dkv", dkv_items)):
-        worst, mean = snake_tail(items, sms)
+    for name, items in (("bsa_fwd", q_items(plan.fwd_walk)),
+                        ("bsa_bwd_dq", q_items(plan.dq_walk)),
+                        ("bsa_bwd_dkv", dkv_items)):
+        worst, mean = (strided_tail if name == "bsa_fwd" else snake_tail)(
+            items, sms)
         out[name] = {"items": len(items), "blocks": min(len(items), sms),
                      "live_tiles": sum(items), "max_block_tiles": worst,
                      "mean_block_tiles": mean,
@@ -1010,10 +1121,12 @@ def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
     bound from the pairs the layout (and causal) keeps, and SDPA under the
     expanded boolean mask as the library time; each row names its route
     (and lane), timed bf16 rows the wgmma walks' schedule, the dense
-    causal flash backward on the same inputs (the pair the sparse one
-    should beat: it computes a fraction of the same tiles) and the same
-    walks with every tile's full flag set (the maskless body everywhere:
-    wrong numbers, timed only, to show what the mask test costs)."""
+    causal flash kernels on the same inputs (what the sparse ones should
+    beat: they compute a fraction of the same tiles), the same walks with
+    every tile's full flag set (the maskless body everywhere: wrong
+    numbers, timed only, to show what the mask test costs) and, for the
+    forward, its parent route (the 64 x 64 walk, ``mma``) on the same
+    inputs."""
     import copy
 
     import torch
@@ -1035,7 +1148,7 @@ def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
     pairs = int(mask.sum()) / hq     # mean over the heads
     n = plan.live.shape[1]
     bwd = bsm.bwd_route(*padded, plan)
-    routes = {"bsa_fwd": "fma" if dt == "float32" else "mma",
+    routes = {"bsa_fwd": bsm.fwd_route(*padded[:3], plan),
               "bsa_bwd_dq": bwd, "bsa_bwd_dkv": bwd}
     row = {"phase": phase, "case": name, "B": b, "Hq": hq,
            "Hkv": hkv, "S": s, "D": d, "dtype": dt, "causal": causal,
@@ -1045,6 +1158,7 @@ def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
            "visited_tiles_dense": hq * (n * (n + 1) // 2 if causal else n * n)}
     if plan.wgmma:
         row["live_tiles_wgmma"] = {
+            "fwd_128x128": int(plan.fwd_walk[1].numel()),
             "dq_128x64": int(plan.dq_walk[1].numel()),
             "dkv_64x128": int(plan.dkv_walk[1].numel()),
             "full_64x64": int(plan.full.sum())}
@@ -1062,10 +1176,13 @@ def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
         fail(f"{phase} ({name}): launches on {sorted(taken)}, expected "
              f"{routes}")
     if timed and dt == "bfloat16" and lane == d:
-        # the dense causal flash backward on the same inputs, same call
+        # the dense causal flash kernels on the same inputs, same call
         q, k, v, do = inputs
         o, lse = fm.flash_fwd(q, k, v, True, scale)
         delta = fm.attn_delta(o, do).contiguous()
+        dense_fwd = {"flash_fwd": cuda_time_ms(lambda: fm.flash_fwd(
+                         q, k, v, True, scale)),
+                     "route": fm.fwd_route(q, k, v)}
         dense = {"flash_bwd_dq": cuda_time_ms(lambda: fm.flash_bwd_dq(
                      q, k, v, do, lse, delta, True, scale)),
                  "flash_bwd_dkv": cuda_time_ms(lambda: fm.flash_bwd_dkv(
@@ -1073,24 +1190,35 @@ def sparse_case(bsm, fm, sa, case, phase="sparse-kernel"):
                  "route": fm.bwd_route(q, k, v, do)}
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         sched = sparse_schedule(plan, b, hkv, sms) if bwd == "wgmma" else {}
-        maskless = {}
+        maskless, parent = {}, None
         if bwd == "wgmma":
             bare = copy.copy(plan)
             bare.full = torch.ones_like(plan.full)
             o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
             args = (q, k, v, do, lse, fm.attn_delta(o, do).contiguous())
             maskless = {
+                "bsa_fwd": cuda_time_ms(lambda: bsm.bsa_fwd(q, k, v, bare, scale)),
                 "bsa_bwd_dq": cuda_time_ms(lambda: bsm.bsa_bwd_dq(*args, bare, scale)),
                 "bsa_bwd_dkv": cuda_time_ms(lambda: bsm.bsa_bwd_dkv(*args, bare, scale))}
-        for kname in ("bsa_bwd_dq", "bsa_bwd_dkv"):
-            rows[kname]["dense_causal_flash_bwd_ms"] = dense
+            # the forward's parent route, the 64 x 64 walk, on these inputs
+            route_rule = bsm.fwd_route
+            bsm.fwd_route = lambda *a: "mma"
+            try:
+                parent = cuda_time_ms(lambda: bsm.bsa_fwd(q, k, v, plan, scale))
+            finally:
+                bsm.fwd_route = route_rule
+        for kname in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv"):
+            beside = {"dense_causal_flash_fwd_ms": dense_fwd,
+                      "mma_route_ms": parent} if kname == "bsa_fwd" else \
+                {"dense_causal_flash_bwd_ms": dense}
+            rows[kname].update(beside)
             if kname in sched:
                 rows[kname]["schedule"] = sched[kname]
             emit({"phase": phase + "-beside", "case": name, "kernel": kname,
                   "ms": rows[kname]["ms"],
-                  "sdpa_masked_bwd_ms": rows[kname]["library_ms"],
-                  "dense_causal_flash_bwd_ms": dense,
-                  "all_tiles_maskless_ms": maskless.get(kname),
+                  ("sdpa_masked_fwd_ms" if kname == "bsa_fwd"
+                   else "sdpa_masked_bwd_ms"): rows[kname]["library_ms"],
+                  **beside, "all_tiles_maskless_ms": maskless.get(kname),
                   "schedule": sched.get(kname)})
     return rows
 
@@ -1133,7 +1261,7 @@ def phase_adamw(fo, tf_model, tf):
     row = {"phase": "train-kernel", "kernel": "fused_adamw",
            "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
            "elements": n, "bitwise_equal": equal, "max_abs_err": err,
-           "ms": cuda_time_ms(lambda: fo.fused_adamw(
+           **kernel_ms(lambda: fo.fused_adamw(
                ps, gs, ms, vs, count=count, table=table, **hp), iters=10),
            "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
            "bound_ms": bound, "bound_by": by}
@@ -1182,7 +1310,7 @@ def phase_lion(fo, tf_model, tf):
     row = {"phase": "lion-kernel", "kernel": "fused_lion",
            "case": f"{TRAIN_MODEL}: all {len(ps)} fp32 leaves, one launch",
            "elements": n, "bitwise_equal": equal, "max_abs_err": err,
-           "ms": cuda_time_ms(lambda: fo.fused_lion(
+           **kernel_ms(lambda: fo.fused_lion(
                ps, gs, ms, table=table, **hp), iters=10),
            "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
            "bound_ms": bound, "bound_by": by,
@@ -1549,7 +1677,7 @@ def quant_case(qk, case):
                "tolerance": "bit for bit"}
         if timed:
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, FP32_FLOPS)
-            row.update(ms=cuda_time_ms(calls[kname][0]),
+            row.update(**kernel_ms(calls[kname][0]),
                        plain_ms=cuda_time_ms(calls[kname][1], iters=3, warmup=1),
                        bound_bytes=nbytes, library_ms=None,
                        library_note="no single PyTorch call computes "
@@ -1602,7 +1730,7 @@ def fp6_case(t6, case):
         nbytes = packed.numel() + scale.numel() * 4 + m * k * elem + m * n * elem
         peak = FP32_FLOPS if dt == "float32" else BF16_FLOPS
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * k * n, peak)
-        row.update(ms=cuda_time_ms(lambda: t6.fp6_matmul(x, packed, scale)),
+        row.update(**kernel_ms(lambda: t6.fp6_matmul(x, packed, scale)),
                    plain_ms=cuda_time_ms(
                        lambda: t6.fp6_matmul_ref(x, packed, scale), iters=3,
                        warmup=1),
@@ -2109,7 +2237,7 @@ def ring_case(fm, case, phase="ring-kernel"):
                      lambda: fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal,
                                                  scale, window))}
         for kname, (kern, plain) in calls.items():
-            rows[kname]["ms"] = cuda_time_ms(kern)
+            rows[kname].update(kernel_ms(kern))
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for kname, sched in ring_schedule(s, hq, hkv, b, causal, window, pos,
@@ -2122,9 +2250,7 @@ def ring_case(fm, case, phase="ring-kernel"):
             *lib, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
         with torch.no_grad():
             rows["ring_carry"]["library_ms"] = cuda_time_ms(sdpa)
-        out = sdpa()
-        pair_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            out, lib, do, retain_graph=True))
+        pair_ms = grad_time_ms(sdpa, lib, do)
         note = ("scaled_dot_product_attention under the hop's boolean "
                 "position mask: one hop's attention without the carry merge")
         rows["ring_carry"]["library_note"] = note
@@ -2609,8 +2735,8 @@ def phase_gemm_kernels(tgm):
                "max_abs_ref": float(ref.float().abs().max()),
                "tolerance": ("max|k-r| <= rtol * max|r|" if dtype == torch.float32
                              else "|k-r| <= rtol * (1 + |r|)") + f", rtol {rtol}",
-               "ok": ok, "ms": cuda_time_ms(lambda: tgm.gemm(a, b),
-                                            iters=10 if big else 20),
+               "ok": ok, **kernel_ms(lambda: tgm.gemm(a, b),
+                                     iters=10 if big else 20),
                "plain_ms": cuda_time_ms(lambda: tgm.matmul_ref(a, b), iters=2,
                                         warmup=1),
                "library_ms": cuda_time_ms(lambda: torch.matmul(a, b),
@@ -3017,12 +3143,12 @@ def main() -> int:
         ds, tf_model, tf, counters, "train-sparse-reference", SPARSE_TRAIN_CFG,
         expected(counters, bsa_fwd=ref_steps, bsa_bwd_dq=ref_steps,
                  bsa_bwd_dkv=ref_steps, fused_lion=2), **sparse)
-    # every backward launch of the step on the wgmma walks, none on mma
+    # every block-sparse launch of the step on the wgmma walks, none on mma
     routed = counters + (bsm.block_sparse_mha.routes,)
     sparse_launches = phase_train(
         ds, tf_model, routed, smi, "train-sparse", SPARSE_TRAIN_CFG,
         expected(routed, bsa_fwd=n, bsa_bwd_dq=n, bsa_bwd_dkv=n,
-                 fused_lion=1, **{"bsa_fwd.mma": n, "bsa_bwd_dq.wgmma": n,
+                 fused_lion=1, **{"bsa_fwd.wgmma": n, "bsa_bwd_dq.wgmma": n,
                                   "bsa_bwd_dkv.wgmma": n}), **sparse)
 
     # 14. quantize and FP6 kernels, 15. their training reference,
@@ -3132,6 +3258,11 @@ def main() -> int:
                               f"phase's {ZERO_STEPS} timed steps (each rank "
                               f"launched as many); times from the "
                               f"{GEMM_ROW_CASE} case"}
+    merges = {"paged_attention": launches["bf16_merges"]["paged_attention"],
+              "paged_attention_int8":
+              launches["int8_merges"]["paged_attention_int8"]}
+    emit({"phase": "timing", "method": "CUDA graph (cuda_time_ms)",
+          "stream_timed": STREAM_TIMED})
     entries = []
     for name, row in {**summary, **train_summary, **sparse_summary,
                       **linear_summary, **ring_summary,
@@ -3140,9 +3271,14 @@ def main() -> int:
                  "replaces": replaces[name], "launches": launch_run[name],
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                 "stream_ms": row["stream_ms"]}
+        if name in merges:     # the paged kernel's merge kernel, same run
+            entry["merge_launches"] = merges[name]
         if "route" in row:     # which of the kernel's routes the row timed
             entry["kernel_route"] = row["route"]
+        if "splits" in row:    # the paged kernel's blocks a (token, KV head)
+            entry["splits"] = row["splits"]
         if name in also:
             entry["also_replaces"] = also[name]
         if name in notes:

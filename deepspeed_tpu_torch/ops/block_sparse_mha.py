@@ -11,15 +11,16 @@ versions' tile walk (``ops/flash_mha.py``) with the layout's token mask.
 A CUDA call never falls back: the kernel builds and launches, or the call
 raises.
 
-Routes (counted in ``block_sparse_mha.routes`` as ``"bsa_bwd_dq.wgmma"``,
-...): ``bsa_fwd`` runs the 64 x 64 tile walk of ``attention_tiles.cuh``
-(``mma`` for bf16, ``fma`` for fp32).  The backward pair takes
-:func:`bwd_route`'s route: ``flash_mha.bwd_route``'s rule (bf16 views TMA
-reads at D 64 or 128 take ``wgmma``) and, for ``wgmma``, layout blocks of
-at least 16 tokens; then dq and dk/dv run the persistent store-mode walks of
-``attention_wgmma_bwd.cuh`` under the layout (dq: 128-row items over
-64-key tiles; dk/dv: 128-key items over 64-row query tiles), other bf16
-the 64 x 64 walk (``mma``), fp32 ``fma``.  :func:`block_sparse_mha` hands
+Routes (counted in ``block_sparse_mha.routes`` as ``"bsa_fwd.wgmma"``,
+...): ``bsa_fwd`` takes :func:`fwd_route`'s route, the backward pair
+:func:`bwd_route`'s: ``flash_mha``'s rule (bf16 views TMA reads at D 64 or
+128 take ``wgmma``) and, for ``wgmma``, layout blocks of at least 16
+tokens.  On ``wgmma`` the forward runs the persistent forward of
+``attention_wgmma.cuh`` (128-row items over 128-key tiles) and dq and
+dk/dv the persistent store-mode walks of ``attention_wgmma_bwd.cuh`` (dq:
+128-row items over 64-key tiles; dk/dv: 128-key items over 64-row query
+tiles), all under the layout; other bf16 runs the 64 x 64 walk of
+``attention_tiles.cuh`` (``mma``), fp32 ``fma``.  :func:`block_sparse_mha` hands
 the kernels a ``do`` they read on ``wgmma`` (``flash_mha.readable_do``)
 and zero-pads a head_dim off the kernels' lanes (``flash_mha.head_dim_padded``).
 
@@ -50,15 +51,15 @@ from deepspeed_tpu_torch.ops import flash_mha as fm
 
 # rows of a kernel tile on both sides (the flash kernels' tile)
 TILE = fm.BLOCK_K
-# the wgmma walks' items: 128 query rows (dq) or 128 keys (dk/dv), walking
-# TILE-row tiles of the other side
+# the wgmma walks' items: 128 query rows (forward, dq) or 128 keys (dk/dv),
+# walking 128-key (forward) or TILE-row tiles of the other side
 WG_ITEM = 128
-# layout words a wgmma list entry holds (the blocks a 128-row item spans
-# at blocks of at least WG_MIN_BLOCK), as in ops/csrc/block_sparse_attention.cu
+# layout blocks a wgmma list entry holds words for (the blocks a 128-row
+# item spans at blocks of at least WG_MIN_BLOCK), one word per 64 rows or
+# columns of the walked tile each, as in ops/csrc/block_sparse_attention.cu
 WG_SLOTS, WG_MIN_BLOCK = 9, 16
-# bsa_fwd's routes (its C code is the dtype's), the backward pair's
-FWD_ROUTES = ("fma", "mma")
-BWD_ROUTES = fm.FWD_ROUTES
+# every kernel's routes, by C route code
+ROUTES = fm.FWD_ROUTES
 
 
 def _tile_blocks(layout, block: int, tq: int, tk: int):
@@ -117,30 +118,33 @@ def tile_full(layout, block: int, causal: bool) -> np.ndarray:
     return full
 
 
-def tile_words(layout, block: int, live: np.ndarray,
-               rows_fixed: bool) -> np.ndarray:
+def tile_words(layout, block: int, live: np.ndarray, rows_fixed: bool,
+               walked_rows: int = TILE) -> np.ndarray:
     """The layout words of each entry of the wgmma lists ``live`` ([H,
-    items, walked tiles], in list order): [entries, WG_SLOTS] uint64, word
-    j for layout block ``item·WG_ITEM // block + j`` of the item's fixed
-    side (rows for dq, ``rows_fixed``; keys for dk/dv), bit c set where row
-    or column c of the walked TILE-row tile lies inside S in a live block."""
+    items, walked tiles], in list order): [entries, WG_SLOTS · walked_rows
+    / 64] uint64, for layout block ``item·WG_ITEM // block + j`` of the
+    item's fixed side (rows for the forward and dq, ``rows_fixed``; keys for
+    dk/dv) the words ``j·n .. j·n + n - 1`` (n = walked_rows / 64), bit c of
+    word w set where row or column 64·w + c of the walked tile lies inside
+    S in a live block."""
     lb = np.asarray(layout) != 0
     nb = lb.shape[1]
     s = nb * block
     h, item, walked = np.nonzero(live)
-    out = np.zeros((len(h), WG_SLOTS), np.uint64)
+    n_words = walked_rows // 64
+    out = np.zeros((len(h), WG_SLOTS, n_words), np.uint64)
     for a in range(0, len(h), 1 << 14):       # bounded temporaries
         hh, ii, jj = h[a:a + (1 << 14)], item[a:a + (1 << 14)], walked[a:a + (1 << 14)]
         fixed = ii[:, None] * WG_ITEM // block + np.arange(WG_SLOTS)[None]
-        other = jj[:, None] * TILE + np.arange(TILE)[None]
+        other = jj[:, None] * walked_rows + np.arange(walked_rows)[None]
         ok = (fixed < nb)[:, :, None] & (other < s)[:, None, :]
         fixed, other = np.minimum(fixed, nb - 1), np.minimum(other // block, nb - 1)
         hi = hh[:, None, None]
         bits = (lb[hi, fixed[:, :, None], other[:, None, :]] if rows_fixed
                 else lb[hi, other[:, None, :], fixed[:, :, None]]) & ok
         out[a:a + len(hh)] = np.packbits(bits, axis=-1, bitorder="little") \
-            .view("<u8")[..., 0]
-    return out
+            .view("<u8")
+    return out.reshape(len(h), WG_SLOTS * n_words)
 
 
 def layout_to_token_mask(layout, block: int) -> torch.Tensor:
@@ -161,9 +165,10 @@ def _lists(live: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 class SparseLayout:
     """A block layout prepared for the kernels on one device: the uint8
     layout; the live 64 x 64 tile lists per (query head, q tile) for the
-    forward and the 64 x 64 walk's dq, and per (query head, k tile) for its
+    64 x 64 walk's forward and dq, and per (query head, k tile) for its
     dk/dv; and, at blocks of at least WG_MIN_BLOCK (``wgmma``), the wgmma
-    walks' lists with their layout words (:func:`tile_words`) — dq's per
+    walks' lists with their layout words (:func:`tile_words`) — the
+    forward's per (query head, 128-row item) over 128-key tiles, dq's per
     (query head, 128-row item) over 64-key tiles, dk/dv's per (query head,
     128-key item) over 64-row query tiles — and the 64 x 64 full flags
     (:func:`tile_full`).  Build it once per (layout, causal, device); every
@@ -185,16 +190,21 @@ class SparseLayout:
         self.q_ptr, self.q_idx = (torch.from_numpy(a).to(dev)
                                   for a in _lists(self.live.transpose(0, 2, 1)))
         self.wgmma = self.block >= WG_MIN_BLOCK
-        self.dq_walk = self.dkv_walk = self.full = None
+        self.fwd_walk = self.dq_walk = self.dkv_walk = self.full = None
         if self.wgmma:
-            walks = (tile_live(layout, self.block, self.causal, WG_ITEM, TILE),
-                     tile_live(layout, self.block, self.causal, TILE,
-                               WG_ITEM).transpose(0, 2, 1))
-            self.dq_walk, self.dkv_walk = (
+            # (live tiles [H, items, walked], rows fixed, walked tile rows)
+            walks = ((tile_live(layout, self.block, self.causal, WG_ITEM,
+                                WG_ITEM), True, WG_ITEM),
+                     (tile_live(layout, self.block, self.causal, WG_ITEM,
+                                TILE), True, TILE),
+                     (tile_live(layout, self.block, self.causal, TILE,
+                                WG_ITEM).transpose(0, 2, 1), False, TILE))
+            self.fwd_walk, self.dq_walk, self.dkv_walk = (
                 tuple(torch.from_numpy(a).to(dev) for a in (
                     *_lists(live), tile_words(layout, self.block, live,
-                                              rows_fixed).view(np.int64)))
-                for live, rows_fixed in zip(walks, (True, False)))
+                                              rows_fixed, walked)
+                    .view(np.int64)))
+                for live, rows_fixed, walked in walks)
             # C order: the kernels index [H, n, n] flat (numpy's mixed
             # advanced indexing may hand back another memory order)
             self.full = torch.from_numpy(np.ascontiguousarray(
@@ -251,9 +261,10 @@ def _lib():
     lib = op_builder.load("block_sparse_attention")
     if not getattr(lib, "_bound", False):
         shape = [_I] * 6 + [_F, _I, _P]
-        lib.bsa_fwd.argtypes = [_I] + [_P] * 5 + [fm._STRIDES] + [_P] * 5 + shape
-        # the backward pair adds the wgmma walk's lists, words and flags
+        # strides, the 64 x 64 walk's layout and lists, the wgmma walk's
+        # lists, words and flags, then the shape
         tail = [fm._STRIDES] + [_P] * 9 + shape
+        lib.bsa_fwd.argtypes = [_I] + [_P] * 5 + tail
         lib.bsa_bwd_dq.argtypes = [_I] + [_P] * 7 + tail
         lib.bsa_bwd_dkv.argtypes = [_I] + [_P] * 8 + tail
         for fn in (lib.bsa_fwd, lib.bsa_bwd_dq, lib.bsa_bwd_dkv):
@@ -274,33 +285,40 @@ def _check_plan(q, plan: SparseLayout) -> None:
         raise ValueError(f"layout lives on {plan.device}, q on {q.device}")
 
 
-def _layout_args(q, k, plan: SparseLayout, sm_scale: float, walk=None):
-    """The C entries' layout and shape arguments.  ``walk``: for the
-    backward pair, which wgmma lists follow the 64 x 64 ones ("dq" or
-    "dkv"; null pointers where the plan has none, read on route 2 only)."""
+def _layout_args(q, k, plan: SparseLayout, sm_scale: float, walk: str):
+    """The C entries' layout and shape arguments.  ``walk``: which wgmma
+    lists follow the 64 x 64 ones ("fwd", "dq" or "dkv"; null pointers
+    where the plan has none, read on route 2 only)."""
     b, hq, s, d = q.shape
     ptrs = [x.data_ptr() for x in (plan.layout, plan.k_ptr, plan.k_idx,
                                    plan.q_ptr, plan.q_idx)]
-    if walk is not None:
-        lists = plan.dq_walk if walk == "dq" else plan.dkv_walk
-        ptrs += ([x.data_ptr() for x in (*lists, plan.full)] if plan.wgmma
-                 else [None] * 4)
+    lists = getattr(plan, f"{walk}_walk")
+    ptrs += ([x.data_ptr() for x in (*lists, plan.full)] if plan.wgmma
+             else [None] * 4)
     return (*ptrs, b, hq, k.shape[1], s, d, plan.block, float(sm_scale),
             int(plan.causal), torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def bwd_route(q, k, v, do, plan: SparseLayout) -> str:
-    """The backward pair's route, before the launch: ``flash_mha.bwd_route``
+def fwd_route(q, k, v, plan: SparseLayout) -> str:
+    """``bsa_fwd``'s route, before the launch: ``flash_mha.fwd_route``
     (fp32 ``fma``; bf16 views TMA reads at D 64 or 128 ``wgmma``, other
     bf16 ``mma``), with ``wgmma`` kept for layouts whose blocks the wgmma
     walks' words cover (``plan.wgmma``, blocks of at least 16)."""
+    route = fm.fwd_route(q, k, v)
+    return "mma" if route == "wgmma" and not plan.wgmma else route
+
+
+def bwd_route(q, k, v, do, plan: SparseLayout) -> str:
+    """The backward pair's route, before the launch: :func:`fwd_route`'s
+    rule over ``do`` as well (``flash_mha.bwd_route``)."""
     route = fm.bwd_route(q, k, v, do)
     return "mma" if route == "wgmma" and not plan.wgmma else route
 
 
 def bsa_fwd(q, k, v, plan: SparseLayout, sm_scale: float):
     """``(o, lse)`` of one block-sparse forward; CPU tensors take the plain
-    version, CUDA tensors the ``bsa_fwd`` kernel."""
+    version, CUDA tensors the ``bsa_fwd`` kernel on :func:`fwd_route`'s
+    route."""
     _check_plan(q, plan)
     if q.device.type == "cpu":
         return bsa_fwd_ref(q, k, v, plan, sm_scale)
@@ -308,11 +326,11 @@ def bsa_fwd(q, k, v, plan: SparseLayout, sm_scale: float):
     b, hq, s, _ = q.shape
     o = fm._empty_bshd(q, hq)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    path = FWD_ROUTES[fm._DTYPE_CODE[q.dtype]]
-    err = _lib().bsa_fwd(fm._DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+    path = fwd_route(q, k, v, plan)
+    err = _lib().bsa_fwd(ROUTES.index(path), q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                          fm._strides(q, k, v, o),
-                         *_layout_args(q, k, plan, sm_scale))
+                         *_layout_args(q, k, plan, sm_scale, walk="fwd"))
     fm._raise_on(err, f"bsa_fwd ({path} route)")
     block_sparse_mha.launches["bsa_fwd"] += 1
     block_sparse_mha.routes[f"bsa_fwd.{path}"] += 1
@@ -330,7 +348,7 @@ def bsa_bwd_dq(q, k, v, do, lse, delta, plan: SparseLayout, sm_scale: float):
     dq = fm._empty_bshd(q, q.shape[1])
     path = bwd_route(q, k, v, do, plan)
     err = _lib().bsa_bwd_dq(
-        BWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         fm._strides(q, k, v, do, dq),
         *_layout_args(q, k, plan, sm_scale, walk="dq"))
@@ -351,7 +369,7 @@ def bsa_bwd_dkv(q, k, v, do, lse, delta, plan: SparseLayout, sm_scale: float):
     dk, dv = fm._empty_bshd(k, k.shape[1]), fm._empty_bshd(v, k.shape[1])
     path = bwd_route(q, k, v, do, plan)
     err = _lib().bsa_bwd_dkv(
-        BWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), fm._strides(q, k, v, do, dk, dv),
         *_layout_args(q, k, plan, sm_scale, walk="dkv"))
@@ -412,6 +430,5 @@ def block_sparse_mha(q, k, v, layout, block: int, causal: bool = False,
 
 block_sparse_mha.launches = {"bsa_fwd": 0, "bsa_bwd_dq": 0, "bsa_bwd_dkv": 0}
 # each kernel's launches by route (codes in ops/csrc/block_sparse_attention.cu)
-block_sparse_mha.routes = {
-    **{f"bsa_fwd.{r}": 0 for r in FWD_ROUTES},
-    **{f"{n}.{r}": 0 for n in ("bsa_bwd_dq", "bsa_bwd_dkv") for r in BWD_ROUTES}}
+block_sparse_mha.routes = {f"{n}.{r}": 0 for n in block_sparse_mha.launches
+                           for r in ROUTES}

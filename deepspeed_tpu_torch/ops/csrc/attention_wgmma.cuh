@@ -1,5 +1,5 @@
-// Attention forward on wgmma and TMA, Hopper: the dense `flash_fwd` and the
-// ring hop's `ring_carry` at bf16.
+// Attention forward on wgmma and TMA, Hopper: the dense `flash_fwd`, the
+// ring hop's `ring_carry` and the block-sparse `bsa_fwd` at bf16.
 //
 // Computes what attn_fwd_kernel of attention_tiles.cuh computes (and what
 // the TPU kernels _fwd_kernel / _fwd_kernel_blocked of
@@ -45,7 +45,9 @@
 //    down a softmax compiled without the test (one FFMA and one exp2 an
 //    entry: a predicated-off mask test still costs its issue slots).
 //    Tiles are 128 rows on both sides: the policy is instantiated with
-//    these tile sizes.
+//    these tile sizes.  A policy with a per-tile view (`tile`, the
+//    block-sparse layout's words) is asked for it once a tile, before the
+//    tile's product, and the view answers `ok` and `full` for that tile.
 //  * accumulate mode (template flag ACC, `ring_carry`, the counterpart of
 //    the tile walk's ACC in attention_tiles.cuh): an item starts from the
 //    fp32 state of its rows, m and l [B, Hq, S] and acc [B, Hq, S, D]
@@ -113,6 +115,23 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// What a walked tile's `full` and `ok` are asked of: the policy narrowed to
+// tile t (its `tile` member, see
+// block_sparse_attention.cu's BlockLayoutT) or the policy itself
+template <typename M, typename = void>
+struct HasTile : std::false_type {};
+template <typename M>
+struct HasTile<M, std::void_t<decltype(&M::tile)>> : std::true_type {};
+
+template <typename Mask>
+__device__ __forceinline__ decltype(auto) tile_of(const Mask& mask, int h, int t, int walk0,
+                                                  int sub0, const int (&fixed)[2]) {
+  if constexpr (HasTile<Mask>::value)
+    return mask.tile(h, t, walk0, sub0, fixed);
+  else
+    return (mask);
 }
 
 // Work item i (of nq * Hq * B): query tile nq - 1 - i / (Hq * B), head
@@ -248,10 +267,11 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // s_acc[4j + e] is row row[e / 2], key k0 + 8j + 2tq + (e % 2).  Writes
     // p, updates m and l, returns each row's rescale of o in alpha.
     // MASKED (diagonal and window-edge tiles) tests every entry against the
-    // mask; an interior tile takes the lean path, where a row's max of the
-    // raw scores times scale is the max of the scaled ones.  That holds for
-    // scale > 0 only, so any other scale takes the masked path throughout.
-    auto softmax = [&](auto masked, int k0, float (&alpha)[2]) {
+    // mask (tm: the tile's view of it); an interior tile takes the lean
+    // path, where a row's max of the raw scores times scale is the max of
+    // the scaled ones.  That holds for scale > 0 only, so any other scale
+    // takes the masked path throughout.
+    auto softmax = [&](auto masked, int k0, float (&alpha)[2], const auto& tm) {
       constexpr bool MASKED = decltype(masked)::value;
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -260,7 +280,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < 4; ++e) {
           float x = s_acc[4 * j + e];
           if constexpr (MASKED) {
-            x = mask.ok(h, row[e / 2], k0 + 8 * j + 2 * tq + (e % 2)) ? x * scale : kNegInf;
+            x = tm.ok(h, row[e / 2], k0 + 8 * j + 2 * tq + (e % 2)) ? x * scale : kNegInf;
             s_acc[4 * j + e] = x;
           }
           mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -298,6 +318,8 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (t_begin >= t_end) mbar_arrive(q_empty);
     for (int t = t_begin; t < t_end; ++t) {
       const int k0 = mask.k_tile(t) * kBK;
+      // a policy's per-tile view loads its words here, ahead of the product
+      const auto& tm = tile_of(mask, h, t, k0, rq0, row);
       // S = Q . K^T: both K-major, D/16 steps of 16 along the head dim
       mbar_wait(&k_full[stage], phase);
       const uint32_t k_addr = smem_addr(ks + stage * L::kTileBytes);
@@ -315,10 +337,10 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (t + 1 == t_end) mbar_arrive(q_empty);  // Q is read: the next item's may load
 
       float alpha[2];
-      if (scale > 0.f && mask.full(h, rq0, 64, k0, kBK))
-        softmax(std::false_type{}, k0, alpha);
+      if (scale > 0.f && tm.full(h, rq0, 64, k0, kBK))
+        softmax(std::false_type{}, k0, alpha, tm);
       else
-        softmax(std::true_type{}, k0, alpha);
+        softmax(std::true_type{}, k0, alpha, tm);
       fence_regs(o_acc);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {

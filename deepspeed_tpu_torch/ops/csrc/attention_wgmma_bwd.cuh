@@ -176,22 +176,6 @@ __device__ __forceinline__ void scores(float (&c)[32], uint32_t a, uint32_t a_bo
   }
 }
 
-// What a walked tile's `full` and `ok` are asked of: the policy narrowed to
-// tile t (its `tile` member, see the header) or the policy itself
-template <typename M, typename = void>
-struct HasTile : std::false_type {};
-template <typename M>
-struct HasTile<M, std::void_t<decltype(&M::tile)>> : std::true_type {};
-
-template <typename Mask>
-__device__ __forceinline__ decltype(auto) tile_of(const Mask& mask, int h, int t, int walk0,
-                                                  int sub0, const int (&fixed)[2]) {
-  if constexpr (HasTile<Mask>::value)
-    return mask.tile(h, t, walk0, sub0, fixed);
-  else
-    return (mask);
-}
-
 // The mode of an output type: fp32 sums accumulate in place (the ring),
 // bf16 outputs are written once (flash, block-sparse)
 template <typename Out>

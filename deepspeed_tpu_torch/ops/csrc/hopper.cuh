@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels of the port
 // (gather_matmul.cu, fp6_linear.cu, attention_wgmma.cuh,
-// attention_wgmma_bwd.cuh): mbarriers, TMA tile loads, warpgroup matrix
+// attention_wgmma_bwd.cuh) and the paged decode (paged_attention.cu):
+// mbarriers, TMA tile loads and bulk copies, warpgroup matrix
 // multiply (wgmma) with its shared-memory descriptors, the proxy fence
 // between threads' stores and wgmma's reads, register handover between
 // warpgroups (setmaxnreg), and the host-side tensor-map encoders (bf16
@@ -94,6 +95,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// a contiguous run of `bytes` (a multiple of 16; both ends 16-byte aligned)
+// from global to shared memory by the bulk copy engine, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -2,13 +2,13 @@
 plain PyTorch versions on the card: ``bsa_fwd``, ``bsa_bwd_dq`` and
 ``bsa_bwd_dkv`` (``ops/csrc/block_sparse_attention.cu``) over every
 sparsity mode, per-head layouts, GQA, head_dim 64 and 128, causal and not,
-layout blocks from 16 to 256 tokens and sequence tails, in bf16 (the
-backward pair on its ``wgmma`` route, the forward on ``mma``) and fp32
-(``fma``); the wgmma walks' store mode on outputs full of NaN under a
-layout with dead items and a row that sees no key; the head_dim lanes (D
-32, 80, 96 zero-padded, D 256 on the 64 x 64 walk) against the plain
-versions at the real D; and ``fused_lion`` (``ops/csrc/fused_lion.cu``)
-bit for bit.
+layout blocks from 16 to 256 tokens and sequence tails, in bf16 (every
+role on its ``wgmma`` route) and fp32 (``fma``); the forward's ``mma``
+route where the rule keeps it (blocks under 16, an expanded K/V); the
+wgmma walks' store mode on outputs full of NaN under a layout with dead
+items and a row that sees no key; the head_dim lanes (D 32, 80, 96
+zero-padded, D 256 on the 64 x 64 walk) against the plain versions at the
+real D; and ``fused_lion`` (``ops/csrc/fused_lion.cu``) bit for bit.
 
 No JAX here: the machine with the card has none.  Run there with
 
@@ -100,10 +100,10 @@ def test_cuda_block_sparse_kernels_match_plain_version(case, dtype,
     torch.cuda.synchronize()
     assert {n: bsm.block_sparse_mha.launches[n] - before[n] for n in before} \
         == {"bsa_fwd": 1, "bsa_bwd_dq": 1, "bsa_bwd_dkv": 1}
-    fwd, bwd = ("mma", "wgmma") if dtype == torch.bfloat16 else ("fma", "fma")
-    assert _route_delta(routes) == {f"bsa_fwd.{fwd}": 1,
-                                    f"bsa_bwd_dq.{bwd}": 1,
-                                    f"bsa_bwd_dkv.{bwd}": 1}
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert _route_delta(routes) == {f"bsa_fwd.{route}": 1,
+                                    f"bsa_bwd_dq.{route}": 1,
+                                    f"bsa_bwd_dkv.{route}": 1}
     o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, scale)
     dq_r = bsm.bsa_bwd_dq_ref(q, k, v, do, lse, delta, plan, scale)
     dk_r, dv_r = bsm.bsa_bwd_dkv_ref(q, k, v, do, lse, delta, plan, scale)
@@ -159,12 +159,13 @@ def test_cuda_empty_rows_and_autograd_through_sparse_attention(cuda_device):
 @pytest.mark.cuda
 def test_cuda_block_sparse_wgmma_store_mode_writes_every_row(cuda_device,
                                                              monkeypatch):
-    """The wgmma backward's store mode under a hand-built causal layout
-    (block 32, S 384, GQA): keys 128-255 dead in every head (a whole dk/dv
-    item with no live tile), query block 2 sees no key (a dead row inside a
-    live dq item), and head 1's rows 256-383 see nothing (a dead dq item).
-    Outputs allocated full of NaN come back finite, zero on the dead rows
-    and keys, and equal to the plain versions."""
+    """The wgmma forward's and backward's store mode under a hand-built
+    causal layout (block 32, S 384, GQA): keys 128-255 dead in every head
+    (a whole dk/dv item with no live tile), query block 2 sees no key (a
+    dead row inside a live forward and dq item), and head 1's rows 256-383
+    see nothing (a dead forward and dq item).  Outputs allocated full of
+    NaN come back finite, zero on the dead rows and keys (lse -1e30 there),
+    and equal to the plain versions."""
     b, hq, hkv, s, d, block = 1, 4, 2, 384, 64, 32
     nb = s // block
     layout = np.tril(np.ones((hq, nb, nb), np.int64))
@@ -176,11 +177,21 @@ def test_cuda_block_sparse_wgmma_store_mode_writes_every_row(cuda_device,
     q, k, v, do = _inputs(case, torch.bfloat16, cuda_device, seed=2)
     do = do.contiguous()
     scale = d ** -0.5
-    o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
-    delta = fm.attn_delta(o, do).contiguous()
     empty = fm._empty_bshd
     monkeypatch.setattr(fm, "_empty_bshd",
                         lambda x, heads: empty(x, heads).fill_(float("nan")))
+    assert bsm.fwd_route(q, k, v, plan) == "wgmma"
+    o, lse = bsm.bsa_fwd(q, k, v, plan, scale)
+    torch.cuda.synchronize()
+    o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, scale)
+    for name, g, r in (("o", o, o_r), ("lse", lse, lse_r)):
+        assert bool(torch.isfinite(g).all()), name
+        ok, err = _close(g, r, RTOL[g.dtype])
+        assert ok, f"{name}: max abs err {err}"
+    assert bool((o[:, :, 2 * block:3 * block] == 0).all())
+    assert bool((o[:, 1, 8 * block:] == 0).all())
+    assert bool((lse[:, 1, 8 * block:] == -1e30).all())
+    delta = fm.attn_delta(o, do).contiguous()
     assert bsm.bwd_route(q, k, v, do, plan) == "wgmma"
     got = (bsm.bsa_bwd_dq(q, k, v, do, lse, delta, plan, scale),
            *bsm.bsa_bwd_dkv(q, k, v, do, lse, delta, plan, scale))
@@ -238,11 +249,10 @@ def test_cuda_block_sparse_head_dim_lanes_match_plain_version(case, dtype,
     dq = bsm.bsa_bwd_dq(qp, kp, vp, dop, lse, delta, plan, scale)
     dk, dv = bsm.bsa_bwd_dkv(qp, kp, vp, dop, lse, delta, plan, scale)
     torch.cuda.synchronize()
-    fwd = "fma" if dtype == torch.float32 else "mma"
-    bwd = "fma" if dtype == torch.float32 else "mma" if lane == 256 else "wgmma"
-    assert _route_delta(routes) == {f"bsa_fwd.{fwd}": 1,
-                                    f"bsa_bwd_dq.{bwd}": 1,
-                                    f"bsa_bwd_dkv.{bwd}": 1}
+    route = "fma" if dtype == torch.float32 else "mma" if lane == 256 else "wgmma"
+    assert _route_delta(routes) == {f"bsa_fwd.{route}": 1,
+                                    f"bsa_bwd_dq.{route}": 1,
+                                    f"bsa_bwd_dkv.{route}": 1}
     o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, scale)
     dq_r = bsm.bsa_bwd_dq_ref(q, k, v, do, lse, delta, plan, scale)
     dk_r, dv_r = bsm.bsa_bwd_dkv_ref(q, k, v, do, lse, delta, plan, scale)
@@ -270,6 +280,32 @@ def test_cuda_block_sparse_head_dim_lanes_match_plain_version(case, dtype,
         assert g.shape == r.shape, what
         ok, err = _close(g, r, RTOL[dtype])
         assert ok, f"autograd {what}: max abs err {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["block8", "expanded-kv"])
+def test_cuda_block_sparse_forward_mma_route_that_remains(case, cuda_device):
+    """bf16 forwards the wgmma route does not take run the 64 x 64 walk
+    (``mma``): layout blocks of 8 (more words than a thread keeps), and a
+    K/V expanded over the heads (stride 0, no tensor map); each against
+    the plain version."""
+    b, hq, hkv, s, d = 1, 4, 2, 256, 64
+    block = 8 if case == "block8" else 16
+    layout = sa.BSLongformerSparsityConfig(
+        num_heads=hq, block=block, attention="unidirectional").make_layout(s)
+    plan = bsm.SparseLayout(layout, block, True, cuda_device)
+    q, k, v, _ = _inputs((b, hq, hkv, s, d), torch.bfloat16, cuda_device,
+                         seed=5)
+    if case == "expanded-kv":
+        k, v = (x[:, :1].expand(b, hkv, s, d) for x in (k, v))
+    routes = dict(bsm.block_sparse_mha.routes)
+    o, lse = bsm.bsa_fwd(q, k, v, plan, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {"bsa_fwd.mma": 1}
+    o_r, lse_r = bsm.bsa_fwd_ref(q, k, v, plan, d ** -0.5)
+    for what, got, ref in (("o", o, o_r), ("lse", lse, lse_r)):
+        ok, err = _close(got, ref, RTOL[got.dtype])
+        assert ok, f"{what}: max abs err {err}"
 
 
 @pytest.mark.cuda

@@ -296,13 +296,14 @@ def _tiles_any(mask, tq, tk):
     return pad.reshape(h, nq, tq, nk, tk).any((2, 4))
 
 
-def _walk_masks(plan, walk, rows_fixed):
+def _walk_masks(plan, walk, rows_fixed, tile=tbsm.TILE):
     """Yield (h, fixed rows or keys, walked cols or rows, the mask the
-    kernel applies there) for every entry of a wgmma list, from its layout
-    words and the causal test, as BlockLayoutT::Tile::ok computes it."""
+    kernel applies there) for every entry of a wgmma list over walked tiles
+    of ``tile`` rows, from its layout words (tile / 64 a slot) and the
+    causal test, as BlockLayoutT::Tile::ok computes it."""
     ptr, idx, words = (x.numpy() for x in walk)
-    words = words.view(np.uint64)
-    s, item, tile = plan.seq, tbsm.WG_ITEM, tbsm.TILE
+    words = words.view(np.uint64).reshape(len(words), tbsm.WG_SLOTS, tile // 64)
+    s, item = plan.seq, tbsm.WG_ITEM
     n_items = -(-s // item)
     for e_h in range(plan.heads):
         for i in range(n_items):
@@ -311,8 +312,9 @@ def _walk_masks(plan, walk, rows_fixed):
             slot = fixed // plan.block - i * item // plan.block
             for t in range(ptr[e_h * n_items + i], ptr[e_h * n_items + i + 1]):
                 walked = idx[t] * tile + np.arange(tile)
-                shift = (walked - idx[t] * tile).astype(np.uint64)
-                bits = (words[t][slot][:, None] >> shift[None, :]) & np.uint64(1)
+                off = walked - idx[t] * tile
+                shift = (off % 64).astype(np.uint64)
+                bits = (words[t][slot][:, off // 64] >> shift[None, :]) & np.uint64(1)
                 ok = bits.astype(bool) & (walked < s)[None, :]
                 rows, cols = (fixed[:, None], walked[None, :]) if rows_fixed \
                     else (walked[None, :], fixed[:, None])
@@ -326,12 +328,14 @@ def _walk_masks(plan, walk, rows_fixed):
 @pytest.mark.parametrize("kind", ["random", "tril"])
 def test_wgmma_tile_lists_words_and_flags_match_the_token_mask(block, causal,
                                                                 kind):
-    """tile_live at the wgmma walks' (128, 64) and (64, 128) tiles keeps
-    every tile in which the token mask keeps a pair (exactly those for a
-    lower-triangular layout or without causal); SparseLayout's lists hold
-    those tiles, each entry's layout words with the causal test give the
-    token mask on the whole tile, and the 64 x 64 full flags are set where
-    the tile keeps every pair."""
+    """tile_live at the wgmma walks' (128, 128), (128, 64) and (64, 128)
+    tiles (forward, dq, dk/dv) keeps every tile in which the token mask
+    keeps a pair (exactly those for a lower-triangular layout or without
+    causal); SparseLayout's lists hold those tiles, each entry's layout
+    words with the causal test give the token mask on the whole tile, the
+    64 x 64 full flags are set where the tile keeps every pair, and the
+    forward's answer for a 64-row x 128-key part (the two flags it covers)
+    is true exactly where that part keeps every pair."""
     s, h = 640, 3
     rng = np.random.default_rng(block + 7 * causal)
     layout = (rng.random((h, s // block, s // block)) < 0.3).astype(np.int64)
@@ -341,9 +345,13 @@ def test_wgmma_tile_lists_words_and_flags_match_the_token_mask(block, causal,
     plan = tbsm.SparseLayout(layout, block, causal, "cpu")
     assert plan.wgmma
     # the kernels index every array flat, in C order
-    assert all(x.is_contiguous() for x in (*plan.dq_walk, *plan.dkv_walk,
-                                           plan.full, plan.layout))
-    for (tq, tk), walk, rows_fixed in (((128, 64), plan.dq_walk, True),
+    assert all(x.is_contiguous() for x in (*plan.fwd_walk, *plan.dq_walk,
+                                           *plan.dkv_walk, plan.full,
+                                           plan.layout))
+    full = plan.full.numpy().astype(bool)
+    n = -(-s // 64)
+    for (tq, tk), walk, rows_fixed in (((128, 128), plan.fwd_walk, True),
+                                       ((128, 64), plan.dq_walk, True),
                                        ((64, 128), plan.dkv_walk, False)):
         live = tbsm.tile_live(layout, block, causal, tq, tk)
         brute = _tiles_any(mask, tq, tk)
@@ -351,16 +359,25 @@ def test_wgmma_tile_lists_words_and_flags_match_the_token_mask(block, causal,
         if kind == "tril" or not causal:
             assert np.array_equal(live, brute)
         listed = np.zeros_like(live)
-        for e_h, fixed, walked, ok in _walk_masks(plan, walk, rows_fixed):
+        for e_h, fixed, walked, ok in _walk_masks(plan, walk, rows_fixed,
+                                                  tk if rows_fixed else tq):
             want = (mask[e_h][np.ix_(fixed, walked)] if rows_fixed
                     else mask[e_h][np.ix_(walked, fixed)].T)
             assert np.array_equal(ok, want)
             tiles = (fixed[0] // tq, walked[0] // tk) if rows_fixed \
                 else (walked[0] // tq, fixed[0] // tk)
             listed[(e_h, *tiles)] = True
+            if tk == 128 and rows_fixed:   # the forward's full answer
+                k64 = walked[0] // 64
+                for r0 in range(fixed[0], fixed[-1] + 1, 64):
+                    rows = np.arange(r0, r0 + 64)
+                    cols = np.arange(walked[0], walked[0] + 128)
+                    every = (rows[-1] < s and cols[-1] < s
+                             and mask[e_h][np.ix_(rows, cols)].all())
+                    flags = (k64 + 1 < n and full[e_h, r0 // 64, k64]
+                             and full[e_h, r0 // 64, k64 + 1])
+                    assert bool(flags) == bool(every)
         assert np.array_equal(listed, live)
-    full = plan.full.numpy().astype(bool)
-    n = -(-s // 64)
     want = np.zeros((h, n, n), bool)
     for a in range(n):
         for b in range(n):
@@ -371,16 +388,21 @@ def test_wgmma_tile_lists_words_and_flags_match_the_token_mask(block, causal,
 
 
 def test_gpt2_path_wgmma_walks():
-    """The training path's layout (gpt2-350m, S 1024, block 16): the dq
-    walk visits 30 live 128 x 64 tiles a head (at most 4 an item), the
-    dk/dv walk 36 live 64 x 128 ones (16 for the item holding global key
-    block 0), and no 64 x 64 tile is full."""
+    """The training path's layout (gpt2-350m, S 1024, block 16): the
+    forward visits 21 live 128 x 128 tiles a head (at most 3 an item,
+    against 45 live 64 x 64 tiles), the dq walk 30 live 128 x 64 tiles a
+    head (at most 4 an item), the dk/dv walk 36 live 64 x 128 ones (16 for
+    the item holding global key block 0), and no 64 x 64 tile is full."""
     layout = tsa.BSLongformerSparsityConfig(**LAYOUTS[3][1]).make_layout(1024)
     plan = tbsm.SparseLayout(layout, 16, True, "cpu")
+    fwd_ptr = plan.fwd_walk[0].numpy()
     dq_ptr, dkv_ptr = plan.dq_walk[0].numpy(), plan.dkv_walk[0].numpy()
+    assert fwd_ptr[8] == 21 and np.diff(fwd_ptr[:9]).max() == 3
+    assert int(plan.live[0].sum()) == 45
     assert dq_ptr[8] == 30 and np.diff(dq_ptr[:9]).max() == 4
     assert dkv_ptr[8] == 36 and np.diff(dkv_ptr[:9])[0] == 16
     assert not plan.full.any()
+    assert plan.fwd_walk[2].shape == (16 * 21, 2 * tbsm.WG_SLOTS)
     assert plan.dq_walk[2].shape == (16 * 30, tbsm.WG_SLOTS)
 
 
@@ -398,7 +420,7 @@ def test_bsa_backward_route_rule():
     views TMA reads take wgmma; an expanded do (autograd's gradient of
     out.sum()) takes mma as it comes and wgmma once readable_do has made it
     contiguous, as the autograd function does; D 256 and layout blocks
-    under 16 take mma; the forward has no wgmma route."""
+    under 16 take mma; every kernel counts its launches by route."""
     q, k, v, plan = _bf16_views()
     do = torch.ones((), dtype=torch.bfloat16).expand(q.shape)
     assert tbsm.bwd_route(q, k, v, do, plan) == "mma"
@@ -411,9 +433,28 @@ def test_bsa_backward_route_rule():
     q2, k2, v2, plan2 = _bf16_views(d=256)
     assert tbsm.bwd_route(q2, k2, v2, q2, plan2) == "mma"
     assert set(tbsm.block_sparse_mha.routes) == {
-        "bsa_fwd.fma", "bsa_fwd.mma"} | {
-        f"{n}.{r}" for n in ("bsa_bwd_dq", "bsa_bwd_dkv")
+        f"{n}.{r}" for n in ("bsa_fwd", "bsa_bwd_dq", "bsa_bwd_dkv")
         for r in ("fma", "mma", "wgmma")}
+
+
+@pytest.mark.parametrize("case", ["bf16", "d128", "fp32", "block8", "d256",
+                                  "expanded-kv"])
+def test_bsa_forward_route_rule(case):
+    """bsa_fwd's route, before the launch: bf16 views TMA reads at D 64
+    or 128 under layout blocks of at least 16 take wgmma (the persistent
+    forward on 128 x 128 tiles); fp32 takes fma; blocks under 16, D 256
+    and an expanded K/V (stride 0) take the 64 x 64 walk's mma."""
+    want = {"bf16": "wgmma", "d128": "wgmma", "fp32": "fma"}.get(case, "mma")
+    q, k, v, plan = _bf16_views(block=8 if case == "block8" else 16,
+                                d={"d256": 256, "d128": 128}.get(case, 64))
+    if case == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif case == "expanded-kv":
+        k = k[:, :1].expand(k.shape)
+        v = v[:, :1].expand(v.shape)
+    assert tbsm.fwd_route(q, k, v, plan) == want
+    assert plan.wgmma == (case != "block8")
+    assert (plan.fwd_walk is None) == (case == "block8")
 
 
 @pytest.mark.parametrize("d", [16, 32, 80, 96, 200])
