@@ -199,6 +199,11 @@ PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "RingOffsets"),
+    # the int8 lanes: the 64 x 64 tile walk under the ring mask (on the
+    # ring-train-int8 path no other hop takes that walk)
+    "ring_carry_int8": ("attn_fwd_kernel", "RingOffsets"),
+    "ring_bwd_dq_int8": ("attn_bwd_dq_kernel", "RingOffsets"),
+    "ring_bwd_dkv_int8": ("attn_bwd_dkv_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "CausalWindow"),
@@ -280,6 +285,25 @@ RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
                   "num_layers": 2}
 RING_REF_SEQ = 512
 RING_REF_STEPS = 2
+# slice 13: the quantized ring wire (comm_quantization.ring_rotation).  The
+# ring-train-int8 phase is RING_CFG with the int8 wire; ring-reference-int8
+# and -fp8 are the ring-reference phase with that wire, card ranks against
+# CPU ranks (both encode alike).  Their first step's loss and grad norm are
+# held to REF_RTOL; the second step's and the params after it to
+# RING_WIRE_REF_RTOL: the traveling dk/dv re-encode every hop, so an
+# element whose sum lies on a rounding boundary of the wire may land one
+# wire step apart on the two devices, and AdamW's first step turns that into
+# an update of up to lr on a near-zero gradient element.
+RING_WIRES = ("int8", "fp8")
+# ring-train-int8's timed steps (ring-train's RING_STEPS less one: the
+# phase costs ~7 s a step, gloo's all_reduce most of it)
+RING_WIRE_STEPS = 2
+RING_WIRE_REF_RTOL = 1e-3
+# the int8 K/V lanes against their plain versions (which decode the rows and
+# compute in fp32): bf16 q 2^-10 (the lanes' products are exact or fp32 up
+# to summation order; p and ds enter them as two bf16 parts, about 16
+# bits), fp32 q 1e-4 (summation order)
+RING_INT8_RTOL = {"bfloat16": 2.0 ** -10, "float32": 1e-4}
 
 # slice 6: ZeRO-3 over a data axis.  bench.py's ZeRO-3 row (_autosched_body
 # with the fused variant of _autosched_fused_ab): gpt2-350m, seq 1024, micro
@@ -327,8 +351,16 @@ def bound_ms(nbytes, ops, peak):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line on stdout; a phase's line also notes on stderr the
+    seconds since the script started."""
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        print(f"chip_smoke: {time.perf_counter() - START:.1f} s {obj['phase']}",
+              file=sys.stderr, flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2058,12 +2090,15 @@ def ring_mask(s, causal, window, pos, device):
     return mask
 
 
-def ring_bounds(b, hq, hkv, s, d, elem, pairs, fp32):
+def ring_bounds(b, hq, hkv, s, d, elem, pairs, fp32, kv_row_bytes=None):
     """Least time of the carry, dq and dk/dv kernels of one hop: operands
     read once and outputs written once (the fp32 carry and accumulators
     are read and written in place) against 2, 3 and 4 products of
-    pairs x d per head."""
-    q_bytes, kv_bytes, rows = b * hq * s * d * elem, b * hkv * s * d * elem, b * hq * s * 4
+    pairs x d per head.  ``kv_row_bytes``: the bytes of one K or V row when
+    they are not d x elem (the int8 wire: d payload bytes and a 4-byte
+    scale)."""
+    kv_row = d * elem if kv_row_bytes is None else kv_row_bytes
+    q_bytes, kv_bytes, rows = b * hq * s * d * elem, b * hkv * s * kv_row, b * hq * s * 4
     qacc, kvacc = b * hq * s * d * 4, b * hkv * s * d * 4
     per_pair = 2.0 * pairs * d * hq * b
     work = [(q_bytes + 2 * kv_bytes + 4 * rows + 2 * qacc, 2 * per_pair),
@@ -2412,6 +2447,160 @@ def phase_ring_kernels(fm):
     return summary
 
 
+# the int8 K/V lanes (ring-int8-kernels): name, b, hq, hkv, s_l, d, q dtype,
+# causal, window, pos, timed.  The path: ring-train-int8's visiting hop
+# (llama3-8b heads, 4096 tokens a rank of two, striped rank 1 <- block 0).
+RING_INT8_CASES = [
+    ("path-striped-hop1-int8", 1, 32, 8, 4096, 128, "bfloat16", True, None,
+     (1, 2, 0, 2), True),
+    ("contiguous-tail-130", 1, 8, 2, 130, 128, "bfloat16", True, None,
+     (130, 1, 0, 1), False),
+    ("fp32-q", 1, 8, 2, 1024, 128, "float32", True, None, (1, 2, 0, 2),
+     False),
+    ("d256", 1, 16, 16, 2048, 256, "bfloat16", True, None, (1, 2, 0, 2),
+     False),
+]
+RING_INT8_ROW_CASE = "path-striped-hop1-int8"
+
+
+def ring_int8_case(fm, codec, case):
+    """The three hop kernels' int8 lanes of one case against their plain
+    versions on the same inputs: K/V of the case encoded by the wire codec
+    (int8 payloads, one fp32 scale a row), the hop from a fresh carry, dq
+    and dk/dv into seeded fp32 accumulators from the carry's lse.  The path
+    case is timed beside the plain versions and
+    scaled_dot_product_attention under the hop's mask on the decoded bf16
+    K/V (the decode not counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    name, b, hq, hkv, s, d, dt, causal, window, pos, timed = case
+    q, k, v, do = bshd_inputs(b, hq, hkv, s, d, getattr(torch, dt), seed=16)
+    (kp, ks), (vp, vs) = (codec.wire_encode_rows(x, "int8") for x in (k, v))
+    wire = dict(k_scale=ks[..., 0], v_scale=vs[..., 0])
+    scale = d ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def fresh():
+        return (torch.full((b, hq, s), fm.NEG_INF, device="cuda"),
+                torch.zeros((b, hq, s), device="cuda"),
+                torch.zeros((b, hq, s, d), device="cuda"))
+
+    def small(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.1
+
+    want_route = "mma_s8" if dt == "bfloat16" else "fma_s8"
+    state, ref = fresh(), fresh()
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, kp, vp, *state, pos, **kw, **wire)
+    fm.ring_carry_ref(q, kp, vp, *ref, pos, causal, scale, window, **wire)
+    m, l, _ = ref
+    lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
+    delta = small(b, hq, s)
+    acc0 = [small(b, hq, s, d), small(b, hkv, s, d), small(b, hkv, s, d)]
+    got = [t.clone() for t in acc0]
+    want = [t.clone() for t in acc0]
+    bwd = (q, kp, vp, do, lse, delta)
+    fm.flash_ring_dq_block(*bwd, got[0], pos, **kw, **wire)
+    fm.flash_ring_dkv_block(*bwd, got[1], got[2], pos, **kw, **wire)
+    fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal, scale, window, **wire)
+    fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal, scale, window,
+                        **wire)
+    torch.cuda.synchronize()
+    taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
+             if c != routes[n]}
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    if taken != {f"{n}.{want_route}": 1 for n in kernels}:
+        fail(f"ring-int8-kernels ({name}): routes {taken}, expected "
+             f"{want_route}")
+    rtol = RING_INT8_RTOL[dt]
+    safe = [x[1].clamp(min=1e-20)[..., None] for x in (state, ref)]
+    checks = {
+        "ring_carry": [(state[0], ref[0], 1e-4), (state[1], ref[1], rtol),
+                       (state[2] / safe[0], ref[2] / safe[1], rtol)],
+        "ring_bwd_dq": [(got[0], want[0], rtol)],
+        "ring_bwd_dkv": [(got[1], want[1], rtol), (got[2], want[2], rtol)]}
+    pairs = ring_pairs(s, causal, window, pos)
+    bounds = ring_bounds(b, hq, hkv, s, d, q.element_size(), pairs,
+                         dt == "float32", kv_row_bytes=d + 4)
+    rows = {}
+    for (kname, pairs_), (bound, by) in zip(checks.items(), bounds):
+        err, ok = 0.0, True
+        for g, r, tol in pairs_:
+            diff = (g.float() - r.float()).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
+            ok &= bool(torch.isfinite(g).all())
+        rows[kname] = {"phase": "ring-int8-kernels", "case": name,
+                       "kernel": kname, "route": want_route,
+                       "lane": "int8 K/V + fp32 row scales",
+                       "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
+                       "dtype": dt, "causal": causal, "window": window,
+                       "pos": list(pos), "pairs": pairs,
+                       "max_abs_err": err, "ok": ok,
+                       "tolerance": "|k-r| <= rtol * (1 + |r|) on m (1e-4), "
+                                    f"l, acc/l, dq, dk, dv (rtol {rtol})",
+                       "bound_ms": bound, "bound_by": by,
+                       "bound_note": "the bf16 lane's products (2, 3, 4 "
+                                     "pairs x d a head) with K/V as int8 "
+                                     "rows plus a 4-byte scale"}
+    if timed:
+        st, st_r = fresh(), fresh()
+        calls = {"ring_carry": (
+                     lambda: fm.flash_carry_block(q, kp, vp, *st, pos, **kw, **wire),
+                     lambda: fm.ring_carry_ref(q, kp, vp, *st_r, pos, causal, scale,
+                                               window, **wire)),
+                 "ring_bwd_dq": (
+                     lambda: fm.flash_ring_dq_block(*bwd, got[0], pos, **kw, **wire),
+                     lambda: fm.ring_bwd_dq_ref(*bwd, want[0], pos, causal, scale,
+                                                window, **wire)),
+                 "ring_bwd_dkv": (
+                     lambda: fm.flash_ring_dkv_block(*bwd, got[1], got[2], pos, **kw,
+                                                     **wire),
+                     lambda: fm.ring_bwd_dkv_ref(*bwd, want[1], want[2], pos, causal,
+                                                 scale, window, **wire))}
+        for kname, (kern, plain) in calls.items():
+            rows[kname].update(kernel_ms(kern))
+            rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        mask = ring_mask(s, causal, window, pos, "cuda")
+        dec = [codec.wire_decode_rows(p, sc, "int8").to(q.dtype)
+               for p, sc in ((kp, ks), (vp, vs))]
+        lib = [x.detach().clone().requires_grad_(True) for x in (q, *dec)]
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            *lib, attn_mask=mask, scale=scale, enable_gqa=hq != hkv))
+        with torch.no_grad():
+            rows["ring_carry"]["library_ms"] = cuda_time_ms(sdpa)
+        pair_ms = grad_time_ms(sdpa, lib, do)
+        note = ("scaled_dot_product_attention under the hop's boolean "
+                "position mask on the K/V decoded to bf16 (the decode not "
+                "counted): one hop's attention without the carry merge")
+        rows["ring_carry"]["library_note"] = note
+        for kname in ("ring_bwd_dq", "ring_bwd_dkv"):
+            rows[kname]["library_ms"] = pair_ms
+            rows[kname]["library_note"] = f"{note}; backward, dq, dk and dv together"
+    for r in rows.values():
+        emit(r)
+        if not r["ok"]:
+            fail(f"{r['kernel']} ({r['route']}) disagrees with its plain "
+                 f"version ({r['case']})")
+    return rows
+
+
+def phase_ring_int8_kernels(fm, codec):
+    """The int8 K/V lanes; the kernels line's rows, named ``<kernel>_int8``,
+    from the path case."""
+    import torch
+
+    summary = {}
+    for case in RING_INT8_CASES:
+        rows = ring_int8_case(fm, codec, case)
+        if case[0] == RING_INT8_ROW_CASE:
+            summary.update({f"{k}_int8": r for k, r in rows.items()})
+        torch.cuda.empty_cache()
+    return summary
+
+
 def _ring_counters():
     """Every kernel counter of the port, in this process."""
     from deepspeed_tpu_torch.ops import block_sparse_mha as bsm
@@ -2427,44 +2616,92 @@ def _ring_counters():
             fm.ring_launches, fm.ring_routes)
 
 
-def ring_rank_reference(rank, world, model_kw, params, cfg, batch, steps):
-    """One rank of the ring-reference phase: the fp32 engine over a seq
-    axis of ``world`` ranks on the card, per placement, from ``params``:
-    losses, grad norms, launch counts and (rank 0) the params after."""
+def ring_rank_reference(rank, world, model_kw, params, cfgs, batch, steps,
+                        device=None):
+    """One rank of the ring-reference phases: the fp32 engine over a seq
+    axis of ``world`` ranks on the card (or, ``device="cpu"``, on the CPU),
+    per config of ``cfgs`` (by wire) and placement, from ``params``:
+    losses, grad norms, the ring's wire, launch counts and (rank 0) the
+    params after."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(4)
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.models import transformer as tf
 
     counters = _ring_counters()
     out = {}
-    for placement in ("contiguous", "striped"):
-        model = registry.get_model_config(RING_MODEL, seq_impl="ring",
-                                          ring_placement=placement, **model_kw)
-        eng, *_ = ds.initialize(model=model, config=cfg,
-                                model_parameters=params)
-        zero_counts(*counters)
-        losses, norms = [], []
-        for _ in range(steps):
-            losses.append(float(eng.train_batch(batch)))
-            norms.append(eng.get_global_grad_norm())
-        out[placement] = {
-            "losses": losses, "grad_norms": norms,
-            "launches": {k: v for c in counters for k, v in c.items()},
-            "params": (tf.tree_map_with_path(
-                lambda _p, x: x.detach().cpu(), eng.params)
-                if rank == 0 else None)}
-        del eng
-        torch.cuda.empty_cache()
+    for wire, cfg in cfgs.items():
+        out[wire] = {}
+        for placement in ("contiguous", "striped"):
+            model = registry.get_model_config(RING_MODEL, seq_impl="ring",
+                                              ring_placement=placement,
+                                              **model_kw)
+            eng, *_ = ds.initialize(model=model, config=cfg,
+                                    model_parameters=params, device=device)
+            zero_counts(*counters)
+            losses, norms = [], []
+            for _ in range(steps):
+                losses.append(float(eng.train_batch(batch)))
+                norms.append(eng.get_global_grad_norm())
+            out[wire][placement] = {
+                "losses": losses, "grad_norms": norms,
+                "wire": eng.model_config.ring_wire_dtype,
+                "launches": {k: v for c in counters for k, v in c.items()},
+                "params": (tf.tree_map_with_path(
+                    lambda _p, x: x.detach().cpu(), eng.params)
+                    if rank == 0 else None)}
+            del eng
+            if device != "cpu":
+                torch.cuda.empty_cache()
     return out
 
 
+def wire_bytes_of_step(step):
+    """Run ``step()`` with every ``ring_rotate`` of sequence/ring.py
+    recorded: each rotation's bytes by dtype (payloads, scales, or the
+    tensors as they are on the fp32 wire) for the step's first forward ring
+    and first backward ring, and the step's rotations and bytes in all."""
+    from deepspeed_tpu_torch.sequence import ring as ring_mod
+
+    calls, where, seen = [], [None], {"forward": -1, "backward": -1}
+    orig = (ring_mod.ring_rotate, ring_mod._ring_fwd, ring_mod._ring_bwd)
+
+    def rotate(tensors, group=None):
+        by = {}
+        for t in tensors:
+            by[str(t.dtype)] = by.get(str(t.dtype), 0) + t.numel() * t.element_size()
+        calls.append((where[0], by))
+        return orig[0](tensors, group)
+
+    def tagged(fn, name):
+        def run(*a, **k):
+            seen[name] += 1
+            where[0] = (name, seen[name])
+            return fn(*a, **k)
+        return run
+
+    ring_mod.ring_rotate = rotate
+    ring_mod._ring_fwd = tagged(orig[1], "forward")
+    ring_mod._ring_bwd = tagged(orig[2], "backward")
+    try:
+        step()
+    finally:
+        ring_mod.ring_rotate, ring_mod._ring_fwd, ring_mod._ring_bwd = orig
+    return {"first_forward_ring": [b for w, b in calls if w == ("forward", 0)],
+            "first_backward_ring": [b for w, b in calls if w == ("backward", 0)],
+            "rotations_per_step": len(calls),
+            "bytes_per_step": sum(sum(b.values()) for _, b in calls)}
+
+
 def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
-    """One rank of the ring-train phase: llama3-8b width, bf16, striped,
-    a warm-up step, ``steps`` timed steps (counts zeroed just before them
-    and read just after), then one step profiled on rank 0."""
+    """One rank of the ring-train phases: llama3-8b width, bf16, striped,
+    a warm-up step (the ring's wire bytes recorded), ``steps`` timed steps
+    (counts zeroed just before them and read just after), then one step
+    profiled on rank 0."""
     import numpy as np
     import torch
 
@@ -2481,7 +2718,9 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
     rows = cfg["train_micro_batch_size_per_gpu"] * cfg["gradient_accumulation_steps"]
     batch = train_batch_of(model.vocab_size, rows, seed=0, seq=seq)  # every rank alike
     t0 = time.perf_counter()
-    losses = [float(eng.train_batch(batch))]      # warm-up
+    losses = []       # the warm-up, its ring's wire bytes recorded
+    wire_bytes = wire_bytes_of_step(
+        lambda: losses.append(float(eng.train_batch(batch))))
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     zero_counts(*counters)
@@ -2497,7 +2736,8 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "param_checksum": float(sum(float(p.detach().double().sum())
                                        for p in tf.tree_leaves(eng.params))),
-           "finite": bool(np.all(np.isfinite(losses)))}
+           "finite": bool(np.all(np.isfinite(losses))),
+           "wire": eng.model_config.ring_wire_dtype, "wire_bytes": wire_bytes}
     if rank == 0:
         wall_ms, by_name, busy_ms, prof = profile_call(
             lambda: eng.train_batch(batch))
@@ -2519,12 +2759,23 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
     return res
 
 
+def ring_ref_cfgs(wires):
+    """The ring-reference phases' fp32 configs by wire."""
+    cfg = {**RING_CFG, "bf16": {"enabled": False}}
+    return {w: cfg if w == "fp32" else
+            {**cfg, "comm_quantization": {"enabled": True, "ring_rotation": w}}
+            for w in wires}
+
+
 def phase_ring_reference(ds, tf_model, tf, launch):
     """The ring engine in two ranks on the card (gloo, one card) against
     the same engine in this process on the CPU at sp 1, fp32, at
     llama3-8b's head geometry and a reduced width: loss and grad norm of
     each of RING_REF_STEPS steps and the params after them to REF_RTOL
-    (summation order only), under both placements; each rank's launches."""
+    (summation order only), under both placements; each rank's launches.
+    The same two card ranks then run the engine with each quantized wire
+    of RING_WIRES, which :func:`phase_ring_reference_wire` holds; returns
+    ``(params, batch, the card ranks' results)``."""
     import numpy as np
     import torch
 
@@ -2541,24 +2792,20 @@ def phase_ring_reference(ds, tf_model, tf, launch):
         want.append((float(host.train_batch(batch)),
                      host.get_global_grad_norm()))
     ranks = launch(ring_rank_reference, RING_RANKS,
-                   args=(RING_REF_MODEL, params, cfg, batch, RING_REF_STEPS),
+                   args=(RING_REF_MODEL, params,
+                         ring_ref_cfgs(("fp32",) + RING_WIRES), batch,
+                         RING_REF_STEPS),
                    backend=RING_BACKEND, device="cuda")
     # launches a rank: steps x gas x layers x live hops (contiguous rank 0
     # skips its dead hop); one AdamW a step
     per = RING_REF_STEPS * cfg["gradient_accumulation_steps"] * RING_REF_MODEL["num_layers"]
     for placement in ("contiguous", "striped"):
-        got = [r[placement] for r in ranks]
+        got = [r["fp32"][placement] for r in ranks]
         worst = 0.0
         for r in got:
             for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]), want):
                 worst = max(worst, abs(lc - lh) / abs(lh), abs(gc - gh) / gh)
-        num = den = 0.0
-        for a, b in zip(tf.tree_leaves(got[0]["params"]),
-                        tf.tree_leaves(host.params)):
-            a, b = a.double(), b.detach().double()
-            num += float(((a - b) ** 2).sum())
-            den += float((b ** 2).sum())
-        params_rel = (num / den) ** 0.5
+        params_rel = _params_rel(got[0]["params"], host.params, tf)
         wants = []
         for rank in range(RING_RANKS):
             live = 1 if placement == "contiguous" and rank == 0 else 2
@@ -2592,18 +2839,114 @@ def phase_ring_reference(ds, tf_model, tf, launch):
         if launches != wants:
             fail(f"ring-reference ({placement}): launched {launches}, "
                  f"expected {wants}")
-    del host, params, ranks
+    del host
     torch.cuda.empty_cache()
+    return params, batch, ranks
 
 
-def phase_ring_train(tf_model, launch, card):
+def _params_rel(a_tree, b_tree, tf):
+    """Relative L2 distance of two param trees."""
+    num = den = 0.0
+    for a, b in zip(tf.tree_leaves(a_tree), tf.tree_leaves(b_tree)):
+        a, b = a.double(), b.detach().double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def phase_ring_reference_wire(tf, launch, params, batch, card):
+    """The ring-reference phase with each quantized wire of RING_WIRES
+    (ring-reference-int8, -fp8): the card ranks' run of
+    :func:`phase_ring_reference` (``card``) against the same fp32 engine
+    and params in two ranks on the CPU (gloo), both placements; per step
+    the losses and grad norms, and the params after the steps.  The first
+    step at REF_RTOL, the rest at RING_WIRE_REF_RTOL.  Each card rank's
+    launches: its own block on the fma route, and with int8 every live
+    visiting hop on the fma_s8 lane (fp8 decodes K/V with the codec and
+    runs the fma route)."""
+    cfgs = ring_ref_cfgs(RING_WIRES)
+    cpu = launch(ring_rank_reference, RING_RANKS,
+                 args=(RING_REF_MODEL, params, cfgs, batch, RING_REF_STEPS,
+                       "cpu"),
+                 backend=RING_BACKEND, device="cpu")
+    for wire in RING_WIRES:
+        ring_wire_check(tf, wire, cfgs[wire], [r[wire] for r in card],
+                        [r[wire] for r in cpu])
+
+
+def ring_wire_check(tf, wire, cfg, card, cpu):
+    """One wire's ring-reference lines (see
+    :func:`phase_ring_reference_wire`)."""
+    per = RING_REF_STEPS * cfg["gradient_accumulation_steps"] * RING_REF_MODEL["num_layers"]
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    phase = f"ring-reference-{wire}"
+    for placement in ("contiguous", "striped"):
+        got = [r[placement] for r in card]
+        want = [r[placement] for r in cpu]
+        first = later = 0.0
+        for g, w in zip(got, want):
+            for i in range(RING_REF_STEPS):
+                rel = max(abs(g["losses"][i] - w["losses"][i]) / abs(w["losses"][i]),
+                          abs(g["grad_norms"][i] - w["grad_norms"][i])
+                          / w["grad_norms"][i])
+                if i == 0:
+                    first = max(first, rel)
+                else:
+                    later = max(later, rel)
+        params_rel = _params_rel(got[0]["params"], want[0]["params"], tf)
+        wants = []
+        for rank in range(RING_RANKS):
+            visiting = 0 if placement == "contiguous" and rank == 0 else 1
+            routes = ({"fma": per, "fma_s8": per * visiting} if wire == "int8"
+                      else {"fma": per * (1 + visiting)})
+            wants.append({**{k: 0 for k in got[rank]["launches"]},
+                          **{k: per * (1 + visiting) for k in kernels},
+                          **{f"{k}.{r}": n for k in kernels
+                             for r, n in routes.items() if n},
+                          "fused_adamw": RING_REF_STEPS})
+        launches = [g["launches"] for g in got]
+        ok = (first <= REF_RTOL and later <= RING_WIRE_REF_RTOL
+              and params_rel <= RING_WIRE_REF_RTOL and launches == wants
+              and all(g["wire"] == wire for g in got + want))
+        emit({"phase": phase, "model": RING_MODEL,
+              "overrides": RING_REF_MODEL, "dtype": "float32", "wire": wire,
+              "placement": placement, "ranks": RING_RANKS,
+              "backend": RING_BACKEND, "seq": RING_REF_SEQ,
+              "steps": [{"loss_card": [g["losses"][i] for g in got],
+                         "loss_cpu": [w["losses"][i] for w in want],
+                         "grad_norm_card": [g["grad_norms"][i] for g in got],
+                         "grad_norm_cpu": [w["grad_norms"][i] for w in want]}
+                        for i in range(RING_REF_STEPS)],
+              "check": "two ranks on the card (ring kernels, the int8 lanes "
+                       "for int8, cuBLAS) vs two ranks on the CPU (plain "
+                       "versions), the same wire",
+              "max_rel_err_first_step": first,
+              "max_rel_err_later_steps": later, "params_rel_l2": params_rel,
+              "tolerance": {"first_step": REF_RTOL,
+                            "later_steps_and_params": RING_WIRE_REF_RTOL},
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": ok})
+        if not ok:
+            fail(f"{phase} ({placement}): the card's ranks differ from the "
+                 f"CPU's ({first}, {later}, {params_rel}) or launched "
+                 f"{launches}, expected {wants}")
+
+
+def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
+                     steps=RING_STEPS):
     """llama3-8b at full width, depth cut to RING_LAYERS, seq RING_SEQ over
     RING_RANKS ranks sharing the card (gloo), striped, bf16, the
     longseq_ring row's step: seconds a step, tokens/s for the card, peak
-    memory a rank, a profiled step on rank 0 with the time inside
-    ring_rotate and all_reduce (``comm_ms``), and each rank's launches a step, which must
-    be 2 layers x gas 2 x 2 live hops of each ring kernel, one AdamW and
-    nothing else."""
+    memory a rank, the ring's wire bytes, a profiled step on rank 0 with
+    the time inside ring_rotate and all_reduce (``comm_ms``), and each
+    rank's launches a step, which must be 2 layers x gas 2 x 2 live hops of
+    each ring kernel, one AdamW and nothing else: on the wgmma route, or,
+    with ``wire`` "int8" (``comm_quantization.ring_rotation``, the
+    ring-train-int8 phase), the own block's hop on wgmma and the visiting
+    hop on the int8 lane (mma_s8).  ``base``: the fp32-wire phase's
+    result, whose losses at the same seed and wire bytes the int8 phase
+    reports beside its own (``ring_loss_delta``, bench.py's _ring_wire_ab).
+    Returns ``(launches of rank 0 by kernel and route, the ranks' results)``."""
     import numpy as np
     import torch
 
@@ -2612,45 +2955,74 @@ def phase_ring_train(tf_model, launch, card):
     model = tf_model.get_model_config(RING_MODEL, **model_kw)
     gas = RING_CFG["gradient_accumulation_steps"]
     live = RING_LAYERS * gas * 2
-    emit({"phase": "ring-backend", "backend": RING_BACKEND,
-          "why": "the ranks share one card, and NCCL refuses two ranks on "
-                 "one GPU; point-to-point buffers go through pinned host "
-                 "memory, every computation stays on the card"})
+    cfg = RING_CFG
+    phase = "ring-train"
+    if wire != "fp32":
+        cfg = {**RING_CFG, "comm_quantization": {"enabled": True,
+                                                 "ring_rotation": wire}}
+        phase = f"ring-train-{wire}"
+    else:
+        emit({"phase": "ring-backend", "backend": RING_BACKEND,
+              "why": "the ranks share one card, and NCCL refuses two ranks "
+                     "on one GPU; point-to-point buffers go through pinned "
+                     "host memory, every computation stays on the card"})
     ranks = launch(ring_rank_train, RING_RANKS,
-                   args=(model_kw, RING_CFG, RING_SEQ, RING_STEPS),
+                   args=(model_kw, cfg, RING_SEQ, steps),
                    backend=RING_BACKEND, device="cuda")
-    rows = RING_CFG["train_micro_batch_size_per_gpu"] * gas
+    rows = cfg["train_micro_batch_size_per_gpu"] * gas
     tokens = rows * RING_SEQ
-    step_s = [max(r["step_s"][i] for r in ranks) for i in range(RING_STEPS)]
-    # every carry, dq and dk/dv launch of the step on the wgmma route
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
     kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    routes = ({"wgmma": live} if wire == "fp32"
+              else {"wgmma": live // 2, "mma_s8": live // 2})
     want = {**{k: 0 for k in ranks[0]["launches"]},
             **{k: live for k in kernels},
-            **{f"{k}.wgmma": live for k in kernels}, "fused_adamw": 1}
-    per_step = [{k: v / RING_STEPS for k, v in r["launches"].items()}
+            **{f"{k}.{r}": n for k in kernels for r, n in routes.items()},
+            "fused_adamw": 1}
+    per_step = [{k: v / steps for k, v in r["launches"].items()}
                 for r in ranks]
     ok = (all(r["finite"] for r in ranks)
           and all(r["losses"] == ranks[0]["losses"] for r in ranks)
           and all(r["param_checksum"] == ranks[0]["param_checksum"]
                   for r in ranks)
           and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+          and all(r["wire"] == wire for r in ranks)
           and all(p == want for p in per_step))
     n_params = count_params(model)
-    emit({"phase": "ring-train", "model": RING_MODEL,
-          "layers": RING_LAYERS, "params": n_params, "dtype": "bfloat16",
-          "placement": "striped", "ranks": RING_RANKS,
-          "backend": RING_BACKEND, "seq": RING_SEQ,
-          "seq_per_rank": RING_SEQ // RING_RANKS,
-          "micro": RING_CFG["train_micro_batch_size_per_gpu"], "gas": gas,
-          "optimizer": RING_CFG["optimizer"], "remat": "none",
-          "zero_stage": 1, "step_s": step_s,
-          "tokens_per_step": tokens, "tokens_per_s": tokens * RING_STEPS / sum(step_s),
-          "ranks_detail": [{k: v for k, v in r.items() if k != "profile"}
-                           for r in ranks],
-          "launches_per_step": per_step, "expected_per_step": want,
-          "card": card, "ok": ok})
+    row = {"phase": phase, "model": RING_MODEL,
+           "layers": RING_LAYERS, "params": n_params, "dtype": "bfloat16",
+           "wire": wire, "placement": "striped", "ranks": RING_RANKS,
+           "backend": RING_BACKEND, "seq": RING_SEQ,
+           "seq_per_rank": RING_SEQ // RING_RANKS,
+           "micro": cfg["train_micro_batch_size_per_gpu"], "gas": gas,
+           "optimizer": cfg["optimizer"], "remat": "none",
+           "zero_stage": 1, "step_s": step_s,
+           "tokens_per_step": tokens, "tokens_per_s": tokens * steps / sum(step_s),
+           "wire_bytes": ranks[0]["wire_bytes"],
+           "ranks_detail": [{k: v for k, v in r.items()
+                             if k not in ("profile", "wire_bytes")}
+                            for r in ranks],
+           "launches_per_step": per_step, "expected_per_step": want,
+           "card": card, "ok": ok}
+    if base is not None:
+        b0 = base[0]
+        row["ring_loss_delta"] = max(abs(a - b) for a, b in
+                                     zip(ranks[0]["losses"], b0["losses"]))
+        row["losses_fp32_wire"] = b0["losses"]
+        row["wire_bytes_fp32_wire"] = {
+            k: b0["wire_bytes"][k] for k in ("first_forward_ring",
+                                             "first_backward_ring",
+                                             "bytes_per_step")}
+        row["wire_reduction"] = {
+            "forward": (sum(sum(c.values()) for c in b0["wire_bytes"]["first_forward_ring"])
+                        / sum(sum(c.values()) for c in ranks[0]["wire_bytes"]["first_forward_ring"])),
+            "backward": (sum(sum(c.values()) for c in b0["wire_bytes"]["first_backward_ring"])
+                         / sum(sum(c.values()) for c in ranks[0]["wire_bytes"]["first_backward_ring"])),
+            "step": (b0["wire_bytes"]["bytes_per_step"]
+                     / ranks[0]["wire_bytes"]["bytes_per_step"])}
+    emit(row)
     prof = ranks[0]["profile"]
-    emit({"phase": "ring-train-profile",
+    emit({"phase": f"{phase}-profile",
           "what": "one train_batch on rank 0 (rank 1 steps beside it)",
           "collectives_note": "host time inside comm.ring_rotate and "
                               "comm.all_reduce (every grad leaf, plus the "
@@ -2658,11 +3030,11 @@ def phase_ring_train(tf_model, launch, card):
                               "= less this rank's compute kernels running",
           **prof, "card": card})
     if not ok:
-        fail("ring-train: losses not finite, not equal on the ranks or not "
-             "falling, params differ between ranks, or the launch counts do "
-             "not show the ring kernels")
-    return {k: ranks[0]["launches"][k]
-            for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}
+        fail(f"{phase}: losses not finite, not equal on the ranks or not "
+             "falling, params differ between ranks, the wire is not the "
+             "configured one, or the launch counts do not show the ring "
+             "kernels on their routes")
+    return ranks[0]["launches"], ranks
 
 
 # ----------------------------------------------------------------------
@@ -3170,15 +3542,29 @@ def main() -> int:
     # kernels are built above, before any rank starts (two ranks building
     # at once would race), and this process frees its cache so that two
     # ranks of ~30 GB fit beside it.
+    # 19b-d (slice 13): the int8 K/V lanes of the hop kernels, the ring
+    # reference with the int8 and fp8 wires (card ranks against CPU ranks),
+    # and the ring training step with the int8 wire
+    from deepspeed_tpu_torch.comm import quantized as codec
     from deepspeed_tpu_torch.launcher import launch
 
     ring_summary = phase_ring_kernels(fm)
-    phase_ring_reference(ds, tf_model, tf, launch)
+    ring_summary.update(phase_ring_int8_kernels(fm, codec))
+    ref_params, ref_batch, ref_card = phase_ring_reference(ds, tf_model, tf,
+                                                           launch)
+    phase_ring_reference_wire(tf, launch, ref_params, ref_batch, ref_card)
+    del ref_params, ref_batch, ref_card
     gc.collect()     # engines of earlier phases left in reference cycles
     torch.cuda.empty_cache()
     emit({"phase": "ring-parent-memory",
           "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
-    ring_train_launches = phase_ring_train(tf_model, launch, smi)
+    ring_run, ring_ranks = phase_ring_train(tf_model, launch, smi)
+    int8_run, _ = phase_ring_train(tf_model, launch, smi, wire="int8",
+                                   base=ring_ranks, steps=RING_WIRE_STEPS)
+    ring_train_launches = {
+        **{k: ring_run[k] for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
+        **{f"{k}_int8": int8_run[f"{k}.mma_s8"]
+           for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}}
 
     # 20. the gather-matmul GEMM, 21. ZeRO stages in two ranks on the card
     # against the CPU, 22. gpt2-350m under ZeRO-3 with the fused
@@ -3213,6 +3599,9 @@ def main() -> int:
                "ring_carry": csrc + "ring_attention.cu",
                "ring_bwd_dq": csrc + "ring_attention.cu",
                "ring_bwd_dkv": csrc + "ring_attention.cu",
+               "ring_carry_int8": csrc + "ring_attention_int8.cu",
+               "ring_bwd_dq_int8": csrc + "ring_attention_int8.cu",
+               "ring_bwd_dkv_int8": csrc + "ring_attention_int8.cu",
                "gather_matmul": csrc + "gather_matmul.cu"}
     replaces = {"paged_attention": pallas + "paged_attention.py:52",
                 "paged_attention_int8": pallas + "paged_attention.py:129",
@@ -3231,10 +3620,17 @@ def main() -> int:
                 "ring_carry": pallas + "flash_mha.py:471",
                 "ring_bwd_dq": pallas + "flash_mha.py:699",
                 "ring_bwd_dkv": pallas + "flash_mha.py:765",
+                "ring_carry_int8": pallas + "flash_mha.py:471",
+                "ring_bwd_dq_int8": pallas + "flash_mha.py:699",
+                "ring_bwd_dkv_int8": pallas + "flash_mha.py:765",
                 "gather_matmul": pallas + "gather_matmul.py:133"}
     also = {"flash_fwd": pallas + "flash_mha.py:286",
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
+    # the quantized lanes of the ring kernels (wire_dequant_rows, :460)
+    lanes = {"ring_carry_int8": pallas + "flash_mha.py:505",
+             "ring_bwd_dq_int8": pallas + "flash_mha.py:729",
+             "ring_bwd_dkv_int8": pallas + "flash_mha.py:795"}
     launch_run = {"paged_attention": launches["bf16"]["paged_attention"],
                   "paged_attention_int8":
                   launches["int8"]["paged_attention_int8"],
@@ -3253,7 +3649,12 @@ def main() -> int:
              **{k: f"rank 0 of {RING_RANKS} in the ring-train phase's "
                    f"{RING_STEPS} timed steps (each rank launched as many); "
                    f"times from the {RING_ROW_CASE} case"
-                for k in ring_train_launches},
+                for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
+             **{k: f"rank 0 of {RING_RANKS} in the ring-train-int8 phase's "
+                   f"{RING_WIRE_STEPS} timed steps, the visiting hops' mma_s8 "
+                   f"launches (each rank launched as many); times from the "
+                   f"{RING_INT8_ROW_CASE} case"
+                for k in lanes},
              "gather_matmul": f"rank 0 of {ZERO_RANKS} in the zero3-train "
                               f"phase's {ZERO_STEPS} timed steps (each rank "
                               f"launched as many); times from the "
@@ -3281,6 +3682,8 @@ def main() -> int:
             entry["splits"] = row["splits"]
         if name in also:
             entry["also_replaces"] = also[name]
+        if name in lanes:
+            entry["replaces_lane"] = lanes[name]
         if name in notes:
             entry["launches_note"] = notes[name]
         entries.append(entry)

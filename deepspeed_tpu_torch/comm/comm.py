@@ -165,7 +165,8 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
     """One hop of the ring: send each tensor to the next rank of ``group``
     and receive the previous rank's, all in one ``batch_isend_irecv``;
     returns the received tensors (new buffers, shapes and dtypes of the
-    sent ones, on their devices)."""
+    sent ones, on their devices).  Point-to-point moves bytes, so any dtype
+    travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
     with record_function("comm.ring_rotate"):
         size = dist.get_world_size(group)
         rank = dist.get_rank(group)

@@ -192,8 +192,8 @@ class TransformerConfig:
     ring_interleave: int = 1
     # ring rotation wire dtype (comm_quantization.ring_rotation; set by
     # the engine): "fp32" | "int8" | "fp8" — quantized payloads + fp32
-    # per-row scales travel every ring hop, dequantized in the consuming
-    # flash kernel's epilogue (sequence/ring.py)
+    # per-row scales travel every ring hop; int8 hops run the hop kernels'
+    # int8 lanes, fp8 hops decode first (sequence/ring.py)
     ring_wire_dtype: str = "fp32"
     # layer-scan unroll factor (XLA overlaps across unrolled iterations)
     scan_unroll: int = 1

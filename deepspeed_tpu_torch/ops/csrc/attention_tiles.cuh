@@ -67,6 +67,20 @@
 //    No wgmma/TMA/warp specialisation and no cp.async double buffer: those
 //    are for the PRs that make it fast.
 //
+// The quantized ring wire (template flag Q8, the int8 K/V lanes of
+// ring_attention_int8.cu): K/V arrive as int8 payload rows with one fp32 scale a row
+// ([B, Hkv, S] contiguous), what the JAX kernels read through
+// wire_dequant_rows.  The fp32 walk decodes a row on load, payload times
+// scale (that function's arithmetic, bit for bit), and then computes as it
+// always does.  The bf16 walk widens the payload to bf16, exactly (|x| <=
+// 128), and puts the scales on the key axis (kKeyScales):
+//   s = ks[j] (q . kp_j) scale, and dp = vs[j] (do . vp_j);
+//   forward: p vs[j] into p . vp;  dq: ds ks[j] into ds . kp;
+//   dk/dv: ds into ds^T . q and p into p^T . do, no scale on the outputs.
+// Each of those fp32 factors enters its product as two bf16 parts (hi, then
+// the remainder lo), so the product keeps about 16 bits of it: the JAX lane
+// keeps p and ds in fp32.  Q8 = false compiles the code it always did.
+//
 // Each launcher runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
 
@@ -142,6 +156,62 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long row_st
       val = *reinterpret_cast<const uint4*>(src + static_cast<long long>(row0 + r) * row_stride + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
+}
+
+// K/V element type of a walk: T, or the quantized wire's int8 payload (Q8)
+template <typename T, bool Q8> using KvT = typename std::conditional<Q8, int8_t, T>::type;
+// the bf16 walk over int8 K/V: the row scales act on the key axis
+template <typename T, bool Q8> constexpr bool kKeyScales = Q8 && std::is_same<T, bf16>::value;
+
+// dst[r][:] = int8 payload row (row0 + r) of src widened to T for r < ROWS;
+// rows at or past S are zero.  fp32: times the row's scale (scale[row]),
+// wire_dequant_rows' arithmetic; bf16: the integer itself, exact.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile_s8(T* dst, const int8_t* src, long long row_stride,
+                                             int row0, int S, const float* scale) {
+  constexpr int kVecs = D / 16;
+  constexpr int LD = ld<T>(D);
+  for (int i = threadIdx.x; i < ROWS * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 16;
+    int4 raw = make_int4(0, 0, 0, 0);
+    float sc = 0.f;
+    if (row0 + r < S) {
+      raw = *reinterpret_cast<const int4*>(src + static_cast<long long>(row0 + r) * row_stride + c);
+      if constexpr (std::is_same<T, float>::value) sc = scale[row0 + r];
+    }
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    alignas(16) T w[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float x = static_cast<float>(b[j]);
+      if constexpr (std::is_same<T, float>::value)
+        w[j] = x * sc;
+      else
+        w[j] = from_f<T>(x);
+    }
+#pragma unroll
+    for (int j = 0; j < 16 * static_cast<int>(sizeof(T)) / 16; ++j)
+      reinterpret_cast<uint4*>(dst + r * LD + c)[j] = reinterpret_cast<const uint4*>(w)[j];
+  }
+}
+
+// A K or V tile into shared memory: load_tile, or load_tile_s8 under Q8
+// (scale: the rows' scales of this (batch, KV head))
+template <typename T, int D, int ROWS, bool Q8>
+__device__ __forceinline__ void load_kv(T* dst, const KvT<T, Q8>* src, long long row_stride,
+                                        int row0, int S, const float* scale) {
+  if constexpr (Q8)
+    load_tile_s8<T, D, ROWS>(dst, src, row_stride, row0, S, scale);
+  else
+    load_tile<T, D, ROWS>(dst, src, row_stride, row0, S);
+}
+
+// x as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), into hi[i], lo[i]
+template <typename T>
+__device__ __forceinline__ void split_store(T* hi, T* lo, int i, float x) {
+  const T h = from_f<T>(x);
+  hi[i] = h;
+  lo[i] = from_f<T>(x - to_f(h));
 }
 
 // dst[r][:] (row length ldd) = fp32 row (row0 + r) of src for r < ROWS;
@@ -308,7 +378,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+// SK (kKeyScales): p's lo part and the tile's key scales besides
+template <typename T, int D, bool SK = false>
 struct FwdLayout {
   // fp32 at D 256: two passes of 32 query rows a tile
   static constexpr int BQ = sizeof(T) == 4 && D > 128 ? kTile / 2 : kTile, BK = kTile;
@@ -316,19 +387,23 @@ struct FwdLayout {
   static constexpr size_t bytes() {
     return r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
            r128(BQ * LDS * sizeof(float)) + r128(BQ * LDP * sizeof(T)) +
-           r128(BQ * LDO * sizeof(float)) + 3 * r128(BQ * sizeof(float));
+           r128(BQ * LDO * sizeof(float)) + 3 * r128(BQ * sizeof(float)) +
+           (SK ? r128(BQ * LDP * sizeof(T)) + 2 * r128(BK * sizeof(float)) : 0);
   }
 };
 
 // ACC: m_io (in lse's slot), l_io [B, Hq, S] and acc_io (strides so, in
-// o's) carry the running state in and out; o is not written.
-template <typename T, int D, typename Mask, bool ACC = false>
+// o's) carry the running state in and out; o is not written.  Q8: k, v are
+// int8 payloads with row scales ksc, vsc (else unused).
+template <typename T, int D, typename Mask, bool ACC = false, bool Q8 = false>
 __global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, float* __restrict__ l_io,
-                float* __restrict__ acc_io, Strides sq, Strides sk, Strides sv, Strides so,
-                int Hq, int Hkv, int S, float scale, Mask mask) {
-  using L = FwdLayout<T, D>;
+attn_fwd_kernel(const T* __restrict__ q, const KvT<T, Q8>* __restrict__ k,
+                const KvT<T, Q8>* __restrict__ v, const float* __restrict__ ksc,
+                const float* __restrict__ vsc, T* __restrict__ o, float* __restrict__ lse,
+                float* __restrict__ l_io, float* __restrict__ acc_io, Strides sq, Strides sk,
+                Strides sv, Strides so, int Hq, int Hkv, int S, float scale, Mask mask) {
+  constexpr bool SK = kKeyScales<T, Q8>;
+  using L = FwdLayout<T, D, SK>;
   constexpr int BQ = L::BQ, BK = L::BK;
   const int nq = (S + kTile - 1) / kTile;
   const int iq = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal walks first
@@ -347,10 +422,20 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* m_s = sm.take<float>(BQ);
   float* l_s = sm.take<float>(BQ);
   float* a_s = sm.take<float>(BQ);
+  T* ps_lo = nullptr;
+  float *ksc_s = nullptr, *vsc_s = nullptr;
+  if constexpr (SK) {
+    ps_lo = sm.take<T>(BQ * L::LDP);
+    ksc_s = sm.take<float>(BK);
+    vsc_s = sm.take<float>(BK);
+  }
 
   const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
+  const KvT<T, Q8>* kb = k + b * sk.b + hk * sk.h;
+  const KvT<T, Q8>* vb = v + b * sv.b + hk * sv.h;
+  const long long kv_rows = (static_cast<long long>(b) * Hkv + hk) * S;
+  const float* kscb = Q8 ? ksc + kv_rows : nullptr;
+  const float* vscb = Q8 ? vsc + kv_rows : nullptr;
   for (int pass = 0; pass < kTile / BQ; ++pass) {  // one pass unless BQ < kTile
   const int q0 = iq * kTile + pass * BQ;
   load_tile<T, D, BQ>(qs, qb, sq.s, q0, S);
@@ -373,8 +458,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int t = mask.k_begin(h, iq); t < t_end; ++t) {
     const int k0 = mask.k_tile(t) * BK;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, D, BK>(ks, kb, sk.s, k0, S);
-    load_tile<T, D, BK>(vs, vb, sv.s, k0, S);
+    load_kv<T, D, BK, Q8>(ks, kb, sk.s, k0, S, kscb);
+    load_kv<T, D, BK, Q8>(vs, vb, sv.s, k0, S, vscb);
+    if constexpr (SK) {
+      load_rows(ksc_s, kscb, k0, BK, S);
+      load_rows(vsc_s, vscb, k0, BK, S);
+    }
     __syncthreads();
     block_gemm<T, BQ, BK, D, true, false>(qs, L::LDT, ks, L::LDT, ss, L::LDS, false);
     __syncthreads();
@@ -389,7 +478,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         const int c = lane + 32 * j;
         // tail rows (row >= S) see no valid key: o = 0, never stored
         ok[j] = mask.ok(h, row, k0 + c);
-        s[j] = ok[j] ? ss[r * L::LDS + c] * scale : kNegInf;
+        const float qk = SK ? ss[r * L::LDS + c] * ksc_s[c] : ss[r * L::LDS + c];
+        s[j] = ok[j] ? qk * scale : kNegInf;
         mx = fmaxf(mx, s[j]);
       }
       mx = warp_max(mx);
@@ -400,7 +490,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       for (int j = 0; j < BK / 32; ++j) {
         const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
         sum += p;
-        ps[r * L::LDP + lane + 32 * j] = from_f<T>(p);
+        if constexpr (SK)
+          split_store(ps, ps_lo, r * L::LDP + lane + 32 * j, p * vsc_s[lane + 32 * j]);
+        else
+          ps[r * L::LDP + lane + 32 * j] = from_f<T>(p);
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -417,6 +510,10 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     }
     __syncthreads();
     block_gemm<T, BQ, D, BK, true, true>(ps, L::LDP, vs, L::LDT, os, L::LDO, true);
+    if constexpr (SK) {
+      __syncthreads();  // the hi part's sums are in os
+      block_gemm<T, BQ, D, BK, true, true>(ps_lo, L::LDP, vs, L::LDT, os, L::LDO, true);
+    }
   }
   __syncthreads();
 
@@ -457,7 +554,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 // ---------------------------------------------------------------------------
 // backward: dq
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+// SK (kKeyScales): ds's lo part and the tile's key scales besides
+template <typename T, int D, bool SK = false>
 struct DqLayout {
   // fp32 at D 256: four passes of 16 query rows a tile
   static constexpr int BQ = sizeof(T) == 4 && D > 128 ? kTile / 4 : kTile, BK = kTile;
@@ -474,20 +572,24 @@ struct DqLayout {
   static constexpr size_t bytes() {
     return 2 * r128(BQ * LDT * sizeof(T)) + 2 * r128(BK * LDT * sizeof(T)) +
            2 * r128(BQ * LDS * sizeof(float)) + r128(BQ * LDP * sizeof(T)) + kAccBytes +
-           2 * r128(BQ * sizeof(float));
+           2 * r128(BQ * sizeof(float)) +
+           (SK ? r128(BQ * LDP * sizeof(T)) + 2 * r128(BK * sizeof(float)) : 0);
   }
 };
 
-// ACC: dq is fp32 and carries the running sum in and out.
-template <typename T, int D, typename Mask, bool ACC = false>
+// ACC: dq is fp32 and carries the running sum in and out.  Q8: k, v are
+// int8 payloads with row scales ksc, vsc (else unused).
+template <typename T, int D, typename Mask, bool ACC = false, bool Q8 = false>
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta,
+attn_bwd_dq_kernel(const T* __restrict__ q, const KvT<T, Q8>* __restrict__ k,
+                   const KvT<T, Q8>* __restrict__ v, const float* __restrict__ ksc,
+                   const float* __restrict__ vsc, const T* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
                    typename std::conditional<ACC, float, T>::type* __restrict__ dq, Strides sq,
                    Strides sk, Strides sv, Strides sdo, Strides sdq, int Hq, int Hkv, int S,
                    float scale, Mask mask) {
-  using L = DqLayout<T, D>;
+  constexpr bool SK = kKeyScales<T, Q8>;
+  using L = DqLayout<T, D, SK>;
   constexpr int BQ = L::BQ, BK = L::BK;
   const int nq = (S + kTile - 1) / kTile;
   const int iq = nq - 1 - static_cast<int>(blockIdx.x);
@@ -506,8 +608,18 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   Acc<T, BQ, D> dq_acc(kRegAcc<T> ? nullptr : sm.take<float>(BQ * L::LDO), L::LDO);
   float* lse_s = sm.take<float>(BQ);
   float* dl_s = sm.take<float>(BQ);
+  T* dss_lo = nullptr;
+  float *ksc_s = nullptr, *vsc_s = nullptr;
+  if constexpr (SK) {
+    dss_lo = sm.take<T>(BQ * L::LDP);
+    ksc_s = sm.take<float>(BK);
+    vsc_s = sm.take<float>(BK);
+  }
   // where the register sums pass through shared memory (bf16)
   float* stage = L::kStageKV ? reinterpret_cast<float*>(ks) : ss;
+  const long long kv_rows = (static_cast<long long>(b) * Hkv + hk) * S;
+  const float* kscb = Q8 ? ksc + kv_rows : nullptr;
+  const float* vscb = Q8 ? vsc + kv_rows : nullptr;
 
   const long long row_off = (static_cast<long long>(b) * Hq + h) * S;
   for (int pass = 0; pass < kTile / BQ; ++pass) {  // one pass unless BQ < kTile
@@ -520,15 +632,19 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     dq_acc.seed(stage, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);  // free yet
   else
     dq_acc.zero();
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
+  const KvT<T, Q8>* kb = k + b * sk.b + hk * sk.h;
+  const KvT<T, Q8>* vb = v + b * sv.b + hk * sv.h;
 
   const int t_end = mask.k_end(h, iq);
   for (int t = mask.k_begin(h, iq); t < t_end; ++t) {
     const int k0 = mask.k_tile(t) * BK;
     __syncthreads();
-    load_tile<T, D, BK>(ks, kb, sk.s, k0, S);
-    load_tile<T, D, BK>(vs, vb, sv.s, k0, S);
+    load_kv<T, D, BK, Q8>(ks, kb, sk.s, k0, S, kscb);
+    load_kv<T, D, BK, Q8>(vs, vb, sv.s, k0, S, vscb);
+    if constexpr (SK) {
+      load_rows(ksc_s, kscb, k0, BK, S);
+      load_rows(vsc_s, vscb, k0, BK, S);
+    }
     __syncthreads();
     block_gemm<T, BQ, BK, D, true, false>(qs, L::LDT, ks, L::LDT, ss, L::LDS, false);
     block_gemm<T, BQ, BK, D, true, false>(dos, L::LDT, vs, L::LDT, dps, L::LDS, false);
@@ -536,12 +652,18 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
       const int r = i / BK, c = i % BK;
       const bool ok = mask.ok(h, q0 + r, k0 + c);
-      const float p = ok ? expf(ss[r * L::LDS + c] * scale - lse_s[r]) : 0.f;
-      const float ds = p * (dps[r * L::LDS + c] - dl_s[r]) * scale;
-      dss[r * L::LDP + c] = from_f<T>(ds);
+      const float qk = SK ? ss[r * L::LDS + c] * ksc_s[c] : ss[r * L::LDS + c];
+      const float dp = SK ? dps[r * L::LDS + c] * vsc_s[c] : dps[r * L::LDS + c];
+      const float p = ok ? expf(qk * scale - lse_s[r]) : 0.f;
+      const float ds = p * (dp - dl_s[r]) * scale;
+      if constexpr (SK)
+        split_store(dss, dss_lo, r * L::LDP + c, ds * ksc_s[c]);
+      else
+        dss[r * L::LDP + c] = from_f<T>(ds);
     }
     __syncthreads();
     dq_acc.template mma<BK, true, true>(dss, L::LDP, ks, L::LDT);
+    if constexpr (SK) dq_acc.template mma<BK, true, true>(dss_lo, L::LDP, ks, L::LDT);
   }
   // the score buffers (or K and V) are free: stage dq over them
   store_acc<D, BQ>(dq_acc, stage, L::LDO, dq + b * sdq.b + h * sdq.h, sdq.s, q0, S);
@@ -552,7 +674,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // ---------------------------------------------------------------------------
 // backward: dk, dv
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+// SK (kKeyScales): p's and ds's lo parts and the tile's key scales besides
+template <typename T, int D, bool SK = false>
 struct DkvLayout {
   // fp32 tiles at d = 128 would overrun shared memory with 64-row q tiles:
   // fp32 walks each 64-row q tile as two 32-row halves, and at D 256 its
@@ -572,23 +695,27 @@ struct DkvLayout {
   static constexpr size_t bytes() {
     return 2 * r128(BK * LDT * sizeof(T)) + kAccBytes + 2 * r128(BQ * LDT * sizeof(T)) +
            2 * r128(BQ * LDS * sizeof(float)) + 2 * r128(BQ * LDP * sizeof(T)) +
-           2 * r128(BQ * sizeof(float));
+           2 * r128(BQ * sizeof(float)) +
+           (SK ? 2 * r128(BQ * LDP * sizeof(T)) + 2 * r128(BK * sizeof(float)) : 0);
   }
 };
 
 // bf16 at d = 64 fits two blocks' shared memory on an SM; ask ptxas for the
 // registers to match (<= 128 a thread)
-// ACC: dk and dv are fp32 and carry the running sums in and out.
-template <typename T, int D, typename Mask, bool ACC = false>
+// ACC: dk and dv are fp32 and carry the running sums in and out.  Q8: k, v
+// are int8 payloads with row scales ksc, vsc (else unused).
+template <typename T, int D, typename Mask, bool ACC = false, bool Q8 = false>
 __global__ void __launch_bounds__(kThreads, kRegAcc<T> && D == 64 ? 2 : 1)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta,
+attn_bwd_dkv_kernel(const T* __restrict__ q, const KvT<T, Q8>* __restrict__ k,
+                    const KvT<T, Q8>* __restrict__ v, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
                     typename std::conditional<ACC, float, T>::type* __restrict__ dk,
                     typename std::conditional<ACC, float, T>::type* __restrict__ dv,
                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
                     int Hq, int Hkv, int S, float scale, Mask mask) {
-  using L = DkvLayout<T, D>;
+  constexpr bool SK = kKeyScales<T, Q8>;
+  using L = DkvLayout<T, D, SK>;
   constexpr int BQ = L::BQ, BK = L::BK;
   const int ik = blockIdx.x;  // low k tiles have the longest causal walks: first
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -608,13 +735,28 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   T* dss = sm.take<T>(BQ * L::LDP);
   float* lse_s = sm.take<float>(BQ);
   float* dl_s = sm.take<float>(BQ);
+  T *pts_lo = nullptr, *dss_lo = nullptr;
+  float *ksc_s = nullptr, *vsc_s = nullptr;
+  if constexpr (SK) {
+    pts_lo = sm.take<T>(BQ * L::LDP);
+    dss_lo = sm.take<T>(BQ * L::LDP);
+    ksc_s = sm.take<float>(BK);
+    vsc_s = sm.take<float>(BK);
+  }
   // where the register sums pass through shared memory (bf16)
   float* stage = L::kStageQ ? reinterpret_cast<float*>(qs) : ss;
+  const long long kv_rows = (static_cast<long long>(b) * Hkv + hk) * S;
+  const float* kscb = Q8 ? ksc + kv_rows : nullptr;
+  const float* vscb = Q8 ? vsc + kv_rows : nullptr;
 
   for (int pass = 0; pass < kTile / BK; ++pass) {  // one pass unless BK < kTile
   const int k0 = ik * kTile + pass * BK;
-  load_tile<T, D, BK>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
-  load_tile<T, D, BK>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+  load_kv<T, D, BK, Q8>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S, kscb);
+  load_kv<T, D, BK, Q8>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S, vscb);
+  if constexpr (SK) {  // read after the walk's first barrier
+    load_rows(ksc_s, kscb, k0, BK, S);
+    load_rows(vsc_s, vscb, k0, BK, S);
+  }
   if constexpr (ACC) {  // the staging buffer is free yet
     dk_acc.seed(stage, L::LDO, dk + b * sdk.b + hk * sdk.h, sdk.s, k0, S);
     dv_acc.seed(stage, L::LDO, dv + b * sdv.b + hk * sdv.h, sdv.s, k0, S);
@@ -646,13 +788,25 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           const int r = i / BK, c = i % BK;
           // pad query rows carry lse = 0: the row check kills them
           const bool ok = mask.ok(h, q0 + r, k0 + c);
-          const float p = ok ? expf(ss[r * L::LDS + c] * scale - lse_s[r]) : 0.f;
-          pts[r * L::LDP + c] = from_f<T>(p);
-          dss[r * L::LDP + c] = from_f<T>(p * (dps[r * L::LDS + c] - dl_s[r]) * scale);
+          const float qk = SK ? ss[r * L::LDS + c] * ksc_s[c] : ss[r * L::LDS + c];
+          const float dp = SK ? dps[r * L::LDS + c] * vsc_s[c] : dps[r * L::LDS + c];
+          const float p = ok ? expf(qk * scale - lse_s[r]) : 0.f;
+          const float ds = p * (dp - dl_s[r]) * scale;
+          if constexpr (SK) {
+            split_store(pts, pts_lo, r * L::LDP + c, p);
+            split_store(dss, dss_lo, r * L::LDP + c, ds);
+          } else {
+            pts[r * L::LDP + c] = from_f<T>(p);
+            dss[r * L::LDP + c] = from_f<T>(ds);
+          }
         }
         __syncthreads();
         dv_acc.template mma<BQ, false, true>(pts, L::LDP, dos, L::LDT);
         dk_acc.template mma<BQ, false, true>(dss, L::LDP, qs, L::LDT);
+        if constexpr (SK) {
+          dv_acc.template mma<BQ, false, true>(pts_lo, L::LDP, dos, L::LDT);
+          dk_acc.template mma<BQ, false, true>(dss_lo, L::LDP, qs, L::LDT);
+        }
       }
     }
   }
@@ -669,9 +823,11 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // The operands of one call.  strides: (b, h, s) of each [B, H, S, D]
 // operand in order (q, k, v, then o (acc in accumulate mode) for the
 // forward, do and dq for dq, do, dk and dv for dk/dv).  Accumulate mode:
-// lse_out is m, l_io is l, dq/dk/dv are fp32.
+// lse_out is m, l_io is l, dq/dk/dv are fp32.  Q8: k, v are int8 payloads
+// with row scales k_scale, v_scale ([B, Hkv, S] fp32 contiguous).
 struct AttnCall {
   const void *q, *k, *v, *dout;
+  const float *k_scale, *v_scale;
   const float *lse_in, *delta;
   void *o, *dq, *dk, *dv;
   float *lse_out, *l_io, *acc_io;
@@ -706,51 +862,55 @@ cudaError_t allow_smem(Kernel kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D, typename Mask, bool ACC>
+template <typename T, int D, typename Mask, bool ACC, bool Q8>
 int launch_fwd(const AttnCall& a, Mask mask) {
-  using L = FwdLayout<T, D>;
+  using L = FwdLayout<T, D, kKeyScales<T, Q8>>;
   static_assert(L::bytes() <= kSmemLimit, "forward layout overruns shared memory");
-  auto kern = attn_fwd_kernel<T, D, Mask, ACC>;
+  using KV = KvT<T, Q8>;
+  auto kern = attn_fwd_kernel<T, D, Mask, ACC, Q8>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.lse_out, a.l_io, a.acc_io, a.at(0), a.at(1), a.at(2), a.at(3),
-      a.Hq, a.Hkv, a.S, a.scale, mask);
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      a.k_scale, a.v_scale, static_cast<T*>(a.o), a.lse_out, a.l_io, a.acc_io, a.at(0), a.at(1),
+      a.at(2), a.at(3), a.Hq, a.Hkv, a.S, a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, typename Mask, bool ACC>
+template <typename T, int D, typename Mask, bool ACC, bool Q8>
 int launch_bwd_dq(const AttnCall& a, Mask mask) {
-  using L = DqLayout<T, D>;
+  using L = DqLayout<T, D, kKeyScales<T, Q8>>;
   static_assert(L::bytes() <= kSmemLimit, "dq layout overruns shared memory");
   using Out = typename std::conditional<ACC, float, T>::type;
-  auto kern = attn_bwd_dq_kernel<T, D, Mask, ACC>;
+  using KV = KvT<T, Q8>;
+  auto kern = attn_bwd_dq_kernel<T, D, Mask, ACC, Q8>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dq), a.at(0),
-      a.at(1), a.at(2), a.at(3), a.at(4), a.Hq, a.Hkv, a.S, a.scale, mask);
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      a.k_scale, a.v_scale, static_cast<const T*>(a.dout), a.lse_in, a.delta,
+      static_cast<Out*>(a.dq), a.at(0), a.at(1), a.at(2), a.at(3), a.at(4), a.Hq, a.Hkv, a.S,
+      a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, typename Mask, bool ACC>
+template <typename T, int D, typename Mask, bool ACC, bool Q8>
 int launch_bwd_dkv(const AttnCall& a, Mask mask) {
-  using L = DkvLayout<T, D>;
+  using L = DkvLayout<T, D, kKeyScales<T, Q8>>;
   static_assert(L::bytes() <= kSmemLimit, "dk/dv layout overruns shared memory");
   using Out = typename std::conditional<ACC, float, T>::type;
-  auto kern = attn_bwd_dkv_kernel<T, D, Mask, ACC>;
+  using KV = KvT<T, Q8>;
+  auto kern = attn_bwd_dkv_kernel<T, D, Mask, ACC, Q8>;
   cudaError_t e = allow_smem(kern, L::bytes());
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.S + kTile - 1) / kTile, a.Hkv, a.B);
   kern<<<grid, kThreads, L::bytes(), a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse_in, a.delta, static_cast<Out*>(a.dk),
-      static_cast<Out*>(a.dv), a.at(0), a.at(1), a.at(2), a.at(3), a.at(4), a.at(5), a.Hq, a.Hkv,
-      a.S, a.scale, mask);
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k), static_cast<const KV*>(a.v),
+      a.k_scale, a.v_scale, static_cast<const T*>(a.dout), a.lse_in, a.delta,
+      static_cast<Out*>(a.dk), static_cast<Out*>(a.dv), a.at(0), a.at(1), a.at(2), a.at(3),
+      a.at(4), a.at(5), a.Hq, a.Hkv, a.S, a.scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -759,20 +919,22 @@ enum class Role { kFwd, kBwdDq, kBwdDkv };
 template <typename T> struct Tag { using type = T; };
 
 // Check the shape, then launch `role` for dtype code (0 = float32,
-// 1 = bfloat16) and head_dim D (64, 128 or 256); ACC: accumulate mode.
-template <bool ACC = false, typename Mask>
+// 1 = bfloat16) and head_dim D (64, 128 or 256); ACC: accumulate mode; Q8:
+// int8 K/V with row scales (the dtype code is q's).
+template <bool ACC = false, bool Q8 = false, typename Mask>
 int launch(Role role, int dtype, int D, const AttnCall& a, Mask mask) {
   if (a.B < 0 || a.S < 0 || a.Hkv <= 0 || a.Hq <= 0 || a.Hq % a.Hkv != 0 ||
-      (D != 64 && D != 128 && D != 256) || (dtype != 0 && dtype != 1))
+      (D != 64 && D != 128 && D != 256) || (dtype != 0 && dtype != 1) ||
+      (Q8 && (a.k_scale == nullptr || a.v_scale == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B == 0 || a.S == 0) return 0;
   auto run = [&](auto t, auto d) {
     using T = typename decltype(t)::type;
     constexpr int kD = decltype(d)::value;
     switch (role) {
-      case Role::kFwd: return launch_fwd<T, kD, Mask, ACC>(a, mask);
-      case Role::kBwdDq: return launch_bwd_dq<T, kD, Mask, ACC>(a, mask);
-      default: return launch_bwd_dkv<T, kD, Mask, ACC>(a, mask);
+      case Role::kFwd: return launch_fwd<T, kD, Mask, ACC, Q8>(a, mask);
+      case Role::kBwdDq: return launch_bwd_dq<T, kD, Mask, ACC, Q8>(a, mask);
+      default: return launch_bwd_dkv<T, kD, Mask, ACC, Q8>(a, mask);
     }
   };
   using D64 = std::integral_constant<int, 64>;

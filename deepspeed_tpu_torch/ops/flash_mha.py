@@ -45,6 +45,13 @@ carry takes :func:`fwd_route`'s route and the backward :func:`bwd_route`'s,
 which adds ``do`` to the operands (counted in ``ring_routes``): bf16 views
 TMA can read run the ``wgmma`` walks (``attention_wgmma.cuh``, the
 forward in accumulate mode; ``attention_wgmma_bwd.cuh``, dq and dk/dv).
+The hop wrappers also take the quantized ring wire's int8 K/V with per-row
+fp32 scales (``k_scale``/``v_scale``, the JAX kernels' quantized operands):
+:func:`ring_route` sends them to the int8 lanes of the tile walk
+(``ops/csrc/ring_attention_int8.cu``; ``mma_s8`` for bf16 q and do,
+``fma_s8`` for fp32), and the plain versions
+decode the rows as the Pallas bodies do (:func:`wire_dequant_rows`) and
+compute in fp32.
 
 Layout contract (the JAX function's): q is ``[B, Hq, S, D]``, k/v are
 ``[B, Hkv, S, D]`` with Hq a multiple of Hkv; the kernels read any such
@@ -299,10 +306,11 @@ def head_dim_padded(attn, q, k, v):
     return attn(q, k, v)[..., :d]
 
 
-def _check_cuda(q, k, v, do=None, lse=None, delta=None):
+def _check_cuda(q, k, v, do=None, lse=None, delta=None, kv_dtype=None):
     """What the kernels take: CUDA tensors, fp32 or bf16, head_dim a lane
     (64, 128 or 256), Hq a multiple of Hkv, rows readable in place;
-    lse/delta contiguous fp32 [B, Hq, S]."""
+    lse/delta contiguous fp32 [B, Hq, S].  K/V are of q's dtype, or of
+    ``kv_dtype`` when given (the ring's int8 lanes)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
     b, hq, s, d = q.shape
@@ -321,7 +329,8 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None):
         raise TypeError(f"dtype {q.dtype}: the kernels take fp32 and bf16")
     ops = [x for x in (k, v, do) if x is not None]
     for x in ops:
-        if x.dtype != q.dtype or x.device != q.device:
+        want = q.dtype if x is do or kv_dtype is None else kv_dtype
+        if x.dtype != want or x.device != q.device:
             raise TypeError("q, k, v (and do) must share dtype and device")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} does not match q")
@@ -477,12 +486,33 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
                                window))
 
 
+def wire_dequant_rows(payload, scale):
+    """The quantized wire's int8 payload rows times their fp32 row scales
+    (``scale`` [..., S], one a row): the JAX kernels' ``wire_dequant_rows``
+    and ``comm/quantized.wire_decode_rows``' int8 branch, one fp32 multiply
+    an element after an exact int8 to fp32 convert."""
+    return payload.float() * scale[..., None]
+
+
+def _wire_operands(q, k, v, do, k_scale, v_scale):
+    """The operands as the Pallas bodies' quantized lane sees them: int8
+    K/V decoded to fp32 and q, do promoted to fp32 (so p and ds stay fp32
+    in the products); as they are without scales."""
+    if k_scale is None:
+        return q, k, v, do
+    return (q.float(), wire_dequant_rows(k, k_scale),
+            wire_dequant_rows(v, v_scale), None if do is None else do.float())
+
+
 def ring_carry_ref(q, k, v, m, l, acc, pos, causal: bool, sm_scale: float,
-                   window: Optional[int] = None):
+                   window: Optional[int] = None, k_scale=None, v_scale=None):
     """Plain version of ``ring_carry``: one ring hop's online-softmax update
     of the running ``m, l`` ([B, Hq, S] fp32) and ``acc`` ([B, Hq, S, D]
     fp32) against the visiting K/V block, in place, unnormalised; ``pos``:
-    the hop's ``(q_off, q_stride, k_off, k_stride)``."""
+    the hop's ``(q_off, q_stride, k_off, k_stride)``.  ``k_scale``,
+    ``v_scale`` ([B, Hkv, S] fp32): K/V are int8 payloads
+    (:func:`_wire_operands`)."""
+    q, k, v, _ = _wire_operands(q, k, v, None, k_scale, v_scale)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv
@@ -497,9 +527,12 @@ def ring_carry_ref(q, k, v, m, l, acc, pos, causal: bool, sm_scale: float,
 
 
 def ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal: bool,
-                    sm_scale: float, window: Optional[int] = None):
+                    sm_scale: float, window: Optional[int] = None,
+                    k_scale=None, v_scale=None):
     """Plain version of ``ring_bwd_dq``: adds one hop's dq, key tile by key
-    tile, into the fp32 ``dq`` [B, Hq, S, D] in place."""
+    tile, into the fp32 ``dq`` [B, Hq, S, D] in place (int8 K/V with
+    ``k_scale``/``v_scale`` as in :func:`ring_carry_ref`)."""
+    q, k, v, do = _wire_operands(q, k, v, do, k_scale, v_scale)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     dq5 = dq.view(b, hkv, hq // hkv, s, d)
@@ -510,10 +543,13 @@ def ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal: bool,
 
 
 def ring_bwd_dkv_ref(q, k, v, do, lse, delta, dk, dv, pos, causal: bool,
-                     sm_scale: float, window: Optional[int] = None):
+                     sm_scale: float, window: Optional[int] = None,
+                     k_scale=None, v_scale=None):
     """Plain version of ``ring_bwd_dkv``: adds the visiting block's dk and
     dv, summed over each KV head's group, into the fp32 ``dk``/``dv``
-    [B, Hkv, S, D] in place."""
+    [B, Hkv, S, D] in place (int8 K/V with ``k_scale``/``v_scale`` as in
+    :func:`ring_carry_ref`)."""
+    q, k, v, do = _wire_operands(q, k, v, do, k_scale, v_scale)
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     qf = q.float().reshape(b, hkv, hq // hkv, s, d)
@@ -578,8 +614,12 @@ flash_mha.routes = {f"{n}.{r}": 0 for n in flash_mha.launches
 # flash_ring_dq_block / flash_ring_dkv_block)
 # ----------------------------------------------------------------------
 ring_launches = {"ring_carry": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
-# each ring kernel's launches by route (codes in ops/csrc/ring_attention.cu)
-ring_routes = {f"{n}.{r}": 0 for n in ring_launches for r in FWD_ROUTES}
+# the ring kernels' routes: the attention routes of ops/csrc/ring_attention.cu
+# and the int8 K/V lanes of ops/csrc/ring_attention_int8.cu (the quantized
+# wire)
+RING_ROUTES = FWD_ROUTES + ("fma_s8", "mma_s8")
+# each ring kernel's launches by route
+ring_routes = {f"{n}.{r}": 0 for n in ring_launches for r in RING_ROUTES}
 
 
 def _ring_lib():
@@ -597,6 +637,35 @@ def _ring_lib():
     return lib
 
 
+def _ring_int8_lib():
+    """The int8 K/V lanes (``ops/csrc/ring_attention_int8.cu``): the entries
+    of :func:`_ring_lib` with the dtype code first and the two scale
+    pointers after ``v``."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    lib = op_builder.load("ring_attention_int8")
+    if not getattr(lib, "_bound", False):
+        tail = [_STRIDES] + [_I] * 5 + [_F] + [_I] * 6 + [_P]
+        lib.ring_carry_s8.argtypes = [_I] + [_P] * 8 + tail
+        lib.ring_bwd_dq_s8.argtypes = [_I] + [_P] * 9 + tail
+        lib.ring_bwd_dkv_s8.argtypes = [_I] + [_P] * 10 + tail
+        for fn in (lib.ring_carry_s8, lib.ring_bwd_dq_s8, lib.ring_bwd_dkv_s8):
+            fn.restype = _I
+        lib._bound = True
+    return lib
+
+
+def _ring_entry(name: str, path: str, k_scale, v_scale, q):
+    """A hop kernel's C entry and its leading arguments for ``path``: the
+    route code (``ring_attention.cu``), or for an int8 lane q's dtype code
+    with the scale pointers to pass after ``v``
+    (``ring_attention_int8.cu``)."""
+    if path.endswith("_s8"):
+        return (getattr(_ring_int8_lib(), f"{name}_s8"), _DTYPE_CODE[q.dtype],
+                (k_scale.data_ptr(), v_scale.data_ptr()))
+    return getattr(_ring_lib(), name), FWD_ROUTES.index(path), ()
+
+
 def _check_state(q, heads: int, *tensors, rows_only=False):
     """The ring kernels' fp32 state: contiguous fp32 on q's device,
     [B, heads, S] (``rows_only``) or [B, heads, S, D]."""
@@ -607,6 +676,38 @@ def _check_state(q, heads: int, *tensors, rows_only=False):
                 or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"ring state {tuple(x.shape)} {x.dtype}: "
                              f"expected contiguous fp32 {want} on {q.device}")
+
+
+def ring_route(q, k, v, do=None) -> str:
+    """A ring kernel's route: int8 K/V (the quantized wire's payloads)
+    take the int8 lanes, ``"mma_s8"`` for a bf16 q (and do), ``"fma_s8"``
+    for fp32; other K/V :func:`fwd_route`'s rule (the carry, no ``do``) or
+    :func:`bwd_route`'s."""
+    if k.dtype == torch.int8:
+        return "mma_s8" if q.dtype == torch.bfloat16 else "fma_s8"
+    return fwd_route(q, k, v) if do is None else bwd_route(q, k, v, do)
+
+
+def _check_wire_pair(k_scale, v_scale) -> None:
+    """The JAX wrappers' rule for the quantized wire's row scales: both or
+    neither."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+
+
+def _check_ring(q, k, v, do, lse, delta, k_scale, v_scale):
+    """:func:`_check_cuda` for a hop; with scales, K/V are int8 payloads
+    and the scales contiguous fp32 [B, Hkv, S] on q's device."""
+    if k_scale is None:
+        return _check_cuda(q, k, v, do, lse, delta)
+    b, hkv, s = k.shape[:3]
+    for x in (k_scale, v_scale):
+        if (x.dtype != torch.float32 or tuple(x.shape) != (b, hkv, s)
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"row scales {tuple(x.shape)} {x.dtype}: "
+                             f"expected contiguous fp32 {(b, hkv, s)} on "
+                             f"{q.device}")
+    _check_cuda(q, k, v, do, lse, delta, kv_dtype=torch.int8)
 
 
 def _ring_args(q, k, pos, causal, sm_scale, window):
@@ -625,26 +726,30 @@ def _ring_args(q, k, pos, causal, sm_scale, window):
 
 def flash_carry_block(q, k, v, m, l, acc, pos, causal: bool = True,
                       sm_scale: Optional[float] = None,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, k_scale=None, v_scale=None):
     """One ring hop, forward: update the running ``m, l`` ([B, Hq, S]
     fp32) and ``acc`` ([B, Hq, S, D] fp32) against the visiting block
     ``k/v [B, Hkv, S, D]`` in place, unnormalised.  ``pos = (q_off,
     q_stride, k_off, k_stride)``: the global position of query row r is
     ``q_off + q_stride·r``, of key col c ``k_off + k_stride·c``.  CPU
     tensors take the plain version, CUDA tensors the ``ring_carry``
-    kernel on :func:`fwd_route`'s route (counted in ``ring_launches`` and
-    ``ring_routes``).  Returns ``(m, l, acc)``."""
+    kernel on :func:`ring_route`'s route (counted in ``ring_launches`` and
+    ``ring_routes``).  ``k_scale``/``v_scale`` (both or neither, contiguous
+    fp32 [B, Hkv, S]): ``k``/``v`` are the quantized wire's int8 payloads
+    with one scale a row.  Returns ``(m, l, acc)``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    _check_wire_pair(k_scale, v_scale)
     if q.device.type == "cpu":
-        return ring_carry_ref(q, k, v, m, l, acc, pos, causal, scale, window)
-    _check_cuda(q, k, v)
+        return ring_carry_ref(q, k, v, m, l, acc, pos, causal, scale, window,
+                              k_scale, v_scale)
+    _check_ring(q, k, v, None, None, None, k_scale, v_scale)
     _check_state(q, q.shape[1], m, l, rows_only=True)
     _check_state(q, q.shape[1], acc)
-    path = fwd_route(q, k, v)
-    err = _ring_lib().ring_carry(
-        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        m.data_ptr(), l.data_ptr(), acc.data_ptr(), _strides(q, k, v, acc),
-        *_ring_args(q, k, pos, causal, scale, window))
+    path = ring_route(q, k, v)
+    fn, code, scales = _ring_entry("ring_carry", path, k_scale, v_scale, q)
+    err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
+             m.data_ptr(), l.data_ptr(), acc.data_ptr(), _strides(q, k, v, acc),
+             *_ring_args(q, k, pos, causal, scale, window))
     _raise_on(err, f"ring_carry ({path} route)")
     ring_launches["ring_carry"] += 1
     ring_routes[f"ring_carry.{path}"] += 1
@@ -653,22 +758,26 @@ def flash_carry_block(q, k, v, m, l, acc, pos, causal: bool = True,
 
 def flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal: bool = True,
                         sm_scale: Optional[float] = None,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, k_scale=None,
+                        v_scale=None):
     """One ring hop, backward dq side: add the hop's dq against the
     visiting block into the fp32 ``dq`` [B, Hq, S, D] in place, from the
     shard's final ``lse`` and ``delta`` ([B, Hq, S] fp32).  ``pos`` as in
-    :func:`flash_carry_block`.  CPU tensors take the plain version, CUDA
-    tensors the ``ring_bwd_dq`` kernel on :func:`bwd_route`'s route
-    (counted in ``ring_launches`` and ``ring_routes``).  Returns ``dq``."""
+    :func:`flash_carry_block`, and so are ``k_scale``/``v_scale``.  CPU
+    tensors take the plain version, CUDA tensors the ``ring_bwd_dq`` kernel
+    on :func:`ring_route`'s route (counted in ``ring_launches`` and
+    ``ring_routes``).  Returns ``dq``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    _check_wire_pair(k_scale, v_scale)
     if q.device.type == "cpu":
         return ring_bwd_dq_ref(q, k, v, do, lse, delta, dq, pos, causal,
-                               scale, window)
-    _check_cuda(q, k, v, do, lse, delta)
+                               scale, window, k_scale, v_scale)
+    _check_ring(q, k, v, do, lse, delta, k_scale, v_scale)
     _check_state(q, q.shape[1], dq)
-    path = bwd_route(q, k, v, do)
-    err = _ring_lib().ring_bwd_dq(
-        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    path = ring_route(q, k, v, do)
+    fn, code, scales = _ring_entry("ring_bwd_dq", path, k_scale, v_scale, q)
+    err = fn(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq), *_ring_args(q, k, pos, causal, scale,
                                                window))
@@ -680,22 +789,25 @@ def flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal: bool = True,
 
 def flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos,
                          causal: bool = True, sm_scale: Optional[float] = None,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None, k_scale=None,
+                         v_scale=None):
     """One ring hop, backward dk/dv side: add the visiting block's dk and
     dv into the traveling fp32 ``dk/dv`` [B, Hkv, S, D] in place.  ``pos``
-    as in :func:`flash_carry_block`.  CPU tensors take the plain version,
-    CUDA tensors the ``ring_bwd_dkv`` kernel on :func:`bwd_route`'s route
-    (counted in ``ring_launches`` and ``ring_routes``).  Returns
-    ``(dk, dv)``."""
+    and ``k_scale``/``v_scale`` as in :func:`flash_carry_block`.  CPU
+    tensors take the plain version, CUDA tensors the ``ring_bwd_dkv``
+    kernel on :func:`ring_route`'s route (counted in ``ring_launches`` and
+    ``ring_routes``).  Returns ``(dk, dv)``."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
+    _check_wire_pair(k_scale, v_scale)
     if q.device.type == "cpu":
         return ring_bwd_dkv_ref(q, k, v, do, lse, delta, dk, dv, pos, causal,
-                                scale, window)
-    _check_cuda(q, k, v, do, lse, delta)
+                                scale, window, k_scale, v_scale)
+    _check_ring(q, k, v, do, lse, delta, k_scale, v_scale)
     _check_state(q, k.shape[1], dk, dv)
-    path = bwd_route(q, k, v, do)
-    err = _ring_lib().ring_bwd_dkv(
-        FWD_ROUTES.index(path), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    path = ring_route(q, k, v, do)
+    fn, code, scales = _ring_entry("ring_bwd_dkv", path, k_scale, v_scale, q)
+    err = fn(
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dk, dv),
         *_ring_args(q, k, pos, causal, scale, window))

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw",
                   "block_sparse_attention", "fused_lion", "quantize",
-                  "fp6_linear", "ring_attention", "gather_matmul")
+                  "fp6_linear", "ring_attention", "ring_attention_int8",
+                  "gather_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

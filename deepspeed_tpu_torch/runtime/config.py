@@ -8,7 +8,8 @@ path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
 ``data`` and ``seq`` axes (or ``sequence_parallel_size``; every other axis
 1; data and seq not both above one) and the ``step_schedule`` keys
 ``ring_interleave``, ``fused_gather_matmul`` and
-``param_persistence_threshold``.  Those keys get the JAX config's
+``param_persistence_threshold``, and ``comm_quantization`` (its
+``ring_rotation`` runs).  Those keys get the JAX config's
 rejections (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO
 stage outside [0, 3], fp16 together with bf16).  A key that turns on a
 feature the port has not got yet raises ``NotImplementedError`` naming the
@@ -160,7 +161,6 @@ def _enabled(block) -> bool:
 
 _UNPORTED_BLOCKS = {
     "torch_autocast": (_enabled, "Queue A item 3 (torch_autocast)"),
-    "comm_quantization": (_enabled, "Queue A item 8"),
     "sparse_gradients": (bool, "Queue A item 11"),
     "compression_training": (lambda b: bool(b), "Queue A item 11"),
     "data_efficiency": (_enabled, "Queue A item 11"),
@@ -174,6 +174,61 @@ _UNPORTED_BLOCKS = {
     "comet": (_enabled, "Queue A item 12"),
     "elasticity": (_enabled, "Queue A item 12"),
 }
+
+
+@dataclass
+class CommQuantizationConfig:
+    """``"comm_quantization"``: a wire dtype per collective (the JAX
+    config's block).  ``ring_rotation`` (``fp32``, ``int8`` or ``fp8``)
+    runs: the ring's K/V and traveling dk/dv move as block-quantized
+    payloads with fp32 row scales (``sequence/ring.py``); the engine sets
+    it on the model over a seq axis.  ``grad_reduce`` and ``zero3_gather``
+    other than ``fp32`` raise (ROADMAP Queue A item 8).  The
+    ``collectives`` dict is the same choice spelled per collective;
+    unknown collective names and wire dtypes are rejected as in JAX.
+    ``group_size`` and ``error_feedback`` serve the collectives not
+    ported."""
+    enabled: bool = False
+    grad_reduce: str = "fp32"
+    zero3_gather: str = "fp32"
+    ring_rotation: str = "fp32"
+    group_size: int = 256
+    error_feedback: bool = True
+    collectives: Optional[Dict[str, str]] = None
+
+    COLLECTIVES = ("grad_reduce", "zero3_gather", "ring_rotation")
+    WIRE_DTYPES = ("fp32", "int8", "fp8")
+
+    def __post_init__(self):
+        if self.collectives is not None:
+            if not isinstance(self.collectives, dict):
+                raise DeepSpeedConfigError(
+                    "comm_quantization.collectives must be a dict of "
+                    "{collective: wire_dtype}")
+            for name, dtype in self.collectives.items():
+                if name not in self.COLLECTIVES:
+                    raise DeepSpeedConfigError(
+                        f"comm_quantization.collectives: unknown collective "
+                        f"{name!r} (known: {list(self.COLLECTIVES)})")
+                setattr(self, name, dtype)
+        for name in self.COLLECTIVES:
+            val = str(getattr(self, name)).lower()
+            if val not in self.WIRE_DTYPES:
+                raise DeepSpeedConfigError(
+                    f"comm_quantization.{name} must be one of "
+                    f"{list(self.WIRE_DTYPES)}, got {val!r}")
+            setattr(self, name, val)
+        if int(self.group_size) <= 0:
+            raise DeepSpeedConfigError(
+                f"comm_quantization.group_size must be positive, got "
+                f"{self.group_size}")
+        self.group_size = int(self.group_size)
+        if self.enabled:
+            for name in ("grad_reduce", "zero3_gather"):
+                if getattr(self, name) != "fp32":
+                    raise not_ported(f"comm_quantization.{name}="
+                                     f"{getattr(self, name)!r}",
+                                     "Queue A item 8")
 
 
 @dataclass
@@ -321,6 +376,9 @@ class DeepSpeedConfig:
                              f"{self.zero_config.stage} over a seq axis",
                              "Queue A item 4")
         self.step_schedule = _step_schedule(d.get("step_schedule"))
+        self.comm_quantization = _from_dict(
+            CommQuantizationConfig, d.get("comm_quantization"),
+            "comm_quantization")
         for key, (on, item) in _UNPORTED_BLOCKS.items():
             if key in d and on(d[key]):
                 raise not_ported(f"the '{key}' block", item)

@@ -34,6 +34,9 @@ micro-step's token NLL sum and count and, before clipping, the fp32
 gradients over the group, and steps the same replicated params.  Stage 1
 keeps its optimizer state whole over a seq axis (the JAX package also
 partitions it over seq; the numbers are the same).
+``comm_quantization.ring_rotation`` ``"int8"`` or ``"fp8"`` sets the ring's
+wire on the model (``sequence/ring.py``); without a seq axis above one, or
+with another ``seq_impl``, it warns and keeps the fp32 wire.
 
 Data parallelism and ZeRO (``{"mesh": {"data": N}}``, a built-in model):
 each micro-step's ``micro·dp`` rows are split by data rank, as the JAX
@@ -166,6 +169,20 @@ class DeepSpeedEngine:
                 mc = mc.replace(remat_policy=ac.remat_policy)
             if cfg.step_schedule.ring_interleave > 1 and mc.seq_impl == "ring":
                 mc = mc.replace(ring_interleave=cfg.step_schedule.ring_interleave)
+            cq = cfg.comm_quantization
+            if cq.enabled and cq.ring_rotation != "fp32":
+                if mc.seq_impl == "ring" and self.topology.sp_size > 1:
+                    # the quantized ring wire: K/V and the traveling dk/dv
+                    # move as int8/fp8 payloads with fp32 row scales
+                    mc = mc.replace(ring_wire_dtype=cq.ring_rotation)
+                    log_dist("comm_quantization: ring rotation wire = "
+                             f"{cq.ring_rotation} over "
+                             f"sp={self.topology.sp_size}")
+                else:
+                    logger.warning(
+                        "comm_quantization.ring_rotation: no >1 'seq' mesh "
+                        "axis (or seq_impl != 'ring'): nothing travels a "
+                        "ring; keeping the fp32 wire")
             self.model_config = mc
             # closes over mc, not self: an engine in a reference cycle
             # would hold its tensors after the caller drops it.  The fused

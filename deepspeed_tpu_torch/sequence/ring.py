@@ -26,9 +26,20 @@ The gradient is a ``torch.autograd.Function`` that saves (q, k, v, o, lse)
 and never reruns the forward.  ``interleave=2`` (the JAX rotate-ahead
 order) is accepted and has no effect: ``ring_rotate`` returns only once
 the transfer is done, so issuing it before the hop's attend would overlap
-nothing, and every hop runs attend-then-rotate.  The quantized wire
-(``wire_dtype`` "int8"/"fp8", ``comm/quantized.py``) is not ported
-(ROADMAP Queue A item 8).
+nothing, and every hop runs attend-then-rotate.
+
+The quantized wire (``wire_dtype`` "int8" or "fp8",
+``comm_quantization.ring_rotation``; the codec of ``comm/quantized.py``):
+the rank's own block attends exactly at hop 0; its K/V are then encoded
+once, int8 (or fp8 viewed as uint8) payloads with one fp32 scale a row,
+and the payloads and scales travel all sp - 1 hops (one payload message
+and one scale message a hop, in one ``ring_rotate``).  The backward's
+traveling dk/dv are encoded for every hop and for the delivery hop, and
+decoded to fp32 on arrival.  With int8 a visiting hop runs the hop
+kernels' int8 lanes on the payloads (``flash_mha.ring_route``); fp8 hops
+decode K/V with the codec to q's dtype and run the kernels' own routes,
+as the JAX package does.  Encoding happens after the head-dim padding:
+zero columns change neither a row's absmax nor its payload.
 
 Head dims off the kernels' lanes (``flash_mha.head_dim_lane``) are
 zero-padded once, before the hop loop, on CUDA tensors: K/V rotate padded,
@@ -43,11 +54,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from deepspeed_tpu_torch.comm.comm import ring_rotate
+from deepspeed_tpu_torch.comm.quantized import (validate_wire_dtype,
+                                                wire_decode_rows,
+                                                wire_encode_rows)
 from deepspeed_tpu_torch.ops import flash_mha as fm
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 
 PLACEMENTS = ("contiguous", "striped")
-WIRE_DTYPES = ("fp32", "int8", "fp8")
 
 
 class _RingSpec(NamedTuple):
@@ -58,6 +71,7 @@ class _RingSpec(NamedTuple):
     causal: bool
     window: Optional[int]
     placement: str
+    wire: str = "fp32"   # the ring's wire dtype: "fp32", "int8" or "fp8"
 
 
 # ----------------------------------------------------------------------
@@ -136,6 +150,67 @@ def _pos(src: int, s_l: int, spec: _RingSpec):
 
 
 # ----------------------------------------------------------------------
+# the quantized wire (JAX _rotate_quantized and its callers)
+# ----------------------------------------------------------------------
+class _Wire(NamedTuple):
+    """A block that travels the quantized wire: int8 (or fp8 as uint8)
+    payloads [B, Hkv, S_l, D] and fp32 row scales [B, Hkv, S_l, 1]."""
+    kp: torch.Tensor
+    vp: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+
+def _rotate_quantized(payloads, scales, group):
+    """One hop of the quantized wire: every payload flattened into ONE
+    int8/uint8 message and every scale into one fp32 message, both moved
+    by one ``ring_rotate``; returns ``(payloads', scales')``."""
+    def cat(xs):
+        return torch.cat([x.reshape(-1) for x in xs])
+
+    def split(flat, like):
+        out, i = [], 0
+        for x in like:
+            out.append(flat[i:i + x.numel()].view(x.shape))
+            i += x.numel()
+        return out
+
+    pay, sc = ring_rotate([cat(payloads), cat(scales)], group)
+    return split(pay, payloads), split(sc, scales)
+
+
+def _rotate_wire(w: _Wire, group) -> _Wire:
+    (kp, vp), (ks, vs) = _rotate_quantized((w.kp, w.vp), (w.ks, w.vs), group)
+    return _Wire(kp, vp, ks, vs)
+
+
+def _rotate_grads_quant(dk, dv, wire, group, w: Optional[_Wire] = None):
+    """The traveling fp32 dk/dv encoded for the wire and decoded on arrival
+    (with ``w``: the block's K/V payloads and scales in the same two
+    messages, the JAX ``_rotate_kv_grads_quant``).  Returns ``(dk', dv',
+    w')``."""
+    (dkp, dks), (dvp, dvs) = (wire_encode_rows(x, wire) for x in (dk, dv))
+    pays, scs = [dkp, dvp], [dks, dvs]
+    if w is not None:
+        pays, scs = [w.kp, w.vp] + pays, [w.ks, w.vs] + scs
+    pays, scs = _rotate_quantized(pays, scs, group)
+    dk_t = wire_decode_rows(pays[-2], scs[-2], wire)
+    dv_t = wire_decode_rows(pays[-1], scs[-1], wire)
+    return dk_t, dv_t, (None if w is None else _Wire(pays[0], pays[1],
+                                                    scs[0], scs[1]))
+
+
+def _visiting(w: _Wire, dtype, wire):
+    """A visiting block's K/V and row-scale keywords as the hop kernels
+    take them: int8 payloads with compact [B, Hkv, S_l] scales (the int8
+    lanes), or, for fp8, K/V decoded by the codec to q's dtype."""
+    if wire == "int8":
+        return w.kp, w.vp, dict(k_scale=w.ks[..., 0], v_scale=w.vs[..., 0])
+    return (wire_decode_rows(w.kp, w.ks, wire).to(dtype),
+            wire_decode_rows(w.vp, w.vs, wire).to(dtype), {})
+
+
+# ----------------------------------------------------------------------
 # forward and backward rings
 # ----------------------------------------------------------------------
 def _ring_fwd(qk, kk, vk, spec: _RingSpec, group):
@@ -148,18 +223,33 @@ def _ring_fwd(qk, kk, vk, spec: _RingSpec, group):
     acc = torch.zeros((b, hq, s_l, d), dtype=torch.float32, device=dev)
     kw = dict(causal=spec.causal, sm_scale=spec.scale, window=spec.window)
 
-    def attend(kc, vc, src):
+    def attend(kc, vc, src, **scales):
         if not _hop_dead(spec.idx, src, s_l, spec):
             fm.flash_carry_block(qk, kc, vc, m, l, acc, _pos(src, s_l, spec),
-                                 **kw)
+                                 **kw, **scales)
 
-    # hop 0: the rank's own block (the diagonal is never dead)
+    def attend_wire(w, src):
+        if not _hop_dead(spec.idx, src, s_l, spec):
+            kc, vc, scales = _visiting(w, qk.dtype, spec.wire)
+            attend(kc, vc, src, **scales)
+
+    srcs = [(spec.idx - t - 1) % spec.sp for t in range(spec.sp - 1)]
+    # hop 0: the rank's own block (the diagonal is never dead), exact
     attend(kk, vk, spec.idx)
-    kc, vc = ring_rotate([kk, vk], group)
-    for t in range(spec.sp - 2):
-        attend(kc, vc, (spec.idx - t - 1) % spec.sp)
-        kc, vc = ring_rotate([kc, vc], group)
-    attend(kc, vc, (spec.idx + 1) % spec.sp)
+    if spec.wire == "fp32":
+        kc, vc = ring_rotate([kk, vk], group)
+        for src in srcs[:-1]:
+            attend(kc, vc, src)
+            kc, vc = ring_rotate([kc, vc], group)
+        attend(kc, vc, srcs[-1])
+    else:
+        # K/V encoded once; the payloads and scales travel every hop
+        (kp, ks), (vp, vs) = (wire_encode_rows(x, spec.wire) for x in (kk, vk))
+        w = _rotate_wire(_Wire(kp, vp, ks, vs), group)
+        for src in srcs[:-1]:
+            attend_wire(w, src)
+            w = _rotate_wire(w, group)
+        attend_wire(w, srcs[-1])
     safe = torch.clamp(l, min=1e-20)
     o = (acc / safe[..., None]).to(qk.dtype)
     return o, m + torch.log(safe)
@@ -176,22 +266,42 @@ def _ring_bwd(qk, kk, vk, ok, lse, dok, spec: _RingSpec, group):
     dv = torch.zeros_like(dk)
     kw = dict(causal=spec.causal, sm_scale=spec.scale, window=spec.window)
 
-    def grads(kc, vc, dk_t, dv_t, src):
+    def grads(kc, vc, dk_t, dv_t, src, **scales):
         if not _hop_dead(spec.idx, src, s_l, spec):
             pos = _pos(src, s_l, spec)
-            fm.flash_ring_dq_block(qk, kc, vc, dok, lse, delta, dq, pos, **kw)
+            fm.flash_ring_dq_block(qk, kc, vc, dok, lse, delta, dq, pos, **kw,
+                                   **scales)
             fm.flash_ring_dkv_block(qk, kc, vc, dok, lse, delta, dk_t, dv_t,
-                                    pos, **kw)
+                                    pos, **kw, **scales)
 
+    def grads_wire(w, dk_t, dv_t, src):
+        if not _hop_dead(spec.idx, src, s_l, spec):
+            kc, vc, scales = _visiting(w, qk.dtype, spec.wire)
+            grads(kc, vc, dk_t, dv_t, src, **scales)
+
+    srcs = [(spec.idx - t - 1) % spec.sp for t in range(spec.sp - 1)]
+    # hop 0: the own block, exact
     grads(kk, vk, dk, dv, spec.idx)
-    # K/V and their accumulated grads rotate together
-    kc, vc, dk_t, dv_t = ring_rotate([kk, vk, dk, dv], group)
-    for t in range(spec.sp - 2):
-        grads(kc, vc, dk_t, dv_t, (spec.idx - t - 1) % spec.sp)
-        kc, vc, dk_t, dv_t = ring_rotate([kc, vc, dk_t, dv_t], group)
-    grads(kc, vc, dk_t, dv_t, (spec.idx + 1) % spec.sp)
-    # the traveling grads sit one rank behind their owner: deliver home
-    dk_t, dv_t = ring_rotate([dk_t, dv_t], group)
+    if spec.wire == "fp32":
+        # K/V and their accumulated grads rotate together
+        kc, vc, dk_t, dv_t = ring_rotate([kk, vk, dk, dv], group)
+        for src in srcs[:-1]:
+            grads(kc, vc, dk_t, dv_t, src)
+            kc, vc, dk_t, dv_t = ring_rotate([kc, vc, dk_t, dv_t], group)
+        grads(kc, vc, dk_t, dv_t, srcs[-1])
+        # the traveling grads sit one rank behind their owner: deliver home
+        dk_t, dv_t = ring_rotate([dk_t, dv_t], group)
+        return dq, dk_t, dv_t
+    # K/V encoded once; the traveling grads re-encode every hop
+    (kp, ks), (vp, vs) = (wire_encode_rows(x, spec.wire) for x in (kk, vk))
+    dk_t, dv_t, w = _rotate_grads_quant(dk, dv, spec.wire, group,
+                                        _Wire(kp, vp, ks, vs))
+    for src in srcs[:-1]:
+        grads_wire(w, dk_t, dv_t, src)
+        dk_t, dv_t, w = _rotate_grads_quant(dk_t, dv_t, spec.wire, group, w)
+    grads_wire(w, dk_t, dv_t, srcs[-1])
+    # the delivery hop: the traveling grads encode one last time
+    dk_t, dv_t, _ = _rotate_grads_quant(dk_t, dv_t, spec.wire, group)
     return dq, dk_t, dv_t
 
 
@@ -236,7 +346,8 @@ def ring_attention(q, k, v, topo=None, causal: bool = True,
     in q, k and v.  ``placement``: "contiguous" or "striped" (the caller
     feeds striped data, cf. :func:`stripe_sequence`); ``interleave``: 1
     or 2, the JAX option, accepted; both run attend-then-rotate here (see
-    the module docstring)."""
+    the module docstring).  ``wire_dtype``: "fp32", or "int8"/"fp8" for
+    the quantized wire (module docstring); ignored at sp 1."""
     sp = topo.sp_size if topo is not None else 1
     nh, nkv = q.shape[2], k.shape[2]
     if nh % nkv:
@@ -257,19 +368,14 @@ def ring_attention(q, k, v, topo=None, causal: bool = True,
                          f"{PLACEMENTS}")
     if interleave not in (1, 2):
         raise ValueError(f"interleave={interleave!r}: expected 1 or 2")
-    if wire_dtype not in WIRE_DTYPES:
-        raise ValueError(f"wire_dtype={wire_dtype!r}: expected one of "
-                         f"{WIRE_DTYPES}")
-    if wire_dtype != "fp32":
-        raise NotImplementedError(
-            f"the quantized ring wire ({wire_dtype}) is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP Queue A item 8)")
+    validate_wire_dtype(wire_dtype)
     scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
     if sp == 1:
         return flash_attention(q, k, v, causal=causal, sm_scale=scale,
                                window=window)
     spec = _RingSpec(sp=sp, idx=topo.sp_rank, scale=float(scale),
-                     causal=causal, window=window, placement=placement)
+                     causal=causal, window=window, placement=placement,
+                     wire=wire_dtype)
 
     def attn(q_, k_, v_):
         return _RingAttention.apply(q_, k_, v_, spec, topo.seq_group)

@@ -18,6 +18,20 @@ plain versions (``ops/flash_mha.py``) against the JAX package, on the CPU.
   GQA and a sliding window, at 2e-5 (the JAX test's tolerance for its ring
   against dense attention).  Interleave 2 (accepted, no effect in the
   port) must give the bits of interleave 1.
+* The quantized wire: the plain versions' int8 K/V lane (payloads with
+  per-row fp32 scales) against the interpreted Pallas kernels' quantized
+  lane (``k_scale``/``v_scale``), at 2e-5 (fp32 throughout; the JAX
+  package's own interpreted-against-XLA int8 ring differs by 1.14e-5 in
+  the loss); and ``ring_attention(wire_dtype="int8"/"fp8")`` in 2 and 4
+  gloo ranks against the JAX mesh's XLA ring on the same wire
+  (``_ring_fwd_xla``/``_ring_bwd_xla``: no interpreted kernel), output
+  and gradients at 2e-5: the two codecs encode the same bits, so K/V
+  travel identically.  The traveling dk/dv are re-encoded every hop from
+  sums the two rings take in other orders, so an element that lies on a
+  rounding boundary of the wire may land one wire step apart (int8: the
+  row's absmax / 127; fp8: one e4m3 step of the element): dk and dv hold
+  2e-5 everywhere but at most 1 element in 500, which hold one wire step
+  (seen: one fp8 dk element in 6144 at sp 4).
 """
 
 import importlib
@@ -249,7 +263,7 @@ def test_carry_route_is_chosen_from_dtype_and_strides(layout, want):
     q, k, v = _carry_operands(layout, torch.float32)
     assert tfm.fwd_route(q, k, v) == "fma"
     assert set(tfm.ring_routes) == {f"{n}.{r}" for n in RING_KERNELS
-                                    for r in tfm.FWD_ROUTES}
+                                    for r in tfm.RING_ROUTES}
     before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
     m = torch.full(q.shape[:3], tfm.NEG_INF)
     tfm.flash_carry_block(q, k, v, m, torch.zeros_like(m),
@@ -311,9 +325,12 @@ def test_ring_attention_argument_checks():
         tring.ring_attention(q, q, q, placement="zigzagish")
     with pytest.raises(ValueError, match="interleave"):
         tring.ring_attention(q, q, q, interleave=3)
+    # the quantized wires run (at sp 1 nothing travels); others raise as
+    # the JAX codec's validate_wire_dtype does
     for wire in ("int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tring.ring_attention(q, q, q, wire_dtype=wire)
+        assert tring.ring_attention(q, q, q, wire_dtype=wire).shape == q.shape
+    with pytest.raises(ValueError, match="wire dtype"):
+        tring.ring_attention(q, q, q, wire_dtype="int4")
 
 
 # causal, window, nkv
@@ -363,5 +380,167 @@ def test_ring_attention_in_gloo_ranks_matches_jax_mesh(sp):
         for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
             try:
                 _close(a, r)
+            except AssertionError as e:
+                raise AssertionError(f"{meta[i]} {name}: {e}") from None
+
+
+# ----------------------------------------------------------------------
+# the quantized wire
+# ----------------------------------------------------------------------
+def _int8_rows(rng, *shape):
+    """int8 payload rows and their fp32 row scales ([..., S])."""
+    return (rng.integers(-127, 128, shape).astype(np.int8),
+            rng.uniform(0.002, 0.05, shape[:-1]).astype(np.float32))
+
+
+@pytest.mark.parametrize("hop", HOPS[:7] + HOPS[8:], ids=HOP_IDS[:7] + HOP_IDS[8:])
+def test_int8_hop_plain_versions_match_interpreted_pallas(hop, interpret):
+    """The carry (from the exact own block's state), dq and dk/dv of a
+    visiting hop whose K/V are int8 payloads with per-row scales: the
+    plain versions against the Pallas kernels' quantized lane, which
+    dequantize in the tile load (wire_dequant_rows) and compute in fp32."""
+    hq, hkv, s_l, d, causal, window, placement, sp, idx, src = hop
+    rng = np.random.default_rng(sum(hop[:4]) + idx + 7 * src + 1)
+    b, scale = 1, d ** -0.5
+    q, do = _rand(rng, b, hq, s_l, d), _rand(rng, b, hq, s_l, d)
+    k, v = _rand(rng, b, hkv, s_l, d), _rand(rng, b, hkv, s_l, d)
+    (kp, ks), (vp, vs) = _int8_rows(rng, b, hkv, s_l, d), _int8_rows(rng, b, hkv, s_l, d)
+    q_off, q_stride = _offset(idx, s_l, sp, placement)
+    k_off, k_stride = _offset(src, s_l, sp, placement)
+    pos, own = (q_off, q_stride, k_off, k_stride), (q_off, q_stride) * 2
+    s_pad = jfm.ring_carry_pad(s_l)
+    kw = dict(q_stride=q_stride, k_stride=k_stride, s_real=s_l,
+              sm_scale=scale, causal=causal, window=window)
+    jq, jk, jv, jdo, jkp, jvp = (jnp.asarray(_pad(x, s_pad))
+                                 for x in (q, k, v, do, kp, vp))
+    jks, jvs = (jnp.asarray(_lanes(x, s_pad, value=1.0)) for x in (ks, vs))
+    jm = jnp.full((b, hq, s_pad, 128), tfm.NEG_INF, jnp.float32)
+    jl = jnp.zeros((b, hq, s_pad, 128), jnp.float32)
+    jacc = jnp.zeros((b, hq, s_pad, d), jnp.float32)
+    jm, jl, jacc = jfm.flash_carry_block(jq, jk, jv, jm, jl, jacc, q_off,
+                                         q_off, **{**kw, "k_stride": q_stride})
+    jm, jl, jacc = jfm.flash_carry_block(jq, jkp, jvp, jm, jl, jacc, q_off,
+                                         k_off, k_scale=jks, v_scale=jvs, **kw)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    wire = dict(k_scale=torch.tensor(ks), v_scale=torch.tensor(vs))
+    tkp, tvp = torch.tensor(kp), torch.tensor(vp)
+    m = torch.full((b, hq, s_l), tfm.NEG_INF)
+    l, acc = torch.zeros((b, hq, s_l)), torch.zeros((b, hq, s_l, d))
+    tfm.flash_carry_block(tq, tk, tv, m, l, acc, own, causal, scale, window)
+    tfm.flash_carry_block(tq, tkp, tvp, m, l, acc, pos, causal, scale, window,
+                          **wire)
+    _close(m.numpy(), np.asarray(jm)[:, :, :s_l, 0])
+    _close(l.numpy(), np.asarray(jl)[:, :, :s_l, 0])
+    _close(acc.numpy(), np.asarray(jacc)[:, :, :s_l])
+
+    lse = (m + torch.log(torch.clamp(l, min=1e-20))).numpy()
+    delta = _rand(rng, b, hq, s_l, scale=0.1)
+    dq0 = _rand(rng, b, hq, s_l, d, scale=0.1)
+    dk0, dv0 = (_rand(rng, b, hkv, s_l, d, scale=0.1) for _ in range(2))
+    jlse, jdelta = jnp.asarray(_lanes(lse, s_pad)), jnp.asarray(_lanes(delta, s_pad))
+    jdq = jfm.flash_ring_dq_block(jq, jkp, jvp, jdo, jlse, jdelta,
+                                  jnp.asarray(_pad(dq0, s_pad)), q_off, k_off,
+                                  k_scale=jks, v_scale=jvs, **kw)
+    jdk, jdv = jfm.flash_ring_dkv_block(jq, jkp, jvp, jdo, jlse, jdelta,
+                                        jnp.asarray(_pad(dk0, s_pad)),
+                                        jnp.asarray(_pad(dv0, s_pad)), q_off,
+                                        k_off, k_scale=jks, v_scale=jvs, **kw)
+    dq, dk, dv = (torch.tensor(x) for x in (dq0, dk0, dv0))
+    targs = (torch.tensor(lse), torch.tensor(delta))
+    tfm.flash_ring_dq_block(tq, tkp, tvp, tdo, *targs, dq, pos, causal, scale,
+                            window, **wire)
+    tfm.flash_ring_dkv_block(tq, tkp, tvp, tdo, *targs, dk, dv, pos, causal,
+                             scale, window, **wire)
+    for got, want in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        _close(got.numpy(), np.asarray(want)[:, :, :s_l])
+
+
+def test_int8_hop_checks_and_routes():
+    """Scales come both or neither; int8 K/V route to the int8 lanes by
+    q's dtype (``ring_route``), other K/V by the attention routes' rules;
+    the wire's decode is one multiply a row; CPU calls count nothing."""
+    q, do = torch.zeros((1, 2, 8, 16)), torch.zeros((1, 2, 8, 16))
+    kp = torch.zeros((1, 1, 8, 16), dtype=torch.int8)
+    sc = torch.full((1, 1, 8), 0.5)
+    m, l = torch.full((1, 2, 8), tfm.NEG_INF), torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="together"):
+        tfm.flash_carry_block(q, kp, kp, m, l, torch.zeros_like(q),
+                              (0, 1, 0, 1), k_scale=sc)
+    assert tfm.ring_route(q, kp, kp) == "fma_s8"
+    assert tfm.ring_route(q.bfloat16(), kp, kp, do.bfloat16()) == "mma_s8"
+    assert tfm.ring_route(q, q, q, do) == "fma"
+    x = torch.tensor([[[[-128, 3, 127]]]], dtype=torch.int8)
+    np.testing.assert_array_equal(
+        tfm.wire_dequant_rows(x, torch.tensor([[[0.25]]])).numpy(),
+        [[[[-32.0, 0.75, 31.75]]]])
+    before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
+    tfm.flash_carry_block(q, kp, kp, m, l, torch.zeros_like(q), (0, 1, 0, 1),
+                          k_scale=sc, v_scale=sc)
+    assert (tfm.ring_launches, tfm.ring_routes) == before
+
+
+def _wire_step(x, wire):
+    """One wire step at each element of ``x`` ([..., D] rows): the int8
+    codec's row scale (absmax / 127), or the fp8 codec's e4m3 spacing at
+    the element (3 mantissa bits, subnormal below 2^-6) times the row
+    scale (absmax / 448)."""
+    absmax = np.abs(x).max(axis=-1, keepdims=True)
+    if wire == "int8":
+        return np.broadcast_to(absmax / 127.0, x.shape)
+    scale = np.where(absmax > 0, absmax / 448.0, 1.0)
+    q = np.maximum(np.abs(x) / scale, 2.0 ** -6)
+    return 2.0 ** (np.floor(np.log2(q)) - 3) * scale
+
+
+def _close_wire(got, want, wire, rtol=RTOL):
+    """2e-5 everywhere but at most 1 element in 500, which hold one wire
+    step (module docstring)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    off = err > rtol * (1 + np.abs(want))
+    assert off.sum() * 500 <= off.size, (int(off.sum()), off.size)
+    step = _wire_step(want, wire)
+    assert np.all(err[off] <= rtol * (1 + np.abs(want[off])) + 1.01 * step[off]), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_quantized_ring_in_gloo_ranks_matches_jax_xla_ring(sp, wire):
+    """``ring_attention(wire_dtype=...)`` in ``sp`` gloo CPU ranks (the plain
+    versions on the wire's payloads) against the JAX ring on a seq CPU mesh
+    through its XLA path (no interpreted kernel): one spawn, 2 placements x
+    causal GQA and a window with nkv 4, interleave 1 and 2 (the same bits)."""
+    rng = np.random.default_rng(10 * sp + len(wire))
+    b, s, nh, d = 2, 48, 4, 16
+    cases, meta = [], []
+    for placement in ("contiguous", "striped"):
+        for causal, window, nkv in VARIANTS:
+            q, w = _rand(rng, b, s, nh, d), _rand(rng, b, s, nh, d)
+            k, v = _rand(rng, b, s, nkv, d), _rand(rng, b, s, nkv, d)
+            for interleave in (1, 2):
+                kw = dict(causal=causal, window=window, placement=placement,
+                          interleave=interleave, wire_dtype=wire)
+                cases.append({"q": q, "k": k, "v": v, "w": w, "kw": kw})
+                meta.append(kw)
+    assert not jfm.INTERPRET    # the JAX ring takes its XLA path
+    ranks = launch(torch_ring_ranks.ring_attention_cases, sp, args=(cases,),
+                   backend="gloo", device="cpu")
+    for i in range(0, len(cases), 2):
+        got = [np.concatenate([r[i][j] for r in ranks], axis=1)
+               for j in range(4)]
+        again = [np.concatenate([r[i + 1][j] for r in ranks], axis=1)
+                 for j in range(4)]
+        for a, b_ in zip(got, again):
+            np.testing.assert_array_equal(a, b_)
+        c = cases[i]
+        kw = {k_: v_ for k_, v_ in meta[i].items() if k_ != "interleave"}
+        want = _jax_ring(sp, *(jnp.asarray(c[n]) for n in "qkvw"), kw)
+        for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+            try:
+                if name in ("dk", "dv"):
+                    _close_wire(a, r, wire)
+                else:
+                    _close(a, r)
             except AssertionError as e:
                 raise AssertionError(f"{meta[i]} {name}: {e}") from None

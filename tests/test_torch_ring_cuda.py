@@ -24,6 +24,15 @@ bf16), and 1e-4 on ``m`` (a max of fp32 scores).  A dead hop, and on the
 wgmma route every item with no live tile (a 128-row query tile of the
 carry or dq, a 128-key tile of dk/dv), leaves the state bit for bit as it
 was.
+
+The int8 K/V lanes of the quantized wire (routes ``mma_s8`` for bf16 q and
+do, ``fma_s8`` for fp32): int8 payloads with per-row fp32 scales against
+the plain versions, which decode the rows and compute in fp32, at S 130
+and 50, causal and window, GQA, D 64/128/256, hops with dead tiles, and
+the route counts.  Tolerance: bf16 q 2^-10 (the kernels' products are
+exact or fp32 up to summation order; p and ds enter them as two bf16
+parts, about 16 bits), fp32 q 1e-4 (summation order), on the same
+quantities as above.
 """
 
 import numpy as np
@@ -438,3 +447,99 @@ def test_cuda_ring_kernels_reject_bad_state(cuda_device):
         fm.flash_carry_block(q, k, k, m, l, acc, (0, 0, 0, 1))
     with pytest.raises(ValueError, match="32-bit"):
         fm.flash_carry_block(q, k, k, m, l, acc, (2 ** 31 - 10, 1, 0, 1))
+
+
+# b, hq, hkv, s_l, d, causal, window, pos: the int8 K/V lanes
+INT8_CASES = [
+    (1, 8, 2, 130, 128, True, None, (1, 2, 0, 2)),      # tail, striped 1 <- 0
+    (1, 8, 2, 130, 128, True, None, (0, 2, 1, 2)),      # striped 0 <- 1
+    (2, 4, 4, 50, 64, False, None, (50, 1, 0, 1)),      # short, non-causal MHA
+    (1, 8, 2, 320, 64, True, 90, (1, 2, 0, 2)),         # window: dead tiles
+    (1, 4, 2, 256, 128, True, 100, (256, 1, 0, 1)),     # contiguous, window
+    (1, 4, 1, 192, 256, True, None, (1, 2, 0, 2)),      # D 256, MQA
+]
+INT8_IDS = ["tail-130-1from0", "tail-130-0from1", "short-50-noncausal",
+            "window-d64", "contig-window", "d256-mqa"]
+INT8_RTOL = {torch.bfloat16: 2.0 ** -10, torch.float32: 1e-4}
+
+
+def _int8_kv(rng, dev, b, hkv, s, d):
+    """int8 payloads and compact fp32 row scales of K and V."""
+    def rows():
+        return (torch.from_numpy(rng.integers(-127, 128, (b, hkv, s, d))
+                                 .astype(np.int8)).to(dev),
+                torch.from_numpy(rng.uniform(0.005, 0.03, (b, hkv, s))
+                                 .astype(np.float32)).to(dev))
+    (kp, ks), (vp, vs) = rows(), rows()
+    return kp, vp, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CASES, ids=INT8_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_cuda_ring_int8_lanes_match_plain_version(case, dtype, cuda_device):
+    """A visiting hop over int8 K/V from the state of the exact own block,
+    then dq and dk/dv of that hop into seeded fp32 accumulators: each int8
+    lane against its plain version, and one launch a kernel on the lane
+    q's dtype picks."""
+    b, hq, hkv, s, d, causal, window, pos = case
+    rng, q, k, v, do = _case(case, dtype, cuda_device, seed=3)
+    kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
+    scale = d ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    own = (pos[0], pos[1], pos[0], pos[1])
+    want = "mma_s8" if dtype == torch.bfloat16 else "fma_s8"
+    assert fm.ring_route(q, kp, vp) == fm.ring_route(q, kp, vp, do) == want
+    state = _fresh_state(b, hq, s, d, cuda_device)
+    fm.ring_carry_ref(q, k, v, *state, own, causal, scale, window)
+    ref = tuple(t.clone() for t in state)
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, kp, vp, *state, pos, **kw, **wire)
+    fm.ring_carry_ref(q, kp, vp, *ref, pos, causal, scale, window, **wire)
+    torch.cuda.synchronize()
+    _check_carry(state, ref, INT8_RTOL[dtype])
+    m, l, _ = ref
+    lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
+    *got, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    grads = [t.clone() for t in got]
+    bwd = (q, kp, vp, do, lse, delta)
+    fm.flash_ring_dq_block(*bwd, got[0], pos, **kw, **wire)
+    fm.flash_ring_dkv_block(*bwd, got[1], got[2], pos, **kw, **wire)
+    fm.ring_bwd_dq_ref(*bwd, grads[0], pos, causal, scale, window, **wire)
+    fm.ring_bwd_dkv_ref(*bwd, grads[1], grads[2], pos, causal, scale, window,
+                        **wire)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {f"ring_carry.{want}": 1,
+                                    f"ring_bwd_dq.{want}": 1,
+                                    f"ring_bwd_dkv.{want}": 1}
+    _check_grads(got, grads, INT8_RTOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_ring_int8_dead_hop_and_bad_scales(cuda_device):
+    """A hop whose tiles are all dead leaves the state bit for bit; scales
+    of the wrong shape or dtype, one scale alone, or int8 K/V without
+    scales raise before any launch."""
+    b, hq, hkv, s, d = 1, 4, 2, 128, 128
+    rng, q, _, _, do = _case((b, hq, hkv, s, d), torch.bfloat16, cuda_device)
+    kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
+    state = _fresh_state(b, hq, s, d, cuda_device)
+    state[2].normal_()
+    before = tuple(t.clone() for t in state)
+    fm.flash_carry_block(q, kp, vp, *state, (0, 1, s, 1), **wire)  # future
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(state, before))
+    with pytest.raises(ValueError, match="row scales"):
+        fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1),
+                             k_scale=wire["k_scale"][..., :-1],
+                             v_scale=wire["v_scale"])
+    with pytest.raises(ValueError, match="row scales"):
+        fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1),
+                             k_scale=wire["k_scale"].double(),
+                             v_scale=wire["v_scale"])
+    with pytest.raises(ValueError, match="together"):
+        fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1),
+                             k_scale=wire["k_scale"])
+    with pytest.raises(TypeError, match="dtype"):
+        fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1))

@@ -14,9 +14,15 @@ summation-order noise of a near-zero gradient into a step of up to lr
 1e-5 · (1 + |p|) would flag on 1 to 3 elements of a leaf.  Both ranks
 must hold the same params, bit for bit.  The config and the model reject,
 naming their ROADMAP item, what the port does not run over a seq axis:
-data > 1 beside it (A4), Ulysses (A9), a quantized ring wire (A8), and
-ring attention with a block-sparse layout, a key-padding mask or ALiBi
-(as the JAX model raises).  The launcher re-raises a rank's failure, and
+data > 1 beside it (A4), Ulysses (A9), a quantized gradient reduction
+(A8), and ring attention with a block-sparse layout, a key-padding mask
+or ALiBi (as the JAX model raises).  With
+``comm_quantization.ring_rotation: "int8"`` (or fp8) the same engine runs
+the quantized ring wire in both ranks against the JAX engine with that
+block on its seq mesh: the first step's loss and grad norm to 1e-5
+relative (the two rings encode the same bits; summation order only), the
+second's to 1e-3 (``WIRE_RTOL`` says why).  Without a seq
+axis the block warns and keeps the fp32 wire, as in JAX.  The launcher re-raises a rank's failure, and
 the process group takes only the backend the caller names.
 """
 
@@ -118,8 +124,8 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
     ({"mesh": {"seq": 2}}, {"seq_impl": "ulysses"}, "item 9"),
     ({"sequence_parallel_size": 2}, {}, "item 9"),
     ({"mesh": {"seq": 2}, "comm_quantization": {
-        "enabled": True, "ring_rotation": "int8"}}, {"seq_impl": "ring"},
-     "item 8"),
+        "enabled": True, "grad_reduce": "int8", "ring_rotation": "int8"}},
+     {"seq_impl": "ring"}, "item 8"),
     ({"mesh": {"seq": 2}, "step_schedule": {"weight_update": "decomposed"}},
      {"seq_impl": "ring"}, "item 8"),
 ], ids=["data-with-seq", "ulysses", "sp-size-ulysses", "int8-wire",
@@ -129,6 +135,78 @@ def test_seq_axis_rejections_name_their_item(extra, model_kw, item):
     with pytest.raises(NotImplementedError, match=item):
         dst.initialize(model=get_model_config("llama-tiny", **model_kw),
                        config=cfg, device="cpu")
+
+
+WIRE_STEPS = 2
+# the first step's loss and grad norm: the same wire bits, summation order
+# only; the second step's after one AdamW step from grads whose traveling
+# dk/dv may hold an element one wire step apart (a sum on a rounding
+# boundary of the wire, test_torch_ring_attention.py), which AdamW's first
+# step turns into an update of up to lr on a near-zero gradient element
+# (seen: 1.6e-4 int8, 7.9e-5 fp8)
+WIRE_RTOL = (1e-5, 1e-3)
+
+
+@pytest.mark.parametrize("wire", ["int8", "fp8"])
+def test_quantized_ring_wire_trains_like_the_jax_seq_mesh(wire):
+    """llama-tiny (2 layers) with ``ring_rotation`` over 2 gloo ranks and
+    the JAX engine on a ``{"seq": 2}`` CPU mesh, striped: the losses and
+    grad norms of WIRE_STEPS steps at WIRE_RTOL."""
+    cq = {"comm_quantization": {"enabled": True, "ring_rotation": wire}}
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 512, (4, 33)).astype(np.int32)
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:].copy()}
+    model = jax_model_config("llama-tiny", seq_impl="ring",
+                             ring_placement="striped")
+    assert model.num_layers == 2
+    try:
+        eng, *_ = dsj.initialize(model=model, seed=7, config={
+            **CFG, **cq, "mesh": {"seq": 2, "data": 1}})
+        assert eng.model_config.ring_wire_dtype == wire
+        p0 = jax.tree.map(np.asarray, eng.params)
+        want = []
+        for _ in range(WIRE_STEPS):
+            want.append((float(np.asarray(eng.train_batch(batch))),
+                         eng.get_global_grad_norm()))
+    finally:
+        jtopology.set_topology(None)
+    params = params_from_jax(p0, get_model_config("llama-tiny"), device="cpu")
+    ranks = launch(torch_ring_ranks.ring_engine_steps, 2,
+                   args=("llama-tiny", params, batch,
+                         {**CFG, **cq, "mesh": {"seq": 2}}, WIRE_STEPS,
+                         ("striped",)),
+                   backend="gloo", device="cpu")
+    for r in ranks:
+        assert r["wire"] == wire
+        got = r["striped"]
+        for i, rtol in enumerate(WIRE_RTOL):
+            assert got["losses"][i] == pytest.approx(want[i][0], rel=rtol)
+            assert got["grad_norms"][i] == pytest.approx(want[i][1], rel=rtol)
+    assert ranks[0]["striped"]["losses"] == ranks[1]["striped"]["losses"]
+
+
+def test_ring_wire_without_a_seq_axis_keeps_fp32(monkeypatch):
+    """As in JAX: no seq axis above one (or no ring) warns and keeps the
+    fp32 wire; a switched-off block sets nothing."""
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+
+    seen = []
+    monkeypatch.setattr(engine_mod.logger, "warning",
+                        lambda msg, *a, **k: seen.append(msg))
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "comm_quantization": {"enabled": True, "ring_rotation": "int8"}}
+    for model_kw in ({"seq_impl": "ring"}, {}):
+        eng, *_ = dst.initialize(model=get_model_config(
+            "llama-tiny", **model_kw), config=cfg, device="cpu")
+        assert eng.model_config.ring_wire_dtype == "fp32"
+        assert any("keeping the fp32 wire" in m for m in seen), seen
+        seen.clear()
+    off = {**cfg, "comm_quantization": {"enabled": False,
+                                        "ring_rotation": "int8"}}
+    eng, *_ = dst.initialize(model=get_model_config("llama-tiny",
+                                                    seq_impl="ring"),
+                             config=off, device="cpu")
+    assert eng.model_config.ring_wire_dtype == "fp32" and not seen
 
 
 def test_seq_axis_needs_a_process_group():

@@ -310,7 +310,7 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
     {"mesh": {"data": 2, "seq": 2}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
-    {"comm_quantization": {"enabled": True}},
+    {"comm_quantization": {"enabled": True, "grad_reduce": "int8"}},
     {"telemetry": {"enabled": True}},
     {"optimizer": {"type": "Lamb", "params": {"lr": 1e-4}}},
     {"optimizer": {"type": "Adam", "params": {"adam_w_mode": False}}},

@@ -59,6 +59,7 @@ def ring_engine_steps(rank, world, model_name, params, batch, cfg, steps,
                           "params": tf.tree_map_with_path(
                               lambda _p, x: x.detach().numpy().copy(),
                               eng.params)}
+    out["wire"] = eng.model_config.ring_wire_dtype
     # the ring branch's rejections, as the JAX model raises them
     eng_params = tf.tree_map_with_path(lambda _p, x: x.detach(), eng.params)
     ids = torch.tensor(np.asarray(batch["input_ids"])[:1, :8])
@@ -75,6 +76,17 @@ def ring_engine_steps(rank, world, model_name, params, batch, cfg, steps,
             errors[name] = str(e)
     out["errors"] = errors
     return out
+
+
+def rotate_payloads(rank, world, arrays):
+    """``comm.ring_rotate`` of this rank's copy of ``arrays`` (each array's
+    values plus the rank, in its dtype): what arrives from the previous
+    rank."""
+    torch.set_num_threads(1)
+    from deepspeed_tpu_torch.comm.comm import ring_rotate
+
+    sent = [torch.tensor(a) + rank for a in arrays]
+    return [x.numpy() for x in ring_rotate(sent)]
 
 
 def failing_rank(rank, world):
