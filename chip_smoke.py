@@ -138,6 +138,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -199,11 +200,12 @@ PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "RingOffsets"),
-    # the int8 lanes: the 64 x 64 tile walk under the ring mask (on the
-    # ring-train-int8 path no other hop takes that walk)
-    "ring_carry_int8": ("attn_fwd_kernel", "RingOffsets"),
+    # the int8 lanes: the carry's and dk/dv's wgmma walks over int8 K/V
+    # (kernels of their own names), dq's 64 x 64 tile walk under the ring
+    # mask (on the ring-train-int8 path no other hop takes that walk)
+    "ring_carry_int8": ("attn_fwd_wgmma_s8_kernel", "RingOffsets"),
     "ring_bwd_dq_int8": ("attn_bwd_dq_kernel", "RingOffsets"),
-    "ring_bwd_dkv_int8": ("attn_bwd_dkv_kernel", "RingOffsets"),
+    "ring_bwd_dkv_int8": ("attn_bwd_dkv_wgmma_s8_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "CausalWindow"),
@@ -304,6 +306,11 @@ RING_WIRE_REF_RTOL = 1e-3
 # to summation order; p and ds enter them as two bf16 parts, about 16
 # bits), fp32 q 1e-4 (summation order)
 RING_INT8_RTOL = {"bfloat16": 2.0 ** -10, "float32": 1e-4}
+# slice 14: each ring kernel's int8 lane for bf16 q at D 64/128 over views
+# TMA reads (the carry and dk/dv on their wgmma walks, dq on the 64 x 64
+# tile walk); fp32 q takes fma_s8 and D 256 mma_s8 in every kernel
+RING_INT8_ROUTES = {"ring_carry": "wgmma_s8", "ring_bwd_dq": "mma_s8",
+                    "ring_bwd_dkv": "wgmma_s8"}
 
 # slice 6: ZeRO-3 over a data axis.  bench.py's ZeRO-3 row (_autosched_body
 # with the fused variant of _autosched_fused_ab): gpt2-350m, seq 1024, micro
@@ -387,6 +394,36 @@ def stream_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # calls a CUDA graph could not capture, timed on the stream instead (the
 # caller's line and the error), emitted before the kernels line
 STREAM_TIMED = []
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and first int template argument from its Itanium
+    mangled entry (``_ZN8flash_wg24attn_fwd_wgmma_s8_kernelILi128E...`` ->
+    ``attn_fwd_wgmma_s8_kernel<128>``)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_spills(log: str) -> dict:
+    """Spill-store bytes by kernel (:func:`kernel_name`; the most over a
+    name's instantiations) from a ptxas -v report."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name is not None:
+            out[name] = max(out.get(name, 0), int(m.group(1)))
+    return out
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, stream=None) -> float:
@@ -2463,14 +2500,25 @@ RING_INT8_CASES = [
 RING_INT8_ROW_CASE = "path-striped-hop1-int8"
 
 
+def int8_routes(dt, d):
+    """Each ring kernel's int8 lane for q of dtype ``dt`` at head dim ``d``
+    over views TMA reads."""
+    kernels = tuple(RING_INT8_ROUTES)
+    if dt == "float32":
+        return dict.fromkeys(kernels, "fma_s8")
+    return dict(RING_INT8_ROUTES) if d in (64, 128) else dict.fromkeys(kernels, "mma_s8")
+
+
 def ring_int8_case(fm, codec, case):
     """The three hop kernels' int8 lanes of one case against their plain
     versions on the same inputs: K/V of the case encoded by the wire codec
     (int8 payloads, one fp32 scale a row), the hop from a fresh carry, dq
-    and dk/dv into seeded fp32 accumulators from the carry's lse.  The path
-    case is timed beside the plain versions and
-    scaled_dot_product_attention under the hop's mask on the decoded bf16
-    K/V (the decode not counted)."""
+    and dk/dv into seeded fp32 accumulators from the carry's lse; each
+    kernel on its lane (:func:`int8_routes`).  The path case is timed
+    beside the plain versions, scaled_dot_product_attention under the
+    hop's mask on the decoded bf16 K/V (the decode not counted) and, for
+    the carry and dk/dv, the parent's lane (the 64 x 64 walk, ``mma_s8``)
+    on the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -2490,7 +2538,7 @@ def ring_int8_case(fm, codec, case):
     def small(*shape):
         return torch.randn(shape, generator=gen, device="cuda") * 0.1
 
-    want_route = "mma_s8" if dt == "bfloat16" else "fma_s8"
+    want_route = int8_routes(dt, d)
     state, ref = fresh(), fresh()
     routes = dict(fm.ring_routes)
     fm.flash_carry_block(q, kp, vp, *state, pos, **kw, **wire)
@@ -2510,8 +2558,7 @@ def ring_int8_case(fm, codec, case):
     torch.cuda.synchronize()
     taken = {n: c - routes[n] for n, c in fm.ring_routes.items()
              if c != routes[n]}
-    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
-    if taken != {f"{n}.{want_route}": 1 for n in kernels}:
+    if taken != {f"{n}.{r}": 1 for n, r in want_route.items()}:
         fail(f"ring-int8-kernels ({name}): routes {taken}, expected "
              f"{want_route}")
     rtol = RING_INT8_RTOL[dt]
@@ -2533,7 +2580,7 @@ def ring_int8_case(fm, codec, case):
             ok &= bool(torch.all(diff <= tol * (1 + r.float().abs())))
             ok &= bool(torch.isfinite(g).all())
         rows[kname] = {"phase": "ring-int8-kernels", "case": name,
-                       "kernel": kname, "route": want_route,
+                       "kernel": kname, "route": want_route[kname],
                        "lane": "int8 K/V + fp32 row scales",
                        "B": b, "Hq": hq, "Hkv": hkv, "S_l": s, "D": d,
                        "dtype": dt, "causal": causal, "window": window,
@@ -2563,6 +2610,16 @@ def ring_int8_case(fm, codec, case):
         for kname, (kern, plain) in calls.items():
             rows[kname].update(kernel_ms(kern))
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
+        # the parent's lane of the redesigned kernels, the 64 x 64 walk
+        # (mma_s8), on the same inputs in this call
+        route_rule = fm.ring_route
+        fm.ring_route = lambda *a: "mma_s8"
+        try:
+            for kname, r in want_route.items():
+                if r == "wgmma_s8":
+                    rows[kname]["mma_s8_ms"] = cuda_time_ms(calls[kname][0])
+        finally:
+            fm.ring_route = route_rule
         mask = ring_mask(s, causal, window, pos, "cuda")
         dec = [codec.wire_decode_rows(p, sc, "int8").to(q.dtype)
                for p, sc in ((kp, ks), (vp, vs))]
@@ -2943,7 +3000,8 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
     each ring kernel, one AdamW and nothing else: on the wgmma route, or,
     with ``wire`` "int8" (``comm_quantization.ring_rotation``, the
     ring-train-int8 phase), the own block's hop on wgmma and the visiting
-    hop on the int8 lane (mma_s8).  ``base``: the fp32-wire phase's
+    hop on each kernel's int8 lane (RING_INT8_ROUTES: the carry and dk/dv
+    on wgmma_s8, dq on mma_s8).  ``base``: the fp32-wire phase's
     result, whose losses at the same seed and wire bytes the int8 phase
     reports beside its own (``ring_loss_delta``, bench.py's _ring_wire_ab).
     Returns ``(launches of rank 0 by kernel and route, the ranks' results)``."""
@@ -2973,11 +3031,12 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
     tokens = rows * RING_SEQ
     step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
     kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
-    routes = ({"wgmma": live} if wire == "fp32"
-              else {"wgmma": live // 2, "mma_s8": live // 2})
+    routes = {k: {"wgmma": live} if wire == "fp32"
+              else {"wgmma": live // 2, RING_INT8_ROUTES[k]: live // 2}
+              for k in kernels}
     want = {**{k: 0 for k in ranks[0]["launches"]},
             **{k: live for k in kernels},
-            **{f"{k}.{r}": n for k in kernels for r, n in routes.items()},
+            **{f"{k}.{r}": n for k in kernels for r, n in routes[k].items()},
             "fused_adamw": 1}
     per_step = [{k: v / steps for k, v in r["launches"].items()}
                 for r in ranks]
@@ -3461,7 +3520,9 @@ def main() -> int:
           "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for name in op_builder.KERNEL_SOURCES
                     for ln in op_builder.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln],
+          "spill_store_bytes": {name: ptxas_spills(op_builder.build_log(name))
+                                for name in op_builder.KERNEL_SOURCES}})
     # 3. kernels against their plain versions
     bs = ENGINE_CFG["memory_config"]["block_size"]
     summary = phase_kernels(pa, mc, bs,
@@ -3563,8 +3624,7 @@ def main() -> int:
                                    base=ring_ranks, steps=RING_WIRE_STEPS)
     ring_train_launches = {
         **{k: ring_run[k] for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
-        **{f"{k}_int8": int8_run[f"{k}.mma_s8"]
-           for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")}}
+        **{f"{k}_int8": int8_run[f"{k}.{r}"] for k, r in RING_INT8_ROUTES.items()}}
 
     # 20. the gather-matmul GEMM, 21. ZeRO stages in two ranks on the card
     # against the CPU, 22. gpt2-350m under ZeRO-3 with the fused
@@ -3627,6 +3687,12 @@ def main() -> int:
     also = {"flash_fwd": pallas + "flash_mha.py:286",
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
+    # the kernels the int8 lanes run on the path: the wgmma walks' int8
+    # kernels (slice 14) and dq's 64 x 64 tile walk
+    walks = {"ring_carry_int8": csrc + "attention_wgmma.cuh attn_fwd_wgmma_s8_kernel",
+             "ring_bwd_dq_int8": csrc + "attention_tiles.cuh attn_bwd_dq_kernel",
+             "ring_bwd_dkv_int8": csrc + "attention_wgmma_bwd.cuh "
+                                         "attn_bwd_dkv_wgmma_s8_kernel"}
     # the quantized lanes of the ring kernels (wire_dequant_rows, :460)
     lanes = {"ring_carry_int8": pallas + "flash_mha.py:505",
              "ring_bwd_dq_int8": pallas + "flash_mha.py:729",
@@ -3650,11 +3716,11 @@ def main() -> int:
                    f"{RING_STEPS} timed steps (each rank launched as many); "
                    f"times from the {RING_ROW_CASE} case"
                 for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
-             **{k: f"rank 0 of {RING_RANKS} in the ring-train-int8 phase's "
-                   f"{RING_WIRE_STEPS} timed steps, the visiting hops' mma_s8 "
-                   f"launches (each rank launched as many); times from the "
-                   f"{RING_INT8_ROW_CASE} case"
-                for k in lanes},
+             **{f"{k}_int8": f"rank 0 of {RING_RANKS} in the ring-train-int8 "
+                             f"phase's {RING_WIRE_STEPS} timed steps, the visiting "
+                             f"hops' {r} launches (each rank launched as many); "
+                             f"times from the {RING_INT8_ROW_CASE} case"
+                for k, r in RING_INT8_ROUTES.items()},
              "gather_matmul": f"rank 0 of {ZERO_RANKS} in the zero3-train "
                               f"phase's {ZERO_STEPS} timed steps (each rank "
                               f"launched as many); times from the "
@@ -3684,6 +3750,9 @@ def main() -> int:
             entry["also_replaces"] = also[name]
         if name in lanes:
             entry["replaces_lane"] = lanes[name]
+            entry["walk"] = walks[name]
+        if "mma_s8_ms" in row:     # the parent's lane, same inputs, same call
+            entry["mma_s8_ms"] = row["mma_s8_ms"]
         if name in notes:
             entry["launches_note"] = notes[name]
         entries.append(entry)

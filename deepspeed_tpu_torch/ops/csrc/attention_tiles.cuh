@@ -68,18 +68,24 @@
 //    are for the PRs that make it fast.
 //
 // The quantized ring wire (template flag Q8, the int8 K/V lanes of
-// ring_attention_int8.cu): K/V arrive as int8 payload rows with one fp32 scale a row
-// ([B, Hkv, S] contiguous), what the JAX kernels read through
-// wire_dequant_rows.  The fp32 walk decodes a row on load, payload times
-// scale (that function's arithmetic, bit for bit), and then computes as it
-// always does.  The bf16 walk widens the payload to bf16, exactly (|x| <=
-// 128), and puts the scales on the key axis (kKeyScales):
+// ring_attention_int8.cu, routes fma_s8 and mma_s8): K/V arrive as int8
+// payload rows with one fp32 scale a row ([B, Hkv, S] contiguous), what the
+// JAX kernels read through wire_dequant_rows.  The fp32 walk decodes a row
+// on load, payload times scale (that function's arithmetic, bit for bit),
+// and then computes as it always does.  The bf16 walk widens the payload to
+// bf16, exactly (|x| <= 128), and puts the scales on the key axis
+// (kKeyScales):
 //   s = ks[j] (q . kp_j) scale, and dp = vs[j] (do . vp_j);
 //   forward: p vs[j] into p . vp;  dq: ds ks[j] into ds . kp;
 //   dk/dv: ds into ds^T . q and p into p^T . do, no scale on the outputs.
 // Each of those fp32 factors enters its product as two bf16 parts (hi, then
 // the remainder lo), so the product keeps about 16 bits of it: the JAX lane
 // keeps p and ds in fp32.  Q8 = false compiles the code it always did.
+// Since slice 14 the bf16 carry and dk/dv at D 64 and 128 run the same
+// arithmetic on the wgmma walks (wgmma_s8: attention_wgmma.cuh,
+// attention_wgmma_bwd.cuh); this walk keeps the bf16 dq (the next slice's
+// redesign), D 256 (no wgmma walk in any lane) and expanded views (no
+// tensor map), and fp32 q everywhere.
 //
 // Each launcher runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().

@@ -1,6 +1,7 @@
 // Attention backward on wgmma and TMA, Hopper: the dense `flash_bwd_dq`
 // and `flash_bwd_dkv`, the ring hop's `ring_bwd_dq` and `ring_bwd_dkv` and
-// the block-sparse `bsa_bwd_dq` and `bsa_bwd_dkv` at bf16.
+// the block-sparse `bsa_bwd_dq` and `bsa_bwd_dkv` at bf16, and the ring
+// hop's int8 K/V lane of dk/dv, `ring_bwd_dkv_s8` (bf16 q and do).
 //
 // Computes what attn_bwd_dq_kernel / attn_bwd_dkv_kernel of
 // attention_tiles.cuh compute (and what the TPU kernels _dq_kernel(_blocked)
@@ -98,6 +99,32 @@
 //    with no live tile reads nothing; accumulating, it writes nothing, so
 //    its rows of dq, dk, dv stay bit for bit as they were; storing, it
 //    writes zeros, so no row of the output is left unwritten.
+//  * the int8 K/V lane of dk/dv (template flag Q8,
+//    attn_bwd_dkv_wgmma_s8_kernel, `ring_bwd_dkv_s8` on the quantized ring
+//    wire; accumulate mode only).  K and V arrive as int8 payload rows with
+//    one fp32 scale a row and stay resident for the item, so they are
+//    widened once an item, straight from device memory into the two bf16
+//    tiles, with no int8 copy in shared memory: each consumer warpgroup
+//    widens its own 64 keys (the rows its products read as A), all its
+//    16-byte loads issued before the first store, in the layout TMA's
+//    128-byte swizzle gives the bf16 lane, then fences the proxy and meets
+//    at a named barrier of its 128 threads; the producer loads only Q, dO,
+//    lse and delta.  The widened rows are free when the item starts: the
+//    warpgroup's products of the previous item have been waited for.  The
+//    scales sit on the key axis, the M rows of S^T and dP^T: the warpgroup
+//    leaves its 64 keys' K and V scales in shared memory beside the tiles,
+//    and each thread multiplies its S^T and dP^T rows by its two keys'
+//    before p and ds; p and ds enter dV += P^T.dO and dK += dS^T.Q as two
+//    bf16 parts each, hi = bf16(x) and lo = bf16(x - hi) (about 16 bits of
+//    the fp32 factors the JAX lane keeps), so each sum takes two wgmma_rs
+//    products a step on the same dO or Q tile, issued in one group.
+//    Registers a consumer thread at D 128: dK 64 + dV 64 + the four A
+//    fragments 64, S^T and dP^T (32 each) dead once the fragments are
+//    packed, inside setmaxnreg's 240 with nothing to spare: K's and V's
+//    descriptors are rebuilt each tile and the epilogue's row addresses
+//    after the walk (held across it, with the scales in registers, ptxas
+//    spilled 64 bytes).  Shared memory: the bf16 lane's and the scales'
+//    1 KiB.
 //
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for a view TMA cannot take, a
@@ -422,16 +449,56 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 // ---------------------------------------------------------------------------
 // dk, dv
 // ---------------------------------------------------------------------------
-template <int D, typename Mask, typename Out>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                          const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v,
-                          const __grid_constant__ CUtensorMap map_do,
-                          const __grid_constant__ CUtensorMap map_lse,
-                          const __grid_constant__ CUtensorMap map_delta, Out* __restrict__ dk,
-                          Out* __restrict__ dv, Strides4 sdk, Strides4 sdv, int B, int Hq,
-                          int Hkv, int S, float scale, Mask mask) {
+// The int8 K/V lane's operands of the dk/dv walk, read by the consumers
+// themselves: payload rows [B, Hkv, S, D] (element strides sk, sv: b, h, s;
+// D contiguous, rows 16-byte aligned) and fp32 row scales [B, Hkv, S]
+// contiguous
+struct KvS8 {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  Strides4 sk, sv;
+};
+
+// Keys key0 .. key0 + 63 of the int8 K and V (row strides sk, sv bytes)
+// widened into this warpgroup's 64 rows of the two bf16 tiles at shared
+// addresses kd, vd (128-row boxes with 128-byte swizzle, what TMA writes for
+// the bf16 lane; the rows start 64 wgi into each box); keys at or past S
+// are zero.  Thread t of the warpgroup widens 16-byte chunks t, t + 128, ...
+// of the 64 rows, every load issued before the first store.
+template <int D>
+__device__ __forceinline__ void widen_kv_rows(uint32_t kd, uint32_t vd, const int8_t* k,
+                                              const int8_t* v, long long sk, long long sv,
+                                              int key0, int S, int t) {
+  constexpr int kPerRow = D / 16, kPer = 64 * kPerRow / 128;
+  uint4 raw[2][kPer];
+#pragma unroll
+  for (int x = 0; x < kPer; ++x) {
+    const int i = t + 128 * x, r = i / kPerRow, c = i % kPerRow;
+    const bool in = key0 + r < S;
+    raw[0][x] = in ? __ldg(reinterpret_cast<const uint4*>(k + (key0 + r) * sk + 16 * c))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    raw[1][x] = in ? __ldg(reinterpret_cast<const uint4*>(v + (key0 + r) * sv + 16 * c))
+                   : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int x = 0; x < kPer; ++x) {
+    const int i = t + 128 * x, r = i / kPerRow, c = i % kPerRow;
+    store_widened(kd, kBox, r, c, raw[0][x]);
+    store_widened(vd, kBox, r, c, raw[1][x]);
+  }
+}
+
+// Q8: the int8 K/V lane (accumulate mode only), K and V from kv (map_k and
+// map_v unused)
+template <int D, typename Mask, typename Out, bool Q8>
+__device__ __forceinline__ void attn_bwd_dkv_wgmma_body(
+    const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_do, const CUtensorMap* map_lse, const CUtensorMap* map_delta,
+    const KvS8& kv, Out* __restrict__ dk, Out* __restrict__ dv, Strides4 sdk, Strides4 sdv, int B,
+    int Hq, int Hkv, int S, float scale, Mask mask) {
+  static_assert(kAccumulate<Out> || !Q8, "the int8 lane runs in accumulate mode");
   using L = BwdLayout<D>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -446,6 +513,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* kv_empty = kv_full + 1;
   uint64_t* full = kv_empty + 1;
   uint64_t* empty = full + L::kStages;
+  // Q8: the item's keys' K scales, then their V scales (kBK floats each)
+  float* kv_sc = reinterpret_cast<float*>(empty + L::kStages);
 
   const int nk = (S + kBK - 1) / kBK, items = nk * Hkv * B, group = Hq / Hkv;
   const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -471,7 +540,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wgi == kConsumers) {
     // producer: one thread issues every load; the next item's K and V
-    // load while the consumers finish this one
+    // load while the consumers finish this one (Q8: the consumers widen K
+    // and V themselves)
     reg_dealloc<24>();
     if (tid == 0) {
       int stage = 0;
@@ -481,12 +551,14 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         if (i >= items) break;
         const KvItem it(i, Hkv, B);
         if (!live(it)) continue;  // a dead item reads nothing
-        mbar_wait(kv_empty, (n++ & 1) ^ 1);
-        mbar_expect_tx(kv_full, 2 * L::kWide);
+        if constexpr (!Q8) {
+          mbar_wait(kv_empty, (n++ & 1) ^ 1);
+          mbar_expect_tx(kv_full, 2 * L::kWide);
 #pragma unroll
-        for (int j = 0; j < L::kBoxes; ++j) {
-          tma_load_4d(ks + j * kBox, &map_k, kv_full, 64 * j, it.ik * kBK, it.hk, it.b);
-          tma_load_4d(vs + j * kBox, &map_v, kv_full, 64 * j, it.ik * kBK, it.hk, it.b);
+          for (int j = 0; j < L::kBoxes; ++j) {
+            tma_load_4d(ks + j * kBox, map_k, kv_full, 64 * j, it.ik * kBK, it.hk, it.b);
+            tma_load_4d(vs + j * kBox, map_v, kv_full, 64 * j, it.ik * kBK, it.hk, it.b);
+          }
         }
         for (int g = 0; g < group; ++g) {
           const int h = it.hk * group + g;
@@ -500,13 +572,13 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             unsigned char* dt = dos + stage * L::kNarrow;
 #pragma unroll
             for (int j = 0; j < L::kBoxes; ++j) {
-              tma_load_4d(qt + j * kBox64, &map_q, &full[stage], 64 * j, q0, h, it.b);
-              tma_load_4d(dt + j * kBox64, &map_do, &full[stage], 64 * j, q0, h, it.b);
+              tma_load_4d(qt + j * kBox64, map_q, &full[stage], 64 * j, q0, h, it.b);
+              tma_load_4d(dt + j * kBox64, map_do, &full[stage], 64 * j, q0, h, it.b);
             }
             float* ld = lds + stage * 2 * kLdPitch;
             const int c0 = (row_off + q0) & ~3;  // 16-byte aligned
-            tma_load_1d(ld, &map_lse, &full[stage], c0);
-            tma_load_1d(ld + kLdPitch, &map_delta, &full[stage], c0);
+            tma_load_1d(ld, map_lse, &full[stage], c0);
+            tma_load_1d(ld + kLdPitch, map_delta, &full[stage], c0);
             if (++stage == L::kStages) {
               stage = 0;
               phase ^= 1;
@@ -526,6 +598,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t v_addr = smem_addr(vs) + wgi * 8192;
   float st[kBQd / 2], dpt[kBQd / 2], dk_acc[D / 2], dv_acc[D / 2];
   uint32_t pf[kBQd / 16][4], dsf[kBQd / 16][4];  // P^T, dS^T in bf16: A fragments
+  // Q8: P^T and dS^T split, pf and dsf holding the hi parts, these the lo
+  uint32_t pf_lo[Q8 ? kBQd / 16 : 1][4], dsf_lo[Q8 ? kBQd / 16 : 1][4];
   int stage = 0;
   uint32_t phase = 0;
   for (int r = 0, n = 0;; ++r) {
@@ -536,6 +610,23 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (kAccumulate<Out> && !alive) continue;  // nothing read, nothing written
     const int kr0 = it.ik * kBK + 64 * wgi;  // this warpgroup's first key
     const int key[2] = {kr0 + 16 * w + g8, kr0 + 16 * w + g8 + 8};
+    // Q8: the warpgroup's last products of the previous item read these
+    // rows and are done (wgmma_wait), so they are free; its 64 keys' K and
+    // V scales (0 past S) go to shared memory beside them, read a query
+    // tile at a time (held in registers for the item they cost the walk
+    // spills at D 128)
+    const float* k_sc = kv_sc + 64 * wgi + 16 * w + g8;  // key[0]'s; key[1]'s 8 on
+    if constexpr (Q8) {
+      named_sync(1 + wgi, 128);  // every warp of the warpgroup is past the previous item
+      widen_kv_rows<D>(k_addr, v_addr, kv.k + it.b * kv.sk.b + it.hk * kv.sk.h,
+                       kv.v + it.b * kv.sv.b + it.hk * kv.sv.h, kv.sk.s, kv.sv.s, kr0, S, tid);
+      const long long kv_row0 = (static_cast<long long>(it.b) * Hkv + it.hk) * S;
+      const int c = tid % 64, key_c = kr0 + c;
+      const float* src = tid < 64 ? kv.ks : kv.vs;
+      kv_sc[(tid < 64 ? 0 : kBK) + 64 * wgi + c] = key_c < S ? src[kv_row0 + key_c] : 0.f;
+      fence_proxy_async();
+      named_sync(1 + wgi, 128);  // the warpgroup's rows are written: its products may read them
+    }
     Out* dk_b = dk + it.b * sdk.b + it.hk * sdk.h;
     Out* dv_b = dv + it.b * sdv.b + it.hk * sdv.h;
     start_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
@@ -547,7 +638,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         continue;
       }
     }
-    mbar_wait(kv_full, n++ & 1);
+    if constexpr (!Q8) mbar_wait(kv_full, n++ & 1);
 
     for (int g = 0; g < group; ++g) {
       const int h = it.hk * group + g;
@@ -555,7 +646,9 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // P^T and dS^T of the finished S^T and dP^T of query tile q0:
       // st[4j + e] is key key[e / 2], query q0 + 8j + 2tq + (e % 2), whose
       // lse and delta the producer left in ld (lse at ld[c], delta at
-      // ld[kLdPitch + c] for column c of the tile)
+      // ld[kLdPitch + c] for column c of the tile).  Q8: S^T and dP^T rows
+      // times their key's K and V scale first, and p and ds each in two
+      // bf16 parts
       auto dscore = [&](auto masked, int q0, const float* ld, const auto& tm) {
         constexpr bool MASKED = decltype(masked)::value;
 #pragma unroll
@@ -567,15 +660,28 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float lq = lq2[e % 2], dq_ = dl2[e % 2];
-            float p = exp2f(fmaf(st[4 * j + e], scale_log2, -lq));
+            float sv = st[4 * j + e], dpv = dpt[4 * j + e];
+            if constexpr (Q8) {
+              sv *= k_sc[8 * (e / 2)];
+              dpv *= k_sc[kBK + 8 * (e / 2)];
+            }
+            float p = exp2f(fmaf(sv, scale_log2, -lq));
             if constexpr (MASKED) p = tm.ok(h, q0 + c + (e % 2), key[e / 2]) ? p : 0.f;
             pe[e] = p;
-            de[e] = p * (dpt[4 * j + e] - dq_) * scale;
+            de[e] = p * (dpv - dq_) * scale;
           }
-          pf[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
-          pf[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
-          dsf[j / 2][2 * (j % 2)] = pack_bf16(de[0], de[1]);
-          dsf[j / 2][2 * (j % 2) + 1] = pack_bf16(de[2], de[3]);
+          if constexpr (Q8) {
+            split_pack(pe[0], pe[1], pf[j / 2][2 * (j % 2)], pf_lo[j / 2][2 * (j % 2)]);
+            split_pack(pe[2], pe[3], pf[j / 2][2 * (j % 2) + 1], pf_lo[j / 2][2 * (j % 2) + 1]);
+            split_pack(de[0], de[1], dsf[j / 2][2 * (j % 2)], dsf_lo[j / 2][2 * (j % 2)]);
+            split_pack(de[2], de[3], dsf[j / 2][2 * (j % 2) + 1],
+                       dsf_lo[j / 2][2 * (j % 2) + 1]);
+          } else {
+            pf[j / 2][2 * (j % 2)] = pack_bf16(pe[0], pe[1]);
+            pf[j / 2][2 * (j % 2) + 1] = pack_bf16(pe[2], pe[3]);
+            dsf[j / 2][2 * (j % 2)] = pack_bf16(de[0], de[1]);
+            dsf[j / 2][2 * (j % 2) + 1] = pack_bf16(de[2], de[3]);
+          }
         }
       };
 
@@ -585,11 +691,16 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const auto& tm = tile_of(mask, h, t, q0, kr0, key);
         const uint32_t q_addr = smem_addr(qs + stage * L::kNarrow);
         const uint32_t do_addr = smem_addr(dos + stage * L::kNarrow);
-        // S^T = K . Q^T and dP^T = V . dO^T, D/16 steps of 16 each
+        // S^T = K . Q^T and dP^T = V . dO^T, D/16 steps of 16 each.  Q8:
+        // K's and V's descriptors anew each tile from opaque addresses (a
+        // few integer operations): hoisted out of the walk, they are what
+        // ptxas spills at D 128
+        uint32_t ka = k_addr, va = v_addr;
+        if constexpr (Q8) asm volatile("" : "+r"(ka), "+r"(va));
         mbar_wait(&full[stage], phase);
         wgmma_fence();
-        scores<D>(st, k_addr, kBox, q_addr);
-        scores<D>(dpt, v_addr, kBox, do_addr);
+        scores<D>(st, ka, kBox, q_addr);
+        scores<D>(dpt, va, kBox, do_addr);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(st);
@@ -602,22 +713,41 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         else
           dscore(std::true_type{}, q0, ld, tm);
 
-        // dV += P^T . dO and dK += dS^T . Q: dO and Q MN-major, 16 query rows a step
+        // dV += P^T . dO and dK += dS^T . Q: dO and Q MN-major, 16 query
+        // rows a step; Q8: each hi part's products, then the lo part's
         fence_regs(pf);
         fence_regs(dsf);
+        if constexpr (Q8) {
+          fence_regs(pf_lo);
+          fence_regs(dsf_lo);
+        }
         fence_regs(dv_acc);
         fence_regs(dk_acc);
         wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < kBQd / 16; ++kc) sum_mma<D>(dv_acc, pf[kc], do_addr + kc * 2048);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int kc = 0; kc < kBQd / 16; ++kc)
+            sum_mma<D>(dv_acc, pf_lo[kc], do_addr + kc * 2048);
+        }
 #pragma unroll
         for (int kc = 0; kc < kBQd / 16; ++kc) sum_mma<D>(dk_acc, dsf[kc], q_addr + kc * 2048);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int kc = 0; kc < kBQd / 16; ++kc)
+            sum_mma<D>(dk_acc, dsf_lo[kc], q_addr + kc * 2048);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv_acc);
         fence_regs(dk_acc);
         fence_regs(pf);
         fence_regs(dsf);
+        if constexpr (Q8) {
+          fence_regs(pf_lo);
+          fence_regs(dsf_lo);
+        }
         mbar_arrive(&empty[stage]);  // Q, dO, lse and delta of this tile are consumed
         if (++stage == L::kStages) {
           stage = 0;
@@ -625,10 +755,49 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
     }
-    mbar_arrive(kv_empty);  // K and V are read: the next item's may load
-    store_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
-    store_rows<D>(dv_acc, dv_b, sdv.s, key, S, tq);
+    if constexpr (Q8) {
+      // the rows' addresses anew from opaque copies of the item's indices:
+      // the seed's, kept across the walk, cost it spills at D 128
+      int eb = it.b, ehk = it.hk, ekey[2] = {key[0], key[1]};
+      asm volatile("" : "+r"(eb), "+r"(ehk), "+r"(ekey[0]), "+r"(ekey[1]));
+      store_rows<D>(dk_acc, dk + eb * sdk.b + ehk * sdk.h, sdk.s, ekey, S, tq);
+      store_rows<D>(dv_acc, dv + eb * sdv.b + ehk * sdv.h, sdv.s, ekey, S, tq);
+    } else {
+      mbar_arrive(kv_empty);  // K and V are read: the next item's may load
+      store_rows<D>(dk_acc, dk_b, sdk.s, key, S, tq);
+      store_rows<D>(dv_acc, dv_b, sdv.s, key, S, tq);
+    }
   }
+}
+
+template <int D, typename Mask, typename Out>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_lse,
+                          const __grid_constant__ CUtensorMap map_delta, Out* __restrict__ dk,
+                          Out* __restrict__ dv, Strides4 sdk, Strides4 sdv, int B, int Hq,
+                          int Hkv, int S, float scale, Mask mask) {
+  attn_bwd_dkv_wgmma_body<D, Mask, Out, false>(&map_q, &map_k, &map_v, &map_do, &map_lse,
+                                               &map_delta, KvS8{}, dk, dv, sdk, sdv, B, Hq, Hkv,
+                                               S, scale, mask);
+}
+
+// the int8 K/V lane (accumulate mode): dk, dv fp32, updated in place
+template <int D, typename Mask>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dkv_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const __grid_constant__ CUtensorMap map_lse,
+                             const __grid_constant__ CUtensorMap map_delta, const KvS8 kv,
+                             float* __restrict__ dk, float* __restrict__ dv, Strides4 sdk,
+                             Strides4 sdv, int B, int Hq, int Hkv, int S, float scale,
+                             Mask mask) {
+  attn_bwd_dkv_wgmma_body<D, Mask, float, true>(&map_q, nullptr, nullptr, &map_do, &map_lse,
+                                                &map_delta, kv, dk, dv, sdk, sdv, B, Hq, Hkv, S,
+                                                scale, mask);
 }
 
 // An output the epilogue's accesses take: 8-byte fp32 pairs, or 4-byte
@@ -690,13 +859,8 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
   // lse and delta: 1-D maps over the B * Hq * S rows, kLdBox a box, 32-bit
   // coordinates
   const long long rows = static_cast<long long>(B) * Hq * S;
-  if (rows + kLdBox >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ml, md;
-  const uint64_t dims[1] = {static_cast<uint64_t>(rows)};
-  const uint64_t unused[1] = {0};
-  const uint32_t box[1] = {static_cast<uint32_t>(kLdBox)};
-  if (!hopper_host::encode_f32(&ml, lse, 1, dims, unused, box) ||
-      !hopper_host::encode_f32(&md, delta, 1, dims, unused, box))
+  if (!rows_map(&ml, lse, rows, kLdBox) || !rows_map(&md, delta, rows, kLdBox))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = attn_bwd_dkv_wgmma_kernel<D, Mask, Out>;
   constexpr size_t smem = BwdLayout<D>::kDkvSmem;
@@ -706,6 +870,48 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
   const int items = (S + kBK - 1) / kBK * Hkv * B;
   const int grid = std::min(items, hopper_host::sm_count());
   kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, ml, md, dk, dv, sdk, sdv, B, Hq, Hkv, S,
+                                         scale, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 K/V lane of the dk/dv walk (ring_bwd_dkv_s8): k, v int8
+// payloads (rows 16-byte aligned), ks, vs their fp32 row scales [B, Hkv, S]
+// contiguous; the rest as launch_bwd_dkv<D, Mask, float>: strides (b, h, s)
+// of q, k, v, do, dk, dv (k's and v's in bytes, the elements' size), dk and
+// dv accumulated in place.
+template <int D, typename Mask>
+int launch_bwd_dkv_s8(const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const void* dout, const float* lse, const float* delta,
+                      float* dk, float* dv, const long long* strides, int B, int Hq, int Hkv,
+                      int S, float scale, Mask mask, cudaStream_t stream) {
+  if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0) return 0;
+  CUtensorMap mq, mdo, ml, md;
+  const long long rows = static_cast<long long>(B) * Hq * S;
+  if (!attn_map(&mq, q, B, Hq, S, D, strides, kBQd) ||
+      !attn_map(&mdo, dout, B, Hq, S, D, strides + 9, kBQd) || !rows_map(&ml, lse, rows, kLdBox) ||
+      !rows_map(&md, delta, rows, kLdBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const KvS8 kv{static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks, vs,
+                Strides4{strides[3], strides[4], strides[5]},
+                Strides4{strides[6], strides[7], strides[8]}};
+  auto rows_ok = [](const void* p, const Strides4& st) {  // 16-byte row loads
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 16 == 0 && st.h % 16 == 0 &&
+           st.s % 16 == 0;
+  };
+  if (!rows_ok(k, kv.sk) || !rows_ok(v, kv.sv)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides4 sdk{strides[12], strides[13], strides[14]};
+  const Strides4 sdv{strides[15], strides[16], strides[17]};
+  if (!out_ok(dk, sdk) || !out_ok(dv, sdv)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = attn_bwd_dkv_wgmma_s8_kernel<D, Mask>;
+  constexpr size_t smem = BwdLayout<D>::kDkvSmem + 2 * kBK * sizeof(float);  // + the scales
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int items = (S + kBK - 1) / kBK * Hkv * B;
+  const int grid = std::min(items, hopper_host::sm_count());
+  kern<<<grid, kThreads, smem, stream>>>(mq, mdo, ml, md, kv, dk, dv, sdk, sdv, B, Hq, Hkv, S,
                                          scale, mask);
   return static_cast<int>(cudaGetLastError());
 }

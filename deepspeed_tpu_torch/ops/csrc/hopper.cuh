@@ -126,6 +126,13 @@ __device__ __forceinline__ uint2 lds_v2(uint32_t addr) {
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
   return v;
 }
+__device__ __forceinline__ uint4 lds_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ void sts_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
                "r"(v.z), "r"(v.w)

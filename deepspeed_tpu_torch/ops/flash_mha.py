@@ -47,9 +47,11 @@ TMA can read run the ``wgmma`` walks (``attention_wgmma.cuh``, the
 forward in accumulate mode; ``attention_wgmma_bwd.cuh``, dq and dk/dv).
 The hop wrappers also take the quantized ring wire's int8 K/V with per-row
 fp32 scales (``k_scale``/``v_scale``, the JAX kernels' quantized operands):
-:func:`ring_route` sends them to the int8 lanes of the tile walk
-(``ops/csrc/ring_attention_int8.cu``; ``mma_s8`` for bf16 q and do,
-``fma_s8`` for fp32), and the plain versions
+:func:`ring_route` sends them, kernel by kernel, to the int8 lanes of
+``ops/csrc/ring_attention_int8.cu``: ``wgmma_s8`` (the carry's and dk/dv's
+``wgmma`` walks with the int8 tiles widened to bf16 on the card) for bf16
+q and do that TMA can read at D 64 and 128, ``mma_s8`` (the 64 x 64 tile
+walk) for dq and other bf16 calls, ``fma_s8`` for fp32; the plain versions
 decode the rows as the Pallas bodies do (:func:`wire_dequant_rows`) and
 compute in fp32.
 
@@ -87,7 +89,9 @@ BLOCK_K = 64
 # tile walk (mma, fma) 256 too; the entries pad any D up to the next lane
 LANES = (64, 128, 256)
 WGMMA_LANES = (64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' operand dtypes (the routes' codes carry them: fma fp32, mma and
+# wgmma bf16)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the attention kernels' routes by their code in ops/csrc/*_attention.cu
 FWD_ROUTES = ("fma", "mma", "wgmma")
 
@@ -325,7 +329,7 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None, kv_dtype=None):
         raise ValueError(f"head_dim {d}: the kernels take {LANES}; "
                          "flash_mha, block_sparse_mha and ring_attention "
                          f"zero-pad any D up to {LANES[-1]} to its lane")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"dtype {q.dtype}: the kernels take fp32 and bf16")
     ops = [x for x in (k, v, do) if x is not None]
     for x in ops:
@@ -616,8 +620,9 @@ flash_mha.routes = {f"{n}.{r}": 0 for n in flash_mha.launches
 ring_launches = {"ring_carry": 0, "ring_bwd_dq": 0, "ring_bwd_dkv": 0}
 # the ring kernels' routes: the attention routes of ops/csrc/ring_attention.cu
 # and the int8 K/V lanes of ops/csrc/ring_attention_int8.cu (the quantized
-# wire)
-RING_ROUTES = FWD_ROUTES + ("fma_s8", "mma_s8")
+# wire), each lane's code that of the route it extends
+S8_ROUTES = tuple(f"{r}_s8" for r in FWD_ROUTES)
+RING_ROUTES = FWD_ROUTES + S8_ROUTES
 # each ring kernel's launches by route
 ring_routes = {f"{n}.{r}": 0 for n in ring_launches for r in RING_ROUTES}
 
@@ -639,7 +644,7 @@ def _ring_lib():
 
 def _ring_int8_lib():
     """The int8 K/V lanes (``ops/csrc/ring_attention_int8.cu``): the entries
-    of :func:`_ring_lib` with the dtype code first and the two scale
+    of :func:`_ring_lib`, the lane's route code first, with the two scale
     pointers after ``v``."""
     from deepspeed_tpu_torch.ops import op_builder
 
@@ -655,13 +660,13 @@ def _ring_int8_lib():
     return lib
 
 
-def _ring_entry(name: str, path: str, k_scale, v_scale, q):
+def _ring_entry(name: str, path: str, k_scale, v_scale):
     """A hop kernel's C entry and its leading arguments for ``path``: the
-    route code (``ring_attention.cu``), or for an int8 lane q's dtype code
-    with the scale pointers to pass after ``v``
-    (``ring_attention_int8.cu``)."""
-    if path.endswith("_s8"):
-        return (getattr(_ring_int8_lib(), f"{name}_s8"), _DTYPE_CODE[q.dtype],
+    route code (``ring_attention.cu``), or for an int8 lane its code
+    (``ring_attention_int8.cu``) with the scale pointers to pass after
+    ``v``."""
+    if path in S8_ROUTES:
+        return (getattr(_ring_int8_lib(), f"{name}_s8"), S8_ROUTES.index(path),
                 (k_scale.data_ptr(), v_scale.data_ptr()))
     return getattr(_ring_lib(), name), FWD_ROUTES.index(path), ()
 
@@ -678,14 +683,27 @@ def _check_state(q, heads: int, *tensors, rows_only=False):
                              f"expected contiguous fp32 {want} on {q.device}")
 
 
-def ring_route(q, k, v, do=None) -> str:
-    """A ring kernel's route: int8 K/V (the quantized wire's payloads)
-    take the int8 lanes, ``"mma_s8"`` for a bf16 q (and do), ``"fma_s8"``
-    for fp32; other K/V :func:`fwd_route`'s rule (the carry, no ``do``) or
-    :func:`bwd_route`'s."""
-    if k.dtype == torch.int8:
-        return "mma_s8" if q.dtype == torch.bfloat16 else "fma_s8"
-    return fwd_route(q, k, v) if do is None else bwd_route(q, k, v, do)
+# the ring kernels with a wgmma walk over int8 K/V (ring_bwd_dq's int8 lane
+# is the 64 x 64 tile walk's only)
+WGMMA_S8_KERNELS = ("ring_carry", "ring_bwd_dkv")
+
+
+def ring_route(kernel: str, q, k, v, do=None) -> str:
+    """The route of ring kernel ``kernel`` (a key of ``ring_launches``):
+    other K/V than int8 take :func:`fwd_route`'s rule (the carry, no
+    ``do``) or :func:`bwd_route`'s; int8 K/V (the quantized wire's payloads)
+    take the int8 lanes: ``"fma_s8"`` for an fp32 q, ``"wgmma_s8"`` for the
+    carry and dk/dv where the bf16 rule says ``wgmma`` (D 64 or 128, every
+    operand a view TMA can read), else ``"mma_s8"`` (dq, D 256, an expanded
+    view)."""
+    if kernel not in ring_launches:
+        raise ValueError(f"no ring kernel {kernel!r}: {sorted(ring_launches)}")
+    route = fwd_route(q, k, v) if do is None else bwd_route(q, k, v, do)
+    if k.dtype != torch.int8:
+        return route
+    if route == "wgmma" and kernel in WGMMA_S8_KERNELS:
+        return "wgmma_s8"
+    return "fma_s8" if route == "fma" else "mma_s8"
 
 
 def _check_wire_pair(k_scale, v_scale) -> None:
@@ -745,8 +763,8 @@ def flash_carry_block(q, k, v, m, l, acc, pos, causal: bool = True,
     _check_ring(q, k, v, None, None, None, k_scale, v_scale)
     _check_state(q, q.shape[1], m, l, rows_only=True)
     _check_state(q, q.shape[1], acc)
-    path = ring_route(q, k, v)
-    fn, code, scales = _ring_entry("ring_carry", path, k_scale, v_scale, q)
+    path = ring_route("ring_carry", q, k, v)
+    fn, code, scales = _ring_entry("ring_carry", path, k_scale, v_scale)
     err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
              m.data_ptr(), l.data_ptr(), acc.data_ptr(), _strides(q, k, v, acc),
              *_ring_args(q, k, pos, causal, scale, window))
@@ -774,8 +792,8 @@ def flash_ring_dq_block(q, k, v, do, lse, delta, dq, pos, causal: bool = True,
                                scale, window, k_scale, v_scale)
     _check_ring(q, k, v, do, lse, delta, k_scale, v_scale)
     _check_state(q, q.shape[1], dq)
-    path = ring_route(q, k, v, do)
-    fn, code, scales = _ring_entry("ring_bwd_dq", path, k_scale, v_scale, q)
+    path = ring_route("ring_bwd_dq", q, k, v, do)
+    fn, code, scales = _ring_entry("ring_bwd_dq", path, k_scale, v_scale)
     err = fn(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -804,8 +822,8 @@ def flash_ring_dkv_block(q, k, v, do, lse, delta, dk, dv, pos,
                                 scale, window, k_scale, v_scale)
     _check_ring(q, k, v, do, lse, delta, k_scale, v_scale)
     _check_state(q, k.shape[1], dk, dv)
-    path = ring_route(q, k, v, do)
-    fn, code, scales = _ring_entry("ring_bwd_dkv", path, k_scale, v_scale, q)
+    path = ring_route("ring_bwd_dkv", q, k, v, do)
+    fn, code, scales = _ring_entry("ring_bwd_dkv", path, k_scale, v_scale)
     err = fn(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),

@@ -456,9 +456,11 @@ def test_int8_hop_plain_versions_match_interpreted_pallas(hop, interpret):
 
 
 def test_int8_hop_checks_and_routes():
-    """Scales come both or neither; int8 K/V route to the int8 lanes by
-    q's dtype (``ring_route``), other K/V by the attention routes' rules;
-    the wire's decode is one multiply a row; CPU calls count nothing."""
+    """Scales come both or neither; int8 K/V route to the int8 lanes kernel
+    by kernel (``ring_route``: fp32 q ``fma_s8``, bf16 off the wgmma lanes
+    ``mma_s8``), other K/V by the attention routes' rules; every kernel
+    counts the lanes ``wgmma_s8`` included; the wire's decode is one
+    multiply a row; CPU calls count nothing."""
     q, do = torch.zeros((1, 2, 8, 16)), torch.zeros((1, 2, 8, 16))
     kp = torch.zeros((1, 1, 8, 16), dtype=torch.int8)
     sc = torch.full((1, 1, 8), 0.5)
@@ -466,9 +468,15 @@ def test_int8_hop_checks_and_routes():
     with pytest.raises(ValueError, match="together"):
         tfm.flash_carry_block(q, kp, kp, m, l, torch.zeros_like(q),
                               (0, 1, 0, 1), k_scale=sc)
-    assert tfm.ring_route(q, kp, kp) == "fma_s8"
-    assert tfm.ring_route(q.bfloat16(), kp, kp, do.bfloat16()) == "mma_s8"
-    assert tfm.ring_route(q, q, q, do) == "fma"
+    assert tfm.ring_route("ring_carry", q, kp, kp) == "fma_s8"
+    assert tfm.ring_route("ring_bwd_dkv", q.bfloat16(), kp, kp,
+                          do.bfloat16()) == "mma_s8"     # D 16: no wgmma lane
+    assert tfm.ring_route("ring_bwd_dq", q, q, q, do) == "fma"
+    with pytest.raises(ValueError, match="no ring kernel"):
+        tfm.ring_route("ring_fwd", q, kp, kp)
+    assert tfm.RING_ROUTES == ("fma", "mma", "wgmma", "fma_s8", "mma_s8",
+                               "wgmma_s8")
+    assert {f"{n}.wgmma_s8" for n in RING_KERNELS} <= set(tfm.ring_routes)
     x = torch.tensor([[[[-128, 3, 127]]]], dtype=torch.int8)
     np.testing.assert_array_equal(
         tfm.wire_dequant_rows(x, torch.tensor([[[0.25]]])).numpy(),
@@ -502,6 +510,68 @@ def _close_wire(got, want, wire, rtol=RTOL):
     step = _wire_step(want, wire)
     assert np.all(err[off] <= rtol * (1 + np.abs(want[off])) + 1.01 * step[off]), \
         float(err.max())
+
+
+# int8 K/V routes kernel by kernel: case id, D, q dtype, layout, and the
+# routes of ring_carry, ring_bwd_dq and ring_bwd_dkv
+INT8_ROUTE_CASES = [
+    ("d64", 64, torch.bfloat16, "bshd-views", ("wgmma_s8", "mma_s8", "wgmma_s8")),
+    ("d128", 128, torch.bfloat16, "bshd-views", ("wgmma_s8", "mma_s8", "wgmma_s8")),
+    ("d128-rotated", 128, torch.bfloat16, "rotated-block",
+     ("wgmma_s8", "mma_s8", "wgmma_s8")),
+    ("d256", 256, torch.bfloat16, "bshd-views", ("mma_s8", "mma_s8", "mma_s8")),
+    ("fp32-q", 128, torch.float32, "bshd-views", ("fma_s8", "fma_s8", "fma_s8")),
+    ("kv-expanded", 128, torch.bfloat16, "kv-expanded", ("mma_s8", "mma_s8", "mma_s8")),
+    ("do-expanded", 128, torch.bfloat16, "do-expanded",
+     ("wgmma_s8", "mma_s8", "mma_s8")),
+]
+
+
+@pytest.mark.parametrize("case", INT8_ROUTE_CASES,
+                         ids=[c[0] for c in INT8_ROUTE_CASES])
+def test_int8_route_is_chosen_per_kernel(case):
+    """Over int8 K/V, ``ring_route`` gives the carry and dk/dv the wgmma
+    walks' int8 lane (``wgmma_s8``) where the bf16 rule gives ``wgmma``
+    (bf16 q and do at D 64 or 128, views TMA can read), dq the 64 x 64 walk
+    (``mma_s8``) always, D 256 and an expanded K/V or do ``mma_s8``, an
+    fp32 q ``fma_s8``; the CPU path (the plain versions, the same numbers on
+    every route) counts no launch and no route."""
+    _name, d, dtype, layout, want = case
+    q, k, v, do = _bwd_operands(layout, dtype)
+    b, hq, s, _ = q.shape
+    pad = (0, d - q.shape[-1])
+    q, do = (torch.nn.functional.pad(x, pad) if d != x.shape[-1] else x
+             for x in (q, do))
+    if layout == "do-expanded":
+        do = torch.ones((1, 1, 1, d), dtype=dtype).expand(b, hq, s, d)
+    hkv = k.shape[1]
+    if layout == "kv-expanded":
+        kp = torch.zeros((b, 1, s, d), dtype=torch.int8).expand(b, hkv, s, d)
+    elif layout == "rotated-block":
+        kp = torch.zeros((b, hkv, s, d), dtype=torch.int8)
+    else:
+        kp = torch.zeros((b, s, hkv, d), dtype=torch.int8).transpose(1, 2)
+    got = (tfm.ring_route("ring_carry", q, kp, kp),
+           tfm.ring_route("ring_bwd_dq", q, kp, kp, do),
+           tfm.ring_route("ring_bwd_dkv", q, kp, kp, do))
+    assert got == want
+    rng = np.random.default_rng(5)
+    kp = torch.from_numpy(rng.integers(-127, 128, (b, hkv, s, d))
+                          .astype(np.int8))
+    wire = {k_: torch.from_numpy(rng.uniform(0.01, 0.02, (b, hkv, s))
+                                 .astype(np.float32))
+            for k_ in ("k_scale", "v_scale")}
+    before = (dict(tfm.ring_launches), dict(tfm.ring_routes))
+    m = torch.full((b, hq, s), tfm.NEG_INF)
+    tfm.flash_carry_block(q, kp, kp, m, torch.zeros_like(m),
+                          torch.zeros((b, hq, s, d)), (1, 2, 0, 2), **wire)
+    rows = torch.zeros((b, hq, s))
+    dk = torch.zeros((b, hkv, s, d))
+    tfm.flash_ring_dq_block(q, kp, kp, do, rows, rows, torch.zeros((b, hq, s, d)),
+                            (1, 2, 0, 2), **wire)
+    tfm.flash_ring_dkv_block(q, kp, kp, do, rows, rows, dk, dk.clone(),
+                             (1, 2, 0, 2), **wire)
+    assert (tfm.ring_launches, tfm.ring_routes) == before
 
 
 @pytest.mark.parametrize("wire", ["int8", "fp8"])

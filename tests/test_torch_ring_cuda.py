@@ -25,14 +25,18 @@ wgmma route every item with no live tile (a 128-row query tile of the
 carry or dq, a 128-key tile of dk/dv), leaves the state bit for bit as it
 was.
 
-The int8 K/V lanes of the quantized wire (routes ``mma_s8`` for bf16 q and
-do, ``fma_s8`` for fp32): int8 payloads with per-row fp32 scales against
-the plain versions, which decode the rows and compute in fp32, at S 130
-and 50, causal and window, GQA, D 64/128/256, hops with dead tiles, and
-the route counts.  Tolerance: bf16 q 2^-10 (the kernels' products are
-exact or fp32 up to summation order; p and ds enter them as two bf16
-parts, about 16 bits), fp32 q 1e-4 (summation order), on the same
-quantities as above.
+The int8 K/V lanes of the quantized wire, routed kernel by kernel
+(``ring_route``): ``wgmma_s8`` for the carry and dk/dv with bf16 q and do
+at D 64 and 128 (the wgmma walks with the int8 tiles widened to bf16 on
+the card), ``mma_s8`` for dq, D 256 and an expanded K/V (the 64 x 64 tile
+walk), ``fma_s8`` for fp32: int8 payloads with per-row fp32 scales against
+the plain versions, which decode the rows and compute in fp32, at S 130,
+1000 and 50, causal and window, GQA 32/8, 8/2 and MQA, striped and
+contiguous positions, D 64/128/256, hops with dead tiles and items, a bf16
+hop followed by an int8 hop, and the route counts.  Tolerance: bf16 q
+2^-10 (the kernels' products are exact or fp32 up to summation order; p
+and ds enter them as two bf16 parts, about 16 bits), fp32 q 1e-4
+(summation order), on the same quantities as above.
 """
 
 import numpy as np
@@ -313,11 +317,13 @@ def _bwd_state(rng, dev, b, hq, hkv, s, d):
             _rand(rng, dev, torch.float32, b, hq, s, scale=0.1))
 
 
-def _lse_of(q, k, v, pos, causal, window):
-    """The lse a hop's rows end the forward with, by the plain carry."""
+def _lse_of(q, k, v, pos, causal, window, wire=None):
+    """The lse a hop's rows end the forward with, by the plain carry
+    (``wire``: the int8 K/V's row scales)."""
     b, hq, s, d = q.shape
     m, l, acc = _fresh_state(b, hq, s, d, q.device)
-    fm.ring_carry_ref(q, k, v, m, l, acc, pos, causal, d ** -0.5, window)
+    fm.ring_carry_ref(q, k, v, m, l, acc, pos, causal, d ** -0.5, window,
+                      **(wire or {}))
     return (m + torch.log(l.clamp(min=1e-20))).contiguous()
 
 
@@ -457,10 +463,26 @@ INT8_CASES = [
     (1, 8, 2, 320, 64, True, 90, (1, 2, 0, 2)),         # window: dead tiles
     (1, 4, 2, 256, 128, True, 100, (256, 1, 0, 1)),     # contiguous, window
     (1, 4, 1, 192, 256, True, None, (1, 2, 0, 2)),      # D 256, MQA
+    (1, 32, 8, 256, 128, True, None, (1, 2, 0, 2)),     # llama3-8b heads, striped
+    (1, 8, 2, 256, 64, True, None, (256, 1, 0, 1)),     # contiguous, fully live
+    (1, 8, 2, 50, 128, True, None, (50, 1, 0, 1)),      # S % 4 != 0: scale boxes
+    (1, 8, 2, 1000, 128, True, None, (1, 2, 0, 2)),     # S % 128 != 0, many items
 ]
 INT8_IDS = ["tail-130-1from0", "tail-130-0from1", "short-50-noncausal",
-            "window-d64", "contig-window", "d256-mqa"]
+            "window-d64", "contig-window", "d256-mqa", "gqa-32-8-striped",
+            "contig-live-d64", "s50-d128-live", "tail-1000"]
 INT8_RTOL = {torch.bfloat16: 2.0 ** -10, torch.float32: 1e-4}
+RING_KERNELS = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+
+
+def _int8_routes(dtype, d):
+    """The route each ring kernel takes over int8 K/V that TMA can read."""
+    if dtype == torch.float32:
+        return dict.fromkeys(RING_KERNELS, "fma_s8")
+    if d not in (64, 128):
+        return dict.fromkeys(RING_KERNELS, "mma_s8")
+    return {"ring_carry": "wgmma_s8", "ring_bwd_dq": "mma_s8",
+            "ring_bwd_dkv": "wgmma_s8"}
 
 
 def _int8_kv(rng, dev, b, hkv, s, d):
@@ -482,15 +504,18 @@ def test_cuda_ring_int8_lanes_match_plain_version(case, dtype, cuda_device):
     """A visiting hop over int8 K/V from the state of the exact own block,
     then dq and dk/dv of that hop into seeded fp32 accumulators: each int8
     lane against its plain version, and one launch a kernel on the lane
-    q's dtype picks."""
+    ``ring_route`` picks for it (bf16 at D 64/128: the carry and dk/dv on
+    wgmma_s8, dq on mma_s8)."""
     b, hq, hkv, s, d, causal, window, pos = case
     rng, q, k, v, do = _case(case, dtype, cuda_device, seed=3)
     kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
     scale = d ** -0.5
     kw = dict(causal=causal, sm_scale=scale, window=window)
     own = (pos[0], pos[1], pos[0], pos[1])
-    want = "mma_s8" if dtype == torch.bfloat16 else "fma_s8"
-    assert fm.ring_route(q, kp, vp) == fm.ring_route(q, kp, vp, do) == want
+    want = _int8_routes(dtype, d)
+    assert fm.ring_route("ring_carry", q, kp, vp) == want["ring_carry"]
+    for n in RING_KERNELS[1:]:
+        assert fm.ring_route(n, q, kp, vp, do) == want[n]
     state = _fresh_state(b, hq, s, d, cuda_device)
     fm.ring_carry_ref(q, k, v, *state, own, causal, scale, window)
     ref = tuple(t.clone() for t in state)
@@ -510,26 +535,33 @@ def test_cuda_ring_int8_lanes_match_plain_version(case, dtype, cuda_device):
     fm.ring_bwd_dkv_ref(*bwd, grads[1], grads[2], pos, causal, scale, window,
                         **wire)
     torch.cuda.synchronize()
-    assert _route_delta(routes) == {f"ring_carry.{want}": 1,
-                                    f"ring_bwd_dq.{want}": 1,
-                                    f"ring_bwd_dkv.{want}": 1}
+    assert _route_delta(routes) == {f"{n}.{r}": 1 for n, r in want.items()}
     _check_grads(got, grads, INT8_RTOL[dtype])
 
 
 @pytest.mark.cuda
 def test_cuda_ring_int8_dead_hop_and_bad_scales(cuda_device):
-    """A hop whose tiles are all dead leaves the state bit for bit; scales
-    of the wrong shape or dtype, one scale alone, or int8 K/V without
-    scales raise before any launch."""
+    """A hop whose tiles are all dead leaves the state bit for bit, the
+    carry's and dk/dv's on wgmma_s8 and dq's on mma_s8; scales of the wrong
+    shape or dtype, one scale alone, or int8 K/V without scales raise
+    before any launch."""
     b, hq, hkv, s, d = 1, 4, 2, 128, 128
     rng, q, _, _, do = _case((b, hq, hkv, s, d), torch.bfloat16, cuda_device)
     kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
     state = _fresh_state(b, hq, s, d, cuda_device)
     state[2].normal_()
-    before = tuple(t.clone() for t in state)
-    fm.flash_carry_block(q, kp, vp, *state, (0, 1, s, 1), **wire)  # future
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    lse = state[0].clone()
+    before = tuple(t.clone() for t in (*state, dq, dk, dv))
+    routes = dict(fm.ring_routes)
+    future = (0, 1, s, 1)
+    fm.flash_carry_block(q, kp, vp, *state, future, **wire)
+    fm.flash_ring_dq_block(q, kp, vp, do, lse, delta, dq, future, **wire)
+    fm.flash_ring_dkv_block(q, kp, vp, do, lse, delta, dk, dv, future, **wire)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, b_) for a, b_ in zip(state, before))
+    assert _route_delta(routes) == {
+        f"{n}.{r}": 1 for n, r in _int8_routes(torch.bfloat16, d).items()}
+    assert all(torch.equal(a, b_) for a, b_ in zip((*state, dq, dk, dv), before))
     with pytest.raises(ValueError, match="row scales"):
         fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1),
                              k_scale=wire["k_scale"][..., :-1],
@@ -543,3 +575,130 @@ def test_cuda_ring_int8_dead_hop_and_bad_scales(cuda_device):
                              k_scale=wire["k_scale"])
     with pytest.raises(TypeError, match="dtype"):
         fm.flash_carry_block(q, kp, vp, *state, (0, 1, 0, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_ring_int8_wgmma_dead_items_keep_their_rows(cuda_device):
+    """A windowed contiguous hop over int8 K/V (rank 1 <- block 0, window
+    100) into a seeded state: on wgmma_s8 each 128-row carry item from row
+    128 on and each 128-key dk/dv item below key 384 has no live tile, and
+    their rows come back bit for bit; the live rows match the plain
+    versions (dq on mma_s8 as well)."""
+    b, hq, hkv, s, d, window = 1, 8, 2, 512, 128, 100
+    pos = (s, 1, 0, 1)
+    rng, q, _, _, do = _case((b, hq, hkv, s, d), torch.bfloat16, cuda_device,
+                             seed=8)
+    kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
+    m = _rand(rng, cuda_device, torch.float32, b, hq, s)
+    l = _rand(rng, cuda_device, torch.float32, b, hq, s).abs() + 1
+    acc = _rand(rng, cuda_device, torch.float32, b, hq, s, d)
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    lse = _lse_of(q, kp, vp, pos, True, window, wire)
+    before = [t.clone() for t in (m, l, acc, dk, dv)]
+    want = [t.clone() for t in (m, l, acc, dq, dk, dv)]
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, kp, vp, m, l, acc, pos, window=window, **wire)
+    fm.flash_ring_dq_block(q, kp, vp, do, lse, delta, dq, pos, window=window,
+                           **wire)
+    fm.flash_ring_dkv_block(q, kp, vp, do, lse, delta, dk, dv, pos,
+                            window=window, **wire)
+    fm.ring_carry_ref(q, kp, vp, *want[:3], pos, True, d ** -0.5, window,
+                      **wire)
+    fm.ring_bwd_dq_ref(q, kp, vp, do, lse, delta, want[3], pos, True,
+                       d ** -0.5, window, **wire)
+    fm.ring_bwd_dkv_ref(q, kp, vp, do, lse, delta, want[4], want[5], pos,
+                        True, d ** -0.5, window, **wire)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {
+        f"{n}.{r}": 1 for n, r in _int8_routes(torch.bfloat16, d).items()}
+    for got, was in zip((m, l, acc), before[:3]):
+        assert torch.equal(got[:, :, 128:], was[:, :, 128:])
+    for got, was in zip((dk, dv), before[3:]):
+        assert torch.equal(got[:, :, :384], was[:, :, :384])
+    _check_carry((m, l, acc), want[:3], INT8_RTOL[torch.bfloat16])
+    _check_grads((dq, dk, dv), want[3:], INT8_RTOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_cuda_ring_int8_expanded_kv_takes_mma_s8(cuda_device):
+    """An expanded int8 K/V (stride 0 over the KV heads) is no view a TMA
+    tensor map takes: all three kernels run the 64 x 64 walk's int8 lane
+    (mma_s8) and match their plain versions."""
+    b, hq, hkv, s, d = 1, 8, 2, 256, 128
+    pos = (1, 2, 0, 2)
+    rng, q, _, _, do = _case((b, hq, hkv, s, d), torch.bfloat16, cuda_device,
+                             seed=9)
+    kp, vp, wire = _int8_kv(rng, cuda_device, b, 1, s, d)
+    kp, vp = (x.expand(b, hkv, s, d) for x in (kp, vp))
+    wire = {n: x.expand(b, hkv, s).contiguous() for n, x in wire.items()}
+    assert {n: fm.ring_route(n, q, kp, vp, None if n == "ring_carry" else do)
+            for n in RING_KERNELS} == dict.fromkeys(RING_KERNELS, "mma_s8")
+    state = _fresh_state(b, hq, s, d, cuda_device)
+    ref = tuple(t.clone() for t in state)
+    lse = _lse_of(q, kp, vp, pos, True, None, wire)
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    want = [t.clone() for t in (dq, dk, dv)]
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, kp, vp, *state, pos, **wire)
+    fm.flash_ring_dq_block(q, kp, vp, do, lse, delta, dq, pos, **wire)
+    fm.flash_ring_dkv_block(q, kp, vp, do, lse, delta, dk, dv, pos, **wire)
+    fm.ring_carry_ref(q, kp, vp, *ref, pos, True, d ** -0.5, **wire)
+    fm.ring_bwd_dq_ref(q, kp, vp, do, lse, delta, want[0], pos, True,
+                       d ** -0.5, **wire)
+    fm.ring_bwd_dkv_ref(q, kp, vp, do, lse, delta, want[1], want[2], pos,
+                        True, d ** -0.5, **wire)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {f"{n}.mma_s8": 1 for n in RING_KERNELS}
+    _check_carry(state, ref, INT8_RTOL[torch.bfloat16])
+    _check_grads((dq, dk, dv), want, INT8_RTOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_ring_int8_hop_composes_with_bf16_hop(d, cuda_device):
+    """Rank 1 of two striped ranks: its own block's hop in bf16 (wgmma),
+    then block 0's visiting hop over int8 K/V (carry and dk/dv wgmma_s8, dq
+    mma_s8), into the same fp32 state: m, l, acc, dq and block 0's
+    traveling dk/dv after both hops equal the same two hops through the
+    plain versions."""
+    b, hq, hkv, s = 1, 8, 2, 320
+    own, visit = (1, 2, 1, 2), (1, 2, 0, 2)
+    rng = np.random.default_rng(10)
+    q, do = (_rand(rng, cuda_device, torch.bfloat16, b, hq, s, d)
+             for _ in range(2))
+    k1, v1 = (_rand(rng, cuda_device, torch.bfloat16, b, hkv, s, d)
+              for _ in range(2))
+    kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
+    scale = d ** -0.5
+    state = _fresh_state(b, hq, s, d, cuda_device)
+    ref = tuple(t.clone() for t in state)
+    routes = dict(fm.ring_routes)
+    fm.flash_carry_block(q, k1, v1, *state, own)
+    fm.flash_carry_block(q, kp, vp, *state, visit, **wire)
+    fm.ring_carry_ref(q, k1, v1, *ref, own, True, scale)
+    fm.ring_carry_ref(q, kp, vp, *ref, visit, True, scale, **wire)
+    m, l, _ = ref
+    lse = (m + torch.log(l.clamp(min=1e-20))).contiguous()
+    dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
+    want = [t.clone() for t in (dq, dk, dv)]
+    # dq takes both hops; block 0's dk/dv meet rank 1's queries on the
+    # visiting hop, after a bf16 dk/dv hop of rank 1's own block into them
+    fm.flash_ring_dq_block(q, k1, v1, do, lse, delta, dq, own)
+    fm.flash_ring_dq_block(q, kp, vp, do, lse, delta, dq, visit, **wire)
+    fm.flash_ring_dkv_block(q, k1, v1, do, lse, delta, dk, dv, own)
+    fm.flash_ring_dkv_block(q, kp, vp, do, lse, delta, dk, dv, visit, **wire)
+    fm.ring_bwd_dq_ref(q, k1, v1, do, lse, delta, want[0], own, True, scale)
+    fm.ring_bwd_dq_ref(q, kp, vp, do, lse, delta, want[0], visit, True, scale,
+                       **wire)
+    fm.ring_bwd_dkv_ref(q, k1, v1, do, lse, delta, want[1], want[2], own,
+                        True, scale)
+    fm.ring_bwd_dkv_ref(q, kp, vp, do, lse, delta, want[1], want[2], visit,
+                        True, scale, **wire)
+    torch.cuda.synchronize()
+    assert _route_delta(routes) == {
+        "ring_carry.wgmma": 1, "ring_carry.wgmma_s8": 1,
+        "ring_bwd_dq.wgmma": 1, "ring_bwd_dq.mma_s8": 1,
+        "ring_bwd_dkv.wgmma": 1, "ring_bwd_dkv.wgmma_s8": 1}
+    _check_carry(state, ref, INT8_RTOL[torch.bfloat16])
+    _check_grads((dq, dk, dv), want, INT8_RTOL[torch.bfloat16])
+
