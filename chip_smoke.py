@@ -200,11 +200,10 @@ PROFILE_NAMES = {
     "ring_carry": ("attn_fwd_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "RingOffsets"),
     "ring_bwd_dkv": ("attn_bwd_dkv_wgmma_kernel", "RingOffsets"),
-    # the int8 lanes: the carry's and dk/dv's wgmma walks over int8 K/V
-    # (kernels of their own names), dq's 64 x 64 tile walk under the ring
-    # mask (on the ring-train-int8 path no other hop takes that walk)
+    # the int8 lanes: the wgmma walks over int8 K/V (kernels of their own
+    # names)
     "ring_carry_int8": ("attn_fwd_wgmma_s8_kernel", "RingOffsets"),
-    "ring_bwd_dq_int8": ("attn_bwd_dq_kernel", "RingOffsets"),
+    "ring_bwd_dq_int8": ("attn_bwd_dq_wgmma_s8_kernel", "RingOffsets"),
     "ring_bwd_dkv_int8": ("attn_bwd_dkv_wgmma_s8_kernel", "RingOffsets"),
     "flash_fwd": ("attn_fwd_wgmma_kernel", "CausalWindow"),
     "flash_bwd_dq": ("attn_bwd_dq_wgmma_kernel", "CausalWindow"),
@@ -306,10 +305,10 @@ RING_WIRE_REF_RTOL = 1e-3
 # to summation order; p and ds enter them as two bf16 parts, about 16
 # bits), fp32 q 1e-4 (summation order)
 RING_INT8_RTOL = {"bfloat16": 2.0 ** -10, "float32": 1e-4}
-# slice 14: each ring kernel's int8 lane for bf16 q at D 64/128 over views
-# TMA reads (the carry and dk/dv on their wgmma walks, dq on the 64 x 64
-# tile walk); fp32 q takes fma_s8 and D 256 mma_s8 in every kernel
-RING_INT8_ROUTES = {"ring_carry": "wgmma_s8", "ring_bwd_dq": "mma_s8",
+# slices 14-15: each ring kernel's int8 lane for bf16 q at D 64/128 over
+# views TMA reads (all three on their wgmma walks); fp32 q takes fma_s8 and
+# D 256 mma_s8 in every kernel
+RING_INT8_ROUTES = {"ring_carry": "wgmma_s8", "ring_bwd_dq": "wgmma_s8",
                     "ring_bwd_dkv": "wgmma_s8"}
 
 # slice 6: ZeRO-3 over a data axis.  bench.py's ZeRO-3 row (_autosched_body
@@ -2517,8 +2516,9 @@ def ring_int8_case(fm, codec, case):
     kernel on its lane (:func:`int8_routes`).  The path case is timed
     beside the plain versions, scaled_dot_product_attention under the
     hop's mask on the decoded bf16 K/V (the decode not counted) and, for
-    the carry and dk/dv, the parent's lane (the 64 x 64 walk, ``mma_s8``)
-    on the same inputs."""
+    each kernel on ``wgmma_s8``, the 64 x 64 walk's lane (``mma_s8``, the
+    lane before its redesign) on the same inputs, by graph and by
+    stream."""
     import torch
     import torch.nn.functional as F
 
@@ -2610,14 +2610,16 @@ def ring_int8_case(fm, codec, case):
         for kname, (kern, plain) in calls.items():
             rows[kname].update(kernel_ms(kern))
             rows[kname]["plain_ms"] = cuda_time_ms(plain, iters=2, warmup=1)
-        # the parent's lane of the redesigned kernels, the 64 x 64 walk
-        # (mma_s8), on the same inputs in this call
+        # the redesigned kernels' lane before, the 64 x 64 walk (mma_s8),
+        # on the same inputs in this call
         route_rule = fm.ring_route
         fm.ring_route = lambda *a: "mma_s8"
         try:
             for kname, r in want_route.items():
                 if r == "wgmma_s8":
-                    rows[kname]["mma_s8_ms"] = cuda_time_ms(calls[kname][0])
+                    t = kernel_ms(calls[kname][0])
+                    rows[kname]["mma_s8_ms"] = t["ms"]
+                    rows[kname]["mma_s8_stream_ms"] = t["stream_ms"]
         finally:
             fm.ring_route = route_rule
         mask = ring_mask(s, causal, window, pos, "cuda")
@@ -3000,8 +3002,8 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
     each ring kernel, one AdamW and nothing else: on the wgmma route, or,
     with ``wire`` "int8" (``comm_quantization.ring_rotation``, the
     ring-train-int8 phase), the own block's hop on wgmma and the visiting
-    hop on each kernel's int8 lane (RING_INT8_ROUTES: the carry and dk/dv
-    on wgmma_s8, dq on mma_s8).  ``base``: the fp32-wire phase's
+    hop on each kernel's int8 lane (RING_INT8_ROUTES: all three on
+    wgmma_s8).  ``base``: the fp32-wire phase's
     result, whose losses at the same seed and wire bytes the int8 phase
     reports beside its own (``ring_loss_delta``, bench.py's _ring_wire_ab).
     Returns ``(launches of rank 0 by kernel and route, the ranks' results)``."""
@@ -3688,9 +3690,10 @@ def main() -> int:
             "flash_bwd_dq": pallas + "flash_mha.py:346",
             "flash_bwd_dkv": pallas + "flash_mha.py:390"}
     # the kernels the int8 lanes run on the path: the wgmma walks' int8
-    # kernels (slice 14) and dq's 64 x 64 tile walk
+    # kernels (slices 14-15)
     walks = {"ring_carry_int8": csrc + "attention_wgmma.cuh attn_fwd_wgmma_s8_kernel",
-             "ring_bwd_dq_int8": csrc + "attention_tiles.cuh attn_bwd_dq_kernel",
+             "ring_bwd_dq_int8": csrc + "attention_wgmma_bwd.cuh "
+                                        "attn_bwd_dq_wgmma_s8_kernel",
              "ring_bwd_dkv_int8": csrc + "attention_wgmma_bwd.cuh "
                                          "attn_bwd_dkv_wgmma_s8_kernel"}
     # the quantized lanes of the ring kernels (wire_dequant_rows, :460)
@@ -3751,8 +3754,9 @@ def main() -> int:
         if name in lanes:
             entry["replaces_lane"] = lanes[name]
             entry["walk"] = walks[name]
-        if "mma_s8_ms" in row:     # the parent's lane, same inputs, same call
+        if "mma_s8_ms" in row:     # the lane before, same inputs, same call
             entry["mma_s8_ms"] = row["mma_s8_ms"]
+            entry["mma_s8_stream_ms"] = row["mma_s8_stream_ms"]
         if name in notes:
             entry["launches_note"] = notes[name]
         entries.append(entry)

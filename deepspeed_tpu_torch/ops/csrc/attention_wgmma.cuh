@@ -226,6 +226,33 @@ __device__ __forceinline__ void store_widened(uint32_t dst, uint32_t box_bytes, 
   hopper::sts_v4(row + (((ch + 1) ^ (r & 7)) << 4), make_uint4(e.x, e.y, f.x, f.y));
 }
 
+// An int8 lane's slot (Q8): one operand (K or V) of one key tile of ROWS
+// keys, its payload rows (D bytes each) and after them its row scales, a
+// 1-D box of ROWS + 4 floats from the 16-byte boundary at or before the
+// tile's first row (c0), since TMA faults on any other start.  load_slot:
+// one thread loads both by TMA onto the slot's full barrier.  widen_slot:
+// thread u of the kWideners widens the rows into the tile's bf16 stage at
+// shared address dst (64-column boxes of ROWS rows, 128-byte swizzle) and
+// copies the tile's scales, `off` floats into the box, to sd.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_slot(unsigned char* sb, const CUtensorMap* map,
+                                          const CUtensorMap* map_sc, uint64_t* full, int k0,
+                                          int hk, int b, int c0) {
+  hopper::mbar_expect_tx(full, ROWS * D + (ROWS + 4) * sizeof(float));
+  hopper::tma_load_4d(sb, map, full, 0, k0, hk, b);
+  hopper::tma_load_1d(sb + ROWS * D, map_sc, full, c0);
+}
+template <int D, int ROWS>
+__device__ __forceinline__ void widen_slot(const unsigned char* sb, uint32_t dst, float* sd,
+                                           int off, int u) {
+  constexpr int kPerRow = D / 16;
+  const uint32_t src = hopper::smem_addr(sb);
+  for (int x = u; x < ROWS * kPerRow; x += kWideners)
+    store_widened(dst, ROWS * 128, x / kPerRow, x % kPerRow, hopper::lds_v4(src + 16 * x));
+  const float* sc = reinterpret_cast<const float*>(sb + ROWS * D) + off;
+  for (int c = u; c < ROWS; c += kWideners) sd[c] = sc[c];
+}
+
 // x in two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), for a pair: the
 // A-fragment words (a, b) of the hi and of the lo product
 __device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint32_t& lo) {
@@ -317,10 +344,8 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(
 #pragma unroll
             for (int op = 0; op < 2; ++op) {
               mbar_wait(&slot_empty[slot], sphase ^ 1);
-              unsigned char* sb = slots + slot * L::kSlotBytes;
-              mbar_expect_tx(&slot_full[slot], L::kSlotRows + L::kScBox * sizeof(float));
-              tma_load_4d(sb, op ? map_v : map_k, &slot_full[slot], 0, k0, hk, it.b);
-              tma_load_1d(sb + L::kSlotRows, op ? map_vs : map_ks, &slot_full[slot], c0);
+              load_slot<D, kBK>(slots + slot * L::kSlotBytes, op ? map_v : map_k,
+                                op ? map_vs : map_ks, &slot_full[slot], k0, hk, it.b, c0);
               if (++slot == L::kSlots) {
                 slot = 0;
                 sphase ^= 1;
@@ -347,15 +372,9 @@ __device__ __forceinline__ void attn_fwd_wgmma_body(
 #pragma unroll
             for (int op = 0; op < 2; ++op) {
               mbar_wait(&slot_full[slot], sphase);
-              const uint32_t src = smem_addr(slots + slot * L::kSlotBytes);
-              const uint32_t dst = smem_addr((op ? vs : ks) + stage * L::kTileBytes);
-              constexpr int kPerRow = D / 16;
-              for (int x = u; x < kBK * kPerRow; x += kWideners)
-                store_widened(dst, kBox, x / kPerRow, x % kPerRow, lds_v4(src + 16 * x));
-              const float* sc = reinterpret_cast<const float*>(slots + slot * L::kSlotBytes +
-                                                               L::kSlotRows) + off;
-              float* sd = (op ? vsc : ksc) + stage * kBK;
-              for (int c = u; c < kBK; c += kWideners) sd[c] = sc[c];
+              widen_slot<D, kBK>(slots + slot * L::kSlotBytes,
+                                 smem_addr((op ? vs : ks) + stage * L::kTileBytes),
+                                 (op ? vsc : ksc) + stage * kBK, off, u);
               fence_proxy_async();
               mbar_arrive(op ? &v_full[stage] : &k_full[stage]);
               mbar_arrive(&slot_empty[slot]);  // the slot is read

@@ -1,7 +1,8 @@
 // Attention backward on wgmma and TMA, Hopper: the dense `flash_bwd_dq`
 // and `flash_bwd_dkv`, the ring hop's `ring_bwd_dq` and `ring_bwd_dkv` and
 // the block-sparse `bsa_bwd_dq` and `bsa_bwd_dkv` at bf16, and the ring
-// hop's int8 K/V lane of dk/dv, `ring_bwd_dkv_s8` (bf16 q and do).
+// hop's int8 K/V lanes of both, `ring_bwd_dq_s8` and `ring_bwd_dkv_s8`
+// (bf16 q and do).
 //
 // Computes what attn_bwd_dq_kernel / attn_bwd_dkv_kernel of
 // attention_tiles.cuh compute (and what the TPU kernels _dq_kernel(_blocked)
@@ -125,6 +126,28 @@
 //    after the walk (held across it, with the scales in registers, ptxas
 //    spilled 64 bytes).  Shared memory: the bf16 lane's and the scales'
 //    1 KiB.
+//  * the int8 K/V lane of dq (template flag Q8, attn_bwd_dq_wgmma_s8_kernel,
+//    `ring_bwd_dq_s8`; accumulate mode only).  The dq walk streams its
+//    64-key K and V tiles through the ring of stages, so a consumer that
+//    widened them from device memory would wait on a load every tile:
+//    the forward's int8 lane's design (attention_wgmma.cuh) is taken
+//    instead.  The producer warpgroup's first thread loads Q and dO as
+//    bf16 and each live tile's K, then V, as int8 rows (boxes of D bytes x
+//    64 rows) with the tile's row scales (a 1-D box from the 16-byte
+//    boundary at or before the tile's first row) into a ring of slots; its
+//    warps 1-3 widen each slot into the tile's swizzled bf16 stage, copy
+//    the scales beside it, fence the proxy and arrive on K-full or V-full
+//    (96 arrivals).  All four warps walk the items in `snake` order and
+//    skip the same dead items.  The consumers are the bf16 lane's but for
+//    the scales, on the key axis, the N columns of S and dP: S = Q.K^T is
+//    issued as soon as K is widened, ahead of dP = dO.V^T; each S column is
+//    multiplied by its key's K scale and each dP column by its V scale
+//    before p and ds, and ds, times its key's K scale, enters dQ += dS.K as
+//    two bf16 parts (hi, lo), two wgmma_rs products a step on the same K
+//    tile in one group.  Registers: the producer warpgroup 56 a thread, the
+//    consumers 224 (at D 128: S 32 + dP 32 + dq 64 + dS hi and lo 32).
+//    Shared memory at D 128: the bf16 lane's 192 KiB, the stages' scales
+//    2 KiB and 3 slots of 8.4 KiB (220.3 KiB; 4 slots at D 64).
 //
 // Launches on the caller's stream, allocates nothing, returns
 // cudaGetLastError() (cudaErrorInvalidValue for a view TMA cannot take, a
@@ -267,15 +290,44 @@ __device__ __forceinline__ void start_rows(float (&acc)[D / 2], const Out* base,
 // ---------------------------------------------------------------------------
 // dq
 // ---------------------------------------------------------------------------
-template <int D, typename Mask, typename Out>
-__global__ void __launch_bounds__(kThreads, 1)
-attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                         const __grid_constant__ CUtensorMap map_k,
-                         const __grid_constant__ CUtensorMap map_v,
-                         const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
-                         const float* __restrict__ delta, Out* __restrict__ dq, Strides4 sdq,
-                         int B, int Hq, int Hkv, int S, float scale, Mask mask) {
-  using L = BwdLayout<D>;
+// The int8 K/V lane of the dq walk (Q8): shared memory of the bf16 lane
+// (Q, dO and the ring of bf16 K/V stages the products read, widened there
+// by the producer warpgroup), then the stages' key scales (K's, then V's,
+// kBKd floats a stage) and a ring of int8 slots that TMA fills: one operand
+// (K or V) of one key tile each, kBKd payload rows of D bytes and the tile's
+// row scales (a 1-D box of kScBox floats from the 16-byte boundary at or
+// before the tile's first row).  3 slots at D 128 (a fourth overruns the
+// 227 KiB), 4 at D 64.
+template <int D>
+struct DqLayoutS8 : BwdLayout<D> {
+  using BwdLayout<D>::kWide;
+  using BwdLayout<D>::kNarrow;
+  using BwdLayout<D>::kStages;
+  static constexpr int kSlots = D == 64 ? 4 : 3;
+  static constexpr int kScBox = kBKd + 4;
+  static constexpr uint32_t kSlotRows = kBKd * D;            // payload bytes of a slot
+  static constexpr uint32_t kSlotBytes = kSlotRows + 384;   // + the scale box, 128-byte aligned
+  // byte offsets from the aligned base: Q, dO, the K and V stages; the
+  // stages' scales; the slots; the Q-full, Q-empty, K-full, V-full, empty,
+  // slot-full and slot-empty barriers
+  static constexpr uint32_t kScales = 2 * kWide + 2 * kStages * kNarrow;
+  static constexpr uint32_t kSlotBase = kScales + 2 * kStages * kBKd * sizeof(float);
+  static constexpr uint32_t kBars = kSlotBase + kSlots * kSlotBytes;
+  static constexpr size_t kSmem = 1024 + kBars + (2 + 3 * kStages + 2 * kSlots) * sizeof(uint64_t);
+  static_assert(kScBox * sizeof(float) <= 384, "the scale box overruns its slot");
+  static_assert(kSmem <= 232448, "the int8 dq walk overruns shared memory");
+};
+
+// Q8: map_k, map_v are int8 maps over the payloads (boxes of D bytes x kBKd
+// rows) and map_ks, map_vs 1-D fp32 maps over the row scales (kScBox a box)
+template <int D, typename Mask, typename Out, bool Q8>
+__device__ __forceinline__ void attn_bwd_dq_wgmma_body(
+    const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_do, const CUtensorMap* map_ks, const CUtensorMap* map_vs,
+    const float* __restrict__ lse, const float* __restrict__ delta, Out* __restrict__ dq,
+    Strides4 sdq, int B, int Hq, int Hkv, int S, float scale, Mask mask) {
+  static_assert(kAccumulate<Out> || !Q8, "the int8 lane runs in accumulate mode");
+  using L = std::conditional_t<Q8, DqLayoutS8<D>, BwdLayout<D>>;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = reinterpret_cast<unsigned char*>(
@@ -283,11 +335,23 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   unsigned char* dos = qs + L::kWide;
   unsigned char* ks = dos + L::kWide;  // stage s: ks + s * kNarrow
   unsigned char* vs = ks + L::kStages * L::kNarrow;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + L::kStages * L::kNarrow);
+  // Q8: stage s's key scales at ksc + s * kBKd (K's) and vsc + s * kBKd
+  // (V's), then the int8 slots; the barriers after them
+  float* ksc = reinterpret_cast<float*>(vs + L::kStages * L::kNarrow);
+  float* vsc = ksc + L::kStages * kBKd;
+  unsigned char* slots = nullptr;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ksc);
+  if constexpr (Q8) {
+    slots = qs + L::kSlotBase;
+    q_full = reinterpret_cast<uint64_t*>(qs + L::kBars);
+  }
   uint64_t* q_empty = q_full + 1;
   uint64_t* k_full = q_empty + 1;
   uint64_t* v_full = k_full + L::kStages;
   uint64_t* empty = v_full + L::kStages;
+  uint64_t* slot_full = empty + L::kStages;
+  uint64_t* slot_empty = nullptr;
+  if constexpr (Q8) slot_empty = slot_full + L::kSlots;
 
   const int nq = (S + kBQ - 1) / kBQ, items = nq * Hq * B;
   const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -296,9 +360,15 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_init(q_full, 1);
     mbar_init(q_empty, kConsumers * 128);
     for (int s = 0; s < L::kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&k_full[s], Q8 ? kWideners : 1);
+      mbar_init(&v_full[s], Q8 ? kWideners : 1);
       mbar_init(&empty[s], kConsumers * 128);
+    }
+    if constexpr (Q8) {
+      for (int s = 0; s < L::kSlots; ++s) {
+        mbar_init(&slot_full[s], 1);
+        mbar_init(&slot_empty[s], kWideners);
+      }
     }
     mbar_fence_init();
   }
@@ -306,11 +376,15 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wgi == kConsumers) {
     // producer: one thread issues every load; the next item's Q, dO and
-    // first tiles load while the consumers finish this one
-    reg_dealloc<24>();
+    // first tiles load while the consumers finish this one.  Q8: that
+    // thread loads each tile's K, then V, as int8 rows and their scales
+    // into the slots, and warps 1-3 widen them into the bf16 stages.  All
+    // of them walk the items in the consumers' order (`snake`) and skip the
+    // same dead items, so their stage, slot and phase counters agree.
+    reg_dealloc<Q8 ? 56 : 24>();
     if (tid == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
+      int stage = 0, slot = 0;
+      uint32_t phase = 0, sphase = 0;
       for (int r = 0, n = 0;; ++r) {
         const int i = snake(r, blockIdx.x, gridDim.x);
         if (i >= items) break;
@@ -322,22 +396,76 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_expect_tx(q_full, 2 * L::kWide);
 #pragma unroll
         for (int j = 0; j < L::kBoxes; ++j) {
-          tma_load_4d(qs + j * kBox, &map_q, q_full, 64 * j, it.iq * kBQ, it.h, it.b);
-          tma_load_4d(dos + j * kBox, &map_do, q_full, 64 * j, it.iq * kBQ, it.h, it.b);
+          tma_load_4d(qs + j * kBox, map_q, q_full, 64 * j, it.iq * kBQ, it.h, it.b);
+          tma_load_4d(dos + j * kBox, map_do, q_full, 64 * j, it.iq * kBQ, it.h, it.b);
         }
         for (int t = t_begin; t < t_end; ++t) {
           const int k0 = mask.k_tile(t) * kBKd;
+          if constexpr (Q8) {
+            const int kv_row0 = (it.b * Hkv + hk) * S;  // < 2^31: the launcher checks
+            const int c0 = (kv_row0 + k0) & ~3;         // 16-byte aligned
+#pragma unroll
+            for (int op = 0; op < 2; ++op) {
+              mbar_wait(&slot_empty[slot], sphase ^ 1);
+              load_slot<D, kBKd>(slots + slot * L::kSlotBytes, op ? map_v : map_k,
+                                 op ? map_vs : map_ks, &slot_full[slot], k0, hk, it.b, c0);
+              if (++slot == L::kSlots) {
+                slot = 0;
+                sphase ^= 1;
+              }
+            }
+          } else {
+            mbar_wait(&empty[stage], phase ^ 1);
+            unsigned char* kt = ks + stage * L::kNarrow;
+            unsigned char* vt = vs + stage * L::kNarrow;
+            mbar_expect_tx(&k_full[stage], L::kNarrow);
+#pragma unroll
+            for (int j = 0; j < L::kBoxes; ++j)
+              tma_load_4d(kt + j * kBox64, map_k, &k_full[stage], 64 * j, k0, hk, it.b);
+            mbar_expect_tx(&v_full[stage], L::kNarrow);
+#pragma unroll
+            for (int j = 0; j < L::kBoxes; ++j)
+              tma_load_4d(vt + j * kBox64, map_v, &v_full[stage], 64 * j, k0, hk, it.b);
+            if (++stage == L::kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    } else if constexpr (Q8) {
+      // widening warps: each slot's int8 rows into the bf16 stage of its
+      // tile, in the swizzled layout TMA gives the bf16 lane, and its
+      // scales beside; the stage's K-full (V-full) barrier counts these
+      // threads' arrivals, each after its proxy fence
+      if (tid < 32) return;
+      const int u = tid - 32;
+      int stage = 0, slot = 0;
+      uint32_t phase = 0, sphase = 0;
+      for (int r = 0;; ++r) {
+        const int i = snake(r, blockIdx.x, gridDim.x);
+        if (i >= items) break;
+        const Item it(i, nq, Hq, B);
+        const int t_begin = mask.k_begin(it.h, it.iq), t_end = mask.k_end(it.h, it.iq);
+        if (t_begin >= t_end) continue;  // as the loading thread
+        const int kv_row0 = (it.b * Hkv + it.h / (Hq / Hkv)) * S;
+        for (int t = t_begin; t < t_end; ++t) {
+          const int off = (kv_row0 + mask.k_tile(t) * kBKd) & 3;  // the tile's first row in its box
           mbar_wait(&empty[stage], phase ^ 1);
-          unsigned char* kt = ks + stage * L::kNarrow;
-          unsigned char* vt = vs + stage * L::kNarrow;
-          mbar_expect_tx(&k_full[stage], L::kNarrow);
 #pragma unroll
-          for (int j = 0; j < L::kBoxes; ++j)
-            tma_load_4d(kt + j * kBox64, &map_k, &k_full[stage], 64 * j, k0, hk, it.b);
-          mbar_expect_tx(&v_full[stage], L::kNarrow);
-#pragma unroll
-          for (int j = 0; j < L::kBoxes; ++j)
-            tma_load_4d(vt + j * kBox64, &map_v, &v_full[stage], 64 * j, k0, hk, it.b);
+          for (int op = 0; op < 2; ++op) {
+            mbar_wait(&slot_full[slot], sphase);
+            widen_slot<D, kBKd>(slots + slot * L::kSlotBytes,
+                                smem_addr((op ? vs : ks) + stage * L::kNarrow),
+                                (op ? vsc : ksc) + stage * kBKd, off, u);
+            fence_proxy_async();
+            mbar_arrive(op ? &v_full[stage] : &k_full[stage]);
+            mbar_arrive(&slot_empty[slot]);  // the slot is read
+            if (++slot == L::kSlots) {
+              slot = 0;
+              sphase ^= 1;
+            }
+          }
           if (++stage == L::kStages) {
             stage = 0;
             phase ^= 1;
@@ -349,13 +477,15 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // consumer warpgroup wgi: query rows 64 wgi .. 64 wgi + 63 of each item
-  reg_alloc<240>();
+  reg_alloc<Q8 ? 224 : 240>();
   const int w = tid / 32, lane = tid % 32, g = lane / 4, tq = lane % 4;
   const float scale_log2 = scale * kLog2e;
   const uint32_t q_addr = smem_addr(qs) + wgi * 8192;  // this warpgroup's 64 rows of each box
   const uint32_t do_addr = smem_addr(dos) + wgi * 8192;
   float s_acc[kBKd / 2], dp_acc[kBKd / 2], dq_acc[D / 2];
   uint32_t ds[kBKd / 16][4];  // dS in bf16: the A fragments of the k16 steps of dS.K
+  // Q8: ds times its key's K scale, split: ds holding the hi parts, ds_lo the lo
+  uint32_t ds_lo[Q8 ? kBKd / 16 : 1][4];
   int stage = 0;
   uint32_t phase = 0;
   for (int r = 0, n = 0;; ++r) {
@@ -386,20 +516,39 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // p and ds of the finished S and dP of key tile k0, in registers:
     // s_acc[4j + e] is row row[e / 2], key k0 + 8j + 2tq + (e % 2).  MASKED
     // (diagonal, edge and tail tiles) tests every entry against the mask.
-    auto dscore = [&](auto masked, int k0, const auto& tm) {
+    // Q8: S and dP columns times their key's K and V scale (kst, vst: the
+    // tile's scales from this thread's first column) first, and ds times
+    // its key's K scale in two bf16 parts.
+    auto dscore = [&](auto masked, int k0, const auto& tm, const float* kst, const float* vst) {
       constexpr bool MASKED = decltype(masked)::value;
 #pragma unroll
       for (int j = 0; j < kBKd / 8; ++j) {
+        float2 fk = make_float2(1.f, 1.f), fv = fk;
+        if constexpr (Q8) {
+          fk = *reinterpret_cast<const float2*>(kst + 8 * j);
+          fv = *reinterpret_cast<const float2*>(vst + 8 * j);
+        }
         float de[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = exp2f(fmaf(s_acc[4 * j + e], scale_log2, -lse2[e / 2]));
+          float sv = s_acc[4 * j + e], dpv = dp_acc[4 * j + e];
+          if constexpr (Q8) {
+            sv *= e % 2 ? fk.y : fk.x;
+            dpv *= e % 2 ? fv.y : fv.x;
+          }
+          float p = exp2f(fmaf(sv, scale_log2, -lse2[e / 2]));
           if constexpr (MASKED)
             p = tm.ok(h, row[e / 2], k0 + 8 * j + 2 * tq + (e % 2)) ? p : 0.f;
-          de[e] = p * (dp_acc[4 * j + e] - dl[e / 2]) * scale;
+          de[e] = p * (dpv - dl[e / 2]) * scale;
+          if constexpr (Q8) de[e] *= e % 2 ? fk.y : fk.x;
         }
-        ds[j / 2][2 * (j % 2)] = pack_bf16(de[0], de[1]);
-        ds[j / 2][2 * (j % 2) + 1] = pack_bf16(de[2], de[3]);
+        if constexpr (Q8) {
+          split_pack(de[0], de[1], ds[j / 2][2 * (j % 2)], ds_lo[j / 2][2 * (j % 2)]);
+          split_pack(de[2], de[3], ds[j / 2][2 * (j % 2) + 1], ds_lo[j / 2][2 * (j % 2) + 1]);
+        } else {
+          ds[j / 2][2 * (j % 2)] = pack_bf16(de[0], de[1]);
+          ds[j / 2][2 * (j % 2) + 1] = pack_bf16(de[2], de[3]);
+        }
       }
     };
 
@@ -409,11 +558,20 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const auto& tm = tile_of(mask, h, t, k0, rq0, row);
       const uint32_t k_addr = smem_addr(ks + stage * L::kNarrow);
       const uint32_t v_addr = smem_addr(vs + stage * L::kNarrow);
-      // S = Q . K^T and dP = dO . V^T, D/16 steps of 16 each
+      // S = Q . K^T and dP = dO . V^T, D/16 steps of 16 each; Q8: S is
+      // issued on K alone while V is still being widened
       mbar_wait(&k_full[stage], phase);
-      mbar_wait(&v_full[stage], phase);
-      wgmma_fence();
-      scores<D>(s_acc, q_addr, kBox, k_addr);
+      if constexpr (Q8) {
+        wgmma_fence();
+        scores<D>(s_acc, q_addr, kBox, k_addr);
+        wgmma_commit();
+        mbar_wait(&v_full[stage], phase);
+        wgmma_fence();
+      } else {
+        mbar_wait(&v_full[stage], phase);
+        wgmma_fence();
+        scores<D>(s_acc, q_addr, kBox, k_addr);
+      }
       scores<D>(dp_acc, do_addr, kBox, v_addr);
       wgmma_commit();
       wgmma_wait<0>();
@@ -421,21 +579,30 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_regs(dp_acc);
       if (t + 1 == t_end) mbar_arrive(q_empty);  // Q and dO are read: the next item's may load
 
+      const float* kst = ksc + stage * kBKd + 2 * tq;
+      const float* vst = vsc + stage * kBKd + 2 * tq;
       if (tm.full(h, rq0, 64, k0, kBKd))
-        dscore(std::false_type{}, k0, tm);
+        dscore(std::false_type{}, k0, tm, kst, vst);
       else
-        dscore(std::true_type{}, k0, tm);
+        dscore(std::true_type{}, k0, tm, kst, vst);
 
-      // dQ += dS . K: K is MN-major (rows are keys, D contiguous), 16 keys a step
+      // dQ += dS . K: K is MN-major (rows are keys, D contiguous), 16 keys a
+      // step; Q8: the hi parts' products, then the lo parts', one group
       fence_regs(ds);
+      if constexpr (Q8) fence_regs(ds_lo);
       fence_regs(dq_acc);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < kBKd / 16; ++kc) sum_mma<D>(dq_acc, ds[kc], k_addr + kc * 2048);
+      if constexpr (Q8) {
+#pragma unroll
+        for (int kc = 0; kc < kBKd / 16; ++kc) sum_mma<D>(dq_acc, ds_lo[kc], k_addr + kc * 2048);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq_acc);
       fence_regs(ds);
+      if constexpr (Q8) fence_regs(ds_lo);
       mbar_arrive(&empty[stage]);  // K and V of this tile are consumed
       if (++stage == L::kStages) {
         stage = 0;
@@ -444,6 +611,34 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     store_rows<D>(dq_acc, dq_b, sdq.s, row, S, tq);
   }
+}
+
+template <int D, typename Mask, typename Out>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                         const float* __restrict__ delta, Out* __restrict__ dq, Strides4 sdq,
+                         int B, int Hq, int Hkv, int S, float scale, Mask mask) {
+  attn_bwd_dq_wgmma_body<D, Mask, Out, false>(&map_q, &map_k, &map_v, &map_do, nullptr, nullptr,
+                                              lse, delta, dq, sdq, B, Hq, Hkv, S, scale, mask);
+}
+
+// the int8 K/V lane (accumulate mode): dq fp32, updated in place
+template <int D, typename Mask>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_dq_wgmma_s8_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const __grid_constant__ CUtensorMap map_ks,
+                            const __grid_constant__ CUtensorMap map_vs,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, Strides4 sdq, int B, int Hq, int Hkv, int S,
+                            float scale, Mask mask) {
+  attn_bwd_dq_wgmma_body<D, Mask, float, true>(&map_q, &map_k, &map_v, &map_do, &map_ks, &map_vs,
+                                               lse, delta, dq, sdq, B, Hq, Hkv, S, scale, mask);
 }
 
 // ---------------------------------------------------------------------------
@@ -835,6 +1030,40 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   const int grid = std::min(items, hopper_host::sm_count());
   kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, mdo, lse, delta, dq, sdq, B, Hq, Hkv, S,
                                          scale, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 K/V lane of the dq walk (ring_bwd_dq_s8): k, v int8 payloads,
+// ks, vs their fp32 row scales [B, Hkv, S] contiguous; the rest as
+// launch_bwd_dq<D, Mask, float>: strides (b, h, s) of q, k, v, do, dq (k's
+// and v's in bytes, the elements' size), dq accumulated in place.
+template <int D, typename Mask>
+int launch_bwd_dq_s8(const void* q, const void* k, const void* v, const float* ks,
+                     const float* vs, const void* dout, const float* lse, const float* delta,
+                     float* dq, const long long* strides, int B, int Hq, int Hkv, int S,
+                     float scale, Mask mask, cudaStream_t stream) {
+  using L = DqLayoutS8<D>;
+  if (B < 0 || S < 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0) return 0;
+  CUtensorMap mq, mk, mv, mdo, mks, mvs;
+  const long long rows = static_cast<long long>(B) * Hkv * S;
+  if (!attn_map(&mq, q, B, Hq, S, D, strides, kBQ) ||
+      !s8_map(&mk, k, B, Hkv, S, D, strides + 3, kBKd) ||
+      !s8_map(&mv, v, B, Hkv, S, D, strides + 6, kBKd) ||
+      !attn_map(&mdo, dout, B, Hq, S, D, strides + 9, kBQ) ||
+      !rows_map(&mks, ks, rows, L::kScBox) || !rows_map(&mvs, vs, rows, L::kScBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides4 sdq{strides[12], strides[13], strides[14]};
+  if (!out_ok(dq, sdq)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = attn_bwd_dq_wgmma_s8_kernel<D, Mask>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int items = (S + kBQ - 1) / kBQ * Hq * B;
+  const int grid = std::min(items, hopper_host::sm_count());
+  kern<<<grid, kThreads, L::kSmem, stream>>>(mq, mk, mv, mdo, mks, mvs, lse, delta, dq, sdq, B, Hq,
+                                             Hkv, S, scale, mask);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,19 +16,17 @@
 // Three routes, chosen by the caller (ops/flash_mha.py, `ring_route`, per
 // kernel), all in accumulate mode under the ring's mask (ring_offsets.cuh):
 //   * 2, wgmma_s8 (bf16 q and do at D 64 and 128, every operand a view TMA
-//     can read; ring_carry_s8 and ring_bwd_dkv_s8): the bf16 lane's wgmma
-//     walks with their int8 lane (template flag Q8).  The carry is the
-//     persistent forward of attention_wgmma.cuh, whose producer warpgroup
-//     loads the int8 tiles by TMA and widens them into the swizzled bf16
-//     stages; dk/dv is the dk/dv walk of attention_wgmma_bwd.cuh, whose
-//     consumers widen their resident K and V rows once an item straight
-//     from device memory.  Those headers say how.
-//   * 1, mma_s8 (other bf16: ring_bwd_dq_s8 always, D 256, expanded
-//     views): the 64 x 64 tile walks of attention_tiles.cuh with Q8 set
-//     (see that header's note).  dq stays here for now: its walk keeps 64-
-//     key K/V tiles streaming through a ring that a widening producer would
-//     have to feed, and it is the next slice's; D 256 has no wgmma walk in
-//     any lane, and a zero-stride view no tensor map.
+//     can read): the bf16 lane's wgmma walks with their int8 lane (template
+//     flag Q8).  The carry is the persistent forward of attention_wgmma.cuh
+//     and dq the dq walk of attention_wgmma_bwd.cuh, whose producer
+//     warpgroups load the int8 tiles by TMA and widen them into the
+//     swizzled bf16 stages their K/V tiles stream through; dk/dv is the
+//     dk/dv walk of attention_wgmma_bwd.cuh, whose consumers widen their
+//     resident K and V rows once an item straight from device memory.
+//     Those headers say how.
+//   * 1, mma_s8 (other bf16: D 256, expanded views): the 64 x 64 tile walks
+//     of attention_tiles.cuh with Q8 set (see that header's note); D 256
+//     has no wgmma walk in any lane, and a zero-stride view no tensor map.
 //   * 0, fma_s8 (fp32 q): a row decodes to fp32 on load, the TPU's dequant
 //     bit for bit, and the fp32 walk runs as it always does.
 // On the bf16 routes the payload widens to bf16 exactly and the row scales
@@ -71,7 +69,7 @@ bool wgmma_args_ok(int D, const void* k_scale, const void* v_scale, int q_stride
 }  // namespace
 
 // route: 0 fma_s8 (fp32 q and do), 1 mma_s8 (bf16), 2 wgmma_s8 (bf16 TMA
-// reads; ring_carry_s8 and ring_bwd_dkv_s8 at D 64 and 128); k, v: int8
+// reads at D 64 and 128); k, v: int8
 // [B, Hkv, S, D] views with a contiguous D; k_scale, v_scale: fp32
 // [B, Hkv, S] contiguous; D 64, 128 or 256.  The rest as the entries of
 // ring_attention.cu: m, l fp32 [B, Hq, S] contiguous; acc, dq fp32
@@ -104,21 +102,33 @@ extern "C" int ring_carry_s8(int route, const void* q, const void* k, const void
                                             scale, mask, s);
 }
 
-// routes 0 and 1 only (dq has no wgmma_s8 route yet)
 extern "C" int ring_bwd_dq_s8(int route, const void* q, const void* k, const void* v,
                               const void* k_scale, const void* v_scale, const void* dout,
                               const void* lse, const void* delta, void* dq,
                               const long long* strides, int B, int Hq, int Hkv, int S, int D,
                               float scale, int causal, int window, int q_off, int k_off,
                               int q_stride, int k_stride, void* stream) {
-  if (route != 0 && route != 1) return static_cast<int>(cudaErrorInvalidValue);
-  AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = dq;
-  return ring_s8(Role::kBwdDq, route, D, a, k_scale, v_scale, causal, window, q_off, k_off,
-                 q_stride, k_stride);
+  const float *ls = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  if (route != 2) {
+    AttnCall a = attn_call(q, k, v, strides, B, Hq, Hkv, S, scale, stream);
+    a.dout = dout;
+    a.lse_in = ls;
+    a.delta = dl;
+    a.dq = dq;
+    return ring_s8(Role::kBwdDq, route, D, a, k_scale, v_scale, causal, window, q_off, k_off,
+                   q_stride, k_stride);
+  }
+  if (!wgmma_args_ok(D, k_scale, v_scale, q_stride, k_stride))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Mask = RingOffsetsT<flash_wg::kBQ, flash_wg::kBKd>;
+  const Mask mask{S, causal, window, q_off, k_off, q_stride, k_stride};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *ks = static_cast<const float*>(k_scale), *vs = static_cast<const float*>(v_scale);
+  float* g = static_cast<float*>(dq);
+  return D == 64 ? flash_wg::launch_bwd_dq_s8<64>(q, k, v, ks, vs, dout, ls, dl, g, strides, B,
+                                                  Hq, Hkv, S, scale, mask, s)
+                 : flash_wg::launch_bwd_dq_s8<128>(q, k, v, ks, vs, dout, ls, dl, g, strides, B,
+                                                   Hq, Hkv, S, scale, mask, s);
 }
 
 extern "C" int ring_bwd_dkv_s8(int route, const void* q, const void* k, const void* v,

@@ -48,10 +48,10 @@ forward in accumulate mode; ``attention_wgmma_bwd.cuh``, dq and dk/dv).
 The hop wrappers also take the quantized ring wire's int8 K/V with per-row
 fp32 scales (``k_scale``/``v_scale``, the JAX kernels' quantized operands):
 :func:`ring_route` sends them, kernel by kernel, to the int8 lanes of
-``ops/csrc/ring_attention_int8.cu``: ``wgmma_s8`` (the carry's and dk/dv's
-``wgmma`` walks with the int8 tiles widened to bf16 on the card) for bf16
-q and do that TMA can read at D 64 and 128, ``mma_s8`` (the 64 x 64 tile
-walk) for dq and other bf16 calls, ``fma_s8`` for fp32; the plain versions
+``ops/csrc/ring_attention_int8.cu``: ``wgmma_s8`` (the ``wgmma`` walks
+with the int8 tiles widened to bf16 on the card) for bf16 q and do that
+TMA can read at D 64 and 128, ``mma_s8`` (the 64 x 64 tile walk) for other
+bf16 calls, ``fma_s8`` for fp32; the plain versions
 decode the rows as the Pallas bodies do (:func:`wire_dequant_rows`) and
 compute in fp32.
 
@@ -683,19 +683,17 @@ def _check_state(q, heads: int, *tensors, rows_only=False):
                              f"expected contiguous fp32 {want} on {q.device}")
 
 
-# the ring kernels with a wgmma walk over int8 K/V (ring_bwd_dq's int8 lane
-# is the 64 x 64 tile walk's only)
-WGMMA_S8_KERNELS = ("ring_carry", "ring_bwd_dkv")
+# the ring kernels with a wgmma walk over int8 K/V (all three)
+WGMMA_S8_KERNELS = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
 
 
 def ring_route(kernel: str, q, k, v, do=None) -> str:
     """The route of ring kernel ``kernel`` (a key of ``ring_launches``):
     other K/V than int8 take :func:`fwd_route`'s rule (the carry, no
     ``do``) or :func:`bwd_route`'s; int8 K/V (the quantized wire's payloads)
-    take the int8 lanes: ``"fma_s8"`` for an fp32 q, ``"wgmma_s8"`` for the
-    carry and dk/dv where the bf16 rule says ``wgmma`` (D 64 or 128, every
-    operand a view TMA can read), else ``"mma_s8"`` (dq, D 256, an expanded
-    view)."""
+    take the int8 lanes: ``"fma_s8"`` for an fp32 q, ``"wgmma_s8"`` where
+    the bf16 rule says ``wgmma`` (D 64 or 128, every operand a view TMA can
+    read), else ``"mma_s8"`` (D 256, an expanded view)."""
     if kernel not in ring_launches:
         raise ValueError(f"no ring kernel {kernel!r}: {sorted(ring_launches)}")
     route = fwd_route(q, k, v) if do is None else bwd_route(q, k, v, do)

@@ -3,9 +3,10 @@ against their plain PyTorch versions on the card.
 
 ``quantize``, ``dequantize`` and ``fake_quantize``
 (``ops/csrc/quantize.cu``) bit for bit, over int8 and int4, bf16, fp16 and
-fp32 inputs, groups from 128 to 2048 (above 1024 the kernel's second pass
-reads the group again), row counts that are not a multiple of a block and a
-1-D tensor; ``fp6_matmul`` (``ops/csrc/fp6_linear.cu``) over tails in M, N
+fp32 inputs, groups from 128 to 4096 (above 8 16-byte vectors a lane the
+kernel's second pass reads the group again), group counts that leave half
+a warp or part of a grid step idle, exact .5 ties of x / scale (the
+kernel's reciprocal multiply against the IEEE quotient) and a 1-D tensor; ``fp6_matmul`` (``ops/csrc/fp6_linear.cu``) over tails in M, N
 and K, decode-sized and large M, bf16, fp16 and fp32 activations, each
 call held to the route ``fp6_linear.route`` picks (wgmma for bf16 rows TMA
 can read, mma for fp16 and other bf16, fma for fp32), and every e3m2 code
@@ -45,9 +46,39 @@ def _x(shape, dtype, dev, seed=0, scale=3.0):
     return torch.from_numpy(x).to(dev, dtype)
 
 
+# shape, group.  The kernels' walk: 16-bit groups of 128 are half a warp
+# (two a step, an odd count leaving half a warp idle: 33 x 11, 131 x 5,
+# 20001 x 3 groups); a lane keeps up to 8 16-byte vectors of a group (384:
+# 1.5 a lane in 16 bits, 3 in fp32; 2048 in fp32 and 4096 are read twice);
+# 2048 x 4096 and 20001 x 384 take several steps a warp.
 QUANT_CASES = [((512, 1024), 512), ((300, 384), 128), ((1024,), 256),
-               ((4, 8, 256), 256), ((64, 4096), 2048), ((33, 1408), 128)]
+               ((4, 8, 256), 256), ((64, 4096), 2048), ((33, 1408), 128),
+               ((7, 3072), 384), ((5, 8192), 4096), ((131, 640), 128),
+               ((2048, 4096), 512), ((20001, 384), 128)]
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _with_ties(x, gs, bits):
+    """x with its second group (flat order) set to exact ties of x / scale:
+    (k + 0.5) * s for k over [-qmax, qmax - 1] beside qmax * s (its
+    absmax, so scale = s exactly), s = 3 (2 in bf16, whose 8 bits hold no
+    odd multiple of 3 as large); in fp32 also the ties one ulp off, up and
+    down.  The kernel's reciprocal multiply must round each as the IEEE
+    quotient does (half to even, or the nudge's way)."""
+    flat = x.view(-1)
+    if flat.numel() < 2 * gs:
+        return x
+    qmax = 2 ** (bits - 1) - 1
+    s = 2.0 if x.dtype == torch.bfloat16 else 3.0
+    ks = torch.arange(-qmax, qmax, dtype=torch.float32)
+    ties = (ks + 0.5) * s
+    if x.dtype == torch.float32:
+        inf = torch.tensor(float("inf"))
+        ties = torch.cat([ties, torch.nextafter(ties, inf), torch.nextafter(ties, -inf)])
+    vals = ties.repeat(gs // ties.numel() + 1)[:gs]
+    vals[0] = qmax * s
+    flat[gs:2 * gs] = vals.to(x.device, x.dtype)
+    return x
 
 
 @pytest.mark.cuda
@@ -55,7 +86,7 @@ DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "fp16", "fp32"])
 def test_cuda_quantize_family_bit_equal(shape, gs, bits, dtype, cuda_device):
-    x = _x(shape, dtype, cuda_device)
+    x = _with_ties(_x(shape, dtype, cuda_device), gs, bits)
     x[..., :gs] = 0.0   # an all-zero group: scale 1.0
     before = dict(tqk.launches)
     q, s = tqk.quantize(x, bits, gs)
@@ -77,6 +108,7 @@ def test_cuda_quantize_unaligned_view_and_facade(cuda_device):
     assert x.data_ptr() % 16
     q, s = tqk.quantize(x, 8, 512)
     assert torch.equal(q, tqk.quantize_ref(x, 8, 512)[0])
+    assert torch.equal(tqk.fake_quantize(x, 4, 512), tqk.fake_quantize_ref(x, 4, 512))
     # the façade: kernel for a supported shape, torch arithmetic otherwise
     before = dict(tqk.launches)
     tqz.quantize_blockwise(_x((32, 256), torch.float32, cuda_device), 8, 128)

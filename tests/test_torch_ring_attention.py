@@ -477,6 +477,7 @@ def test_int8_hop_checks_and_routes():
     assert tfm.RING_ROUTES == ("fma", "mma", "wgmma", "fma_s8", "mma_s8",
                                "wgmma_s8")
     assert {f"{n}.wgmma_s8" for n in RING_KERNELS} <= set(tfm.ring_routes)
+    assert tfm.WGMMA_S8_KERNELS == RING_KERNELS     # dq too
     x = torch.tensor([[[[-128, 3, 127]]]], dtype=torch.int8)
     np.testing.assert_array_equal(
         tfm.wire_dequant_rows(x, torch.tensor([[[0.25]]])).numpy(),
@@ -515,10 +516,10 @@ def _close_wire(got, want, wire, rtol=RTOL):
 # int8 K/V routes kernel by kernel: case id, D, q dtype, layout, and the
 # routes of ring_carry, ring_bwd_dq and ring_bwd_dkv
 INT8_ROUTE_CASES = [
-    ("d64", 64, torch.bfloat16, "bshd-views", ("wgmma_s8", "mma_s8", "wgmma_s8")),
-    ("d128", 128, torch.bfloat16, "bshd-views", ("wgmma_s8", "mma_s8", "wgmma_s8")),
+    ("d64", 64, torch.bfloat16, "bshd-views", ("wgmma_s8", "wgmma_s8", "wgmma_s8")),
+    ("d128", 128, torch.bfloat16, "bshd-views", ("wgmma_s8", "wgmma_s8", "wgmma_s8")),
     ("d128-rotated", 128, torch.bfloat16, "rotated-block",
-     ("wgmma_s8", "mma_s8", "wgmma_s8")),
+     ("wgmma_s8", "wgmma_s8", "wgmma_s8")),
     ("d256", 256, torch.bfloat16, "bshd-views", ("mma_s8", "mma_s8", "mma_s8")),
     ("fp32-q", 128, torch.float32, "bshd-views", ("fma_s8", "fma_s8", "fma_s8")),
     ("kv-expanded", 128, torch.bfloat16, "kv-expanded", ("mma_s8", "mma_s8", "mma_s8")),
@@ -530,11 +531,10 @@ INT8_ROUTE_CASES = [
 @pytest.mark.parametrize("case", INT8_ROUTE_CASES,
                          ids=[c[0] for c in INT8_ROUTE_CASES])
 def test_int8_route_is_chosen_per_kernel(case):
-    """Over int8 K/V, ``ring_route`` gives the carry and dk/dv the wgmma
-    walks' int8 lane (``wgmma_s8``) where the bf16 rule gives ``wgmma``
-    (bf16 q and do at D 64 or 128, views TMA can read), dq the 64 x 64 walk
-    (``mma_s8``) always, D 256 and an expanded K/V or do ``mma_s8``, an
-    fp32 q ``fma_s8``; the CPU path (the plain versions, the same numbers on
+    """Over int8 K/V, ``ring_route`` gives each kernel the wgmma walks'
+    int8 lane (``wgmma_s8``) where the bf16 rule gives ``wgmma`` (bf16 q
+    and do at D 64 or 128, views TMA can read), D 256 and an expanded K/V
+    or do ``mma_s8``, an fp32 q ``fma_s8``; the CPU path (the plain versions, the same numbers on
     every route) counts no launch and no route."""
     _name, d, dtype, layout, want = case
     q, k, v, do = _bwd_operands(layout, dtype)

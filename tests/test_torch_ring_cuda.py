@@ -26,14 +26,15 @@ carry or dq, a 128-key tile of dk/dv), leaves the state bit for bit as it
 was.
 
 The int8 K/V lanes of the quantized wire, routed kernel by kernel
-(``ring_route``): ``wgmma_s8`` for the carry and dk/dv with bf16 q and do
-at D 64 and 128 (the wgmma walks with the int8 tiles widened to bf16 on
-the card), ``mma_s8`` for dq, D 256 and an expanded K/V (the 64 x 64 tile
-walk), ``fma_s8`` for fp32: int8 payloads with per-row fp32 scales against
-the plain versions, which decode the rows and compute in fp32, at S 130,
-1000 and 50, causal and window, GQA 32/8, 8/2 and MQA, striped and
-contiguous positions, D 64/128/256, hops with dead tiles and items, a bf16
-hop followed by an int8 hop, and the route counts.  Tolerance: bf16 q
+(``ring_route``): ``wgmma_s8`` for all three with bf16 q and do at D 64
+and 128 (the wgmma walks with the int8 tiles widened to bf16 on the card),
+``mma_s8`` for D 256 and an expanded K/V (the 64 x 64 tile walk),
+``fma_s8`` for fp32: int8 payloads with per-row fp32 scales against the
+plain versions, which decode the rows and compute in fp32, at S 130, 1000
+and 50, causal and window, GQA 32/8, 8/2 and MQA, striped and contiguous
+positions, D 64/128/256, hops with dead tiles and items (in walks of many
+rounds of items too), a bf16 hop followed by an int8 hop, and the route
+counts.  Tolerance: bf16 q
 2^-10 (the kernels' products are exact or fp32 up to summation order; p
 and ds enter them as two bf16 parts, about 16 bits), fp32 q 1e-4
 (summation order), on the same quantities as above.
@@ -467,10 +468,12 @@ INT8_CASES = [
     (1, 8, 2, 256, 64, True, None, (256, 1, 0, 1)),     # contiguous, fully live
     (1, 8, 2, 50, 128, True, None, (50, 1, 0, 1)),      # S % 4 != 0: scale boxes
     (1, 8, 2, 1000, 128, True, None, (1, 2, 0, 2)),     # S % 128 != 0, many items
+    (2, 32, 8, 1024, 128, True, 200, (1024, 1, 0, 1)),  # rounds of items, dead ones among them
 ]
 INT8_IDS = ["tail-130-1from0", "tail-130-0from1", "short-50-noncausal",
             "window-d64", "contig-window", "d256-mqa", "gqa-32-8-striped",
-            "contig-live-d64", "s50-d128-live", "tail-1000"]
+            "contig-live-d64", "s50-d128-live", "tail-1000",
+            "rounds-window-dead-items"]
 INT8_RTOL = {torch.bfloat16: 2.0 ** -10, torch.float32: 1e-4}
 RING_KERNELS = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
 
@@ -481,8 +484,7 @@ def _int8_routes(dtype, d):
         return dict.fromkeys(RING_KERNELS, "fma_s8")
     if d not in (64, 128):
         return dict.fromkeys(RING_KERNELS, "mma_s8")
-    return {"ring_carry": "wgmma_s8", "ring_bwd_dq": "mma_s8",
-            "ring_bwd_dkv": "wgmma_s8"}
+    return dict.fromkeys(RING_KERNELS, "wgmma_s8")
 
 
 def _int8_kv(rng, dev, b, hkv, s, d):
@@ -504,8 +506,8 @@ def test_cuda_ring_int8_lanes_match_plain_version(case, dtype, cuda_device):
     """A visiting hop over int8 K/V from the state of the exact own block,
     then dq and dk/dv of that hop into seeded fp32 accumulators: each int8
     lane against its plain version, and one launch a kernel on the lane
-    ``ring_route`` picks for it (bf16 at D 64/128: the carry and dk/dv on
-    wgmma_s8, dq on mma_s8)."""
+    ``ring_route`` picks for it (bf16 at D 64/128: all three on
+    wgmma_s8)."""
     b, hq, hkv, s, d, causal, window, pos = case
     rng, q, k, v, do = _case(case, dtype, cuda_device, seed=3)
     kp, vp, wire = _int8_kv(rng, cuda_device, b, hkv, s, d)
@@ -542,7 +544,7 @@ def test_cuda_ring_int8_lanes_match_plain_version(case, dtype, cuda_device):
 @pytest.mark.cuda
 def test_cuda_ring_int8_dead_hop_and_bad_scales(cuda_device):
     """A hop whose tiles are all dead leaves the state bit for bit, the
-    carry's and dk/dv's on wgmma_s8 and dq's on mma_s8; scales of the wrong
+    three kernels' on wgmma_s8; scales of the wrong
     shape or dtype, one scale alone, or int8 K/V without scales raise
     before any launch."""
     b, hq, hkv, s, d = 1, 4, 2, 128, 128
@@ -580,10 +582,10 @@ def test_cuda_ring_int8_dead_hop_and_bad_scales(cuda_device):
 @pytest.mark.cuda
 def test_cuda_ring_int8_wgmma_dead_items_keep_their_rows(cuda_device):
     """A windowed contiguous hop over int8 K/V (rank 1 <- block 0, window
-    100) into a seeded state: on wgmma_s8 each 128-row carry item from row
-    128 on and each 128-key dk/dv item below key 384 has no live tile, and
-    their rows come back bit for bit; the live rows match the plain
-    versions (dq on mma_s8 as well)."""
+    100) into a seeded state: on wgmma_s8 each 128-row carry and dq item
+    from row 128 on and each 128-key dk/dv item below key 384 has no live
+    tile, and their rows come back bit for bit; the live rows match the
+    plain versions."""
     b, hq, hkv, s, d, window = 1, 8, 2, 512, 128, 100
     pos = (s, 1, 0, 1)
     rng, q, _, _, do = _case((b, hq, hkv, s, d), torch.bfloat16, cuda_device,
@@ -594,7 +596,7 @@ def test_cuda_ring_int8_wgmma_dead_items_keep_their_rows(cuda_device):
     acc = _rand(rng, cuda_device, torch.float32, b, hq, s, d)
     dq, dk, dv, delta = _bwd_state(rng, cuda_device, b, hq, hkv, s, d)
     lse = _lse_of(q, kp, vp, pos, True, window, wire)
-    before = [t.clone() for t in (m, l, acc, dk, dv)]
+    before = [t.clone() for t in (m, l, acc, dq, dk, dv)]
     want = [t.clone() for t in (m, l, acc, dq, dk, dv)]
     routes = dict(fm.ring_routes)
     fm.flash_carry_block(q, kp, vp, m, l, acc, pos, window=window, **wire)
@@ -611,9 +613,9 @@ def test_cuda_ring_int8_wgmma_dead_items_keep_their_rows(cuda_device):
     torch.cuda.synchronize()
     assert _route_delta(routes) == {
         f"{n}.{r}": 1 for n, r in _int8_routes(torch.bfloat16, d).items()}
-    for got, was in zip((m, l, acc), before[:3]):
+    for got, was in zip((m, l, acc, dq), before[:4]):
         assert torch.equal(got[:, :, 128:], was[:, :, 128:])
-    for got, was in zip((dk, dv), before[3:]):
+    for got, was in zip((dk, dv), before[4:]):
         assert torch.equal(got[:, :, :384], was[:, :, :384])
     _check_carry((m, l, acc), want[:3], INT8_RTOL[torch.bfloat16])
     _check_grads((dq, dk, dv), want[3:], INT8_RTOL[torch.bfloat16])
@@ -657,8 +659,8 @@ def test_cuda_ring_int8_expanded_kv_takes_mma_s8(cuda_device):
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_ring_int8_hop_composes_with_bf16_hop(d, cuda_device):
     """Rank 1 of two striped ranks: its own block's hop in bf16 (wgmma),
-    then block 0's visiting hop over int8 K/V (carry and dk/dv wgmma_s8, dq
-    mma_s8), into the same fp32 state: m, l, acc, dq and block 0's
+    then block 0's visiting hop over int8 K/V (all three on wgmma_s8), into
+    the same fp32 state: m, l, acc, dq and block 0's
     traveling dk/dv after both hops equal the same two hops through the
     plain versions."""
     b, hq, hkv, s = 1, 8, 2, 320
@@ -697,7 +699,7 @@ def test_cuda_ring_int8_hop_composes_with_bf16_hop(d, cuda_device):
     torch.cuda.synchronize()
     assert _route_delta(routes) == {
         "ring_carry.wgmma": 1, "ring_carry.wgmma_s8": 1,
-        "ring_bwd_dq.wgmma": 1, "ring_bwd_dq.mma_s8": 1,
+        "ring_bwd_dq.wgmma": 1, "ring_bwd_dq.wgmma_s8": 1,
         "ring_bwd_dkv.wgmma": 1, "ring_bwd_dkv.wgmma_s8": 1}
     _check_carry(state, ref, INT8_RTOL[torch.bfloat16])
     _check_grads((dq, dk, dv), want, INT8_RTOL[torch.bfloat16])
