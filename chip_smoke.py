@@ -128,7 +128,24 @@ Phases, each printing JSON lines:
                nothing else, every GEMM and attention kernel on the wgmma
                route, and a profiled step on rank 0 (device busy
                share, host time inside comm.all_gather, comm.reduce_scatter
-               and comm.all_reduce).
+               and comm.all_reduce);
+ 23. ckpt-train — gpt2-350m at full width and depth (the train phase's
+               step, gas 1): two steps, a save through each writer
+               (pickle, its ds_to_universal, fast, decoupled), two more
+               steps; a fresh engine loads each form and takes the same
+               two steps, bit for bit (losses and every master leaf), with
+               bytes, save and load seconds and GB/s, and the decoupled
+               save's blocking time;
+ 24. ckpt-zero3 — zero3-train's config (gas 1) over two ranks: a step,
+               the save (every slice gathered), a step; the pickle resumes
+               at data 2 bit for bit; then the 2-layer fp32 model saved
+               at data 2 and converted to universal resumes at data 1 on
+               the card and on the CPU (ckpt-zero3-shrink);
+ 25. recovery — RecoverySupervisor runs the port's worker on the card
+               (gpt2-350m, two gloo ranks at data 2); rank 0 dies after
+               step 2, before its save, the group restarts at data 1 from
+               the step-1 universal checkpoint: the outage seconds, the
+               steps lost and the resumed losses against an unkilled run.
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -348,6 +365,37 @@ ZERO_REF_PARAMS_RTOL = 1e-6
 # follows the partial sums over K, so one that cancels to near zero is held
 # to the output's scale)
 GEMM_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+
+# slice 16: checkpoints and recovery, written under build/ (ignored by git)
+CKPT_ROOT = ROOT / "build" / "ckpt_smoke"
+# ckpt-train: the train phase's step at full width and depth (bf16 over
+# fp32 masters, AdamW, seq 1024), gas cut 8 -> 1 for time; CKPT_STEPS
+# steps before the saves and as many after, in the uninterrupted run and
+# in each resumed one
+CKPT_CFG = {**TRAIN_CFG, "gradient_accumulation_steps": 1}
+CKPT_STEPS = 2
+CKPT_FORMS = ("pickle", "universal", "fast", "decoupled")
+# ckpt-zero3: in the zero3-train ranks after their steps (ZERO_CFG), a
+# save, its universal conversion, one step after them, and a resume from
+# each form at data 2 (a ZeRO-3 step over gloo is host-bound); its
+# elastic shrink is the zero-reference model (2 layers, fp32) saved at
+# data 2 and resumed at data 1, card against the CPU and against the
+# data-2 continuation to ZERO_REF_RTOL / ZERO_REF_PARAMS_RTOL
+CKPT_ZERO_STEPS = 1
+CKPT_ZERO_FORMS = ("pickle", "universal")
+# recovery: RecoverySupervisor runs the port's worker on the card, two
+# gloo ranks (hosts) at data 2, gpt2-350m at its registry config (the
+# worker's defaults: fp32, AdamW lr 1e-3, ZeRO 2); rank 0 dies after step
+# RECOVERY_DIE_AT (before its save), the survivors' plan is data 1.  The
+# resumed losses are held to the unkilled run's (at data 2) within
+# RECOVERY_LOSS_ATOL, the JAX chaos test's bound: fp32 at another data
+# axis is another summation order.  Two steps: the first saved, the
+# second lost and run again after the resume
+RECOVERY_STEPS = 2
+RECOVERY_DIE_AT = 2
+RECOVERY_SEQ = 1024
+RECOVERY_BATCH = 8
+RECOVERY_LOSS_ATOL = 2e-3
 
 
 def bound_ms(nbytes, ops, peak):
@@ -769,13 +817,33 @@ def phase_engine(pa, tf_model, v2, prompts):
     return eng, launches, outs["bf16"]
 
 
+def trace_events(prof):
+    """The raw events of a finished ``torch.profiler`` run, as (name, start
+    ns, end ns, on the device, a user annotation) tuples, read from its
+    kineto results.  ``key_averages()`` and ``events()`` first build a
+    Python ``FunctionEvent`` (and the op tree) for every event, the
+    longest part of a profiled phase on the host; this reads the same
+    fields and leaves out the events torch's own parsing hides."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        hidden = getattr(e, "is_hidden_event", None)
+        if hidden is not None and hidden():
+            continue
+        out.append((e.name(), e.start_ns(), e.end_ns(),
+                    e.device_type() != DeviceType.CPU,
+                    e.is_user_annotation()))
+    return out
+
+
 def profile_call(fn):
     """Run ``fn`` once under torch.profiler: (wall ms, device ms by kernel
-    name, device busy ms, the profiler).  Only device-side events count: a
-    CPU op's self device time repeats the time of the kernels it launched,
-    and a ``record_function`` range's device-side copy is no work."""
+    name, device busy ms, the trace's events, ``trace_events``).  Only
+    device-side events count: a CPU op's self device time repeats the time
+    of the kernels it launched, and a ``record_function`` range's
+    device-side copy is no work."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -784,32 +852,27 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = trace_events(prof)
     by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if (us > 0 and ev.device_type != DeviceType.CPU
-                and not getattr(ev, "is_user_annotation", False)):
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
-    return wall_ms, by_name, sum(by_name.values()), prof
+    for name, start, end, on_device, annotation in events:
+        if on_device and not annotation and end > start:
+            by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e6
+    return wall_ms, by_name, sum(by_name.values()), events
 
 
-def comm_ms(prof, names=("comm.ring_rotate", "comm.all_reduce")):
-    """The host time a profiled run spent inside each ``record_function``
-    range of ``names`` (``comm/comm.py`` opens one around each collective):
-    calls, host ms, and own ms, the host ms less the part during which
-    this process's compute kernels ran on the card.  A staged collective
-    first copies its buffer to the host, which waits for the kernels queued
-    before it; own ms leaves that wait out and keeps the staging copies and
-    the transfer."""
+def comm_ms(events, names=("comm.ring_rotate", "comm.all_reduce")):
+    """The host time a profiled run (``trace_events``) spent inside each
+    ``record_function`` range of ``names`` (``comm/comm.py`` opens one
+    around each collective): calls, host ms, and own ms, the host ms less
+    the part during which this process's compute kernels ran on the card.
+    A staged collective first copies its buffer to the host, which waits
+    for the kernels queued before it; own ms leaves that wait out and
+    keeps the staging copies and the transfer."""
     import bisect
 
-    from torch.autograd import DeviceType
-
-    busy = sorted((ev.time_range.start, ev.time_range.end)
-                  for ev in prof.events()
-                  if ev.device_type != DeviceType.CPU
-                  and not getattr(ev, "is_user_annotation", False)
-                  and not ev.name.startswith(("Memcpy", "Memset")))
+    busy = sorted((start, end) for name, start, end, on_device, annotation
+                  in events if on_device and not annotation
+                  and not name.startswith(("Memcpy", "Memset")))
     merged = []
     for a, b in busy:
         if merged and a <= merged[-1][1]:
@@ -820,21 +883,20 @@ def comm_ms(prof, names=("comm.ring_rotate", "comm.all_reduce")):
 
     def overlap(a, b):
         i = max(bisect.bisect_right(starts, a) - 1, 0)
-        us = 0.0
+        ns = 0
         while i < len(merged) and merged[i][0] < b:
-            us += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+            ns += max(0, min(b, merged[i][1]) - max(a, merged[i][0]))
             i += 1
-        return us
+        return ns
 
     out = {}
-    for name in names:
-        spans = [(ev.time_range.start, ev.time_range.end)
-                 for ev in prof.events()
-                 if ev.device_type == DeviceType.CPU and ev.name == name]
+    for want in names:
+        spans = [(start, end) for name, start, end, on_device, _a in events
+                 if not on_device and name == want]
         host = sum(b - a for a, b in spans)
-        out[name] = {"calls": len(spans), "host_ms": host / 1e3,
+        out[want] = {"calls": len(spans), "host_ms": host / 1e6,
                      "own_ms": (host - sum(overlap(a, b) for a, b in spans))
-                     / 1e3}
+                     / 1e6}
     return out
 
 
@@ -2798,12 +2860,12 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
            "finite": bool(np.all(np.isfinite(losses))),
            "wire": eng.model_config.ring_wire_dtype, "wire_bytes": wire_bytes}
     if rank == 0:
-        wall_ms, by_name, busy_ms, prof = profile_call(
+        wall_ms, by_name, busy_ms, events = profile_call(
             lambda: eng.train_batch(batch))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         res["profile"] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "collectives": comm_ms(prof),
+            "collectives": comm_ms(events),
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernel_ms": {n: sum(v for k, v in by_name.items()
                                  if all(x in k for x in parts))
@@ -3236,11 +3298,12 @@ def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
     return out
 
 
-def zero_rank_train(rank, world, cfg, seq, steps):
+def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
     """One rank of the zero3-train phase: gpt2-350m at full width and depth
     under ZeRO-3 with the fused gather-matmul, a warm-up step, ``steps``
     timed steps (counts zeroed just before them and read just after), then
-    one step profiled on rank 0."""
+    one step profiled on rank 0; then the ckpt-zero3 phase on the same
+    engine (``zero_rank_ckpt``, its result under ``"ckpt"``)."""
     import numpy as np
     import torch
 
@@ -3278,12 +3341,12 @@ def zero_rank_train(rank, world, cfg, seq, steps):
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "finite": bool(np.all(np.isfinite(losses)))}
     if rank == 0:
-        wall_ms, by_name, busy_ms, prof = profile_call(
+        wall_ms, by_name, busy_ms, events = profile_call(
             lambda: eng.train_batch(batch))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         res["profile"] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "collectives": comm_ms(prof, names=("comm.all_gather",
+            "collectives": comm_ms(events, names=("comm.all_gather",
                                                 "comm.reduce_scatter",
                                                 "comm.all_reduce")),
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
@@ -3298,7 +3361,83 @@ def zero_rank_train(rank, world, cfg, seq, steps):
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
     else:
         eng.train_batch(batch)    # the profiled step's partner
+    held = [eng]      # handed over, so that the checkpoint phase frees it
+    del eng
+    res["ckpt"] = zero_rank_ckpt(held, model, cfg, counters, batch, **ckpt)
     return res
+
+
+def zero_rank_ckpt(held, model, cfg, counters, batch, root, small_cfg,
+                   small_batch, small_kw):
+    """The ckpt-zero3 phase in a zero3-train rank, after its profiled
+    step: the ZeRO-3 state is gathered and saved through the pickle engine
+    (the gather's host seconds from ``last_checkpoint_stats``) and
+    converted to universal, and CKPT_ZERO_STEPS more steps are taken; for
+    each of CKPT_ZERO_FORMS a fresh engine of another seed loads the save
+    at the same data axis and takes the same steps (losses, this rank's
+    master slices and launches are returned beside the uninterrupted
+    run's).  Then the elastic shrink's source: the 2-layer fp32 model
+    (``small_cfg``) trains, is saved and converted at data 2, and
+    continues at data 2."""
+    import torch
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.checkpoint import universal as cu
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    def run(e):
+        zero_counts(*counters)
+        losses = [float(e.train_batch(batch)) for _ in range(CKPT_ZERO_STEPS)]
+        return (losses, {k: v for c in counters for k, v in c.items()},
+                [m.detach().clone() for m in tf.tree_leaves(e._masters)])
+
+    t_phase = time.perf_counter()
+    eng = held.pop()
+    eng.save_checkpoint(root, tag="zero3")
+    stats = dict(eng.last_checkpoint_stats)
+    t0 = time.perf_counter()
+    cu.ds_to_universal(root, tag="zero3", engine=eng)
+    convert_s = time.perf_counter() - t0
+    shard_gb = sum(t.tensor.numel() * t.tensor.element_size()
+                   for t in eng._checkpoint_leaves()) / 1e9
+    after, launches_after, masters = run(eng)
+    out = {"gather_s": stats["gather_s"], "save_s": stats["save_s"],
+           "convert_s": convert_s, "state_shard_gb": shard_gb,
+           "after": after, "launches_after": launches_after, "forms": {}}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, form in enumerate(CKPT_ZERO_FORMS):
+        e2, *_ = ds.initialize(model=model, seed=1 + i, config={
+            **cfg, "load_universal_checkpoint": form == "universal"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e2.load_checkpoint(root, tag="zero3")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got, launched, got_masters = run(e2)
+        out["forms"][form] = {
+            "load_s": load_s, "resumed": got, "launches": launched,
+            "masters_equal": all(torch.equal(a, b)
+                                 for a, b in zip(masters, got_masters))}
+        del e2, got_masters
+        gc.collect()
+        torch.cuda.empty_cache()
+    del masters
+
+    small = registry.get_model_config(TRAIN_MODEL, **small_kw)
+    e3, *_ = ds.initialize(model=small, config=small_cfg, seed=3)
+    for _ in range(ZERO_REF_STEPS):
+        e3.train_batch(small_batch)
+    e3.save_checkpoint(root, tag="small")
+    cu.ds_to_universal(root, tag="small", engine=e3)
+    out["small_after_data2"] = [float(e3.train_batch(small_batch))
+                                for _ in range(ZERO_REF_STEPS)]
+    del e3
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def phase_zero_reference(ds, tf_model, tf, launch):
@@ -3387,14 +3526,16 @@ def phase_zero_reference(ds, tf_model, tf, launch):
     torch.cuda.empty_cache()
 
 
-def phase_zero_train(tf_model, launch, card):
+def phase_zero_train(tf_model, launch, card, ckpt):
     """gpt2-350m at full width and depth under ZeRO-3 with the fused
     gather-matmul over ZERO_RANKS ranks sharing the card (gloo): seconds a
     step (the slower rank's), tokens/s for the card, peak memory a rank, a
     profiled step on rank 0 with the host time inside all_gather,
     reduce_scatter and all_reduce (``comm_ms``), and each rank's launches a
     step, which must be 6 GEMMs x layers x gas of gather_matmul, layers x
-    gas of each flash kernel, one AdamW and nothing else."""
+    gas of each flash kernel, one AdamW and nothing else.  The ranks then
+    run the ckpt-zero3 phase (``ckpt``: ``zero_rank_ckpt``'s arguments);
+    returns the kernel line's launches and the ranks' results."""
     import numpy as np
 
     model = tf_model.get_model_config(TRAIN_MODEL)
@@ -3405,7 +3546,7 @@ def phase_zero_train(tf_model, launch, card):
                  "one GPU; all-gather and reduce-scatter buffers go through "
                  "pinned host memory, every computation stays on the card"})
     ranks = launch(zero_rank_train, ZERO_RANKS,
-                   args=(ZERO_CFG, TRAIN_SEQ, ZERO_STEPS),
+                   args=(ZERO_CFG, TRAIN_SEQ, ZERO_STEPS, ckpt),
                    backend=ZERO_BACKEND, device="cuda")
     rows = ZERO_CFG["train_micro_batch_size_per_gpu"] * gas * ZERO_RANKS
     tokens = rows * TRAIN_SEQ
@@ -3437,8 +3578,8 @@ def phase_zero_train(tf_model, launch, card):
           "mfu": tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ) / BF16_FLOPS,
           "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM), one card for both "
                       "ranks; the formula counts dense attention",
-          "ranks_detail": [{k: v for k, v in r.items() if k != "profile"}
-                           for r in ranks],
+          "ranks_detail": [{k: v for k, v in r.items()
+                            if k not in ("profile", "ckpt")} for r in ranks],
           "launches_per_step": per_step, "expected_per_step": want,
           "routes_per_step": routes_per_step,
           "expected_routes_per_step": want_routes, "card": card, "ok": ok})
@@ -3456,7 +3597,393 @@ def phase_zero_train(tf_model, launch, card):
         fail("zero3-train: losses not finite, not equal on the ranks or not "
              "falling, the fused path off, or the launch or route counts do "
              "not show the kernels")
-    return {"gather_matmul": ranks[0]["launches"]["gather_matmul"]}
+    return {"gather_matmul": ranks[0]["launches"]["gather_matmul"]}, ranks
+
+
+# ----------------------------------------------------------------------
+# phases 23-25: checkpoints (ckpt-zero3 in the zero3-train ranks, then
+# ckpt-train) and recovery
+# ----------------------------------------------------------------------
+def dir_bytes(path) -> int:
+    """Bytes of the files under ``path`` (or of the file itself)."""
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def gbps(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds > 0 else None
+
+
+def phase_ckpt_train(ds, tf_model, tf, counters, want, card):
+    """gpt2-350m at full width and depth (CKPT_CFG): CKPT_STEPS steps, a
+    save through each writer the config names (``checkpoint.writer.type``
+    "": pickle, then ds_to_universal of the pickle tag; "fast";
+    "decoupled", whose write overlaps the uninterrupted run's next
+    CKPT_STEPS steps), then for each saved form a fresh engine of another
+    seed, configured for that form, loads it and takes the same steps:
+    losses and every master leaf must equal the uninterrupted run's bit
+    for bit, and each resumed run launches ``want``.  Per form: bytes,
+    save and load seconds and GB/s (reads are warm: the page cache holds
+    what was just written), and the decoupled save's blocking time.  Each
+    tag is deleted after its check."""
+    import shutil
+
+    import torch
+
+    from deepspeed_tpu_torch.checkpoint import universal as cu
+
+    root = CKPT_ROOT / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    rows = CKPT_CFG["train_micro_batch_size_per_gpu"] * CKPT_CFG[
+        "gradient_accumulation_steps"]
+    batch = train_batch_of(model.vocab_size, rows, seed=5, seq=TRAIN_SEQ)
+    eng, *_ = ds.initialize(model=model, config=CKPT_CFG, seed=0)
+    before = [float(eng.train_batch(batch)) for _ in range(CKPT_STEPS)]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def writer(form):
+        """The config's writer for ``form``: the universal dir is the
+        pickle tag's conversion."""
+        return "" if form in ("pickle", "universal") else form
+
+    def save(form):
+        eng.config.checkpoint_config.writer_type = writer(form)
+        return timed(lambda: eng.save_checkpoint(str(root), tag=form))[1]
+
+    saves = {"pickle": {"save_s": save("pickle"),
+                        "bytes": dir_bytes(root / "pickle")}}
+    out, sec = timed(lambda: cu.ds_to_universal(str(root), tag="pickle"))
+    saves["universal"] = {"save_s": sec, "bytes": dir_bytes(out),
+                          "note": "ds_to_universal of the pickle tag: reads "
+                                  "the pickle, writes one .npy a leaf"}
+    saves["fast"] = {"save_s": save("fast"), "bytes": dir_bytes(root / "fast")}
+    t0 = time.perf_counter()
+    save("decoupled")
+    blocked = eng.checkpoint_engine.last_save_blocked_s
+    # the uninterrupted run's next steps, while the decoupled write is in
+    # flight: its snapshot must not see them
+    zero_counts(*counters)
+    after = [float(eng.train_batch(batch)) for _ in range(CKPT_STEPS)]
+    ref_launches = {k: v for c in counters for k, v in c.items()}
+    eng.checkpoint_engine.wait()
+    saves["decoupled"] = {"save_s": blocked + eng.checkpoint_engine.last_write_s,
+                          "blocked_s": blocked,
+                          "commit_s": time.perf_counter() - t0,
+                          "bytes": dir_bytes(root / "decoupled"),
+                          "note": f"save_s: blocked_s (the copies into "
+                                  f"pinned host memory and the sync) plus "
+                                  f"the worker thread's write, during which "
+                                  f"the {CKPT_STEPS} steps after the save "
+                                  f"ran; commit_s: save() to the commit"}
+    masters = [t.detach().clone() for t in tf.tree_leaves(eng._masters)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ok = ref_launches == want
+    for form in CKPT_FORMS:
+        e2, *_ = ds.initialize(model=model, seed=1, config={
+            **CKPT_CFG, "load_universal_checkpoint": form == "universal",
+            "checkpoint": {"writer": {"type": writer(form)}}})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # the universal dir is found under the pickle tag
+        e2.load_checkpoint(str(root), tag="pickle" if form == "universal"
+                           else form)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        zero_counts(*counters)
+        got = [float(e2.train_batch(batch)) for _ in range(CKPT_STEPS)]
+        launched = {k: v for c in counters for k, v in c.items()}
+        diff = max(float((a - b.detach()).abs().max())
+                   for a, b in zip(masters, tf.tree_leaves(e2._masters)))
+        same = got == after and diff == 0.0
+        row = saves[form]
+        emit({"phase": "ckpt-train", "form": form,
+              "writer": writer(form) or "pickle", "model": TRAIN_MODEL,
+              "layers": model.num_layers, "dtype": "bfloat16 over fp32 "
+              "masters", "micro": CKPT_CFG["train_micro_batch_size_per_gpu"],
+              "gas": CKPT_CFG["gradient_accumulation_steps"],
+              "gas_note": "the train phase's gas 8 cut to 1 for time",
+              "seq": TRAIN_SEQ, "bytes": row["bytes"],
+              "save_s": row["save_s"],
+              "save_gb_per_s": gbps(row["bytes"], row["save_s"]),
+              "load_s": load_s, "load_gb_per_s": gbps(row["bytes"], load_s),
+              "load_note": "warm read (the page cache holds the tag)",
+              **{k: row[k] for k in ("blocked_s", "commit_s", "note")
+                 if k in row},
+              "losses_before_save": before,
+              "losses_uninterrupted": after, "losses_resumed": got,
+              "masters_max_abs_diff": diff, "bit_for_bit": same,
+              "launches_resumed": launched,
+              "launches_uninterrupted": ref_launches, "expected": want,
+              "card": card, "ok": same and launched == want})
+        ok = ok and same and launched == want
+        del e2
+        gc.collect()
+        torch.cuda.empty_cache()
+        if form != "pickle":        # the pickle tag holds the universal dir
+            shutil.rmtree(root / ("pickle" if form == "universal" else form))
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        fail("ckpt-train: a resumed run differs from the uninterrupted one, "
+             "or the launch counts do not show the kernels")
+    return {form: {k: v for k, v in row.items() if k != "note"}
+            for form, row in saves.items()}
+
+
+def zero_small_setup(tf_model):
+    """The elastic shrink's model, configs and batch: zero-reference's
+    2-layer fp32 model under ZeRO-3 at data ZERO_RANKS (``cfg``) and at
+    data 1 (``one``, the same global batch)."""
+    kw = {"num_layers": ZERO_REF_LAYERS}
+    base = {k: v for k, v in ZERO_CFG.items()
+            if k not in ("mesh", "step_schedule", "zero_optimization")}
+    base = {**base, "bf16": {"enabled": False},
+            "zero_optimization": {"stage": 3,
+                                  "param_persistence_threshold": 0}}
+    model = tf_model.get_model_config(TRAIN_MODEL, **kw)
+    rows = ZERO_REF_MICRO * base["gradient_accumulation_steps"] * ZERO_RANKS
+    return {"kw": kw, "model": model,
+            "cfg": {**base, "mesh": {"data": ZERO_RANKS},
+                    "train_micro_batch_size_per_gpu": ZERO_REF_MICRO},
+            "one": {**base, "mesh": {"data": 1},
+                    "train_micro_batch_size_per_gpu":
+                        ZERO_REF_MICRO * ZERO_RANKS},
+            "batch": train_batch_of(model.vocab_size, rows, seed=6,
+                                    seq=ZERO_REF_SEQ)}
+
+
+def phase_ckpt_zero3(ds, tf_model, tf, ranks, small, root, card):
+    """ZeRO-3 checkpoints of the zero3-train ranks (``zero_rank_ckpt``):
+    the gpt2-350m save gathers every slice (host seconds) and is
+    converted to universal; the pickle and the universal each resume at
+    data 2 bit for bit (losses and every rank's master slices) with the
+    zero3-train launches.  The 2-layer fp32 universal saved at data 2
+    resumes at data 1 on the card and on the CPU, held to each other and
+    to the ranks' data-2 continuation as zero-reference holds its
+    configs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.checkpoint import universal as cu
+
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    gas = ZERO_CFG["gradient_accumulation_steps"]
+    per = model.num_layers * gas
+    steps = CKPT_ZERO_STEPS
+    got = [r["ckpt"] for r in ranks]
+    want = {**{k: 0 for k in got[0]["launches_after"]},
+            "gather_matmul": 6 * per * steps, "flash_fwd": per * steps,
+            "flash_bwd_dq": per * steps, "flash_bwd_dkv": per * steps,
+            "fused_adamw": steps, "gather_matmul.wgmma": 6 * per * steps,
+            "flash_fwd.wgmma": per * steps, "flash_bwd_dq.wgmma": per * steps,
+            "flash_bwd_dkv.wgmma": per * steps}
+    same = all(r["after"] == got[0]["after"]
+               and all(f["resumed"] == r["after"] and f["masters_equal"]
+                       for f in r["forms"].values()) for r in got)
+    launches_ok = all(r["launches_after"] == want
+                      and all(f["launches"] == want
+                              for f in r["forms"].values()) for r in got)
+    pickle_bytes = dir_bytes(root / "zero3" / "mp_rank_00_model_states.pt")
+    ok = same and launches_ok and set(got[0]["forms"]) == set(CKPT_ZERO_FORMS)
+    emit({"phase": "ckpt-zero3", "model": TRAIN_MODEL,
+          "layers": model.num_layers, "dtype": "bfloat16 over fp32 masters",
+          "zero_stage": 3, "fused_gather_matmul": True, "ranks": ZERO_RANKS,
+          "backend": ZERO_BACKEND, "seq": TRAIN_SEQ,
+          "micro_per_rank": ZERO_CFG["train_micro_batch_size_per_gpu"],
+          "gas": gas, "where": "the zero3-train ranks, after their "
+                               "profiled step",
+          "steps_each_side": steps, "bytes": pickle_bytes,
+          "universal_bytes": dir_bytes(root / "zero3" / "universal"),
+          "gather_s": [r["gather_s"] for r in got],
+          "gather_note": "host seconds of the save's gather (every slice "
+                         "all-gathered over gloo, rank 0 keeping numpy); "
+                         "save_s includes it",
+          "save_s": [r["save_s"] for r in got],
+          "convert_s": [r["convert_s"] for r in got],
+          "convert_note": "ds_to_universal of the tag: rank 0 reads the "
+                          "pickle and writes one .npy a leaf",
+          "load_s": {form: [r["forms"][form]["load_s"] for r in got]
+                     for form in got[0]["forms"]},
+          "state_shard_gb": [r["state_shard_gb"] for r in got],
+          "rank_wall_s": [r["wall_s"] for r in got],
+          "losses_uninterrupted": [r["after"] for r in got],
+          "losses_resumed_data2": {form: [r["forms"][form]["resumed"]
+                                          for r in got]
+                                   for form in got[0]["forms"]},
+          "masters_equal": {form: [r["forms"][form]["masters_equal"]
+                                   for r in got] for form in got[0]["forms"]},
+          "bit_for_bit": same,
+          "launches_resumed": {form: [r["forms"][form]["launches"]
+                                      for r in got]
+                               for form in got[0]["forms"]},
+          "expected": want, "card": card, "ok": ok})
+    if not ok:
+        fail("ckpt-zero3: a data-2 resume differs from the uninterrupted "
+             "run, or the launch counts do not show the kernels")
+
+    # the elastic shrink: the data-2 universal at data 1, card against CPU
+    # and both against the ranks' data-2 continuation
+    udir = str(root / "small" / "universal")
+    engines = {}
+    for dev in ("cuda", "cpu"):
+        e, *_ = ds.initialize(model=small["model"], config=small["one"],
+                              seed=9, device=dev)
+        cu.load_universal(e, udir)
+        engines[dev] = e
+    rows_out, worst = [], 0.0
+    for _ in range(ZERO_REF_STEPS):
+        lc = float(engines["cuda"].train_batch(small["batch"]))
+        lh = float(engines["cpu"].train_batch(small["batch"]))
+        gc_ = engines["cuda"].get_global_grad_norm()
+        gh = engines["cpu"].get_global_grad_norm()
+        rows_out.append({"loss_card": lc, "loss_cpu": lh,
+                         "grad_norm_card": gc_, "grad_norm_cpu": gh})
+        worst = max(worst, abs(lc - lh) / abs(lh), abs(gc_ - gh) / gh)
+    num = den = 0.0
+    for a, b in zip(tf.tree_leaves(engines["cuda"].params),
+                    tf.tree_leaves(engines["cpu"].params)):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    params_rel = (num / den) ** 0.5
+    data2 = [r["small_after_data2"] for r in got]
+    vs_data2 = max(abs(row[k] - r[i]) / abs(r[i])
+                   for i, row in enumerate(rows_out)
+                   for k in ("loss_card", "loss_cpu") for r in data2)
+    ok = (worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
+          and vs_data2 <= ZERO_REF_RTOL
+          and all(np.isfinite([r["loss_card"] for r in rows_out]))
+          and engines["cuda"].global_steps == 2 * ZERO_REF_STEPS)
+    emit({"phase": "ckpt-zero3-shrink", "model": TRAIN_MODEL,
+          "layers": ZERO_REF_LAYERS, "dtype": "float32", "zero_stage": 3,
+          "saved_at": {"data": ZERO_RANKS}, "resumed_at": {"data": 1},
+          "seq": ZERO_REF_SEQ, "steps": rows_out,
+          "losses_data2_continuation": data2,
+          "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
+          "max_rel_err_loss_vs_data2": vs_data2,
+          "tolerance": {"loss_grad_norm": ZERO_REF_RTOL,
+                        "params_rel_l2": ZERO_REF_PARAMS_RTOL,
+                        "loss_vs_data2": ZERO_REF_RTOL},
+          "check": "the universal saved by two ranks at data 2, loaded at "
+                   "data 1 on the card and on the CPU: card vs CPU, and "
+                   "each one's losses vs the ranks' own data-2 "
+                   "continuation",
+          "card": card, "ok": ok})
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        fail(f"ckpt-zero3-shrink: the data-1 resume differs from the CPU's "
+             f"or from the data-2 continuation ({worst}, {params_rel}, "
+             f"{vs_data2})")
+
+
+def phase_recovery(ds, tf_model, card):
+    """RecoverySupervisor runs ``python -m
+    deepspeed_tpu_torch.resilience.worker`` on the card: two gloo ranks
+    sharing it (hosts h0, h1: data 2), gpt2-350m, RECOVERY_STEPS steps;
+    rank 0 dies after step RECOVERY_DIE_AT, before its save: the supervisor
+    detects it, dumps a bundle, stops the group, re-plans data 1 (h1 is
+    gone) and restarts, and the worker resumes from the last committed
+    universal tag.  The unkilled run is the worker's engine and batches
+    (``worker.train_config``, ``worker.batch_for``) trained in this process
+    at data 1.  Reports the outage seconds (detected to resumed), the steps
+    lost and the resumed losses against the unkilled run's."""
+    import json as _json
+    import shutil
+
+    import torch
+
+    from deepspeed_tpu_torch.resilience import worker
+    from deepspeed_tpu_torch.resilience.supervisor import (RecoverySupervisor,
+                                                           loss_curve,
+                                                           read_progress)
+
+    root = CKPT_ROOT / "recovery"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    model = tf_model.get_model_config(TRAIN_MODEL,
+                                      max_seq_len=max(RECOVERY_SEQ, 16))
+    t0 = time.perf_counter()
+    eng, *_ = ds.initialize(model=model, seed=7, config=worker.train_config(
+        {"data": 1}, RECOVERY_BATCH, 2))
+    ref_curve = {step + 1: float(eng.train_batch(worker.batch_for(
+        step, model.vocab_size, RECOVERY_BATCH, RECOVERY_SEQ)))
+        for step in range(RECOVERY_STEPS)}
+    ref_s = time.perf_counter() - t0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sentinel = root / ".chaos_fired"
+    t0 = time.perf_counter()
+    res = RecoverySupervisor(
+        str(root), hosts_fn=lambda: ["h0"] if sentinel.exists() else ["h0", "h1"],
+        total_steps=RECOVERY_STEPS, deadline_s=300.0, poll_s=0.2,
+        stop_timeout_s=10.0, resume_deadline_s=600.0,
+        worker_env={"PYTHONPATH": str(ROOT), "DSTPU_MODEL": TRAIN_MODEL,
+                    "DSTPU_SEQ": str(RECOVERY_SEQ),
+                    "DSTPU_BATCH": str(RECOVERY_BATCH),
+                    "DSTPU_BACKEND": "gloo",
+                    "DSTPU_CHAOS": _json.dumps({"die_at": RECOVERY_DIE_AT})}
+    ).run()
+    run_s = time.perf_counter() - t0
+    curve = loss_curve(res.progress_path)
+    rows = read_progress(res.progress_path)
+    died_after = max(r["step"] for r in rows if r["incarnation"] == 0)
+    resumed_from = min(r["step"] for r in rows if r["incarnation"] == 1) - 1
+    # the step each restarted rank's engine began at: the resumed tag's
+    # (a worker that found no committed tag starts over at 0)
+    start_steps = sorted({r["start_step"] for r in rows
+                          if r["incarnation"] == 1})
+    steps = list(range(1, RECOVERY_STEPS + 1))
+    diffs = [abs(curve[s] - ref_curve[s]) for s in steps if s in curve]
+    ok = (res.returncode == 0 and res.recoveries == 1
+          and res.mesh == {"data": 1} and sorted(curve) == steps
+          and died_after == RECOVERY_DIE_AT
+          and resumed_from == RECOVERY_DIE_AT - 1
+          and start_steps == [RECOVERY_DIE_AT - 1]
+          and died_after - resumed_from == 1
+          and len(diffs) == len(steps) and max(diffs) <= RECOVERY_LOSS_ATOL)
+    emit({"phase": "recovery", "model": TRAIN_MODEL, "dtype": "float32",
+          "seq": RECOVERY_SEQ, "global_batch": RECOVERY_BATCH,
+          "zero_stage": 2, "backend": "gloo",
+          "worker": "python -m deepspeed_tpu_torch.resilience.worker",
+          "mesh_before": {"data": 2}, "mesh_after": res.mesh,
+          "chaos": {"die_at": RECOVERY_DIE_AT, "rank": 0},
+          "outage_s": [o["outage_s"] for o in res.outages],
+          "outage_note": "supervisor clock from detected to the first "
+                         "progress line of the restarted group",
+          "steps_lost": died_after - resumed_from,
+          "died_after_step": died_after, "resumed_from_step": resumed_from,
+          "restart_start_steps": start_steps,
+          "losses_unkilled": [ref_curve[s] for s in steps],
+          "unkilled_note": "the worker's engine and batches in this "
+                           "process at data 1, no save",
+          "losses_recovered": [curve.get(s) for s in steps],
+          "max_abs_diff": max(diffs) if diffs else None,
+          "tolerance_abs": RECOVERY_LOSS_ATOL,
+          "states": [e.state for e in res.events],
+          "unkilled_run_s": ref_s, "recovered_run_s": run_s,
+          "card": card, "ok": ok})
+    shutil.rmtree(root, ignore_errors=True)
+    if not ok:
+        fail("recovery: the supervised run did not recover once onto data "
+             "1 from the tag of the step before the death, or its losses "
+             "left the unkilled run's")
 
 
 def count_params(model):
@@ -3639,7 +4166,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "zero-parent-memory",
           "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
-    zero_train_launches = phase_zero_train(tf_model, launch, smi)
+    # 23. checkpoints of ZeRO-3 over the zero3-train ranks (and the elastic
+    # shrink to data 1), 24. of the dense step, 25. the recovery loop on
+    # the card
+    import shutil
+
+    zero_root = CKPT_ROOT / "zero3"
+    shutil.rmtree(zero_root, ignore_errors=True)
+    zero_root.mkdir(parents=True)
+    small = zero_small_setup(tf_model)
+    zero_train_launches, zero_ranks = phase_zero_train(
+        tf_model, launch, smi, {"root": str(zero_root),
+                                "small_cfg": small["cfg"],
+                                "small_batch": small["batch"],
+                                "small_kw": small["kw"]})
+    phase_ckpt_zero3(ds, tf_model, tf, zero_ranks, small, zero_root, smi)
+    del zero_ranks
+    ckpt_n = layers * CKPT_CFG["gradient_accumulation_steps"] * CKPT_STEPS
+    routed = counters + (fm.flash_mha.routes,)
+    phase_ckpt_train(ds, tf_model, tf, routed, expected(
+        routed, flash_fwd=ckpt_n, flash_bwd_dq=ckpt_n, flash_bwd_dkv=ckpt_n,
+        fused_adamw=CKPT_STEPS, **{"flash_fwd.wgmma": ckpt_n,
+                                   "flash_bwd_dq.wgmma": ckpt_n,
+                                   "flash_bwd_dkv.wgmma": ckpt_n}), smi)
+    phase_recovery(ds, tf_model, smi)
 
     # 20. kernels line: each path's launches from its own run
     csrc = "deepspeed_tpu_torch/ops/csrc/"

@@ -4,7 +4,7 @@ Port of ``deepspeed_tpu/resilience/oracle.py``.  Every parameter path maps,
 by regex pattern and shape, to a tuple of logical dims, and logical dims
 to mesh axes; the answer is a pure function of ``(path, shape, topology,
 config)``, so the engine's params, optimizer state and gradient
-accumulators (and, later, checkpoints) partition the same way.
+accumulators and checkpoints partition the same way.
 ``parallel/sharding.py`` re-exports this class under its historical name.
 
 Where the JAX oracle returns a ``PartitionSpec``, :meth:`spec_for` returns
@@ -20,13 +20,14 @@ config (Queue A item 8).
 from __future__ import annotations
 
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
 from deepspeed_tpu_torch.parallel.topology import (DATA_AXIS, EXPERT_AXIS,
+                                                   MESH_AXES, PIPE_AXIS,
                                                    SEQ_AXIS, SUBDATA_AXIS,
-                                                   MeshTopology)
+                                                   TENSOR_AXIS, MeshTopology)
 from deepspeed_tpu_torch.utils.logging import logger
 
 # path-pattern → logical dims, one entry per array dim (the JAX table).
@@ -73,6 +74,35 @@ DEFAULT_RULES: List[Tuple[str, Tuple[Optional[str], ...]]] = [
 
 def path_str(path) -> str:
     return "/".join(str(k) for k in path)
+
+
+def plan_mesh(n_devices: int,
+              template: Optional[Mapping[str, int]] = None) -> Dict[str, int]:
+    """Re-plan mesh axis sizes for a (possibly shrunk) device count (the
+    JAX ``plan_mesh``).
+
+    The recovery supervisor calls this when a host is gone and the
+    surviving world must re-mesh before the universal-checkpoint resume:
+    model-parallel axes from the previous run (``template``) are KEPT
+    while they still divide the new world, and the data axis absorbs
+    whatever remains.  Axes that no longer fit are shed outermost-first
+    (pipe, subdata, expert, seq, tensor)."""
+    if n_devices < 1:
+        raise ValueError(f"plan_mesh: n_devices={n_devices}")
+    template = dict(template or {})
+    sizes = {ax: max(1, int(template.get(ax, 1)))
+             for ax in MESH_AXES if ax != DATA_AXIS}
+    shed_order = (PIPE_AXIS, SUBDATA_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
+    prod = int(np.prod(list(sizes.values())))
+    while prod > 1 and (n_devices % prod != 0 or prod > n_devices):
+        for ax in shed_order:
+            if sizes[ax] > 1:
+                sizes[ax] = 1
+                break
+        prod = int(np.prod(list(sizes.values())))
+    plan = dict(sizes)
+    plan[DATA_AXIS] = n_devices // prod
+    return {ax: int(plan.get(ax, 1)) for ax in MESH_AXES}
 
 
 def _tree_map_with_path(fn, tree, path=()):
@@ -196,6 +226,17 @@ class PartitionOracle:
         """Optimizer-state split: partitioned when stage >= 1 (ZeRO-1).
         At stage >= 2 the gradient accumulators split the same way."""
         return self.tree_specs(params, param_style=self.zero_stage < 1)
+
+    def flat_specs(self, manifest: Mapping[str, Any],
+                   param_style: bool = True) -> Dict[str, Optional[int]]:
+        """Split dims for a FLAT ``{path: shape-or-array}`` manifest (the
+        universal checkpoint's: paths and shapes, no tree)."""
+        out: Dict[str, Optional[int]] = {}
+        for path, shp in manifest.items():
+            shape = tuple(np.shape(shp)) if not isinstance(shp, (tuple, list)) \
+                else tuple(int(s) for s in shp)
+            out[path] = self.spec_for(path, shape, param_style=param_style)
+        return out
 
 
 # the historical name (parallel/sharding.py re-exports it)

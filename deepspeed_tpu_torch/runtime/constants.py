@@ -45,3 +45,5 @@ EXPERT_PARALLEL_SIZE = "expert_parallel_size"
 STEPS_PER_PRINT_DEFAULT = 10
 GRADIENT_ACCUMULATION_STEPS_DEFAULT = 1
 GRADIENT_CLIPPING_DEFAULT = 0.0
+CHECKPOINT = "checkpoint"
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal_checkpoint"

@@ -62,20 +62,31 @@ all-reduced, and a leaf that stays whole on every rank is added once.
 where it is refused the engine warns with the JAX reason and keeps the
 unfused stage-3 gather.
 
+Checkpoints (``save_checkpoint``/``load_checkpoint``, the JAX engine's
+dispatch): the pickle engine by default, the ``fast`` and ``decoupled``
+writers of ``checkpoint.writer.type``, and with
+``load_universal_checkpoint`` the universal format (``checkpoint/``).
+Every leaf is saved whole under the JAX package's name, gathered through
+its ZeRO split dim, and a load keeps each rank's slice for the loading
+engine's own data axis, so a checkpoint moves between data axes and
+between the two packages.
+
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
-trio, telemetry and the watchdog, checkpoints, fp16 loss scaling,
-offload, data and seq axes together, and a data axis for a duck-typed
-trainable.
+trio, telemetry and the watchdog, fp16 loss scaling, offload, data and
+seq axes together, and a data axis for a duck-typed trainable.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch import zero
+from deepspeed_tpu_torch.checkpoint.engine import (CkptLeaf, LeafSpec,
+                                                   chain_names, check_leaves,
+                                                   nest, numpy_dtype)
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import transformer as tf_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
@@ -234,6 +245,15 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.micro_steps = 0
         self._last_metrics: Dict[str, torch.Tensor] = {}
+        # the loss-scale state the JAX engine keeps outside fp16 (fp16
+        # raises, Queue A item 3): scale 1, and no step is ever skipped
+        # there, so its checkpoints carry these values
+        self.loss_scale_state = {"scale": np.asarray(1.0, np.float32),
+                                 "good_steps": np.asarray(0, np.int32),
+                                 "skipped": np.asarray(0, np.int32)}
+        self._checkpoint_engine = None
+        # the last pickle save's host seconds (gather, whole save)
+        self.last_checkpoint_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
     # ZeRO partitioning over the data axis
@@ -574,3 +594,123 @@ class DeepSpeedEngine:
 
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_accumulation_steps_value
+
+    @property
+    def skipped_steps(self) -> int:
+        return int(self.loss_scale_state["skipped"])
+
+    # ------------------------------------------------------------------
+    # Checkpointing (checkpoint/: the pickle, fast and decoupled engines
+    # and the universal format)
+    # ------------------------------------------------------------------
+    @property
+    def checkpoint_engine(self):
+        """The writer ``checkpoint.writer.type`` names: ``"fast"``,
+        ``"decoupled"``, or the pickle engine (``""``), as the JAX engine
+        chooses (its ``"orbax"`` and ``async_save`` raise in the
+        config).  A writer named anew in the config replaces the last one
+        once that one's write has landed."""
+        from deepspeed_tpu_torch.checkpoint.engine import \
+            PickleCheckpointEngine
+        from deepspeed_tpu_torch.checkpoint.fast_engine import (
+            DecoupledCheckpointEngine, FastCheckpointEngine)
+
+        writer = {"fast": FastCheckpointEngine,
+                  "decoupled": DecoupledCheckpointEngine}.get(
+            self.config.checkpoint_config.writer_type, PickleCheckpointEngine)
+        if type(self._checkpoint_engine) is not writer:
+            if self._checkpoint_engine is not None:
+                self._checkpoint_engine.wait()
+            self._checkpoint_engine = writer()
+        return self._checkpoint_engine
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None) -> None:
+        """Save params, optimizer state, scheduler and counters under
+        ``save_dir/<tag>`` (default ``global_step<N>``) and point
+        ``latest`` at it.  Every rank of the engine's world must call it;
+        a failed write raises on every rank (the decoupled writer's, from
+        its ``wait``)."""
+        self.checkpoint_engine.save(
+            self, save_dir, tag or f"global_step{self.global_steps}",
+            client_state=client_state or {})
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True):
+        """Load what ``save_checkpoint`` wrote (``tag=None``: the one
+        ``latest`` names) or, with ``load_universal_checkpoint``, a
+        universal checkpoint (``load_dir`` the universal dir itself or a
+        root whose tags hold one).  Returns ``(path, client_state)``.  (The
+        JAX engine then pushes the state into its offload store,
+        ``_sync_store_after_load``; the port has no offload store until
+        Queue A item 7.)"""
+        if self.config.load_universal_checkpoint:
+            from deepspeed_tpu_torch.checkpoint.universal import (
+                load_universal, resolve_universal_dir)
+
+            load_universal(self, resolve_universal_dir(load_dir, tag))
+            return load_dir, {}
+        return self.checkpoint_engine.load(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states)
+
+    def _opt_state_template(self):
+        """The optimizer state as the JAX optax chain lays it out, each
+        leaf a :class:`~deepspeed_tpu_torch.checkpoint.engine.LeafSpec` of
+        its full shape: the template a universal load checks against."""
+        return nest({leaf.name[len("optimizer/"):]: LeafSpec(
+            leaf.shape, numpy_dtype(leaf.tensor.dtype))
+            for leaf in self._checkpoint_leaves(optimizer=True)
+            if leaf.name.startswith("optimizer/")})
+
+    def _checkpoint_leaves(self, optimizer: bool = True) -> List[CkptLeaf]:
+        """Every saved leaf of this rank:
+        ``module/<path>`` for each master param, and with ``optimizer``
+        the state under the JAX chain's names (``optimizer/0/.count``,
+        ``optimizer/0/.mu/<path>``), each with the dim it is split on over
+        the data axis and its full shape."""
+        paths = []
+        tree_map_with_path(lambda p, _x: paths.append("/".join(p)),
+                           self.params)
+        shapes = [tuple(getattr(p, "ds_full_shape", p.shape))
+                  for p, _pd, _sd in self._leaves]
+        out = [CkptLeaf("module/" + path, p, pdim, shape)
+               for path, (p, pdim, _sd), shape in zip(paths, self._leaves,
+                                                      shapes)]
+        if optimizer:
+            names = chain_names(self.optimizer)
+            out.append(CkptLeaf("optimizer/" + names["count"],
+                                self.opt_state["count"], None, ()))
+            for key in self.optimizer.moments:
+                # a moment is split where its master is: the stage-3 dim,
+                # else the optimizer-state dim
+                for path, (_p, pdim, sdim), shape, m in zip(
+                        paths, self._leaves, shapes,
+                        tree_leaves(self.opt_state[key])):
+                    out.append(CkptLeaf(f"optimizer/{names[key]}/{path}", m,
+                                        pdim if pdim is not None else sdim,
+                                        shape))
+        return out
+
+    @torch.no_grad()
+    def _load_leaves(self, flat: Dict[str, np.ndarray],
+                     optimizer: bool = True) -> None:
+        """Copy full saved leaves (``{name: array}``) into this rank's
+        tensors, in place on their device: each rank keeps its slice along
+        the leaf's split dim.  Every leaf is checked (presence, shape,
+        dtype) before any is changed."""
+        topo = self.topology
+        pairs = check_leaves(self._checkpoint_leaves(optimizer=optimizer),
+                             flat)
+        for leaf, arr in pairs:
+            src = torch.from_numpy(np.asarray(arr))
+            if leaf.dim is not None and topo.dp_size > 1:
+                src = src.chunk(topo.dp_size, dim=leaf.dim)[topo.dp_rank]
+            leaf.tensor.copy_(src.to(leaf.tensor.dtype))
+        # a whole param whose optimizer state alone is split steps a slice
+        # copy of itself: refresh it from the loaded param
+        for (p, _pd, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
+            if m is not p:
+                m.copy_(zero.shard_of(p, sdim, topo.dp_rank, topo.dp_size))
