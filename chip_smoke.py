@@ -93,18 +93,24 @@ Phases, each printing JSON lines:
                block's owner against flash_bwd_ref, over the unsplit 2048
                positions;
  18. ring-reference — the ring engine (llama3-8b head geometry at hidden
-               1024, 2 layers, fp32, seq 512) in two ranks sharing the card
-               over gloo against the same engine in this process on the CPU
-               at sp 1, two steps, both placements, with each rank's
-               launches;
+               1024, 2 layers, fp32, seq 512, ZeRO-2 over the seq axis) in
+               two ranks sharing the card over gloo against the same engine
+               in this process on the CPU at sp 1, two steps, both
+               placements, with each rank's launches;
+ 18b. mesh-reference — that engine in four ranks sharing the card over
+               gloo at {"data": 2, "seq": 2} (striped), ZeRO stages 1, 2
+               and 3 in one launch, against one CPU engine at data 1 on the
+               same global batch: losses, grad norms, params, launches;
  19. ring-train — llama3-8b at full width, 2 layers, seq 8192 striped over
                two ranks sharing the card (bench.py's longseq_ring step:
-               micro 1, gas 2, bf16, AdamW, clip 1.0): a warm-up step,
-               three timed steps whose launch counts a rank show the ring
-               kernels, AdamW and nothing else, every carry, dq and dk/dv
-               launch on its wgmma route, and a profiled step on
-               rank 0 (device busy share, and the host time inside the
-               comm layer's ring_rotate and all_reduce ranges);
+               micro 1, gas 2, bf16, AdamW, clip 1.0, ZeRO-2 over the seq
+               axis): a warm-up step, two timed steps whose launch counts a
+               rank show the ring kernels, AdamW and nothing else, every
+               carry, dq and dk/dv launch on its wgmma route, the flat
+               buckets the gradients are reduced through, and a profiled
+               step on rank 0 (device busy share, and the host time inside
+               the comm layer's ranges); then, in the same ranks,
+               ring-train-int8 (the int8 wire);
  20. gemm-kernels — gather_matmul (the ZeRO-3 fused MLP's GEMM) against
                its plain version in bf16 and fp32: the gpt2-350m MLP at
                micro 8 x seq 1024 (forward wi and wo, and the backward's
@@ -155,11 +161,13 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -278,20 +286,24 @@ LINEAR_UPDATE_RTOL = 0.05
 # a 4096-token shard a rank) on llama3-8b at its registered width, depth
 # cut to 2 layers (each rank holds fp32 masters, grads and AdamW state of
 # 1.48 G parameters, ~27 GB, so two ranks fit one card), seq 8192
-# (llama3-8b's max_seq_len) over two ranks sharing the card.  The row's
-# loss_tiles=32 runs untiled (ROADMAP A9); ZeRO stage 1 over no
-# data-parallel world equals stage 0.
+# (llama3-8b's max_seq_len) over two ranks sharing the card, at the row's
+# ZeRO stage 2 over the seq axis (state and gradients split over the two
+# ranks, each micro-step's gradients reduce-scattered through the flat
+# buckets).  The row's loss_tiles=32 runs untiled (ROADMAP A9).  Two timed
+# steps (three before the mesh-reference phase joined the script).
 RING_MODEL = "llama3-8b"
 RING_RANKS = 2
 RING_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
 RING_LAYERS = 2
 RING_SEQ = 8192
-RING_STEPS = 3
+RING_STEPS = 2
+RING_MODEL_KW = {"num_layers": RING_LAYERS, "seq_impl": "ring",
+                 "ring_placement": "striped"}
 RING_CFG = {"train_micro_batch_size_per_gpu": 1,
             "gradient_accumulation_steps": 2,
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
             "bf16": {"enabled": True},
-            "zero_optimization": {"stage": 1},
+            "zero_optimization": {"stage": 2},
             "gradient_clipping": 1.0,
             "steps_per_print": 10_000,
             "activation_checkpointing": {"remat_policy": "none"},
@@ -303,6 +315,12 @@ RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
                   "num_layers": 2}
 RING_REF_SEQ = 512
 RING_REF_STEPS = 2
+# slice 17: mesh-reference, the ring-reference model in four gloo ranks
+# sharing the card at data 2 x seq 2 (ZeRO over both axes), striped, at
+# these stages in one launch, against one CPU engine at data 1 (micro 2,
+# the same global rows) to ZERO_REF_RTOL / ZERO_REF_PARAMS_RTOL
+MESH_REF_MESH = {"data": 2, "seq": 2}
+MESH_REF_STAGES = (1, 2, 3)
 # slice 13: the quantized ring wire (comm_quantization.ring_rotation).  The
 # ring-train-int8 phase is RING_CFG with the int8 wire; ring-reference-int8
 # and -fp8 are the ring-reference phase with that wire, card ranks against
@@ -313,8 +331,8 @@ RING_REF_STEPS = 2
 # wire step apart on the two devices, and AdamW's first step turns that into
 # an update of up to lr on a near-zero gradient element.
 RING_WIRES = ("int8", "fp8")
-# ring-train-int8's timed steps (ring-train's RING_STEPS less one: the
-# phase costs ~7 s a step, gloo's all_reduce most of it)
+# ring-train-int8's timed steps (the phase costs ~7 s a step, gloo's
+# collectives most of it)
 RING_WIRE_STEPS = 2
 RING_WIRE_REF_RTOL = 1e-3
 # the int8 K/V lanes against their plain versions (which decode the rows and
@@ -2818,11 +2836,23 @@ def wire_bytes_of_step(step):
             "bytes_per_step": sum(sum(b.values()) for _, b in calls)}
 
 
-def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
-    """One rank of the ring-train phases: llama3-8b width, bf16, striped,
-    a warm-up step (the ring's wire bytes recorded), ``steps`` timed steps
-    (counts zeroed just before them and read just after), then one step
-    profiled on rank 0."""
+def ring_rank_train(rank, world, model_kw, runs, seq):
+    """One rank of the ring-train phases, for each ``(cfg, steps)`` of
+    ``runs`` in turn (one spawn for both wires): llama3-8b width, bf16,
+    striped, a warm-up step (the ring's wire bytes recorded), ``steps``
+    timed steps (counts zeroed just before them and read just after),
+    then one step profiled on rank 0.  Returns a result a run."""
+    import torch
+
+    out = []
+    for cfg, steps in runs:
+        out.append(_ring_rank_run(rank, model_kw, cfg, seq, steps))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ring_rank_run(rank, model_kw, cfg, seq, steps):
     import numpy as np
     import torch
 
@@ -2855,17 +2885,19 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
            "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
            "launches": launches,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "max_memory_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
            "param_checksum": float(sum(float(p.detach().double().sum())
                                        for p in tf.tree_leaves(eng.params))),
            "finite": bool(np.all(np.isfinite(losses))),
-           "wire": eng.model_config.ring_wire_dtype, "wire_bytes": wire_bytes}
+           "wire": eng.model_config.ring_wire_dtype, "wire_bytes": wire_bytes,
+           "grad_buckets": eng.grad_bucket_count}
     if rank == 0:
         wall_ms, by_name, busy_ms, events = profile_call(
             lambda: eng.train_batch(batch))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         res["profile"] = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "collectives": comm_ms(events),
+            "collectives": comm_ms(events, names=RING_COLLECTIVES),
             "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "kernel_ms": {n: sum(v for k, v in by_name.items()
                                  if all(x in k for x in parts))
@@ -2878,6 +2910,13 @@ def ring_rank_train(rank, world, model_kw, cfg, seq, steps):
     else:
         eng.train_batch(batch)    # the profiled step's partner
     return res
+
+
+# the comm layer's ranges in a ring step at ZeRO-2: the rotations, one
+# rank-major reduce_scatter a bucket each micro-step, the stepped slices'
+# all_gather, the loss sums' and the grad norm's all_reduce
+RING_COLLECTIVES = ("comm.ring_rotate", "comm.reduce_scatter",
+                    "comm.all_gather", "comm.all_reduce")
 
 
 def ring_ref_cfgs(wires):
@@ -3053,9 +3092,165 @@ def ring_wire_check(tf, wire, cfg, card, cpu):
                  f"{launches}, expected {wants}")
 
 
-def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
+def mesh_rank_reference(rank, world, model_kw, params, configs, batch, steps):
+    """One rank of the mesh-reference phase: the fp32 ring engine at
+    MESH_REF_MESH on the card, per ZeRO config of ``configs``, from
+    ``params``: losses, grad norms, the ZeRO world, the flat buckets,
+    launch counts and (rank 0) the params after, gathered."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.models import registry
+
+    counters = _ring_counters()
+    model = registry.get_model_config(RING_MODEL, seq_impl="ring",
+                                      ring_placement="striped", **model_kw)
+    out = {}
+    for name, cfg in configs.items():
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params)
+        zero_counts(*counters)
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(float(eng.train_batch(batch)))
+            norms.append(eng.get_global_grad_norm())
+        launches = {k: v for c in counters for k, v in c.items()}
+        with zero.GatheredParameters(eng.params) as full:
+            gathered = full if rank == 0 else None
+        topo = eng.topology
+        out[name] = {"losses": losses, "grad_norms": norms,
+                     "zero_rank": topo.rank, "zero_size": topo.world_size,
+                     "grad_buckets": eng.grad_bucket_count,
+                     "launches": launches, "params": gathered}
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_reference(ds, tf_model, tf, launch):
+    """The ring-reference model in four ranks sharing the card (gloo) at
+    MESH_REF_MESH, striped, ZeRO over the data and seq axes at each stage
+    of MESH_REF_STAGES (one launch), against one engine in this process
+    on the CPU at data 1 on the same global batch: losses and grad norms
+    of each step to ZERO_REF_RTOL, the gathered params after them to
+    ZERO_REF_PARAMS_RTOL (relative L2), and each rank's launches: steps x
+    gas x layers x two live hops (striped) of each ring kernel on the fma
+    route (fp32), one AdamW a step.  Returns rank 0's launches by stage."""
+    import numpy as np
+    import torch
+
+    model = tf_model.get_model_config(RING_MODEL, seq_impl="ring",
+                                      ring_placement="striped",
+                                      **RING_REF_MODEL)
+    gas = RING_CFG["gradient_accumulation_steps"]
+    micro = RING_CFG["train_micro_batch_size_per_gpu"]
+    ranks_n = MESH_REF_MESH["data"] * MESH_REF_MESH["seq"]
+    base = {k: v for k, v in RING_CFG.items()
+            if k not in ("mesh", "zero_optimization")}
+    base["bf16"] = {"enabled": False}
+    host, *_ = ds.initialize(model=model, device="cpu", seed=4, config={
+        **base, "train_micro_batch_size_per_gpu": micro * MESH_REF_MESH["data"]})
+    params = tf.tree_map_with_path(lambda _p, a: a.detach().clone(),
+                                   host.params)
+    rows = micro * gas * MESH_REF_MESH["data"]
+    batch = train_batch_of(model.vocab_size, rows, seed=7, seq=RING_REF_SEQ)
+    configs = {f"stage{st}": {**base, "mesh": MESH_REF_MESH,
+                              "zero_optimization": {
+                                  "stage": st,
+                                  "param_persistence_threshold": 0}}
+               for st in MESH_REF_STAGES}
+    # the card's ranks train while this process runs the CPU engine
+    with ThreadPoolExecutor(1) as pool:
+        card_ranks = pool.submit(launch, mesh_rank_reference, ranks_n,
+                                 args=(RING_REF_MODEL, params, configs, batch,
+                                       RING_REF_STEPS),
+                                 backend=RING_BACKEND, device="cuda")
+        want = []
+        for _ in range(RING_REF_STEPS):
+            want.append((float(host.train_batch(batch)),
+                         host.get_global_grad_norm()))
+        ranks = card_ranks.result()
+    per = RING_REF_STEPS * gas * RING_REF_MODEL["num_layers"] * 2
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    out = {}
+    for name in configs:
+        got = [r[name] for r in ranks]
+        worst = 0.0
+        for r in got:
+            for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]),
+                                          want):
+                worst = max(worst, abs(lc - lh) / abs(lh), abs(gc - gh) / gh)
+        params_rel = _params_rel(got[0]["params"], host.params, tf)
+        wants = [{**{k: 0 for k in r["launches"]},
+                  **{k: per for k in kernels},
+                  **{f"{k}.fma": per for k in kernels},
+                  "fused_adamw": RING_REF_STEPS} for r in got]
+        launches = [r["launches"] for r in got]
+        ok = (worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
+              and launches == wants
+              and [(r["zero_rank"], r["zero_size"]) for r in got]
+              == [(i, ranks_n) for i in range(ranks_n)]
+              and bool(np.all(np.isfinite([r["losses"] for r in got]))))
+        emit({"phase": "mesh-reference", "config": name,
+              "zero_stage": configs[name]["zero_optimization"]["stage"],
+              "mesh": MESH_REF_MESH, "model": RING_MODEL,
+              "overrides": RING_REF_MODEL, "dtype": "float32",
+              "placement": "striped", "ranks": ranks_n,
+              "backend": RING_BACKEND, "seq": RING_REF_SEQ, "micro": micro,
+              "gas": gas, "zero_world": [[r["zero_rank"], r["zero_size"]]
+                                         for r in got],
+              "grad_buckets": got[0]["grad_buckets"],
+              "steps": [{"loss_card": [r["losses"][i] for r in got],
+                         "loss_cpu": want[i][0],
+                         "grad_norm_card": [r["grad_norms"][i] for r in got],
+                         "grad_norm_cpu": want[i][1]}
+                        for i in range(RING_REF_STEPS)],
+              "check": "four ranks on the card (ring kernels, cuBLAS, ZeRO "
+                       "over data x seq through gloo) vs one CPU process at "
+                       "data 1 (plain versions)",
+              "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
+              "tolerance": {"loss_grad_norm": ZERO_REF_RTOL,
+                            "params_rel_l2": ZERO_REF_PARAMS_RTOL},
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": ok})
+        if not ok:
+            fail(f"mesh-reference ({name}): the card's ranks differ from the "
+                 f"CPU ({worst}, {params_rel}), launched {launches}, or the "
+                 "ZeRO world is not the four ranks")
+        out[name] = launches[0]
+    del host, params, ranks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ring_trains(tf_model, launch, card):
+    """ring-train and ring-train-int8 in one launch of RING_RANKS ranks
+    sharing the card (gloo): the fp32 wire for RING_STEPS timed steps,
+    then the int8 wire for RING_WIRE_STEPS (:func:`phase_ring_train`
+    reports each).  Returns rank 0's launches of each."""
+    emit({"phase": "ring-backend", "backend": RING_BACKEND,
+          "why": "the ranks share one card, and NCCL refuses two ranks "
+                 "on one GPU; point-to-point buffers go through pinned "
+                 "host memory, every computation stays on the card"})
+    int8 = {**RING_CFG, "comm_quantization": {"enabled": True,
+                                              "ring_rotation": "int8"}}
+    ranks = launch(ring_rank_train, RING_RANKS,
+                   args=(RING_MODEL_KW, [(RING_CFG, RING_STEPS),
+                                         (int8, RING_WIRE_STEPS)],
+                         RING_SEQ),
+                   backend=RING_BACKEND, device="cuda")
+    fp32 = [r[0] for r in ranks]
+    return (phase_ring_train(tf_model, card, fp32),
+            phase_ring_train(tf_model, card, [r[1] for r in ranks],
+                             wire="int8", base=fp32, steps=RING_WIRE_STEPS))
+
+
+
+def phase_ring_train(tf_model, card, ranks, wire="fp32", base=None,
                      steps=RING_STEPS):
-    """llama3-8b at full width, depth cut to RING_LAYERS, seq RING_SEQ over
+    """The ranks' results (``ring_rank_train``) of one wire: llama3-8b at full width, depth cut to RING_LAYERS, seq RING_SEQ over
     RING_RANKS ranks sharing the card (gloo), striped, bf16, the
     longseq_ring row's step: seconds a step, tokens/s for the card, peak
     memory a rank, the ring's wire bytes, a profiled step on rank 0 with
@@ -3068,13 +3263,8 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
     wgmma_s8).  ``base``: the fp32-wire phase's
     result, whose losses at the same seed and wire bytes the int8 phase
     reports beside its own (``ring_loss_delta``, bench.py's _ring_wire_ab).
-    Returns ``(launches of rank 0 by kernel and route, the ranks' results)``."""
-    import numpy as np
-    import torch
-
-    model_kw = {"num_layers": RING_LAYERS, "seq_impl": "ring",
-                "ring_placement": "striped"}
-    model = tf_model.get_model_config(RING_MODEL, **model_kw)
+    Returns the launches of rank 0 by kernel and route."""
+    model = tf_model.get_model_config(RING_MODEL, **RING_MODEL_KW)
     gas = RING_CFG["gradient_accumulation_steps"]
     live = RING_LAYERS * gas * 2
     cfg = RING_CFG
@@ -3083,14 +3273,6 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
         cfg = {**RING_CFG, "comm_quantization": {"enabled": True,
                                                  "ring_rotation": wire}}
         phase = f"ring-train-{wire}"
-    else:
-        emit({"phase": "ring-backend", "backend": RING_BACKEND,
-              "why": "the ranks share one card, and NCCL refuses two ranks "
-                     "on one GPU; point-to-point buffers go through pinned "
-                     "host memory, every computation stays on the card"})
-    ranks = launch(ring_rank_train, RING_RANKS,
-                   args=(model_kw, cfg, RING_SEQ, steps),
-                   backend=RING_BACKEND, device="cuda")
     rows = cfg["train_micro_batch_size_per_gpu"] * gas
     tokens = rows * RING_SEQ
     step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
@@ -3119,7 +3301,8 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
            "seq_per_rank": RING_SEQ // RING_RANKS,
            "micro": cfg["train_micro_batch_size_per_gpu"], "gas": gas,
            "optimizer": cfg["optimizer"], "remat": "none",
-           "zero_stage": 1, "step_s": step_s,
+           "zero_stage": cfg["zero_optimization"]["stage"],
+           "grad_buckets": ranks[0]["grad_buckets"], "step_s": step_s,
            "tokens_per_step": tokens, "tokens_per_s": tokens * steps / sum(step_s),
            "wire_bytes": ranks[0]["wire_bytes"],
            "ranks_detail": [{k: v for k, v in r.items()
@@ -3147,17 +3330,20 @@ def phase_ring_train(tf_model, launch, card, wire="fp32", base=None,
     prof = ranks[0]["profile"]
     emit({"phase": f"{phase}-profile",
           "what": "one train_batch on rank 0 (rank 1 steps beside it)",
-          "collectives_note": "host time inside comm.ring_rotate and "
-                              "comm.all_reduce (every grad leaf, plus the "
-                              "loss sum and count once a micro-step); own "
-                              "= less this rank's compute kernels running",
+          "collectives_note": "host time inside comm.ring_rotate, "
+                              "comm.reduce_scatter (one a flat bucket each "
+                              "micro-step), comm.all_gather (each stepped "
+                              "slice) and comm.all_reduce (the loss sum "
+                              "and count once a micro-step, the grad "
+                              "norm); own = less this rank's compute "
+                              "kernels running",
           **prof, "card": card})
     if not ok:
         fail(f"{phase}: losses not finite, not equal on the ranks or not "
              "falling, params differ between ranks, the wire is not the "
              "configured one, or the launch counts do not show the ring "
              "kernels on their routes")
-    return ranks[0]["launches"], ranks
+    return ranks[0]["launches"]
 
 
 # ----------------------------------------------------------------------
@@ -4144,13 +4330,13 @@ def main() -> int:
                                                            launch)
     phase_ring_reference_wire(tf, launch, ref_params, ref_batch, ref_card)
     del ref_params, ref_batch, ref_card
+    # 18b (slice 17): ZeRO over data x seq, four ranks on the card
+    mesh_launches = phase_mesh_reference(ds, tf_model, tf, launch)
     gc.collect()     # engines of earlier phases left in reference cycles
     torch.cuda.empty_cache()
     emit({"phase": "ring-parent-memory",
           "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
-    ring_run, ring_ranks = phase_ring_train(tf_model, launch, smi)
-    int8_run, _ = phase_ring_train(tf_model, launch, smi, wire="int8",
-                                   base=ring_ranks, steps=RING_WIRE_STEPS)
+    ring_run, int8_run = phase_ring_trains(tf_model, launch, smi)
     ring_train_launches = {
         **{k: ring_run[k] for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
         **{f"{k}_int8": int8_run[f"{k}.{r}"] for k, r in RING_INT8_ROUTES.items()}}
@@ -4309,6 +4495,11 @@ def main() -> int:
             entry["mma_s8_stream_ms"] = row["mma_s8_stream_ms"]
         if name in notes:
             entry["launches_note"] = notes[name]
+        if name in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv",
+                    "fused_adamw"):
+            # rank 0 of the mesh-reference phase's four, by ZeRO stage
+            entry["launches_mesh_reference"] = {
+                st: counts[name] for st, counts in mesh_launches.items()}
         entries.append(entry)
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -132,14 +132,14 @@ def _writer(engine) -> bool:
 
 def _gather(engine, leaf: CkptLeaf, keep: bool) -> Optional[np.ndarray]:
     """The full value of ``leaf`` as numpy on the host where ``keep``
-    (every rank of the data group joins a split leaf's gather)."""
+    (every rank of the ZeRO group joins a split leaf's gather)."""
     import torch.distributed as dist
 
     from deepspeed_tpu_torch.comm import comm
 
     t = leaf.tensor.detach()
-    if leaf.dim is not None and engine.topology.dp_size > 1:
-        group = engine.topology.data_group
+    if leaf.dim is not None and engine.topology.world_size > 1:
+        group = engine.topology.world_group
         if dist.get_backend(group) == "gloo":
             # gloo gathers host tensors: gather there, where the result
             # is wanted, not through pinned staging and back to the card

@@ -49,8 +49,8 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 def _flatten(engine) -> "tuple[Dict[str, np.ndarray], Dict[str, Dict]]":
-    """This rank's entries and shard index: a leaf split over the data
-    axis as this rank's slice, named ``<leaf>@p<rank>s0`` with its bounds
+    """This rank's entries and shard index: a leaf split over the ZeRO
+    world as this rank's slice, named ``<leaf>@p<rank>s0`` with its bounds
     in the full leaf; a whole leaf (and the loss-scale state) from rank 0
     only.  One rank: one full entry a leaf."""
     topo = engine.topology
@@ -58,13 +58,13 @@ def _flatten(engine) -> "tuple[Dict[str, np.ndarray], Dict[str, Dict]]":
     entries: Dict[str, np.ndarray] = {}
     index: Dict[str, Dict] = {}
     for leaf in engine._checkpoint_leaves(optimizer=True):
-        if leaf.dim is None or topo.dp_size <= 1:
+        if leaf.dim is None or topo.world_size <= 1:
             if rank == 0:
                 entries[leaf.name] = to_numpy(leaf.tensor)
             continue
-        n = leaf.shape[leaf.dim] // topo.dp_size
+        n = leaf.shape[leaf.dim] // topo.world_size
         bounds = [[0, s] for s in leaf.shape]
-        bounds[leaf.dim] = [topo.dp_rank * n, (topo.dp_rank + 1) * n]
+        bounds[leaf.dim] = [topo.rank * n, (topo.rank + 1) * n]
         ename = f"{leaf.name}@p{rank}s0"
         entries[ename] = to_numpy(leaf.tensor)
         index[ename] = {"leaf": leaf.name, "shape": list(leaf.shape),

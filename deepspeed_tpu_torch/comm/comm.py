@@ -11,11 +11,21 @@ prefetch can be issued ahead of its use), ``reduce_scatter`` (the sum
 ``_rotate_together`` (one ``lax.ppermute`` of every traveling buffer to the
 next shard).
 
+The gradient reduction goes through flat buckets (``zero_optimization.
+reduce_bucket_size``): :func:`plan_buckets` groups tensors in order,
+:func:`all_reduce_bucket` sums a bucket in one ``all_reduce`` and
+:func:`reduce_scatter_bucket` in one rank-major ``reduce_scatter``.  The JAX step is one jitted program in which XLA's
+combiner merges the per-leaf reductions; the buckets are the port's
+merge.
+
 Gloo moves CPU tensors and has no CUDA path of its own for them, so under
 gloo a CUDA tensor is staged through pinned host memory, explicitly, for
 every collective (one code path); every computation stays on the card.
-Under NCCL the CUDA tensors go as they are, in stream order.  A failed
-collective raises.
+Gloo's reduce-scatter runs as a ring of point-to-point exchanges
+(:func:`_sum_scatter`).
+Under NCCL the CUDA tensors go as they are, in stream order (NCCL
+creates a group's communicator at its first collective, so a first step
+is slower).  A failed collective raises; nothing falls back to gloo.
 
 Each collective runs inside a ``torch.profiler.record_function`` range
 (``comm.all_reduce``, ``comm.all_gather``, ``comm.reduce_scatter``,
@@ -24,7 +34,8 @@ Each collective runs inside a ``torch.profiler.record_function`` range
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import math
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,7 +60,11 @@ def init_distributed(backend: str, rank: int, world_size: int,
 
 
 def destroy() -> None:
+    """Tear the default group down; under NCCL, once the card has run
+    every collective queued on it."""
     if dist.is_initialized():
+        if dist.get_backend() == "nccl":
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 
@@ -147,17 +162,56 @@ def reduce_scatter(full: torch.Tensor, dim: int = 0, group=None
         if full.shape[dim] % world:
             raise ValueError(f"reduce_scatter: dim {dim} of size "
                              f"{full.shape[dim]} does not divide by {world}")
-        staged = _staged(group)
-        dev = full.device
         lead = full.movedim(dim, 0).contiguous()   # a copy when dim != 0
-        src = _stage_in(lead, staged)
-        out = _empty_like_staged((lead.shape[0] // world,) + tuple(lead.shape[1:]),
-                                 lead, staged)
+        return _sum_scatter(lead, group).movedim(0, dim).contiguous()
+
+
+def _sum_scatter(src: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``src`` over ``group`` and return this rank's block of it, the
+    rank-th of ``world`` equal blocks along dim 0, on ``src``'s device.
+    Under NCCL one ``reduce_scatter_tensor``.  Under gloo a ring of
+    point-to-point exchanges, ``world - 1`` rounds in which each rank
+    sends one partial block to the next rank and adds the one it receives
+    to its own (on ``src``'s device; a CUDA block goes through pinned host
+    memory): gloo's own reduce_scatter moved a ring step's gradients on
+    one card's host at about a third of its all_reduce's rate (PERF.md),
+    and this ring sends half of an all-reduce's bytes.  A block is
+    summed in ring order from the rank after its owner, wherever it lies
+    in the buffer."""
+    world = dist.get_world_size(group)
+    n = src.shape[0] // world
+    if not _staged(group):
+        out = torch.empty((n,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                    group=group)
-        if out.device != dev:
-            out = out.to(dev, non_blocking=True)
-        return out.movedim(0, dim).contiguous()    # a copy when dim != 0
+        return out
+    rank = dist.get_rank(group)
+    nxt, prv = _ring_peers(group)
+    blocks = src.view((world, n) + tuple(src.shape[1:]))
+    cur = blocks[(rank - 1) % world]
+    for step in range(world - 1):
+        send = _stage_in(cur.contiguous(), True)
+        recv = _empty_like_staged(cur.shape, cur, True)
+        ops = [dist.P2POp(dist.isend, send, nxt, group),
+               dist.P2POp(dist.irecv, recv, prv, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        # one new block on src's device: the received partial, summed in
+        cur = recv.to(src.device, non_blocking=True) if recv.device != \
+            src.device else recv
+        cur += blocks[(rank - step - 2) % world]
+    return cur
+
+
+def _ring_peers(group) -> Tuple[int, int]:
+    """The global ranks of the next and the previous rank of ``group``."""
+    size = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if group is None:
+        return (rank + 1) % size, (rank - 1) % size
+    return (dist.get_global_rank(group, (rank + 1) % size),
+            dist.get_global_rank(group, (rank - 1) % size))
 
 
 def ring_rotate(tensors: Sequence[torch.Tensor], group=None
@@ -168,12 +222,7 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
     sent ones, on their devices).  Point-to-point moves bytes, so any dtype
     travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
     with record_function("comm.ring_rotate"):
-        size = dist.get_world_size(group)
-        rank = dist.get_rank(group)
-        nxt = dist.get_global_rank(group, (rank + 1) % size) \
-            if group is not None else (rank + 1) % size
-        prv = dist.get_global_rank(group, (rank - 1) % size) \
-            if group is not None else (rank - 1) % size
+        nxt, prv = _ring_peers(group)
         staged = _staged(group)
         sends = [_stage_in(t.contiguous(), staged) for t in tensors]
         recvs = [_empty_like_staged(t.shape, t, staged) for t in tensors]
@@ -183,3 +232,91 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
             req.wait()
         return [r.to(t.device, non_blocking=True) if r.device != t.device
                 else r for r, t in zip(recvs, tensors)]
+
+
+# ----------------------------------------------------------------------
+# flat buckets
+# ----------------------------------------------------------------------
+def plan_buckets(numels: Sequence[int], limit: int) -> List[List[int]]:
+    """The indices of ``numels`` grouped in order into buckets of at most
+    ``limit`` elements; an item larger than ``limit`` is a bucket of its
+    own."""
+    buckets: List[List[int]] = []
+    size = 0
+    for i, n in enumerate(numels):
+        if not buckets or size + n > limit:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(i)
+        size += n
+    return buckets
+
+
+def flat_views(flat: torch.Tensor, shapes: Sequence[Tuple[int, ...]]
+               ) -> List[torch.Tensor]:
+    """Consecutive views of the 1-D ``flat``, shaped as ``shapes``."""
+    out, off = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
+
+
+def _views_of(tensors: Sequence[torch.Tensor], flat: torch.Tensor) -> bool:
+    """Whether ``tensors`` lie in ``flat`` as :func:`flat_views` laid
+    them out."""
+    off = flat.storage_offset()
+    for t in tensors:
+        if (t.untyped_storage().data_ptr() != flat.untyped_storage().data_ptr()
+                or t.storage_offset() != off or not t.is_contiguous()):
+            return False
+        off += t.numel()
+    return off == flat.storage_offset() + flat.numel()
+
+
+def all_reduce_bucket(tensors: Sequence[torch.Tensor], flat: torch.Tensor,
+                      group=None) -> None:
+    """Sum the bucket ``flat`` over ``group`` in place, in one
+    :func:`all_reduce`; ``tensors`` must lie in it as its
+    :func:`flat_views` (the gradients' own storage), so they are summed
+    where they are and nothing is packed."""
+    if not _views_of(tensors, flat):
+        raise ValueError("all_reduce_bucket: the tensors are not the flat "
+                         "views of the buffer given")
+    all_reduce(flat, group)
+
+
+def _slice_shape(t: torch.Tensor, dim: int, world: int) -> Tuple[int, ...]:
+    if t.shape[dim] % world:
+        raise ValueError(f"reduce_scatter_bucket: dim {dim} of size "
+                         f"{t.shape[dim]} does not divide by {world}")
+    shape = list(t.shape)
+    shape[dim] //= world
+    return tuple(shape)
+
+
+def reduce_scatter_bucket(tensors: Sequence[torch.Tensor],
+                          dims: Sequence[int], group=None) -> torch.Tensor:
+    """Sum every tensor of ``tensors`` (one dtype, one device) over
+    ``group`` and keep this rank's slice of each along its dim of ``dims``
+    (the rank-th of ``world`` equal slices), in one ``reduce_scatter``.
+    The bucket is laid out rank-major in a new buffer of the tensors'
+    size: rank r's segment holds each tensor's r-th slice in order, packed
+    with one copy a tensor.  Returns this rank's segment, flat, in which
+    the slices lie as :func:`flat_views` of their shapes."""
+    with record_function("comm.reduce_scatter"):
+        world = dist.get_world_size(group)
+        shapes = [_slice_shape(t, d, world) for t, d in zip(tensors, dims)]
+        seg = sum(math.prod(s) for s in shapes)
+        like = tensors[0]
+        buf = torch.empty(world * seg, dtype=like.dtype, device=like.device)
+        rows = buf.view(world, seg)
+        off = 0
+        for t, d, shape in zip(tensors, dims, shapes):
+            n = math.prod(shape)
+            # [world, *slice]: slice r of t along d, to rank r's segment
+            rows[:, off:off + n].view((world,) + shape).copy_(
+                t.unflatten(d, (world, shape[d])).movedim(d, 0))
+            off += n
+        return _sum_scatter(buf, group)

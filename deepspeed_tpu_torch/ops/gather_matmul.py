@@ -190,10 +190,10 @@ def fused_gather_mlp(x: torch.Tensor, p, cfg, topo) -> torch.Tensor:
     (``step_schedule.fused_gather_matmul``; called from
     ``models/transformer.py`` ``_mlp_block`` when the engine enabled the
     flag).  ``x [B, S, H]``: this rank's rows; ``p``: the layer's mlp shards
-    over the data group of ``topo``, wi/wg split on their embed dim 0 and
+    over the ZeRO group of ``topo``, wi/wg split on their embed dim 0 and
     wo on its embed dim 1 (and bi on dim 0), as the engine verified.  The
     output bias stays outside (the caller adds it)."""
-    group = topo.data_group
+    group = topo.world_group
     swiglu = cfg.activation == "swiglu"
     bi = p.get("bi")
     has_bi = bi is not None and not swiglu

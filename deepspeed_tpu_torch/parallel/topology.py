@@ -7,10 +7,14 @@ ranks are ``torch.distributed`` processes laid out in the JAX axis order
 (outer ``data``, inner ``seq``: rank = data_rank · sp + seq_rank), and an
 axis's group is a process group of the ranks that differ only in that axis
 (the whole world, ``dist.group.WORLD``, when the axis is the only one above
-one).  Tensor, pipeline and expert axes above one raise (ROADMAP Queue A
-item 10).  ``-1`` for ``data`` (or no ``data`` at all, as in the JAX
-config) means the ranks the seq axis leaves over: the initialised world
-divided by seq, or 1 without a process group.
+one).  ZeRO splits its state over the ranks that differ in any ZeRO axis
+(the JAX ``ZERO_AXES``: here data and seq), which is the whole world while
+no other axis is above one: with rank = data_rank · sp + seq_rank, a
+leaf's shard index over ``(data, seq)`` is the global rank.  Tensor,
+pipeline and expert axes above one raise (ROADMAP Queue A item 10).
+``-1`` for ``data`` (or no ``data`` at all, as in the JAX config) means
+the ranks the seq axis leaves over: the initialised world divided by seq,
+or 1 without a process group.
 """
 
 from __future__ import annotations
@@ -59,7 +63,9 @@ def resolve_data_axis(sizes: Dict[str, int]) -> int:
 class MeshTopology:
     """Axis sizes of the mesh (missing axes are 1, ``data`` as
     :func:`resolve_data_axis`), this rank's place on the data and seq axes
-    and their process groups.
+    and their process groups.  ZeRO's world is the whole world
+    (``world_group``, ``rank``, ``world_size``) while only data and seq
+    exist.
 
     A mesh above one rank needs an initialised default group of exactly its
     size; this raises otherwise.  A mesh of one rank has no groups (None)

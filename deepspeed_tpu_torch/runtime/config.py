@@ -2,12 +2,14 @@
 
 Port of ``deepspeed_tpu/runtime/config.py`` over the keys the training
 path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
-``gradient_clipping``, ``zero_optimization.stage`` and
-``.param_persistence_threshold``, ``activation_checkpointing.remat_policy``,
+``gradient_clipping``, ``zero_optimization.stage``,
+``.param_persistence_threshold`` and ``.reduce_bucket_size`` (the flat
+buckets of the gradient reduction),
+``activation_checkpointing.remat_policy``,
 the ``checkpoint`` block's writer and ``load_universal`` (and
 ``load_universal_checkpoint``), ``steps_per_print``, ``seed``, ``dataloader_drop_last``, the ``mesh``'s
 ``data`` and ``seq`` axes (or ``sequence_parallel_size``; every other axis
-1; data and seq not both above one) and the ``step_schedule`` keys
+1) and the ``step_schedule`` keys
 ``ring_interleave``, ``fused_gather_matmul`` and
 ``param_persistence_threshold``, and ``comm_quantization`` (its
 ``ring_rotation`` runs).  Those keys get the JAX config's
@@ -15,8 +17,9 @@ rejections (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO
 stage outside [0, 3], fp16 together with bf16).  A key that turns on a
 feature the port has not got yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.  Any other key of the ``fp16``, ``bf16``,
-``zero_optimization`` and ``activation_checkpointing`` blocks (bucket
-sizes, overlap knobs, loss-scale settings of a disabled fp16) is logged as
+``zero_optimization`` and ``activation_checkpointing`` blocks (the
+all-gather and prefetch bucket sizes, overlap knobs, loss-scale settings
+of a disabled fp16) is logged as
 ignored: none of them changes the numbers of a step.
 """
 
@@ -87,12 +90,18 @@ class BF16Config:
 @dataclass
 class ZeroConfig:
     """The ``zero_optimization`` keys the port reads or rejects: stages 0
-    to 3 run (over a data axis, ``runtime/engine.py``), with the ZeRO-3
-    ``param_persistence_threshold`` (elements a parameter; smaller ones stay
-    gathered, ``resilience/oracle.py``); offload and ZeRO++ quantization
-    raise."""
+    to 3 run (over the data and seq axes, ``runtime/engine.py``), with the
+    ZeRO-3 ``param_persistence_threshold`` (elements a parameter; smaller
+    ones stay gathered, ``resilience/oracle.py``); the gradient reduction
+    goes through flat buckets of at most ``reduce_bucket_size`` elements
+    (DeepSpeed's default, as in the JAX config), always contiguous:
+    ``contiguous_gradients`` false is logged as ignored, as the JAX config
+    accepts it and XLA decides the layout there; offload and ZeRO++
+    quantization raise."""
     stage: int = 0
     param_persistence_threshold: int = 100_000
+    reduce_bucket_size: int = 500_000_000
+    contiguous_gradients: bool = True
     offload_param: Optional[Dict[str, Any]] = None
     offload_optimizer: Optional[Dict[str, Any]] = None
     cpu_offload: Optional[bool] = None
@@ -111,6 +120,14 @@ class ZeroConfig:
             raise DeepSpeedConfigError(
                 "zero_optimization.param_persistence_threshold must be >= 0")
         self.param_persistence_threshold = int(self.param_persistence_threshold)
+        if int(self.reduce_bucket_size) < 1:
+            raise DeepSpeedConfigError(
+                "zero_optimization.reduce_bucket_size must be >= 1")
+        self.reduce_bucket_size = int(self.reduce_bucket_size)
+        if not self.contiguous_gradients:
+            logger.warning("Config: ignoring zero_optimization."
+                           "contiguous_gradients=false (the gradients are "
+                           "always laid out in their flat buckets)")
         for name, off in (("offload_param", self.offload_param),
                           ("offload_optimizer", self.offload_optimizer)):
             if off and (off.get("device", "none") != "none"):
@@ -333,7 +350,7 @@ def _check_world(d: Dict[str, Any]) -> Dict[str, int]:
     """The port's parallel axes are ``data`` (data parallelism and ZeRO)
     and ``seq`` (ring sequence parallelism; ``sequence_parallel_size``
     stands for it when the mesh does not name it, as in the JAX config),
-    one of them above one at a time.  Any other mesh axis, tensor, pipeline
+    either or both above one.  Any other mesh axis, tensor, pipeline
     or expert parallel size above one raises.  Returns ``{"data": ...,
     "seq": ...}`` with ``data`` resolved (``parallel/topology.py``)."""
     mesh = dict(d.get(C.MESH) or {})
@@ -345,9 +362,6 @@ def _check_world(d: Dict[str, Any]) -> Dict[str, int]:
     data = int(mesh.pop("data", -1))
     if data < 1 and data != -1:
         raise DeepSpeedConfigError(f"mesh.data must be >= 1 or -1, got {data}")
-    if data > 1 and seq > 1:
-        raise not_ported(f"a data axis ({data}) beside a seq axis ({seq})",
-                         "Queue A item 4")
     sizes = {k: v for k, v in mesh.items() if v not in (1, -1)}
     tp = d.get(C.TENSOR_PARALLEL) or {}
     for key, size in (("tensor_parallel", tp.get("autotp_size",
@@ -413,10 +427,6 @@ class DeepSpeedConfig:
         world = _check_world(d)
         self.seq_parallel_size: int = world["seq"]
         self.world_size: int = world["data"]
-        if self.zero_config.stage >= 2 and self.seq_parallel_size > 1:
-            raise not_ported(f"zero_optimization.stage="
-                             f"{self.zero_config.stage} over a seq axis",
-                             "Queue A item 4")
         self.step_schedule = _step_schedule(d.get("step_schedule"))
         self.comm_quantization = _from_dict(
             CommQuantizationConfig, d.get("comm_quantization"),

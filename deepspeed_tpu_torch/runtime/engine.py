@@ -19,6 +19,11 @@ key), keeps the params it returns as the masters (``model_parameters``
 overrides ``init``), and calls ``loss(params, micro_batch).backward()`` per
 micro-step.  Whatever the trainable holds outside ``params`` (a frozen
 quantized base, for instance) takes no gradient and no optimizer state.
+Over a data axis each rank calls ``loss`` on its equal share of the rows
+and the gradients are averaged over the data group, so the step is the
+global mean's, as the JAX engine's ``loss`` over the sharded batch; its
+state splits where the oracle's rules match its paths (a ZeRO-3 slice is
+gathered whole before ``loss`` sees it).
 The ``bf16`` flag sets the built-in model's compute dtype; a duck-typed
 trainable chooses its own, as in the JAX engine, and the flag is logged
 as ignored for it.
@@ -31,19 +36,21 @@ does, keeps its shard of the sequence (striped first under
 ``loss_mask`` with the labels, ROADMAP Queue C), runs its shard's forward
 and backward with attention around the ring, all-reduces each
 micro-step's token NLL sum and count and, before clipping, the fp32
-gradients over the group, and steps the same replicated params.  Stage 1
-keeps its optimizer state whole over a seq axis (the JAX package also
-partitions it over seq; the numbers are the same).
+gradients over the group.  ZeRO splits its state over the seq axis as over
+a data axis (the JAX ``ZERO_AXES``).
 ``comm_quantization.ring_rotation`` ``"int8"`` or ``"fp8"`` sets the ring's
 wire on the model (``sequence/ring.py``); without a seq axis above one, or
 with another ``seq_impl``, it warns and keeps the fp32 wire.
 
-Data parallelism and ZeRO (``{"mesh": {"data": N}}``, a built-in model):
-each micro-step's ``micro·dp`` rows are split by data rank, as the JAX
-engine's ``BATCH_AXES`` sharding splits them, and the loss is the global
-token mean (NLL sum and token count all-reduced over the data group).
-The :class:`PartitionOracle` decides, leaf by leaf, the dim a param, its
-optimizer state and its gradient accumulator are split on (or none):
+Data parallelism and ZeRO (``{"mesh": {"data": N}}``, with or without a
+seq axis beside it): each micro-step's ``micro·dp`` rows are split by data
+rank, as the JAX engine's ``BATCH_AXES`` sharding splits them, and the loss
+is the global token mean (NLL sum and token count all-reduced over the
+data and seq ranks together).  ZeRO's world is the data and seq axes:
+while no other axis is above one, the whole world (``world_group``).  The
+:class:`PartitionOracle` decides, leaf by leaf, the dim a param, its
+optimizer state and its gradient accumulator are split on over that world
+(or none):
 
 * stage 0: grads are all-reduced, every rank steps the whole tree;
 * stage 1: grads are all-reduced; each rank steps its slice of each leaf
@@ -55,8 +62,18 @@ optimizer state and its gradient accumulator are split on (or none):
   (``zero.py``), and the update runs on the slices.  Leaves the
   persistence threshold keeps whole are treated as in stage 2.
 
-The global grad norm counts each element once: slice sums of squares are
-all-reduced, and a leaf that stays whole on every rank is added once.
+The gradient reduction runs through flat buckets of at most
+``zero_optimization.reduce_bucket_size`` elements, in leaf order (one
+``all_reduce`` or one rank-major ``reduce_scatter`` a bucket over the ZeRO
+world, ``comm.all_reduce_bucket``/``comm.reduce_scatter_bucket``).  An
+all-reduced leaf's ``.grad`` is a view of its bucket, made once, so
+autograd accumulates in place and nothing is packed; a reduce-scattered
+leaf's full ``.grad`` lives from its backward to its bucket's
+reduce-scatter, so ZeRO-2 keeps no full gradient between micro-steps.
+A ``reduce_bucket_size`` of 1 gives every leaf a
+bucket of its own: the per-leaf reduction.  The global grad norm counts
+each element once: slice sums of squares are all-reduced, and a leaf that
+stays whole on every rank is added once.
 ``step_schedule.fused_gather_matmul`` goes through the JAX engine's gate
 (ZeRO 3, no other parallel axis, MLP weights split in the fsdp pattern);
 where it is refused the engine warns with the JAX reason and keeps the
@@ -68,12 +85,12 @@ writers of ``checkpoint.writer.type``, and with
 ``load_universal_checkpoint`` the universal format (``checkpoint/``).
 Every leaf is saved whole under the JAX package's name, gathered through
 its ZeRO split dim, and a load keeps each rank's slice for the loading
-engine's own data axis, so a checkpoint moves between data axes and
-between the two packages.
+engine's own ZeRO world, so a checkpoint moves between meshes and between
+the two packages.
 
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
-trio, telemetry and the watchdog, fp16 loss scaling, offload, data and
-seq axes together, and a data axis for a duck-typed trainable.
+trio, telemetry and the watchdog, fp16 loss scaling, offload, and a seq
+axis for a duck-typed trainable.
 """
 
 from __future__ import annotations
@@ -163,9 +180,6 @@ class DeepSpeedEngine:
                 raise not_ported(f"seq_impl={model.seq_impl!r} (Ulysses) "
                                  "over a seq axis above one",
                                  "Queue A item 9")
-        if cfg.world_size > 1 and not builtin:
-            raise not_ported("a data axis with a duck-typed trainable",
-                             "Queue A item 4")
         self.topology = MeshTopology({"data": cfg.world_size,
                                       "seq": cfg.seq_parallel_size})
         set_topology(self.topology)
@@ -256,19 +270,20 @@ class DeepSpeedEngine:
         self.last_checkpoint_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
-    # ZeRO partitioning over the data axis
+    # ZeRO partitioning over the ZeRO world (the data and seq axes)
     # ------------------------------------------------------------------
     def _partition(self, params) -> None:
-        """Decide each leaf's splits with the oracle (over a data axis
+        """Decide each leaf's splits with the oracle (over a ZeRO world
         above one), run the fused gather-matmul gate, keep this rank's
-        slices of the stage-3 params, and build the tree the optimizer
-        steps (``_masters``): a stage-3 slice itself, a slice copy of a
-        leaf whose optimizer state alone is split, or the whole leaf."""
+        slices of the stage-3 params, build the tree the optimizer steps
+        (``_masters``: a stage-3 slice itself, a slice copy of a leaf whose
+        optimizer state alone is split, or the whole leaf) and the flat
+        buckets of the gradient reduction."""
         topo = self.topology
         none = tree_map_with_path(lambda _p, _x: None, params)
         self.param_dims = self.state_dims = none
         self.oracle = None
-        if topo.dp_size > 1:
+        if topo.world_size > 1:
             self.oracle = PartitionOracle.from_config(topo, self.config)
             self.param_dims = self.oracle.param_specs(params)
             self.state_dims = self.oracle.optimizer_specs(params)
@@ -284,12 +299,22 @@ class DeepSpeedEngine:
             self._fused_gate()
         self._zero = None
         if self.zero_stage >= 3 and self.oracle is not None:
+            mc = self.model_config
+            if mc is not None:
+                def dtype_of(path):
+                    return mc.param_dtype if is_norm_path(path) else mc.dtype
+            else:    # a duck-typed trainable's leaves keep their dtypes
+                dtypes = tree_map_with_path(lambda _p, x: x.dtype, params)
+
+                def dtype_of(path):
+                    tree = dtypes
+                    for key in path:
+                        tree = tree[key]
+                    return tree
             with zero.Init(topology=topo, oracle=self.oracle) as zinit:
                 params = zinit.partition(params)
-            mc = self.model_config
-            self._zero = zero.ParamGather(
-                self.param_dims, topo.data_group,
-                lambda path: mc.param_dtype if is_norm_path(path) else mc.dtype)
+            self._zero = zero.ParamGather(self.param_dims, topo.world_group,
+                                          dtype_of)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         self.params = params
@@ -303,10 +328,70 @@ class DeepSpeedEngine:
         masters, self._slice_grads = [], []
         for p, pdim, sdim in self._leaves:
             sliced = pdim is None and sdim is not None
-            m = zero.shard_of(p, sdim, topo.dp_rank, topo.dp_size) if sliced else p
+            m = zero.shard_of(p, sdim, topo.rank, topo.world_size) \
+                if sliced else p
             masters.append(m)
             self._slice_grads.append(torch.zeros_like(m) if sliced else None)
         self._masters = _unflatten(params, masters)
+        self._build_buckets()
+
+    def _build_buckets(self) -> None:
+        """Lay the gradient reduction over the ZeRO world out in flat
+        buckets of at most ``reduce_bucket_size`` elements, by dtype, in
+        ``_leaves`` order (a larger leaf alone).  ``_reduce_buckets`` are
+        all-reduced once a step: every leaf at stages 0/1, at stages 2/3
+        the leaves that stay whole everywhere.  Their ``.grad`` are views
+        of the bucket's flat buffer, set here, before any backward, so that
+        autograd accumulates into them in place.  ``_scatter_buckets``
+        (stages 2/3: the leaves whose state alone is split) are
+        reduce-scattered rank-major each micro-step into a flat accumulator
+        whose views are the leaves' slice gradients; their full ``.grad``
+        are autograd's own, made by the backward and dropped once
+        reduce-scattered, and the rank-major pack takes a buffer of the
+        bucket's size then, after the backward has freed the activations.
+        A stage-3 slice's gradient is reduced by its gather and takes no
+        bucket."""
+        self._reduce_buckets: List[tuple] = []
+        self._scatter_buckets: List[tuple] = []
+        if self.topology.world_size <= 1:
+            return
+        world = self.topology.world_size
+        reduce_idx, scatter_idx = [], []
+        for i, (_p, pdim, sdim) in enumerate(self._leaves):
+            if pdim is None:
+                (scatter_idx if self.zero_stage >= 2 and sdim is not None
+                 else reduce_idx).append(i)
+        for scat, indices in ((False, reduce_idx), (True, scatter_idx)):
+            by_dtype: Dict[torch.dtype, List[int]] = {}
+            for i in indices:
+                by_dtype.setdefault(self._leaves[i][0].dtype, []).append(i)
+            for dtype, idx in by_dtype.items():
+                for b in comm.plan_buckets(
+                        [self._leaves[i][0].numel() for i in idx],
+                        self.config.zero_config.reduce_bucket_size):
+                    bidx = [idx[j] for j in b]
+                    ps = [self._leaves[i][0] for i in bidx]
+                    n = sum(p.numel() for p in ps)
+                    if not scat:
+                        flat = torch.zeros(n, dtype=dtype, device=self.device)
+                        for p, v in zip(ps, comm.flat_views(
+                                flat, [p.shape for p in ps])):
+                            p.grad = v
+                        self._reduce_buckets.append((bidx, flat))
+                        continue
+                    acc = torch.zeros(n // world, dtype=dtype,
+                                      device=self.device)
+                    for i, v in zip(bidx, comm.flat_views(acc, [
+                            self._slice_grads[i].shape for i in bidx])):
+                        self._slice_grads[i] = v
+                    self._scatter_buckets.append(
+                        (bidx, [self._leaves[i][2] for i in bidx], acc))
+
+    @property
+    def grad_bucket_count(self) -> int:
+        """The flat buckets of the gradient reduction (all-reduced and
+        reduce-scattered)."""
+        return len(self._reduce_buckets) + len(self._scatter_buckets)
 
     def _fused_gate(self) -> None:
         """The JAX engine's gate for ``step_schedule.fused_gather_matmul``
@@ -385,11 +470,11 @@ class DeepSpeedEngine:
 
     def _data_shard(self, batch: Batch, row_axis: int) -> Batch:
         """This data rank's rows of a global batch: the rank-th of dp
-        equal blocks along ``row_axis``."""
+        equal blocks along ``row_axis`` of every value that has it."""
         dp, rank = self.topology.dp_size, self.topology.dp_rank
         if dp <= 1:
             return batch
-        n = np.shape(batch["input_ids"])[row_axis]
+        n = np.shape(next(iter(batch.values())))[row_axis]
         if n % dp:
             raise ValueError(f"{n} batch rows do not divide by the data "
                              f"axis {dp}")
@@ -422,27 +507,29 @@ class DeepSpeedEngine:
                 out[k] = v[cut]
         return out
 
-    def _groups(self):
-        """The process groups a gradient or a loss sum is reduced over."""
-        topo = self.topology
-        return [g for g, n in ((topo.data_group, topo.dp_size),
-                               (topo.seq_group, topo.sp_size)) if n > 1]
-
     def _micro_loss(self, mb: Batch):
         """The micro-batch loss to differentiate.  Over a data or seq axis
         each rank's share of the global token mean: its NLL sum over the
-        token count all-reduced with the sum (so the summed grads are the
-        global mean's); returns ``(loss to differentiate, global mean
-        loss)``."""
-        if self.topology.world_size <= 1:
+        token count all-reduced with the sum over the data and seq ranks
+        (so the summed grads are the global mean's); for a duck-typed
+        trainable over a data axis its loss over the rank's rows divided
+        by dp.  Returns ``(loss to differentiate, global mean loss)``."""
+        topo = self.topology
+        if topo.world_size <= 1:
             loss = self._loss_fn(self.params, mb)
             return loss, loss.detach().float()
+        if self.model_config is None:
+            params = (self._zero.whole(self.params) if self._zero is not None
+                      else self.params)
+            loss = self._loss_fn(params, mb) / topo.dp_size
+            value = loss.detach().float().clone()
+            comm.all_reduce(value, topo.world_group)
+            return loss, value
         nll, count = tf_model.loss_fn(self.params, mb, self.model_config,
-                                      topo=self.topology, sum_count=True,
+                                      topo=topo, sum_count=True,
                                       zero=self._zero)
         tot = torch.stack([nll.detach().float(), count.float()])
-        for group in self._groups():
-            comm.all_reduce(tot, group)
+        comm.all_reduce(tot, topo.world_group)
         denom = torch.clamp(tot[1], min=1)
         return nll / denom, tot[0] / denom
 
@@ -454,21 +541,27 @@ class DeepSpeedEngine:
         step = tf_model._fold(self.seed + 7919, self.global_steps)
         return [tf_model._fold(step, i) for i in range(gas)]
 
+    def _zero_grads(self) -> None:
+        """Zero the last step's gradients: every ``.grad`` that outlived it
+        and the stage-2 accumulators.  (Stage 1's slice gradients are
+        overwritten whole each step.)"""
+        for p, _pd, _sd in self._leaves:
+            if p.grad is not None:
+                p.grad.zero_()
+        for _idx, _dims, acc in self._scatter_buckets:
+            acc.zero_()
+
     def _accum_grads(self, batch_stack: Batch):
         """Run the gas micro-steps, accumulating fp32 gradients in each
         param's ``.grad`` (a stage-3 slice's through the gather's
         reduce-scatter) or, at stage >= 2 for a leaf whose state alone is
-        split, in its slice accumulator; then reduce what is still this
-        rank's own sum.  Returns (the gradient of each ``_masters`` leaf,
+        split, in its slice accumulator (one reduce-scatter a bucket each
+        micro-step); then all-reduce the whole leaves' buckets over the
+        ZeRO world.  Returns (the gradient of each ``_masters`` leaf,
         summed loss)."""
         topo = self.topology
-        for p, _pd, _sd in self._leaves:
-            if p.grad is not None:
-                p.grad.zero_()
-        scatter = self.zero_stage >= 2
-        for g in self._slice_grads:
-            if g is not None:
-                g.zero_()
+        group = topo.world_group
+        self._zero_grads()
         gas = self.gradient_accumulation_steps_value
         seeds = self._dropout_seeds(gas)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -479,35 +572,35 @@ class DeepSpeedEngine:
             loss, value = self._micro_loss(mb)
             loss.backward()
             loss_sum += value
-            if scatter:
-                for (p, _pd, sdim), acc in zip(self._leaves, self._slice_grads):
-                    if acc is not None and p.grad is not None:
-                        acc += comm.reduce_scatter(p.grad, sdim, topo.data_group)
-                        p.grad.zero_()
+            for idx, dims, acc in self._scatter_buckets:
+                ps = [self._leaves[j][0] for j in idx]
+                acc += comm.reduce_scatter_bucket(
+                    [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in ps], dims, group)
+                for p in ps:
+                    p.grad = None
+        for idx, flat in self._reduce_buckets:
+            comm.all_reduce_bucket([self._leaves[j][0].grad for j in idx],
+                                   flat, group)
         grads = []
         for (p, pdim, sdim), acc in zip(self._leaves, self._slice_grads):
+            if acc is not None and self.zero_stage >= 2:
+                grads.append(acc)          # reduce-scattered into its slice
+                continue
             if p.grad is None:   # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
-            if pdim is not None:           # a stage-3 slice: reduced already
-                grads.append(p.grad)
-                continue
-            if acc is not None and scatter:
-                grads.append(acc)
-                continue
-            for group in self._groups():
-                comm.all_reduce(p.grad, group)
             if acc is not None:            # stage 1: this rank's slice
-                acc.copy_(p.grad.chunk(topo.dp_size, dim=sdim)[topo.dp_rank])
+                acc.copy_(p.grad.chunk(topo.world_size, dim=sdim)[topo.rank])
                 grads.append(acc)
-            else:
-                grads.append(p.grad)
+            else:     # whole on every rank, or a stage-3 slice (its gather
+                grads.append(p.grad)       # reduced it already)
         return grads, loss_sum
 
     def _grad_norm(self, grads) -> torch.Tensor:
         """The global L2 norm, each element counted once: the sums of
-        squares of split gradients are all-reduced over the data group;
+        squares of split gradients are all-reduced over the ZeRO group;
         a gradient every rank holds whole is added once."""
-        if self.topology.dp_size <= 1:
+        if self.topology.world_size <= 1:
             return _global_norm(grads)
         def sumsq(gs):
             return sum((torch.sum(torch.square(g.float())) for g in gs),
@@ -519,7 +612,7 @@ class DeepSpeedEngine:
                  if pdim is None and sdim is None]
         sq = sumsq(split)
         if split:
-            comm.all_reduce(sq, self.topology.data_group)
+            comm.all_reduce(sq, self.topology.world_group)
         return torch.sqrt(sq + sumsq(whole))
 
     @torch.no_grad()
@@ -542,7 +635,7 @@ class DeepSpeedEngine:
         topo = self.topology
         for (p, pdim, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
             if pdim is None and sdim is not None:
-                p.copy_(comm.all_gather(m, sdim, topo.data_group))
+                p.copy_(comm.all_gather(m, sdim, topo.world_group))
         return grad_norm
 
     # ------------------------------------------------------------------
@@ -670,7 +763,7 @@ class DeepSpeedEngine:
         ``module/<path>`` for each master param, and with ``optimizer``
         the state under the JAX chain's names (``optimizer/0/.count``,
         ``optimizer/0/.mu/<path>``), each with the dim it is split on over
-        the data axis and its full shape."""
+        the ZeRO world and its full shape."""
         paths = []
         tree_map_with_path(lambda p, _x: paths.append("/".join(p)),
                            self.params)
@@ -706,11 +799,11 @@ class DeepSpeedEngine:
                              flat)
         for leaf, arr in pairs:
             src = torch.from_numpy(np.asarray(arr))
-            if leaf.dim is not None and topo.dp_size > 1:
-                src = src.chunk(topo.dp_size, dim=leaf.dim)[topo.dp_rank]
+            if leaf.dim is not None and topo.world_size > 1:
+                src = src.chunk(topo.world_size, dim=leaf.dim)[topo.rank]
             leaf.tensor.copy_(src.to(leaf.tensor.dtype))
         # a whole param whose optimizer state alone is split steps a slice
         # copy of itself: refresh it from the loaded param
         for (p, _pd, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
             if m is not p:
-                m.copy_(zero.shard_of(p, sdim, topo.dp_rank, topo.dp_size))
+                m.copy_(zero.shard_of(p, sdim, topo.rank, topo.world_size))

@@ -27,7 +27,8 @@ def _topo() -> MeshTopology:
 
 # -- data parallel ----------------------------------------------------
 def get_data_parallel_group():
-    """The group ZeRO reduces gradients and partitions state over."""
+    """The data axis's group (ZeRO reduces gradients and partitions state
+    over the data and seq axes, the whole world)."""
     topo = _topo()
     return topo.data_group if topo.dp_size > 1 else None
 

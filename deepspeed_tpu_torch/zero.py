@@ -4,9 +4,11 @@ Port of ``deepspeed_tpu/zero.py`` (the reference's ``deepspeed.zero``):
 
 * :class:`Init` partitions a full parameter tree by the
   :class:`~deepspeed_tpu_torch.resilience.oracle.PartitionOracle`, so each
-  rank keeps only its shard of each leaf (the JAX ``Init`` materialises
-  straight into the ZeRO-3 shardings; the port builds the full tree once
-  and keeps a copy of its slice).  Each shard carries ``ds_shard_dim`` and
+  rank keeps only its shard of each leaf over the ZeRO world (the data
+  and seq axes: the whole world, ``MeshTopology.rank``/``world_size``;
+  the JAX ``Init``
+  materialises straight into the ZeRO-3 shardings over ``ZERO_AXES``; the
+  port builds the full tree once and keeps a copy of its slice).  Each shard carries ``ds_shard_dim`` and
   ``ds_full_shape``, as the reference tags its partitioned parameters.
 * :class:`GatheredParameters` gathers full host copies of a partitioned
   tree.  Every rank of the group must enter it, as in the reference.
@@ -97,8 +99,8 @@ class Init:
             raise RuntimeError("zero.Init used outside its context")
         dims = self.oracle.param_specs(params)
         topo = self.topology
-        return _tree_map2(lambda _p, x, d: shard_of(x, d, topo.dp_rank,
-                                                    topo.dp_size),
+        return _tree_map2(lambda _p, x, d: shard_of(x, d, topo.rank,
+                                                    topo.world_size),
                           params, dims)
 
 
@@ -109,7 +111,7 @@ class GatheredParameters:
             ...   # full: the same tree of full CPU tensors
 
     A leaf tagged ``ds_shard_dim`` is all-gathered over ``group`` (default:
-    the data-parallel group of the live topology); any other leaf is
+    the ZeRO group of the live topology); any other leaf is
     copied as it is.  Every rank of the group must enter the context.  The
     copies are read-only views of the values: edits do not write back
     (the JAX ``updated`` tree comes with the checkpoint port, ROADMAP Queue
@@ -123,9 +125,8 @@ class GatheredParameters:
     def __enter__(self):
         group = self._group
         if group is None:
-            from deepspeed_tpu_torch.utils import groups
-
-            group = groups.get_data_parallel_group()
+            topo = get_topology()
+            group = topo.world_group if topo is not None else None
 
         def full(_path, x):
             dim = getattr(x, "ds_shard_dim", None)
@@ -179,7 +180,7 @@ def gather(shard: torch.Tensor, dim: int, group,
 
 class ParamGather:
     """What a stage-3 forward needs to gather its leaves: the param split
-    dims (a tree like the params, int or None), the data group and the
+    dims (a tree like the params, int or None), the ZeRO group and the
     dtype each leaf is gathered in (``dtype_of(path)``: the compute dtype,
     or the master dtype for leaves the model casts itself at use)."""
 
@@ -204,6 +205,11 @@ class ParamGather:
         return _tree_map2(
             lambda p, x, d: gathered(x, pending[p], d - offset, self.group)
             if p in pending else x, tree, dims)
+
+    def whole(self, params):
+        """Every split leaf of ``params`` gathered (a duck-typed
+        trainable's tree, whose loss takes whole leaves)."""
+        return self._tree(params, self.dims, (), 0)
 
     def top(self, params):
         """Every leaf outside ``layers`` gathered (the embedding, final

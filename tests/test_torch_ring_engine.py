@@ -14,7 +14,7 @@ summation-order noise of a near-zero gradient into a step of up to lr
 1e-5 · (1 + |p|) would flag on 1 to 3 elements of a leaf.  Both ranks
 must hold the same params, bit for bit.  The config and the model reject,
 naming their ROADMAP item, what the port does not run over a seq axis:
-data > 1 beside it (A4), Ulysses (A9), a quantized gradient reduction
+Ulysses (A9; beside a data axis too), a quantized gradient reduction
 (A8), and ring attention with a block-sparse layout, a key-padding mask
 or ALiBi (as the JAX model raises).  With
 ``comm_quantization.ring_rotation: "int8"`` (or fp8) the same engine runs
@@ -120,7 +120,7 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
 
 
 @pytest.mark.parametrize("extra,model_kw,item", [
-    ({"mesh": {"seq": 2, "data": 2}}, {"seq_impl": "ring"}, "item 4"),
+    ({"mesh": {"seq": 2, "data": 2}}, {"seq_impl": "ulysses"}, "item 9"),
     ({"mesh": {"seq": 2}}, {"seq_impl": "ulysses"}, "item 9"),
     ({"sequence_parallel_size": 2}, {}, "item 9"),
     ({"mesh": {"seq": 2}, "comm_quantization": {

@@ -285,7 +285,7 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
     monkeypatch.setattr(tconfig.logger, "warning", warned.append)
     cfg = {"train_micro_batch_size_per_gpu": 2,
            "zero_optimization": {"stage": 1, "overlap_comm": True,
-                                 "reduce_bucket_size": 5e8},
+                                 "allgather_bucket_size": 5e8},
            "bf16": {"enabled": True, "immediate_grad_update": False},
            "fp16": {"enabled": False, "loss_scale": 0},
            "activation_checkpointing": {"remat_policy": "full",
@@ -294,7 +294,7 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
     t = DeepSpeedConfig(cfg)
     assert t.zero_optimization_stage == 1 and t.bf16.enabled
     for block, key in (("zero_config", "overlap_comm"),
-                       ("zero_config", "reduce_bucket_size"),
+                       ("zero_config", "allgather_bucket_size"),
                        ("bf16", "immediate_grad_update"),
                        ("fp16", "loss_scale"),
                        ("activation_checkpointing", "number_checkpoints")):
@@ -305,9 +305,9 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"fp16": {"enabled": True}},
-    {"zero_optimization": {"stage": 2}, "mesh": {"seq": 2}},
+    {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
     {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
-    {"mesh": {"data": 2, "seq": 2}},
+    {"mesh": {"data": 2, "tensor": 2}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
     {"comm_quantization": {"enabled": True, "grad_reduce": "int8"}},
