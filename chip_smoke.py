@@ -121,15 +121,19 @@ Phases, each printing JSON lines:
                where TMA cannot read an operand, fma for fp32);
  21. zero-reference — gpt2-350m width cut to 2 layers, fp32, in two ranks
                sharing the card over gloo ({"mesh": {"data": 2}}, micro 2 x
-               seq 256 a rank, gas 2) at ZeRO stages 1, 2, 3 and 3 with the
-               fused gather-matmul, against the same engine in this process
-               on the CPU at data 1: losses, grad norms and the gathered
-               params after two steps, and each rank's launches
-               (gather_matmul only in the fused run);
+               seq 256 a rank, gas 2) at ZeRO stages 1, 2, 3, 3 with the
+               fused gather-matmul, 3 with the gather window at depth 2
+               and one-layer gradient buckets, and 3 with the int8 weight
+               gather (qwZ), against the same engine in this process on
+               the CPU at data 1 (ZeRO-3 with qwZ for the qwZ config):
+               losses, grad norms and the gathered params after two steps,
+               and each rank's launches (gather_matmul only in the fused
+               run);
  22. zero3-train — gpt2-350m at full width and depth under ZeRO-3 with the
                fused gather-matmul over two ranks sharing the card (bench.py's
                ZeRO-3 row: micro 8 a rank, seq 1024, bf16, AdamW, clip 1.0,
-               persistence 0; gas 2): a warm-up step, three timed steps whose
+               persistence 0, gather_prefetch_depth 2; gas 2): a warm-up
+               step, three timed steps whose
                launch counts a rank show gather_matmul, flash, AdamW and
                nothing else, every GEMM and attention kernel on the wgmma
                route, and a profiled step on rank 0 (device busy
@@ -351,7 +355,8 @@ RING_INT8_ROUTES = {"ring_carry": "wgmma_s8", "ring_bwd_dq": "wgmma_s8",
 # 8 a rank, bf16 over fp32 masters, AdamW lr 1e-4, clip 1.0, ZeRO 3,
 # persistence 0, fused gather-matmul.  Cut: data 8 -> 2 ranks sharing the
 # card over gloo; gas 8 -> 2 (every collective is staged through the host);
-# remat dots_flash_saveable -> none (A13); gather_prefetch_depth 2 -> 1 (A7).
+# remat dots_flash_saveable -> none (A13).  gather_prefetch_depth 2 runs
+# (the ZeRO-3 gather window, zero.Window).
 ZERO_RANKS = 2
 ZERO_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
 ZERO_STEPS = 3
@@ -363,16 +368,27 @@ ZERO_CFG = {"train_micro_batch_size_per_gpu": 8,
             "gradient_clipping": 1.0,
             "steps_per_print": 10_000,
             "activation_checkpointing": {"remat_policy": "none"},
-            "step_schedule": {"fused_gather_matmul": True},
+            "step_schedule": {"fused_gather_matmul": True,
+                              "gather_prefetch_depth": 2},
             "mesh": {"data": ZERO_RANKS}}
 # zero-reference: 2 layers, fp32, micro 2 x seq 256 a rank; the ZeRO
-# configs the card's ranks run against one CPU engine at data 1
+# configs the card's ranks run against one CPU engine at data 1: name ->
+# (stage, fused gather-matmul, the config's extra keys).  stage3-prefetch2
+# runs the gather window at depth 2 with buckets of one layer's gradients
+# (its element count); stage3-qwz the int8 weight gather (qwZ), whose CPU
+# engine at data 1 takes the same codec's round trip on every leaf
 ZERO_REF_LAYERS = 2
 ZERO_REF_SEQ = 256
 ZERO_REF_MICRO = 2
 ZERO_REF_STEPS = 2
-ZERO_REF_CONFIGS = {"stage1": (1, False), "stage2": (2, False),
-                    "stage3": (3, False), "stage3-fused": (3, True)}
+ZERO_REF_CONFIGS = {
+    "stage1": (1, False, {}), "stage2": (2, False, {}),
+    "stage3": (3, False, {}), "stage3-fused": (3, True, {}),
+    "stage3-prefetch2": (3, False, {
+        "step_schedule": {"gather_prefetch_depth": 2},
+        "zero_optimization": {"reduce_bucket_size": "one layer"}}),
+    "stage3-qwz": (3, False, {"zero_optimization": {
+        "zero_quantized_weights": True}})}
 # card (cuBLAS, the kernels) vs CPU (plain versions) in fp32: losses and
 # grad norms, and the params' relative L2 after two steps
 ZERO_REF_RTOL = 1e-5
@@ -3460,6 +3476,7 @@ def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
     torch.backends.cuda.matmul.allow_tf32 = False
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import registry
 
     counters = _zero_counters()
@@ -3468,17 +3485,21 @@ def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
     for name, cfg in configs.items():
         eng, *_ = ds.initialize(model=model, config=cfg,
                                 model_parameters=params)
-        zero_counts(*counters)
+        zero_counts(*counters, comm.calls)
         losses, norms = [], []
         for _ in range(steps):
             losses.append(float(eng.train_batch(batch)))
             norms.append(eng.get_global_grad_norm())
         launches = {k: v for c in counters for k, v in c.items()}
+        calls = dict(comm.calls)
         with zero.GatheredParameters(eng.params) as full:
             gathered = full if rank == 0 else None
         out[name] = {"losses": losses, "grad_norms": norms,
                      "fused": bool(eng.model_config.fused_gather_matmul),
-                     "launches": launches, "params": gathered}
+                     "launches": launches, "collective_calls": calls,
+                     "stage3_buckets": eng.stage3_buckets,
+                     "depth": eng._prefetch_depth,
+                     "qwz": eng._qwz, "params": gathered}
         del eng
         torch.cuda.empty_cache()
     return out
@@ -3494,6 +3515,7 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
     import torch
 
     import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.models import transformer as tf
 
@@ -3510,7 +3532,7 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
     losses = [float(eng.train_batch(batch))]      # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(*counters)
+    zero_counts(*counters, comm.calls)
     step_s = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3518,11 +3540,15 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
         step_s.append(time.perf_counter() - t0)
     launches = {k: v for c in counters[:-2] for k, v in c.items()}
     routes = {k: v for c in counters[-2:] for k, v in c.items()}
+    calls = {k: v / steps for k, v in comm.calls.items()}
     shard_bytes = sum(p.numel() * p.element_size() for p in tf.tree_leaves(eng.params))
     res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
            "fused": bool(eng.model_config.fused_gather_matmul),
            "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
            "launches": launches, "routes": routes,
+           "collective_calls_per_step": calls,
+           "gather_prefetch_depth": eng._prefetch_depth,
+           "stage3_buckets_per_micro_step": eng.stage3_buckets,
            "master_shard_gb": shard_bytes / 1e9,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "finite": bool(np.all(np.isfinite(losses)))}
@@ -3632,7 +3658,8 @@ def phase_zero_reference(ds, tf_model, tf, launch):
     cut to ZERO_REF_LAYERS: losses and grad norms of each step to
     ZERO_REF_RTOL, the gathered params after them to ZERO_REF_PARAMS_RTOL
     (relative L2), and each rank's launches (gather_matmul in the fused
-    run only)."""
+    run only).  The qwZ config is held to a second CPU engine, ZeRO-3 with
+    qwZ at data 1."""
     import numpy as np
     import torch
 
@@ -3649,31 +3676,53 @@ def phase_zero_reference(ds, tf_model, tf, launch):
                                    host.params)
     rows = ZERO_REF_MICRO * gas * ZERO_RANKS
     batch = train_batch_of(model.vocab_size, rows, seed=6, seq=ZERO_REF_SEQ)
-    want = []
-    for _ in range(ZERO_REF_STEPS):
-        want.append((float(host.train_batch(batch)),
-                     host.get_global_grad_norm()))
+    layer_elems = sum(a[0].numel() for a in tf.tree_leaves(params["layers"]))
+
+    def host_steps(eng):
+        out = [(float(eng.train_batch(batch)), eng.get_global_grad_norm())
+               for _ in range(ZERO_REF_STEPS)]
+        return out, eng.params
+
+    want = {False: host_steps(host)}
+    # the qwZ reference: ZeRO-3 at data 1 takes the codec's round trip on
+    # every leaf (nothing is gathered), as the JAX engine does
+    host_qwz, *_ = ds.initialize(model=model, device="cpu", config={
+        **base, "train_micro_batch_size_per_gpu": ZERO_REF_MICRO * ZERO_RANKS,
+        "zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
+        model_parameters=params)
+    want[True] = host_steps(host_qwz)
     configs = {}
-    for name, (stage, fused) in ZERO_REF_CONFIGS.items():
-        cfg = {**base, "mesh": {"data": ZERO_RANKS},
-               "zero_optimization": {"stage": stage,
-                                     "param_persistence_threshold": 0}}
+    for name, (stage, fused, extra) in ZERO_REF_CONFIGS.items():
+        zc = {"stage": stage, "param_persistence_threshold": 0,
+              **extra.get("zero_optimization", {})}
+        if zc.get("reduce_bucket_size") == "one layer":
+            zc["reduce_bucket_size"] = layer_elems
+        cfg = {**base, "mesh": {"data": ZERO_RANKS}, "zero_optimization": zc}
+        ss = {**extra.get("step_schedule", {})}
         if fused:
-            cfg["step_schedule"] = {"fused_gather_matmul": True}
+            ss["fused_gather_matmul"] = True
+        if ss:
+            cfg["step_schedule"] = ss
         configs[name] = cfg
     ranks = launch(zero_rank_reference, ZERO_RANKS,
                    args=(model_kw, params, configs, batch, ZERO_REF_STEPS),
                    backend=ZERO_BACKEND, device="cuda")
     per = ZERO_REF_STEPS * gas * ZERO_REF_LAYERS
-    for name, (stage, fused) in ZERO_REF_CONFIGS.items():
+    for name, (stage, fused, extra) in ZERO_REF_CONFIGS.items():
+        zc = configs[name]["zero_optimization"]
+        qwz = bool(zc.get("zero_quantized_weights"))
+        depth = configs[name].get("step_schedule", {}).get(
+            "gather_prefetch_depth", 1)
+        steps_want, host_params = want[qwz]
         got = [r[name] for r in ranks]
         worst = 0.0
         for r in got:
-            for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]), want):
+            for (lc, gc), (lh, gh) in zip(zip(r["losses"], r["grad_norms"]),
+                                          steps_want):
                 worst = max(worst, abs(lc - lh) / abs(lh), abs(gc - gh) / gh)
         num = den = 0.0
         for a, b in zip(tf.tree_leaves(got[0]["params"]),
-                        tf.tree_leaves(host.params)):
+                        tf.tree_leaves(host_params)):
             a, b = a.double(), b.detach().double()
             num += float(((a - b) ** 2).sum())
             den += float((b ** 2).sum())
@@ -3685,30 +3734,38 @@ def phase_zero_reference(ds, tf_model, tf, launch):
         launches = [r["launches"] for r in got]
         ok = (worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
               and launches == wants and all(r["fused"] == fused for r in got)
+              and all(r["depth"] == depth for r in got)
+              and all((r["qwz"] is not None) == qwz for r in got)
               and bool(np.all(np.isfinite([r["losses"] for r in got]))))
         emit({"phase": "zero-reference", "config": name, "zero_stage": stage,
-              "fused_gather_matmul": fused, "model": TRAIN_MODEL,
+              "fused_gather_matmul": fused, "gather_prefetch_depth": depth,
+              "reduce_bucket_size": zc.get("reduce_bucket_size", 500_000_000),
+              "qwz": got[0]["qwz"], "model": TRAIN_MODEL,
               "layers": ZERO_REF_LAYERS, "dtype": "float32",
               "ranks": ZERO_RANKS, "backend": ZERO_BACKEND,
               "seq": ZERO_REF_SEQ, "micro_per_rank": ZERO_REF_MICRO,
               "gas": gas,
               "steps": [{"loss_card": [r["losses"][i] for r in got],
-                         "loss_cpu": want[i][0],
+                         "loss_cpu": steps_want[i][0],
                          "grad_norm_card": [r["grad_norms"][i] for r in got],
-                         "grad_norm_cpu": want[i][1]}
+                         "grad_norm_cpu": steps_want[i][1]}
                         for i in range(ZERO_REF_STEPS)],
               "check": "two ranks on the card (kernels, cuBLAS, ZeRO over "
-                       "gloo) vs one CPU process at data 1 (plain versions)",
+                       "gloo) vs one CPU process at data 1 (plain versions"
+                       + ("; ZeRO-3 with qwZ: the round trip on every leaf)"
+                          if qwz else ")"),
               "max_rel_err_loss_grad_norm": worst, "params_rel_l2": params_rel,
               "tolerance": {"loss_grad_norm": ZERO_REF_RTOL,
                             "params_rel_l2": ZERO_REF_PARAMS_RTOL},
               "launches_per_rank": launches, "expected_per_rank": wants,
+              "collective_calls_rank0": got[0]["collective_calls"],
+              "stage3_buckets_last_micro_step": got[0]["stage3_buckets"],
               "ok": ok})
         if not ok:
             fail(f"zero-reference ({name}): the card's ranks differ from the "
                  f"CPU ({worst}, {params_rel}), launched {launches}, or the "
-                 "fused gate decided otherwise")
-    del host, params, ranks
+                 "fused gate, the depth or the wire decided otherwise")
+    del host, host_qwz, params, ranks, want
     torch.cuda.empty_cache()
 
 
@@ -3749,6 +3806,7 @@ def phase_zero_train(tf_model, launch, card, ckpt):
     routes_per_step = [{k: v / ZERO_STEPS for k, v in r["routes"].items()}
                        for r in ranks]
     ok = (all(r["finite"] and r["fused"] for r in ranks)
+          and all(r["gather_prefetch_depth"] == 2 for r in ranks)
           and all(r["losses"] == ranks[0]["losses"] for r in ranks)
           and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
           and all(p == want for p in per_step)
@@ -3760,6 +3818,8 @@ def phase_zero_train(tf_model, launch, card, ckpt):
           "ranks": ZERO_RANKS, "backend": ZERO_BACKEND, "seq": TRAIN_SEQ,
           "micro_per_rank": ZERO_CFG["train_micro_batch_size_per_gpu"],
           "gas": gas, "optimizer": ZERO_CFG["optimizer"], "remat": "none",
+          "gather_prefetch_depth": ZERO_CFG["step_schedule"][
+              "gather_prefetch_depth"],
           "step_s": step_s, "tokens_per_step": tokens, "tokens_per_s": tps,
           "mfu": tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ) / BF16_FLOPS,
           "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM), one card for both "
@@ -3773,9 +3833,10 @@ def phase_zero_train(tf_model, launch, card, ckpt):
     emit({"phase": "zero3-train-profile",
           "what": "one train_batch on rank 0 (rank 1 steps beside it)",
           "collectives_note": "host time inside comm.all_gather (issue and "
-                              "wait ranges of each stage-3 gather), "
-                              "comm.reduce_scatter (each gathered leaf's "
-                              "gradient) and comm.all_reduce (the loss sum "
+                              "wait ranges of each flat layer gather and "
+                              "each fused-MLP gather), "
+                              "comm.reduce_scatter (the stage-3 gradient "
+                              "buckets) and comm.all_reduce (the loss sum "
                               "and count, the grad norm); own = less this "
                               "rank's compute kernels running",
           **prof, "card": card})

@@ -14,9 +14,12 @@ next shard).
 The gradient reduction goes through flat buckets (``zero_optimization.
 reduce_bucket_size``): :func:`plan_buckets` groups tensors in order,
 :func:`all_reduce_bucket` sums a bucket in one ``all_reduce`` and
-:func:`reduce_scatter_bucket` in one rank-major ``reduce_scatter``.  The JAX step is one jitted program in which XLA's
-combiner merges the per-leaf reductions; the buckets are the port's
-merge.
+:func:`reduce_scatter_bucket` in one rank-major ``reduce_scatter``
+(asynchronous under NCCL on request).  The ZeRO-3 gathers of one layer
+travel the same way: :func:`all_gather_bucket` moves several tensors of
+any dtypes as the bytes of one rank-major buffer, in one ``all_gather``.
+The JAX step is one jitted program in which XLA's combiner merges the
+per-leaf collectives; the buckets are the port's merge.
 
 Gloo moves CPU tensors and has no CUDA path of its own for them, so under
 gloo a CUDA tensor is staged through pinned host memory, explicitly, for
@@ -29,19 +32,24 @@ is slower).  A failed collective raises; nothing falls back to gloo.
 
 Each collective runs inside a ``torch.profiler.record_function`` range
 (``comm.all_reduce``, ``comm.all_gather``, ``comm.reduce_scatter``,
-``comm.ring_rotate``), so a profiled step shows the host time spent in it.
+``comm.ring_rotate``), so a profiled step shows the host time spent in it,
+and adds one to its entry of :data:`calls` when it is issued.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
 BACKENDS = ("nccl", "gloo")
+# collectives issued, by kind (a bucket counts once); callers zero them
+calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+         "ring_rotate": 0}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def init_distributed(backend: str, rank: int, world_size: int,
@@ -89,11 +97,14 @@ def _empty_like_staged(shape, like: torch.Tensor, staged: bool):
                        device="cpu" if pinned else like.device)
 
 
-def all_reduce(tensor: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``tensor`` over ``group`` in place; returns it."""
+def all_reduce(tensor: torch.Tensor, group=None, op: str = "sum"
+               ) -> torch.Tensor:
+    """Reduce ``tensor`` over ``group`` in place (``op``: ``"sum"`` or
+    ``"max"``); returns it."""
     with record_function("comm.all_reduce"):
+        calls["all_reduce"] += 1
         buf = _stage_in(tensor, _staged(group))
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=_OPS[op], group=group)
         if buf is not tensor:
             tensor.copy_(buf)
     return tensor
@@ -103,21 +114,36 @@ class Pending:
     """An issued collective: ``wait()`` blocks until it is done and returns
     its result on the input's device.  Waits happen in the order the caller
     chooses; each collective keeps the order in which it was issued on
-    every rank."""
+    every rank.  ``keep`` holds the collective's input and output buffers
+    until the wait: under NCCL the collective reads and writes them on
+    NCCL's stream, so they must not return to the allocator before the
+    caller's stream has waited for it."""
 
-    def __init__(self, work, finish: Callable[[], torch.Tensor]):
+    def __init__(self, work, finish: Callable, name: str = "comm.all_gather",
+                 keep=()):
         self._work, self._finish, self._out = work, finish, None
+        self._name, self._keep = name, keep
 
-    def wait(self) -> torch.Tensor:
+    def wait(self):
         if self._out is None:
-            with record_function("comm.all_gather"):
+            with record_function(self._name):
                 self._complete()
         return self._out
 
     def _complete(self) -> None:
         if self._out is None:
-            self._work.wait()
+            if self._work is not None:
+                self._work.wait()
             self._out = self._finish()
+            self._work = self._finish = None
+            self._keep = ()
+
+
+def done(result) -> Pending:
+    """A :class:`Pending` whose collective has already run."""
+    pending = Pending(None, lambda: result)
+    pending._complete()
+    return pending
 
 
 def all_gather(shard: torch.Tensor, dim: int = 0, group=None,
@@ -129,6 +155,7 @@ def all_gather(shard: torch.Tensor, dim: int = 0, group=None,
     copied once to make that dim leading and contiguous, and the result
     once more to lay it out as the caller's tensor."""
     with record_function("comm.all_gather"):
+        calls["all_gather"] += 1
         staged = _staged(group)
         world = dist.get_world_size(group)
         dev = shard.device
@@ -143,7 +170,7 @@ def all_gather(shard: torch.Tensor, dim: int = 0, group=None,
             full = out.to(dev, non_blocking=True) if out.device != dev else out
             return full.movedim(0, dim).contiguous()   # a copy when dim != 0
 
-        pending = Pending(work, finish)
+        pending = Pending(work, finish, keep=(src, out))
         if async_op:
             return pending
         pending._complete()
@@ -158,6 +185,7 @@ def reduce_scatter(full: torch.Tensor, dim: int = 0, group=None
     other than 0 is moved to the front (one copy of ``full``) and the slice
     back (one copy of the slice)."""
     with record_function("comm.reduce_scatter"):
+        calls["reduce_scatter"] += 1
         world = dist.get_world_size(group)
         if full.shape[dim] % world:
             raise ValueError(f"reduce_scatter: dim {dim} of size "
@@ -166,11 +194,13 @@ def reduce_scatter(full: torch.Tensor, dim: int = 0, group=None
         return _sum_scatter(lead, group).movedim(0, dim).contiguous()
 
 
-def _sum_scatter(src: torch.Tensor, group) -> torch.Tensor:
+def _sum_scatter(src: torch.Tensor, group, async_op: bool = False):
     """Sum ``src`` over ``group`` and return this rank's block of it, the
-    rank-th of ``world`` equal blocks along dim 0, on ``src``'s device.
-    Under NCCL one ``reduce_scatter_tensor``.  Under gloo a ring of
-    point-to-point exchanges, ``world - 1`` rounds in which each rank
+    rank-th of ``world`` equal blocks along dim 0, on ``src``'s device (or,
+    with ``async_op``, a :class:`Pending` whose ``wait()`` returns it).
+    Under NCCL one ``reduce_scatter_tensor``, asynchronous on request.
+    Under gloo a ring of point-to-point exchanges, run before this
+    returns: ``world - 1`` rounds in which each rank
     sends one partial block to the next rank and adds the one it receives
     to its own (on ``src``'s device; a CUDA block goes through pinned host
     memory): gloo's own reduce_scatter moved a ring step's gradients on
@@ -183,8 +213,11 @@ def _sum_scatter(src: torch.Tensor, group) -> torch.Tensor:
     if not _staged(group):
         out = torch.empty((n,) + tuple(src.shape[1:]), dtype=src.dtype,
                           device=src.device)
-        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
-                                   group=group)
+        work = dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                                          group=group, async_op=async_op)
+        if async_op:
+            return Pending(work, lambda: out, "comm.reduce_scatter",
+                           keep=(src, out))
         return out
     rank = dist.get_rank(group)
     nxt, prv = _ring_peers(group)
@@ -201,7 +234,7 @@ def _sum_scatter(src: torch.Tensor, group) -> torch.Tensor:
         cur = recv.to(src.device, non_blocking=True) if recv.device != \
             src.device else recv
         cur += blocks[(rank - step - 2) % world]
-    return cur
+    return done(cur) if async_op else cur
 
 
 def _ring_peers(group) -> Tuple[int, int]:
@@ -222,6 +255,7 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
     sent ones, on their devices).  Point-to-point moves bytes, so any dtype
     travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
     with record_function("comm.ring_rotate"):
+        calls["ring_rotate"] += 1
         nxt, prv = _ring_peers(group)
         staged = _staged(group)
         sends = [_stage_in(t.contiguous(), staged) for t in tensors]
@@ -297,15 +331,20 @@ def _slice_shape(t: torch.Tensor, dim: int, world: int) -> Tuple[int, ...]:
 
 
 def reduce_scatter_bucket(tensors: Sequence[torch.Tensor],
-                          dims: Sequence[int], group=None) -> torch.Tensor:
+                          dims: Sequence[int], group=None,
+                          async_op: bool = False):
     """Sum every tensor of ``tensors`` (one dtype, one device) over
     ``group`` and keep this rank's slice of each along its dim of ``dims``
     (the rank-th of ``world`` equal slices), in one ``reduce_scatter``.
     The bucket is laid out rank-major in a new buffer of the tensors'
     size: rank r's segment holds each tensor's r-th slice in order, packed
     with one copy a tensor.  Returns this rank's segment, flat, in which
-    the slices lie as :func:`flat_views` of their shapes."""
+    the slices lie as :func:`flat_views` of their shapes, or with
+    ``async_op`` a :class:`Pending` of it (issued on NCCL's stream under
+    NCCL; under gloo the ring has run when it returns).  The tensors may be
+    dropped once this returns: the packed buffer is what travels."""
     with record_function("comm.reduce_scatter"):
+        calls["reduce_scatter"] += 1
         world = dist.get_world_size(group)
         shapes = [_slice_shape(t, d, world) for t, d in zip(tensors, dims)]
         seg = sum(math.prod(s) for s in shapes)
@@ -319,4 +358,51 @@ def reduce_scatter_bucket(tensors: Sequence[torch.Tensor],
             rows[:, off:off + n].view((world,) + shape).copy_(
                 t.unflatten(d, (world, shape[d])).movedim(d, 0))
             off += n
-        return _sum_scatter(buf, group)
+        return _sum_scatter(buf, group, async_op=async_op)
+
+
+# byte alignment of each tensor in an all_gather_bucket segment: every
+# dtype's view of the byte buffer starts on a multiple of its size
+_ALIGN = 16
+
+
+def all_gather_bucket(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+                      group=None, dtypes: Optional[Sequence] = None,
+                      async_op: bool = False):
+    """Concatenate every rank's ``tensors`` (any dtypes, one device) along
+    their ``dims`` in rank order, in one ``all_gather`` of bytes: this
+    rank's segment holds each tensor, cast to its entry of ``dtypes``
+    (None: its own dtype) as it is packed, at a 16-byte aligned offset;
+    the gathered buffer is rank-major, one segment a rank.  Returns the
+    full tensors in order on the tensors' device (one copy each out of the
+    buffer), or with ``async_op`` a :class:`Pending` of that list.  Every
+    rank passes tensors of the same shapes and dtypes."""
+    dtypes = dtypes or [None] * len(tensors)
+    dtypes = [dt or t.dtype for t, dt in zip(tensors, dtypes)]
+    sizes = [t.numel() * dt.itemsize for t, dt in zip(tensors, dtypes)]
+    offs, seg = [], 0
+    for n in sizes:
+        offs.append(seg)
+        seg += -(-n // _ALIGN) * _ALIGN
+    shapes = [tuple(t.shape) for t in tensors]
+    buf = torch.empty(seg, dtype=torch.uint8, device=tensors[0].device)
+    for t, dt, off, n in zip(tensors, dtypes, offs, sizes):
+        buf[off:off + n].view(dt).view(t.shape).copy_(t)
+    pending = all_gather(buf, 0, group, async_op=True)
+    world = dist.get_world_size(group)
+
+    def finish():        # inside the caller's wait range
+        pending._complete()
+        rows = pending._out.view(world, seg)
+        out = []
+        for shape, dt, off, n, d in zip(shapes, dtypes, offs, sizes, dims):
+            parts = rows[:, off:off + n].view(dt).unflatten(1, shape)
+            full = list(shape)
+            full[d] *= world
+            out.append(parts.movedim(0, d).reshape(full))
+        return out
+
+    gathered = Pending(None, finish, keep=(buf,))
+    if async_op:
+        return gathered
+    return gathered.wait()

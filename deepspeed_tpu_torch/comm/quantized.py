@@ -102,20 +102,33 @@ def _wire_encode(x2d: torch.Tensor, wire_dtype: str, group_size: int
     ``(payload, scales [rows, m / block])``; scales None for fp32."""
     if wire_dtype == "fp32":
         return x2d, None
+    validate_wire_dtype(wire_dtype)
     m = x2d.shape[-1]
     gs = _block(m, group_size)
     g = x2d.reshape(tuple(x2d.shape[:-1]) + (m // gs, gs))
-    absmax = torch.amax(torch.abs(g), dim=-1, keepdim=True)
+    scale = wire_scale(torch.amax(torch.abs(g), dim=-1, keepdim=True),
+                       wire_dtype)
+    return wire_quantize(g, scale, wire_dtype).reshape(x2d.shape), \
+        scale.squeeze(-1)
+
+
+def wire_scale(absmax: torch.Tensor, wire_dtype: str) -> torch.Tensor:
+    """The fp32 scale of blocks of absolute maximum ``absmax`` (int8 or
+    fp8): ``absmax * fp32(1 / qmax)``, one where it is zero."""
+    qmax = _INT8_MAX if wire_dtype == "int8" else _FP8_MAX
+    scale = absmax * _recip(qmax, absmax)
+    return torch.where(scale == 0, 1.0, scale)
+
+
+def wire_quantize(x: torch.Tensor, scale: torch.Tensor, wire_dtype: str
+                  ) -> torch.Tensor:
+    """The payload of fp32 ``x`` over ``scale`` (broadcast to it): int8
+    round-half-to-even of ``x / scale`` clipped to [-128, 127], or
+    float8_e4m3fn of ``x / scale`` viewed as uint8."""
     if wire_dtype == "int8":
-        scale = absmax * _recip(_INT8_MAX, g)
-        scale = torch.where(scale == 0, 1.0, scale)
-        q = torch.clamp(torch.round(g / scale), -_INT8_MAX - 1, _INT8_MAX)
-        return q.to(torch.int8).reshape(x2d.shape), scale.squeeze(-1)
-    validate_wire_dtype(wire_dtype)
-    scale = absmax * _recip(_FP8_MAX, g)
-    scale = torch.where(scale == 0, 1.0, scale)
-    q = (g / scale).to(_FP8_DTYPE).reshape(x2d.shape)
-    return q.view(torch.uint8), scale.squeeze(-1)
+        return torch.clamp(torch.round(x / scale), -_INT8_MAX - 1,
+                           _INT8_MAX).to(torch.int8)
+    return (x / scale).to(_FP8_DTYPE).view(torch.uint8)
 
 
 def _wire_decode(payload: torch.Tensor, scale: Optional[torch.Tensor],

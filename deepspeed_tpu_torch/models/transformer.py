@@ -22,13 +22,14 @@ sequence positions, so they do not depend on the split, as the masks of
 
 Under ZeRO-3 the params are this rank's shards and a
 :class:`~deepspeed_tpu_torch.zero.ParamGather` (``zero``; the engine
-passes its own) gathers each leaf when it is used: the embedding, final
-norm and head once a forward, a layer's leaves when that layer runs (one
-layer's slice of each stacked leaf, never the stack), through the
-stage-3 gather ``Function``, so the backward reduce-scatters their
-gradients.  With ``cfg.fused_gather_matmul`` the MLP's wi/wo/wg/bi stay
-shards and ``ops/gather_matmul.py`` ``fused_gather_mlp`` gathers them
-itself, its prefetches issued ahead of the matmuls.
+passes its own) gathers them through its window: the embedding, final
+norm and head once a forward, a layer's leaves (one layer's slice of each
+stacked leaf, never the stack) in one flat all-gather issued
+``gather_prefetch_depth`` - 1 layers ahead of the layer, through the
+stage-3 gather ``Function``, so the backward reduces their gradients.
+With ``cfg.fused_gather_matmul`` the MLP's wi/wo/wg/bi stay shards
+(``zero.Deferred``) and ``ops/gather_matmul.py`` ``fused_gather_mlp``
+gathers them itself, its prefetches issued ahead of the matmuls.
 
 Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
 item: MoE layers, Ulysses sequence parallelism and the pipeline path,
@@ -455,17 +456,17 @@ def alibi_slopes(nh: int, device=None) -> torch.Tensor:
 FUSED_MLP_LEAVES = (("mlp", "wi"), ("mlp", "wg"), ("mlp", "wo"), ("mlp", "bi"))
 
 
-def _mlp_block(x, p, cfg: TransformerConfig, topo=None):
+def _mlp_block(x, p, cfg: TransformerConfig):
     dt0 = x.dtype
     dt = _module_dtype(cfg, "mlp", dt0)
     x = x.to(dt)
     if cfg.fused_gather_matmul and cfg.fused_gather_axes:
         # ZeRO-3 fused gather-matmul (step_schedule.fused_gather_matmul;
-        # ops/gather_matmul.py): p holds the MLP's shards, gathered inside
-        # with the following matmul's gather issued ahead; the engine
-        # verified the split pattern before setting the flag.  The output
-        # bias stays outside the fused region.
-        y = fused_gather_mlp(x, p, cfg, topo)
+        # ops/gather_matmul.py): p holds the MLP's shards (zero.Deferred),
+        # gathered inside with the following matmul's gather issued ahead;
+        # the engine verified the split pattern before setting the flag.
+        # The output bias stays outside the fused region.
+        y = fused_gather_mlp(x, p, cfg)
         if p.get("bo") is not None:
             y = y + p["bo"].to(dt)
         return y.to(dt0)
@@ -714,20 +715,20 @@ def transformer_layer(x, layer_params, positions, cfg: TransformerConfig,
         n_mlp = _norm(x, layer_params["ln2"], cfg) if cfg.parallel_norms else n
         attn_out = _attn_block(n, layer_params["attn"], positions, cfg,
                                attention_mask=attention_mask, topo=topo)
-        y = _mlp_block(n_mlp, layer_params["mlp"], cfg, topo)
+        y = _mlp_block(n_mlp, layer_params["mlp"], cfg)
         return x + drop(attn_out, 0) + drop(y, 1)
     if cfg.norm_position == "post":
         attn_out = _attn_block(x, layer_params["attn"], positions, cfg,
                                attention_mask=attention_mask, topo=topo)
         x = _norm(x + drop(attn_out, 0), layer_params["ln1"], cfg)
-        y = _mlp_block(x, layer_params["mlp"], cfg, topo)
+        y = _mlp_block(x, layer_params["mlp"], cfg)
         return _norm(x + drop(y, 1), layer_params["ln2"], cfg)
     attn_out = _attn_block(_norm(x, layer_params["ln1"], cfg),
                            layer_params["attn"], positions, cfg,
                            attention_mask=attention_mask, topo=topo)
     x = x + drop(attn_out, 0)
     y = _mlp_block(_norm(x, layer_params["ln2"], cfg), layer_params["mlp"],
-                   cfg, topo)
+                   cfg)
     return x + drop(y, 1)
 
 
@@ -800,17 +801,19 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
             pos_row = torch.arange(s, dtype=torch.int64,
                                    device=input_ids.device)
         positions = pos_row[None, :].expand(b, s)
-    if zero is not None:
-        params = zero.top(params)
+    per_layer = tree_map_with_path(lambda _p, leaf: leaf.unbind(0),
+                                   params["layers"])
+    window = None
+    if zero is not None:   # the top leaves, then the layers ahead of use
+        skip = FUSED_MLP_LEAVES if cfg.fused_gather_matmul else ()
+        window = zero.window(params, per_layer, cfg.num_layers, skip)
+        params = window.top()
     x = _embed(params, input_ids, positions, cfg, token_embeds,
                token_type_ids=token_type_ids)
     if dropout_seed is not None and cfg.dropout > 0:
         x = _dropout(x, cfg.dropout, _fold(dropout_seed, 10_000), topo,
                      positions[0] if _sp_size(topo) > 1 else None)
 
-    per_layer = tree_map_with_path(lambda _p, leaf: leaf.unbind(0),
-                                   params["layers"])
-    skip = FUSED_MLP_LEAVES if cfg.fused_gather_matmul else ()
     for i in range(cfg.num_layers):
         lp = tree_map_with_path(lambda _p, views, i=i: views[i], per_layer)
         # GPT-Neo alternating attention: even layers attend globally
@@ -818,9 +821,9 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
             if cfg.alt_window and i % 2 == 0 else cfg
         seed = None if dropout_seed is None else _fold(dropout_seed, i)
 
-        def layer(h, lp=lp, lcfg=lcfg, seed=seed):
-            if zero is not None:   # this layer's leaves, when it runs
-                lp = zero.layer(lp, skip=skip)
+        def layer(h, i=i, lp=lp, lcfg=lcfg, seed=seed):
+            if window is not None:   # this layer's leaves, when it runs
+                lp = window.layer(i)
             return transformer_layer(h, lp, positions, lcfg,
                                      dropout_seed=seed,
                                      attention_mask=attention_mask, topo=topo)

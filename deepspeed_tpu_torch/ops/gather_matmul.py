@@ -10,8 +10,9 @@ matmul runs, and each matmul is one blocked Pallas kernel
 reorder around the gather in flight.  Here the gathers are the
 asynchronous all-gathers of ``comm/comm.py`` through the stage-3 gather
 ``Function`` of ``zero.py`` (issued first, waited on just before their
-use), and each matmul is the hand-written Hopper GEMM of
-``ops/csrc/gather_matmul.cu``.
+use; at ``gather_prefetch_depth`` >= 2 the ZeRO-3 window issues the
+first matmul's gather with the previous layer), and each matmul is the
+hand-written Hopper GEMM of ``ops/csrc/gather_matmul.cu``.
 
 * :func:`gemm` — the kernel wrapper: ``[M, K] @ [K, N]`` with fp32
   accumulation and the operands' dtype out, on any strided 2-D views (a
@@ -28,12 +29,13 @@ use), and each matmul is the hand-written Hopper GEMM of
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import TYPE_CHECKING, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch import zero
+if TYPE_CHECKING:
+    from deepspeed_tpu_torch import zero
 
 # the TPU kernel's block depth: the plain version sums K in these chunks
 BLK_K = 256
@@ -170,47 +172,46 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _Matmul.apply(x, w)
 
 
-def gather_matmul(x: torch.Tensor, w_shard: torch.Tensor, group, dim: int,
-                  prefetch: Sequence[Tuple[torch.Tensor, int]] = ()):
-    """One fused gather-matmul: issue the all-gathers of every ``(shard,
-    dim)`` in ``prefetch`` first (the following matmuls' weights), then
-    gather ``w_shard`` along ``dim`` and multiply ``x [..., K]`` by it
-    through the kernel.  Shards are cast to x's dtype before they travel.
-    Returns ``(y, pending)``: ``pending`` holds the prefetches' handles, in
-    order, for :func:`zero.gathered` at their use."""
-    nexts = tuple(zero.issue_gather(s, d, group, x.dtype) for s, d in prefetch)
-    w = zero.gather(w_shard, dim, group, x.dtype)
+def gather_matmul(x: torch.Tensor, w: "zero.Deferred",
+                  prefetch: Sequence["zero.Deferred"] = ()) -> torch.Tensor:
+    """One fused gather-matmul: issue the all-gathers of every leaf in
+    ``prefetch`` first (the following matmuls' weights), then wait for
+    ``w``'s gather (issued now, or already by the ZeRO-3 window) and
+    multiply ``x [..., K]`` by it through the kernel."""
+    for leaf in prefetch:
+        leaf.issue()
+    full = w.gathered()
     lead = x.shape[:-1]
-    y = matmul(x.reshape(-1, x.shape[-1]), w)
-    return y.reshape(lead + (w.shape[1],)), nexts
+    y = matmul(x.reshape(-1, x.shape[-1]), full)
+    return y.reshape(lead + (full.shape[1],))
 
 
-def fused_gather_mlp(x: torch.Tensor, p, cfg, topo) -> torch.Tensor:
+def fused_gather_mlp(x: torch.Tensor, p, cfg) -> torch.Tensor:
     """The transformer MLP on the fused gather-matmul path
     (``step_schedule.fused_gather_matmul``; called from
     ``models/transformer.py`` ``_mlp_block`` when the engine enabled the
-    flag).  ``x [B, S, H]``: this rank's rows; ``p``: the layer's mlp shards
-    over the ZeRO group of ``topo``, wi/wg split on their embed dim 0 and
-    wo on its embed dim 1 (and bi on dim 0), as the engine verified.  The
-    output bias stays outside (the caller adds it)."""
-    group = topo.world_group
+    flag).  ``x [B, S, H]``: this rank's rows; ``p``: the layer's mlp
+    leaves, wi/wg/wo/bi as :class:`zero.Deferred` shards (wi/wg split on
+    their embed dim 0, wo on its embed dim 1, bi on dim 0, as the engine
+    verified; at ``gather_prefetch_depth`` >= 2 the window has issued
+    ``wi``'s gather with the previous layer).  The output bias stays
+    outside (the caller adds it)."""
     swiglu = cfg.activation == "swiglu"
     bi = p.get("bi")
     has_bi = bi is not None and not swiglu
     # the SECOND matmul's gather (and the gate branch's, and the
     # pre-activation bias') issues before the first matmul runs
-    pre = [(p["wo"], 1)]
+    pre = [p["wo"]]
     if swiglu:
-        pre.append((p["wg"], 0))
+        pre.append(p["wg"])
     if has_bi:
-        pre.append((bi, 0))
-    h, nexts = gather_matmul(x, p["wi"], group, 0, prefetch=pre)
-    wo_pending, rest = nexts[0], list(nexts[1:])
+        pre.append(bi)
+    h = gather_matmul(x, p["wi"], prefetch=pre)
     lead = x.shape[:-1]
     if has_bi:
-        h = h + zero.gathered(bi, rest.pop(0), 0, group)
+        h = h + bi.gathered()
     if swiglu:
-        wg = zero.gathered(p["wg"], rest.pop(0), 0, group)
+        wg = p["wg"].gathered()
         gate = matmul(x.reshape(-1, x.shape[-1]), wg)
         h = F.silu(gate.reshape(lead + (wg.shape[1],))) * h
     elif cfg.activation == "relu":
@@ -218,6 +219,6 @@ def fused_gather_mlp(x: torch.Tensor, p, cfg, topo) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="none" if cfg.activation == "gelu_exact"
                    else "tanh")
-    wo = zero.gathered(p["wo"], wo_pending, 1, group)
+    wo = p["wo"].gathered()
     y = matmul(h.reshape(-1, h.shape[-1]), wo)
     return y.reshape(lead + (wo.shape[1],))

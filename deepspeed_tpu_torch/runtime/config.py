@@ -3,22 +3,24 @@
 Port of ``deepspeed_tpu/runtime/config.py`` over the keys the training
 path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
 ``gradient_clipping``, ``zero_optimization.stage``,
-``.param_persistence_threshold`` and ``.reduce_bucket_size`` (the flat
-buckets of the gradient reduction),
+``.param_persistence_threshold``, ``.reduce_bucket_size`` (the flat
+buckets of the gradient reduction), ``.prefetch_bucket_size`` and
+``.zero_quantized_weights`` (qwZ),
 ``activation_checkpointing.remat_policy``,
 the ``checkpoint`` block's writer and ``load_universal`` (and
 ``load_universal_checkpoint``), ``steps_per_print``, ``seed``, ``dataloader_drop_last``, the ``mesh``'s
 ``data`` and ``seq`` axes (or ``sequence_parallel_size``; every other axis
 1) and the ``step_schedule`` keys
-``ring_interleave``, ``fused_gather_matmul`` and
-``param_persistence_threshold``, and ``comm_quantization`` (its
-``ring_rotation`` runs).  Those keys get the JAX config's
+``ring_interleave``, ``fused_gather_matmul``,
+``param_persistence_threshold``, ``gather_prefetch_depth`` and
+``prefetch_bucket_size``, and ``comm_quantization`` (its
+``ring_rotation`` and ``zero3_gather`` run).  Those keys get the JAX config's
 rejections (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO
 stage outside [0, 3], fp16 together with bf16).  A key that turns on a
 feature the port has not got yet raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.  Any other key of the ``fp16``, ``bf16``,
 ``zero_optimization`` and ``activation_checkpointing`` blocks (the
-all-gather and prefetch bucket sizes, overlap knobs, loss-scale settings
+all-gather bucket size, overlap knobs, loss-scale settings
 of a disabled fp16) is logged as
 ignored: none of them changes the numbers of a step.
 """
@@ -96,11 +98,17 @@ class ZeroConfig:
     goes through flat buckets of at most ``reduce_bucket_size`` elements
     (DeepSpeed's default, as in the JAX config), always contiguous:
     ``contiguous_gradients`` false is logged as ignored, as the JAX config
-    accepts it and XLA decides the layout there; offload and ZeRO++
-    quantization raise."""
+    accepts it and XLA decides the layout there.  ``zero_quantized_weights``
+    (qwZ: the ZeRO-3 gather on the int8 wire, ``parallel/zeropp.py``)
+    runs; ``prefetch_bucket_size`` (the JAX default, 50,000,000) is
+    accepted, validated and reported, and bounds nothing: the JAX package
+    reads it nowhere outside its config and autotuner either, the window
+    of ``step_schedule.gather_prefetch_depth`` decides what is issued
+    ahead.  Offload, quantized gradients, hpZ and MiCS raise."""
     stage: int = 0
     param_persistence_threshold: int = 100_000
     reduce_bucket_size: int = 500_000_000
+    prefetch_bucket_size: int = 50_000_000
     contiguous_gradients: bool = True
     offload_param: Optional[Dict[str, Any]] = None
     offload_optimizer: Optional[Dict[str, Any]] = None
@@ -124,6 +132,8 @@ class ZeroConfig:
             raise DeepSpeedConfigError(
                 "zero_optimization.reduce_bucket_size must be >= 1")
         self.reduce_bucket_size = int(self.reduce_bucket_size)
+        self.prefetch_bucket_size = int(self.prefetch_bucket_size)
+        self.zero_quantized_weights = bool(self.zero_quantized_weights)
         if not self.contiguous_gradients:
             logger.warning("Config: ignoring zero_optimization."
                            "contiguous_gradients=false (the gradients are "
@@ -135,12 +145,12 @@ class ZeroConfig:
                                  "Queue A item 7")
         if self.cpu_offload or self.cpu_offload_params:
             raise not_ported("zero_optimization.cpu_offload", "Queue A item 7")
-        if (self.zero_quantized_weights or self.zero_quantized_gradients
+        if (self.zero_quantized_gradients
                 or self.zero_quantized_nontrainable_weights
                 or self.zero_hpz_partition_size > 1
                 or self.mics_shard_size > 0):
-            raise not_ported("ZeRO++ (quantized weights/gradients, hpZ, MiCS)",
-                             "Queue A item 8")
+            raise not_ported("ZeRO++ (quantized gradients or nontrainable "
+                             "weights, hpZ, MiCS)", "Queue A item 8")
 
 
 # the JAX config's remat policy names; the port runs the first three
@@ -200,12 +210,13 @@ class CommQuantizationConfig:
     config's block).  ``ring_rotation`` (``fp32``, ``int8`` or ``fp8``)
     runs: the ring's K/V and traveling dk/dv move as block-quantized
     payloads with fp32 row scales (``sequence/ring.py``); the engine sets
-    it on the model over a seq axis.  ``grad_reduce`` and ``zero3_gather``
-    other than ``fp32`` raise (ROADMAP Queue A item 8).  The
-    ``collectives`` dict is the same choice spelled per collective;
-    unknown collective names and wire dtypes are rejected as in JAX.
-    ``group_size`` and ``error_feedback`` serve the collectives not
-    ported."""
+    it on the model over a seq axis.  ``zero3_gather`` runs: the ZeRO-3
+    weight gather moves the payload and block scales of ``group_size``
+    blocks (qwZ, ``parallel/zeropp.py``).  ``grad_reduce`` other than
+    ``fp32`` raises (ROADMAP Queue A item 8).  The ``collectives`` dict is
+    the same choice spelled per collective; unknown collective names and
+    wire dtypes are rejected as in JAX.  ``error_feedback`` serves the
+    collective not ported."""
     enabled: bool = False
     grad_reduce: str = "fp32"
     zero3_gather: str = "fp32"
@@ -241,12 +252,9 @@ class CommQuantizationConfig:
                 f"comm_quantization.group_size must be positive, got "
                 f"{self.group_size}")
         self.group_size = int(self.group_size)
-        if self.enabled:
-            for name in ("grad_reduce", "zero3_gather"):
-                if getattr(self, name) != "fp32":
-                    raise not_ported(f"comm_quantization.{name}="
-                                     f"{getattr(self, name)!r}",
-                                     "Queue A item 8")
+        if self.enabled and self.grad_reduce != "fp32":
+            raise not_ported(f"comm_quantization.grad_reduce="
+                             f"{self.grad_reduce!r}", "Queue A item 8")
 
 
 @dataclass
@@ -296,14 +304,22 @@ class StepScheduleConfig:
     JAX ring's hop order; accepted, and the port's ring runs attend then
     rotate for both, ``sequence/ring.py``), ``fused_gather_matmul`` (the
     ZeRO-3 fused gather-matmul MLP; the engine's gate decides whether it
-    runs, as the JAX engine's does) and ``param_persistence_threshold``
-    (None keeps the ``zero_optimization`` value; a value wins over it, as in
-    the JAX ``PartitionOracle.from_config``).  The block's other keys are
-    accepted at their defaults and raise when they ask for something else
-    (``_UNPORTED_SCHEDULE``)."""
+    runs, as the JAX engine's does), ``param_persistence_threshold`` (None
+    keeps the ``zero_optimization`` value; a value wins over it, as in the
+    JAX ``PartitionOracle.from_config``), ``gather_prefetch_depth`` (at
+    least 1: the ZeRO-3 gathers of the next depth - 1 layers are issued
+    while a layer runs, ``zero.Window``; the engine clamps it to a divisor
+    of the layer count, as the JAX engine clamps its scan unroll) and
+    ``prefetch_bucket_size`` (positive or None; accepted, validated and
+    reported, and, as in the JAX package, which reads it nowhere outside
+    its config and autotuner, it bounds nothing in the schedule).  The
+    block's other keys are accepted at their defaults and raise when they
+    ask for something else (``_UNPORTED_SCHEDULE``)."""
     ring_interleave: int = 1
     fused_gather_matmul: bool = False
     param_persistence_threshold: Optional[int] = None
+    gather_prefetch_depth: int = 1
+    prefetch_bucket_size: Optional[int] = None
 
     RING_INTERLEAVES = (1, 2)
 
@@ -314,12 +330,22 @@ class StepScheduleConfig:
                 f"{list(self.RING_INTERLEAVES)}, got {self.ring_interleave}")
         self.ring_interleave = int(self.ring_interleave)
         self.fused_gather_matmul = bool(self.fused_gather_matmul)
+        if int(self.gather_prefetch_depth) < 1:
+            raise DeepSpeedConfigError(
+                "step_schedule.gather_prefetch_depth must be >= 1, got "
+                f"{self.gather_prefetch_depth}")
+        self.gather_prefetch_depth = int(self.gather_prefetch_depth)
         if self.param_persistence_threshold is not None:
             if int(self.param_persistence_threshold) < 0:
                 raise DeepSpeedConfigError(
                     "step_schedule.param_persistence_threshold must be >= 0")
             self.param_persistence_threshold = \
                 int(self.param_persistence_threshold)
+        if self.prefetch_bucket_size is not None:
+            if int(self.prefetch_bucket_size) <= 0:
+                raise DeepSpeedConfigError(
+                    "step_schedule.prefetch_bucket_size must be positive")
+            self.prefetch_bucket_size = int(self.prefetch_bucket_size)
 
 
 # the JAX step_schedule keys the port has no actuator for: key -> (its
@@ -329,8 +355,6 @@ _UNPORTED_SCHEDULE = {
     "probe_steps": (3, "Queue A item 12"),
     "overlap_threshold": (0.5, "Queue A item 12"),
     "decisions": (None, "Queue A item 12"),
-    "gather_prefetch_depth": (1, "Queue A item 7"),
-    "prefetch_bucket_size": (None, "Queue A item 7"),
     "weight_update": ("fused", "Queue A item 8"),
     "fused_reduce_scatter": (False, "Queue A item 8"),
 }

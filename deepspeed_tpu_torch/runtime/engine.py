@@ -57,10 +57,17 @@ optimizer state and its gradient accumulator are split on over that world
   (its optimizer state only) and the params are all-gathered;
 * stage 2: as stage 1, but each micro-step's grads are reduce-scattered
   into fp32 slice accumulators;
-* stage 3: the params are slices too; the forward gathers each leaf when
-  it is used and the backward reduce-scatters its gradient
-  (``zero.py``), and the update runs on the slices.  Leaves the
-  persistence threshold keeps whole are treated as in stage 2.
+* stage 3: the params are slices too; the forward gathers them (one flat
+  all-gather a layer, ``step_schedule.gather_prefetch_depth`` - 1 layers
+  ahead of their use; ``zero.py``) and the backward hands the full
+  gradients to a :class:`~deepspeed_tpu_torch.zero.Stage3Reducer`, which
+  reduce-scatters them through flat buckets as they come (asynchronously
+  under NCCL, waited on at the end of each micro-step's backward) into
+  fp32 accumulators, each slice's ``.grad``; the update runs on the
+  slices.  Leaves the persistence threshold keeps whole are treated as in
+  stage 2.  Under qwZ (``comm_quantization.zero3_gather`` int8/fp8, or
+  ``zero_optimization.zero_quantized_weights``) the gathers move the
+  wire's payload and block scales (``parallel/zeropp.py``).
 
 The gradient reduction runs through flat buckets of at most
 ``zero_optimization.reduce_bucket_size`` elements, in leaf order (one
@@ -71,7 +78,8 @@ autograd accumulates in place and nothing is packed; a reduce-scattered
 leaf's full ``.grad`` lives from its backward to its bucket's
 reduce-scatter, so ZeRO-2 keeps no full gradient between micro-steps.
 A ``reduce_bucket_size`` of 1 gives every leaf a
-bucket of its own: the per-leaf reduction.  The global grad norm counts
+bucket of its own: the per-leaf reduction (at stage 3, every gathered
+leaf's gradient).  The global grad norm counts
 each element once: slice sums of squares are all-reduced, and a leaf that
 stays whole on every rank is added once.
 ``step_schedule.fused_gather_matmul`` goes through the JAX engine's gate
@@ -110,6 +118,7 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     is_norm_path,
                                                     tree_leaves,
                                                     tree_map_with_path)
+from deepspeed_tpu_torch.parallel import zeropp
 from deepspeed_tpu_torch.parallel.topology import MeshTopology, set_topology
 from deepspeed_tpu_torch.resilience.oracle import PartitionOracle
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
@@ -194,6 +203,8 @@ class DeepSpeedEngine:
                 mc = mc.replace(remat_policy=ac.remat_policy)
             if cfg.step_schedule.ring_interleave > 1 and mc.seq_impl == "ring":
                 mc = mc.replace(ring_interleave=cfg.step_schedule.ring_interleave)
+            self._prefetch_depth = self._clamp_depth(
+                cfg.step_schedule.gather_prefetch_depth, mc.num_layers)
             cq = cfg.comm_quantization
             if cq.enabled and cq.ring_rotation != "fp32":
                 if mc.seq_impl == "ring" and self.topology.sp_size > 1:
@@ -218,10 +229,17 @@ class DeepSpeedEngine:
         else:
             self.model_config = None
             self._loss_fn = model.loss
+            # the JAX engine reads the depth in its built-in-model branch
+            self._prefetch_depth = 1
             if cfg.bf16.enabled:
                 log_dist("bf16.enabled is ignored for a duck-typed trainable: "
                          "it computes in the dtype it chooses itself",
                          level="warning")
+
+        self._qwz = zeropp.qwz_of(cfg)
+        if self._qwz is not None:
+            log_dist(f"ZeRO-3 weight gather (qwZ): wire {self._qwz[0]}, "
+                     f"group size {self._qwz[1]}")
 
         # -- params: masters (fp32 for the built-in model), leaves of the
         # autograd graph -------------------------------------------------
@@ -258,6 +276,8 @@ class DeepSpeedEngine:
 
         self.global_steps = 0
         self.micro_steps = 0
+        # reduce-scatter buckets of the last micro-step's stage-3 gradients
+        self.stage3_buckets = 0
         self._last_metrics: Dict[str, torch.Tensor] = {}
         # the loss-scale state the JAX engine keeps outside fp16 (fp16
         # raises, Queue A item 3): scale 1, and no step is ever skipped
@@ -268,6 +288,21 @@ class DeepSpeedEngine:
         self._checkpoint_engine = None
         # the last pickle save's host seconds (gather, whole save)
         self.last_checkpoint_stats: Dict[str, float] = {}
+
+    @staticmethod
+    def _clamp_depth(depth: int, num_layers: int) -> int:
+        """``step_schedule.gather_prefetch_depth`` clamped to the largest
+        divisor of ``num_layers`` at or below it, with the JAX engine's
+        warning (``deepspeed_tpu/runtime/engine.py:279-298``: its layer
+        scan unrolls only by a divisor of its length)."""
+        clamped = depth
+        while num_layers % clamped:
+            clamped -= 1
+        if clamped != depth:
+            logger.warning(f"step_schedule.gather_prefetch_depth={depth} "
+                           f"does not divide num_layers={num_layers}; "
+                           f"clamped to {clamped}")
+        return clamped
 
     # ------------------------------------------------------------------
     # ZeRO partitioning over the ZeRO world (the data and seq axes)
@@ -313,8 +348,25 @@ class DeepSpeedEngine:
                     return tree
             with zero.Init(topology=topo, oracle=self.oracle) as zinit:
                 params = zinit.partition(params)
-            self._zero = zero.ParamGather(self.param_dims, topo.world_group,
-                                          dtype_of)
+            # a stage-3 slice's fp32 gradient accumulator, its .grad, into
+            # which the reducer adds each micro-step's reduced slices
+            accs = {}
+            paths = []
+            tree_map_with_path(lambda path, _x: paths.append(path), params)
+            for path, p, d in zip(paths, tree_leaves(params),
+                                  tree_leaves(self.param_dims)):
+                if d is not None:
+                    p.grad = accs[path] = torch.zeros_like(p)
+            zc = self.config.zero_config
+            self._zero = zero.ParamGather(
+                params, self.param_dims, topo.world_group, dtype_of,
+                zero.Stage3Reducer(accs, topo.world_group,
+                                   zc.reduce_bucket_size),
+                depth=self._prefetch_depth, qwz=self._qwz)
+            log_dist(f"ZeRO-3: gather window depth {self._prefetch_depth}, "
+                     f"gradient buckets of {zc.reduce_bucket_size} elements "
+                     f"(prefetch_bucket_size {zc.prefetch_bucket_size}, "
+                     "as in JAX, bounds nothing)")
         for p in tree_leaves(params):
             p.requires_grad_(True)
         self.params = params
@@ -349,8 +401,9 @@ class DeepSpeedEngine:
         are autograd's own, made by the backward and dropped once
         reduce-scattered, and the rank-major pack takes a buffer of the
         bucket's size then, after the backward has freed the activations.
-        A stage-3 slice's gradient is reduced by its gather and takes no
-        bucket."""
+        A stage-3 slice's gradient goes through the reducer of its gather
+        (``zero.Stage3Reducer``, buckets of the same size) and takes none of
+        these."""
         self._reduce_buckets: List[tuple] = []
         self._scatter_buckets: List[tuple] = []
         if self.topology.world_size <= 1:
@@ -412,7 +465,7 @@ class DeepSpeedEngine:
             if zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 0 else
             "param streaming unsupported" if mc.param_stream else
             "quantized zero3_gather (qwZ) already owns the gather"
-            if zc.zero_quantized_weights else
+            if self._qwz is not None or zc.zero_quantized_weights else
             "compression masking unsupported"
             if cfg.to_dict().get("compression_training") else
             "MoE layers unsupported" if mc.is_moe else "")
@@ -516,7 +569,10 @@ class DeepSpeedEngine:
         by dp.  Returns ``(loss to differentiate, global mean loss)``."""
         topo = self.topology
         if topo.world_size <= 1:
-            loss = self._loss_fn(self.params, mb)
+            params = self.params
+            if self._qwz is not None:    # nothing gathered: the round trip
+                params = zeropp.qwz_weight_gather(params, *self._qwz)
+            loss = self._loss_fn(params, mb)
             return loss, loss.detach().float()
         if self.model_config is None:
             params = (self._zero.whole(self.params) if self._zero is not None
@@ -553,8 +609,8 @@ class DeepSpeedEngine:
 
     def _accum_grads(self, batch_stack: Batch):
         """Run the gas micro-steps, accumulating fp32 gradients in each
-        param's ``.grad`` (a stage-3 slice's through the gather's
-        reduce-scatter) or, at stage >= 2 for a leaf whose state alone is
+        param's ``.grad`` (a stage-3 slice's through the reducer's
+        buckets, finished after each backward) or, at stage >= 2 for a leaf whose state alone is
         split, in its slice accumulator (one reduce-scatter a bucket each
         micro-step); then all-reduce the whole leaves' buckets over the
         ZeRO world.  Returns (the gradient of each ``_masters`` leaf,
@@ -571,6 +627,8 @@ class DeepSpeedEngine:
                 mb["dropout_seed"] = seeds[i]
             loss, value = self._micro_loss(mb)
             loss.backward()
+            if self._zero is not None:     # the stage-3 buckets, reduced
+                self.stage3_buckets = self._zero.reducer.finish()
             loss_sum += value
             for idx, dims, acc in self._scatter_buckets:
                 ps = [self._leaves[j][0] for j in idx]

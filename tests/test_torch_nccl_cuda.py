@@ -1,7 +1,10 @@
 """The port's data parallelism over NCCL, one H100 a rank: ZeRO stages 1-3
-at ``{"data": 4}`` and stages 1-2 at ``{"data": 2, "seq": 2}`` (the ring,
-striped), each against one engine on the CPU at data 1 on the same global
-batch, and the flat buckets against the per-leaf collectives.
+at ``{"data": 4}`` (stage 3 also with the gather window at depth 2 over
+buckets of about a third of a layer's gradients, and with the int8
+weight gather, qwZ) and stages 1-2 at ``{"data": 2, "seq": 2}`` (the
+ring, striped), each against one engine on the CPU at data 1 on the same
+global batch (for qwZ, ZeRO-3 with qwZ at data 1: the codec's round trip
+on every leaf), and the flat buckets against the per-leaf collectives.
 
 The model is ``chip_smoke.py``'s mesh-reference model (llama3-8b's head
 dim 128 and GQA group 4 at width 1024, 2 layers, fp32, seq 512).  Losses
@@ -47,22 +50,29 @@ CFG = {"gradient_accumulation_steps": GAS,
        "activation_checkpointing": {"remat_policy": "none"}}
 RTOL = 1e-5
 PARAMS_RTOL = 1e-6
-# name: (mesh, ZeRO stage, reduce_bucket_size)
-CONFIGS = {"data4-stage1": ({"data": 4}, 1, 500_000_000),
-           "data4-stage1-per-leaf": ({"data": 4}, 1, 1),
-           "data4-stage2": ({"data": 4}, 2, 500_000_000),
-           "data4-stage3": ({"data": 4}, 3, 500_000_000),
-           "data2xseq2-stage1": ({"data": 2, "seq": 2}, 1, 500_000_000),
-           "data2xseq2-stage2": ({"data": 2, "seq": 2}, 2, 500_000_000)}
+# name: (mesh, ZeRO stage, reduce_bucket_size, extra keys)
+DEPTH2 = {"step_schedule": {"gather_prefetch_depth": 2}}
+QWZ = {"zero_optimization": {"zero_quantized_weights": True}}
+CONFIGS = {"data4-stage1": ({"data": 4}, 1, 500_000_000, {}),
+           "data4-stage1-per-leaf": ({"data": 4}, 1, 1, {}),
+           "data4-stage2": ({"data": 4}, 2, 500_000_000, {}),
+           "data4-stage3": ({"data": 4}, 3, 500_000_000, {}),
+           "data4-stage3-prefetch2": ({"data": 4}, 3, 4_000_000, DEPTH2),
+           "data4-stage3-qwz": ({"data": 4}, 3, 500_000_000, QWZ),
+           "data2xseq2-stage1": ({"data": 2, "seq": 2}, 1, 500_000_000, {}),
+           "data2xseq2-stage2": ({"data": 2, "seq": 2}, 2, 500_000_000, {})}
 U = 2.0 ** -24
 
 
-def config(mesh, stage, bucket):
+def config(mesh, stage, bucket, extra=None):
+    extra = extra or {}
     data = mesh.get("data", 1)
-    return {**CFG, "mesh": mesh, "train_micro_batch_size_per_gpu": ROWS // (GAS * data),
+    return {**CFG, **extra, "mesh": mesh,
+            "train_micro_batch_size_per_gpu": ROWS // (GAS * data),
             "zero_optimization": {"stage": stage,
                                   "param_persistence_threshold": 0,
-                                  "reduce_bucket_size": bucket}}
+                                  "reduce_bucket_size": bucket,
+                                  **extra.get("zero_optimization", {})}}
 
 
 def _tree_cpu(tree):
@@ -178,6 +188,8 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
                              "zero": (eng.topology.rank,
                                       eng.topology.world_size),
                              "buckets": eng.grad_bucket_count,
+                             "stage3_buckets": eng.stage3_buckets,
+                             "depth": eng._prefetch_depth, "qwz": eng._qwz,
                              "params": gathered}
         del eng
         if device is None:
@@ -188,15 +200,17 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
     return out
 
 
-def reference(rows_batch):
-    """The CPU engine at data 1 on the global batch: the initial params,
-    two steps' losses and grad norms, the params after them."""
+def reference(rows_batch, params=None, stage=0, extra=None):
+    """The CPU engine at data 1 on the global batch (from ``params``, or
+    its own init): the initial params, two steps' losses and grad norms,
+    the params after them."""
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch.models import get_model_config
 
     eng, *_ = ds.initialize(model=get_model_config(MODEL, **MODEL_KW),
-                            device="cpu", seed=4,
-                            config=config({"data": 1}, 0, 500_000_000))
+                            device="cpu", seed=4, model_parameters=params,
+                            config=config({"data": 1}, stage, 500_000_000,
+                                          extra))
     params = _tree_cpu(eng.params)
     want = []
     for _ in range(STEPS):
@@ -238,10 +252,12 @@ def nccl_run():
     op_builder.build_all()      # before the ranks, which would race on it
     batch = global_batch()
     params, want, final = reference(batch)
+    _, want_qwz, final_qwz = reference(batch, params, 3, QWZ)
     configs = {name: config(*spec) for name, spec in CONFIGS.items()}
     ranks = launch(nccl_ranks, RANKS, args=(params, configs, batch),
                    backend="nccl", device="cuda")
-    return {"ranks": ranks, "want": want, "final": final}
+    return {"ranks": ranks, "want": want, "final": final,
+            "want_qwz": want_qwz, "final_qwz": final_qwz}
 
 
 @pytest.mark.cuda
@@ -252,7 +268,11 @@ def test_every_rank_runs_nccl(nccl_run):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_zero_over_nccl_matches_the_cpu_engine(name, nccl_run):
-    ranks, want = nccl_run["ranks"], nccl_run["want"]
+    mesh, stage, bucket, extra = CONFIGS[name]
+    qwz = extra is QWZ
+    ranks = nccl_run["ranks"]
+    want = nccl_run["want_qwz" if qwz else "want"]
+    final = nccl_run["final_qwz" if qwz else "final"]
     for i, r in enumerate(ranks):
         got = r["runs"][name]
         assert got["zero"] == (i, RANKS)
@@ -261,12 +281,16 @@ def test_zero_over_nccl_matches_the_cpu_engine(name, nccl_run):
             assert loss == pytest.approx(wl, rel=RTOL)
             assert norm == pytest.approx(wn, rel=RTOL)
         assert got["losses"] == ranks[0]["runs"][name]["losses"]
-    assert params_rel(ranks[0]["runs"][name]["params"],
-                      nccl_run["final"]) <= PARAMS_RTOL
-    mesh, stage, bucket = CONFIGS[name]
-    per_leaf = ranks[0]["runs"][name]["buckets"]
+    assert params_rel(ranks[0]["runs"][name]["params"], final) <= PARAMS_RTOL
+    got = ranks[0]["runs"][name]
+    assert got["depth"] == extra.get("step_schedule", {}).get(
+        "gather_prefetch_depth", 1)
+    assert (got["qwz"] is not None) == qwz
+    per_leaf = got["buckets"]
     if stage < 3:
         assert per_leaf >= 1
+    else:          # the stage-3 reducer's buckets, the last micro-step
+        assert got["stage3_buckets"] >= (2 if bucket < 10 ** 8 else 1)
     if bucket == 1:
         assert per_leaf > ranks[0]["runs"][name.replace("-per-leaf", "")][
             "buckets"]

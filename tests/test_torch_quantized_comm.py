@@ -15,9 +15,10 @@ dtypes, against the JAX package on the CPU.
   validation cases.
 * The ``comm_quantization`` block: the JAX config's rejections (unknown
   collective, unknown wire dtype, a non-dict ``collectives``, group_size
-  <= 0) with the same messages; ``grad_reduce``/``zero3_gather`` other than
-  fp32 raise ``NotImplementedError`` naming ROADMAP Queue A item 8;
-  ``ring_rotation`` is accepted and the ``collectives`` spelling sets it.
+  <= 0) with the same messages; ``grad_reduce`` other than fp32 raises
+  ``NotImplementedError`` naming ROADMAP Queue A item 8; ``ring_rotation``
+  and ``zero3_gather`` are accepted and the ``collectives`` spelling sets
+  them.
 * ``comm.ring_rotate`` in 2 gloo ranks moves int8 and uint8 payloads (fp8
   travels as uint8) and fp32 scales in one call, bit for bit.
 """
@@ -146,8 +147,15 @@ def test_config_rejects_as_jax_does(block, match):
 
 @pytest.mark.parametrize("name", ["grad_reduce", "zero3_gather"])
 def test_quantized_collectives_not_ported_name_their_item(name):
+    """``grad_reduce`` raises naming its item; ``zero3_gather`` (qwZ) runs
+    and is read as the JAX config reads it."""
     for block in ({"enabled": True, name: "int8"},
                   {"enabled": True, "collectives": {name: "fp8"}}):
+        if name == "zero3_gather":
+            assert getattr(DeepSpeedConfig(_config(block)).comm_quantization,
+                           name) == getattr(JaxConfig(_config(
+                               block)).comm_quantization, name)
+            continue
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
             DeepSpeedConfig(_config(block))
     # switched off, or fp32 spelled out: nothing to run

@@ -12,15 +12,19 @@ Needs four CUDA cards.  Runs, each in ranks started by
   the flat buckets and with per-leaf calls (``reduce_bucket_size`` 1);
 * the same step at ``{"data": 2, "seq": 2}`` on four cards;
 * ``chip_smoke.py``'s ZeRO-3 fused gpt2-350m step (``ZERO_CFG``, gas 2) at
-  data 2 and at data 4, with the flat buckets and with per-leaf calls.
+  data 2 and at data 4, for each ``gather_prefetch_depth`` of 1 and 2 and
+  each ``reduce_bucket_size`` of 1 (the per-leaf reduce-scatter), one
+  layer's elements and the default 500,000,000 (one bucket a backward).
 
 For each: the first step's seconds on a line of its own (NCCL makes a
 group's communicator at its first collective), the seconds of the timed
-steps (the slower rank's), tokens/s, peak memory a rank, and from one
-profiled step on rank 0: device busy (the union of every stream's kernels)
-and idle share, the device ms of the NCCL kernels (``nccl*``, read from the
-raw kineto events) and of each ported kernel, the compute kernels' ms
-that overlap NCCL kernels, and the host ms in the comm layer's ranges.
+steps (the slower rank's), tokens/s, peak memory a rank, the collectives
+issued a step (``comm.calls``: reduce-scatters, all-gathers,
+all-reduces), and from one profiled step on rank 0: device busy (the union
+of every stream's kernels) and idle share, the device ms of the NCCL
+kernels (``nccl*``, read from the raw kineto events) and of each ported
+kernel, the compute kernels' ms that overlap NCCL kernels, and the host
+ms in the comm layer's ranges.
 Prints one JSON line a run, the cards' ``nvidia-smi`` lines first; writes
 the same lines to ``--out``.
 """
@@ -130,6 +134,7 @@ def probe_rank(rank, world, cases, steps):
     import torch.distributed as dist
 
     import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.ops import flash_mha as fm
     from deepspeed_tpu_torch.ops import fused_optimizer as fo
@@ -152,7 +157,7 @@ def probe_rank(rank, world, cases, steps):
         losses = [float(eng.train_batch(batch))]
         first_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        cs.zero_counts(*counters)
+        cs.zero_counts(*counters, comm.calls)
         step_s = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -165,6 +170,10 @@ def probe_rank(rank, world, cases, steps):
                "zero": [eng.topology.rank, eng.topology.world_size],
                "launches_per_step": {k: v / steps for c in counters
                                      for k, v in c.items() if v},
+               "collective_calls_per_step": {k: v / steps for k, v in
+                                             comm.calls.items()},
+               "stage3_buckets_per_micro_step": eng.stage3_buckets,
+               "gather_prefetch_depth": eng._prefetch_depth,
                "max_memory_allocated_gib":
                torch.cuda.max_memory_allocated() / 2 ** 30}
         if rank == 0:
@@ -178,33 +187,46 @@ def probe_rank(rank, world, cases, steps):
     return out
 
 
-def cases_for(world):
+def layer_elements() -> int:
+    """One gpt2-350m layer's elements: the gradients a layer's backward
+    hands the stage-3 reducer."""
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    one = registry.get_model_config(cs.TRAIN_MODEL).replace(num_layers=1)
+    params = tf.init_params(one, device="cpu")
+    return sum(x.numel() for x in tf.tree_leaves(params["layers"]))
+
+
+def cases_for(world, layer):
+    """The runs of ``world`` ranks; ``layer``: one layer's elements."""
     ring_kw = cs.RING_MODEL_KW
 
     def bucket(cfg, size):
         return {**cfg, "zero_optimization": {**cfg["zero_optimization"],
                                              "reduce_bucket_size": size}}
 
+    def depth(cfg, d):
+        return {**cfg, "step_schedule": {**cfg["step_schedule"],
+                                         "gather_prefetch_depth": d}}
+
+    zero = {**cs.ZERO_CFG, "mesh": {"data": world}}
+    zeros = [{"name": f"zero3-data{world}-depth{d}-{name}",
+              "model": cs.TRAIN_MODEL, "model_kw": {},
+              "cfg": bucket(depth(zero, d), size), "seq": cs.TRAIN_SEQ}
+             for d in (1, 2)
+             for name, size in (("per-leaf", 1), ("one-layer", layer),
+                                ("default", 500_000_000))]
     if world == 2:
         ring = {**cs.RING_CFG, "mesh": {"seq": 2}}
-        zero = {**cs.ZERO_CFG, "mesh": {"data": 2}}
         return [{"name": "ring-seq2", "model": cs.RING_MODEL,
                  "model_kw": ring_kw, "cfg": ring, "seq": cs.RING_SEQ},
                 {"name": "ring-seq2-per-leaf", "model": cs.RING_MODEL,
                  "model_kw": ring_kw, "cfg": bucket(ring, 1),
-                 "seq": cs.RING_SEQ},
-                {"name": "zero3-data2", "model": cs.TRAIN_MODEL,
-                 "model_kw": {}, "cfg": zero, "seq": cs.TRAIN_SEQ},
-                {"name": "zero3-data2-per-leaf", "model": cs.TRAIN_MODEL,
-                 "model_kw": {}, "cfg": bucket(zero, 1), "seq": cs.TRAIN_SEQ}]
+                 "seq": cs.RING_SEQ}] + zeros
     ring = {**cs.RING_CFG, "mesh": {"data": 2, "seq": 2}}
-    zero = {**cs.ZERO_CFG, "mesh": {"data": 4}}
     return [{"name": "ring-data2xseq2", "model": cs.RING_MODEL,
-             "model_kw": ring_kw, "cfg": ring, "seq": cs.RING_SEQ},
-            {"name": "zero3-data4", "model": cs.TRAIN_MODEL, "model_kw": {},
-             "cfg": zero, "seq": cs.TRAIN_SEQ},
-            {"name": "zero3-data4-per-leaf", "model": cs.TRAIN_MODEL,
-             "model_kw": {}, "cfg": bucket(zero, 1), "seq": cs.TRAIN_SEQ}]
+             "model_kw": ring_kw, "cfg": ring, "seq": cs.RING_SEQ}] + zeros
 
 
 def main() -> int:
@@ -236,12 +258,14 @@ def main() -> int:
     t0 = time.perf_counter()
     op_builder.build_all()     # in the parent, before the ranks
     emit({"build_s": time.perf_counter() - t0})
+    layer = layer_elements()
     for world in (2, 4):
+        cases = cases_for(world, layer)
         t0 = time.perf_counter()
-        ranks = launch(probe_rank, world, args=(cases_for(world), args.steps),
+        ranks = launch(probe_rank, world, args=(cases, args.steps),
                        backend="nccl", device="cuda")
         emit({"world": world, "launch_s": time.perf_counter() - t0})
-        for i, case in enumerate(cases_for(world)):
+        for i, case in enumerate(cases):
             per = [r[i] for r in ranks]
             step_s = [max(r["step_s"][j] for r in per)
                       for j in range(args.steps)]
@@ -252,7 +276,10 @@ def main() -> int:
                   "zero_stage": case["cfg"]["zero_optimization"]["stage"],
                   "reduce_bucket_size": case["cfg"]["zero_optimization"].get(
                       "reduce_bucket_size", 500_000_000),
+                  "gather_prefetch_depth": per[0]["gather_prefetch_depth"],
                   "grad_buckets": per[0]["grad_buckets"],
+                  "stage3_buckets_per_micro_step":
+                      per[0]["stage3_buckets_per_micro_step"],
                   "first_step_s": [r["first_step_s"] for r in per]})
             emit({"run": case["name"], "step_s": step_s,
                   "tokens_per_step": tokens,
@@ -263,6 +290,8 @@ def main() -> int:
                   "max_memory_allocated_gib": [r["max_memory_allocated_gib"]
                                                for r in per],
                   "launches_per_step_rank0": per[0]["launches_per_step"],
+                  "collective_calls_per_step_rank0":
+                      per[0]["collective_calls_per_step"],
                   "profile_rank0": per[0]["profile"]})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("\n".join(lines) + "\n")
