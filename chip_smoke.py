@@ -156,6 +156,32 @@ Phases, each printing JSON lines:
                step 2, before its save, the group restarts at data 1 from
                the step-1 universal checkpoint: the outage seconds, the
                steps lost and the resumed losses against an unkilled run.
+ 26. dp-quant-kernels — quantize and dequantize against their plain
+               versions at the data axis's gradient-reduction shapes: the
+               fp32 [2, m] chunks of gpt2-350m's padded gradient at data 2
+               in groups of 256 (grad_reduce) and in qgZ's group (2048,
+               or the whole chunk where 2048 does not divide it, as the
+               JAX ``_quant_chunked_reduce``), timed beside the plain
+               versions and the bytes bound;
+ 27. dp-quant-reference — the zero-reference model (gpt2-350m width, 2
+               layers, fp32) in two ranks sharing the card over gloo
+               against two ranks on the CPU, for grad_reduce int8 with and
+               without error feedback, fp8 and fp32 spelled out, qgZ, the
+               three 1-bit optimizers (freeze_step 1: a compressed step
+               runs), the decomposed update and it with the fused
+               reduce-scatter, seq 32, two steps: losses, params (bounds
+               set between the sound readings and planted faults',
+               tools/dp_quant_faults.py), launches;
+ 28. dp-quant-train — bench.py's row_gpt2_350m_commquant step (gpt2-350m
+               at full width and depth, seq 1024, micro 8 a rank, bf16,
+               AdamW lr 1e-4, clip 1.0, ZeRO-1, grad_reduce int8 with
+               error feedback) over two ranks sharing the card, then in
+               the same ranks the explicit fp32 wire (the row's control),
+               qgZ and OnebitAdam: a warm-up step and two timed steps each
+               (seconds, peak memory a rank, grad-reduce wire bytes a
+               step, the loss delta against the control, quantize and
+               dequantize launches a step) and a profiled step on rank 0
+               (idle share, host ms in all_to_all and all_gather).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result; so does a machine without CUDA or a directory without the port.
@@ -293,14 +319,15 @@ LINEAR_UPDATE_RTOL = 0.05
 # (llama3-8b's max_seq_len) over two ranks sharing the card, at the row's
 # ZeRO stage 2 over the seq axis (state and gradients split over the two
 # ranks, each micro-step's gradients reduce-scattered through the flat
-# buckets).  The row's loss_tiles=32 runs untiled (ROADMAP A9).  Two timed
-# steps (three before the mesh-reference phase joined the script).
+# buckets).  The row's loss_tiles=32 runs untiled (ROADMAP A9).  One timed
+# step (two before the dp-quant phases joined the script, three before
+# mesh-reference).
 RING_MODEL = "llama3-8b"
 RING_RANKS = 2
 RING_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
 RING_LAYERS = 2
 RING_SEQ = 8192
-RING_STEPS = 2
+RING_STEPS = 1
 RING_MODEL_KW = {"num_layers": RING_LAYERS, "seq_impl": "ring",
                  "ring_placement": "striped"}
 RING_CFG = {"train_micro_batch_size_per_gpu": 1,
@@ -335,9 +362,9 @@ MESH_REF_STAGES = (1, 2, 3)
 # wire step apart on the two devices, and AdamW's first step turns that into
 # an update of up to lr on a near-zero gradient element.
 RING_WIRES = ("int8", "fp8")
-# ring-train-int8's timed steps (the phase costs ~7 s a step, gloo's
-# collectives most of it)
-RING_WIRE_STEPS = 2
+# ring-train-int8's timed steps (the phase costs ~13 s a step at ZeRO-2,
+# gloo's collectives most of it; two before the dp-quant phases joined)
+RING_WIRE_STEPS = 1
 RING_WIRE_REF_RTOL = 1e-3
 # the int8 K/V lanes against their plain versions (which decode the rows and
 # compute in fp32): bf16 q 2^-10 (the lanes' products are exact or fp32 up
@@ -430,6 +457,93 @@ RECOVERY_DIE_AT = 2
 RECOVERY_SEQ = 1024
 RECOVERY_BATCH = 8
 RECOVERY_LOSS_ATOL = 2e-3
+# dp-quant (slice 19): the data axis's quantized gradient reduction.
+# dp-quant-train is bench.py row_gpt2_350m_commquant's step: gpt2-350m,
+# seq 1024, micro 8 a rank, bf16 over fp32 masters, AdamW lr 1e-4, clip
+# 1.0, ZeRO-1, comm_quantization.grad_reduce int8 (error feedback on).
+# Cuts: data 8 -> 2 ranks sharing the card over gloo, gas 8 -> 2, remat
+# dots_flash_saveable -> none (A13).  The same ranks then run the row's
+# explicit fp32-wire control, qgZ and OnebitAdam (freeze_step 1).
+DPQ_RANKS = 2
+DPQ_BACKEND = "gloo"      # NCCL refuses two ranks on one GPU
+DPQ_STEPS = 2             # timed, after one warm-up step
+DPQ_CFG = {"train_micro_batch_size_per_gpu": 8,
+           "gradient_accumulation_steps": 2,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+           "bf16": {"enabled": True},
+           "zero_optimization": {"stage": 1},
+           "gradient_clipping": 1.0,
+           "steps_per_print": 10_000,
+           "activation_checkpointing": {"remat_policy": "none"},
+           "mesh": {"data": DPQ_RANKS}}
+DPQ_RUNS = {
+    "int8": {"comm_quantization": {"enabled": True, "grad_reduce": "int8"}},
+    "fp32": {"comm_quantization": {"enabled": True, "grad_reduce": "fp32"}},
+    "qgz": {"zero_optimization": {"stage": 1,
+                                  "zero_quantized_gradients": True}},
+    "onebitadam": {"optimizer": {"type": "OnebitAdam", "params": {
+        "lr": 1e-4, "freeze_step": 1}}}}
+# quantize / dequantize launches a step a rank: grad_reduce int8 with error
+# feedback encodes twice (reduce-scatter, all-gather) and decodes three
+# times (its residual, the received chunks, the gathered shard); one-level
+# qgZ once each; the fp32 wire and the 1-bit wire (plain PyTorch, as the
+# JAX module) none
+DPQ_QUANT_LAUNCHES = {"int8": (2, 3), "fp32": (0, 0), "qgz": (1, 1),
+                      "onebitadam": (0, 0)}
+# dp-quant-reference: the zero-reference model (gpt2-350m width, 2 layers,
+# fp32: 2048 divides qgZ's chunk) at micro 1 x seq 32 a rank, gas 2, two
+# steps (the 1-bit optimizers' warm-up and a compressed step), lr 1e-4;
+# card ranks against CPU ranks.  The CPU side, the plain versions over 78M
+# gradients, sets the phase's time: its configs run in DPQ_REF_CPU_LAUNCHES
+# launches of two ranks side by side (on 8 cores: 122 s in one launch of
+# two 4-thread ranks, 83 s in two of 2-thread ranks, at seq 64; 67 s at
+# seq 32): name -> the config's extra keys
+DPQ_REF_SEQ = 32
+DPQ_REF_CPU_LAUNCHES = 2
+DPQ_REF_MICRO = 1
+DPQ_REF_STEPS = 2
+DPQ_REF_CONFIGS = {
+    "int8-ef": {"comm_quantization": {"enabled": True, "grad_reduce": "int8"}},
+    "int8-no-ef": {"comm_quantization": {"enabled": True, "grad_reduce": "int8",
+                                         "error_feedback": False}},
+    "fp8": {"comm_quantization": {"enabled": True, "grad_reduce": "fp8"}},
+    "fp32-explicit": {"comm_quantization": {"enabled": True,
+                                            "grad_reduce": "fp32"}},
+    "qgz": {"zero_optimization": {"stage": 1,
+                                  "zero_quantized_gradients": True}},
+    **{name: {"optimizer": {"type": name, "params": {"lr": 1e-4,
+                                                     "freeze_step": 1}}}
+       for name in ("OnebitAdam", "OnebitLamb", "ZeroOneAdam")},
+    "decomposed": {"step_schedule": {"weight_update": "decomposed"}},
+    "decomposed-fused-rs": {"zero_optimization": {"stage": 1},
+                            "step_schedule": {"weight_update": "decomposed",
+                                              "fused_reduce_scatter": True}}}
+# card (kernels, cuBLAS) vs CPU (plain versions) in fp32: the losses, and
+# the params' distance over the update's L2 norm (the CPU tests' bound
+# against the JAX engine: 1e-3, and 5e-3 on the int8 wires, whose
+# quantization turns a summation-order difference on a rounding boundary
+# into one wire step; qgZ 2e-2: its blocks are 8x longer, so such a step is
+# coarser, and nothing feeds it back; seen 8.0e-3 here).  The 1-bit
+# optimizers: after a one-step warm-up the variance of every element no
+# token of the batch reaches (most embedding rows, the key bias) is zero
+# or rounding noise, so the compressed step moves it by +-scale / eps,
+# whose sign card and CPU may round apart, and so does every element whose
+# momentum sits within rounding of zero (each flipped element lands twice
+# its step away): the layers but the key bias are held at
+# DPQ_REF_ONEBIT_RTOL (seen 1.15e-2 to 1.42e-2) and the whole tree at
+# DPQ_REF_ONEBIT_WHOLE_RTOL (seen 7.0e-3 to 0.292).  Planted faults
+# (tools/dp_quant_faults.py, H100 80GB HBM3, 700 W) read 0.383 to 0.386 on
+# the held layers and 1.247 to 1.260 on the whole tree (a peer's momentum
+# dropped, the received scales swapped), qgZ 0.781 (a peer's chunk
+# dropped) and 0.475 (its wire at the int4 range): every bound sits
+# between the sound reading and the faults'.  A zeroed server error reads
+# as the sound run: the one compressed step never reads it
+# (tests/test_torch_dp_compression.py holds the error states)
+DPQ_REF_RTOL = 1e-5
+DPQ_REF_ONEBIT_RTOL = 5e-2
+DPQ_REF_ONEBIT_WHOLE_RTOL = 0.6
+DPQ_REF_UPDATE_RTOL = {"int8-ef": 5e-3, "int8-no-ef": 5e-3, "qgz": 2e-2}
+DPQ_REF_UPDATE_RTOL_DEFAULT = 1e-3
 
 
 def bound_ms(nbytes, ops, peak):
@@ -4233,6 +4347,426 @@ def phase_recovery(ds, tf_model, card):
              "left the unkilled run's")
 
 
+# ----------------------------------------------------------------------
+# phases 26-28: the data axis's quantized gradient reduction (slice 19)
+# ----------------------------------------------------------------------
+def dpq_padded(tf_model, world, multiple):
+    """gpt2-350m's gradient count padded as the path pads it (to a
+    multiple of ``multiple``), and the chunk a rank quantizes."""
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    h, v, f, nl = (model.hidden_size, model.vocab_size,
+                   model.intermediate_size, model.num_layers)
+    # gpt2: wte, wpe, final LayerNorm; a layer's attention (qkv and out,
+    # with biases), MLP (with biases) and two LayerNorms
+    n = v * h + model.max_seq_len * h + 2 * h + nl * (
+        4 * h * h + 4 * h + 2 * h * f + f + h + 4 * h)
+    padded = -(-n // multiple) * multiple
+    return n, padded, padded // world
+
+
+def dpq_kernel_case(qk, name, x, group, iters):
+    """quantize and dequantize of the fp32 [world, m] ``x`` in groups of
+    ``group`` against their plain versions, bit for bit, timed (CUDA
+    graph) beside the plain versions, with the bytes bound."""
+    import torch
+
+    q, s = qk.quantize(x, 8, group)
+    d = qk.dequantize(q, s, torch.float32)
+    torch.cuda.synchronize()
+    q_r, s_r = qk.quantize_ref(x, 8, group)
+    d_r = qk.dequantize_ref(q, s, torch.float32)
+    n = x.numel()
+    s_bytes = s.numel() * 4
+    work = {"quantize": ((q, q_r), (s, s_r), 4 * n + n + s_bytes, 5 * n,
+                         lambda: qk.quantize(x, 8, group),
+                         lambda: qk.quantize_ref(x, 8, group)),
+            "dequantize": ((d, d_r), (d, d_r), n + s_bytes + 4 * n, n,
+                           lambda: qk.dequantize(q, s, torch.float32),
+                           lambda: qk.dequantize_ref(q, s, torch.float32))}
+    rows = {}
+    for kname, ((a, a_r), (b, b_r), nbytes, ops, fn, ref) in work.items():
+        equal = torch.equal(a, a_r) and torch.equal(b, b_r)
+        err = max(float((a.float() - a_r.float()).abs().max()),
+                  float((b.float() - b_r.float()).abs().max()))
+        row = {"phase": "dp-quant-kernels", "kernel": kname, "case": name,
+               "shape": list(x.shape), "dtype": "float32", "group": group,
+               "bits": 8, "bitwise_equal": equal, "max_abs_err": err,
+               "tolerance": "bit for bit"}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, FP32_FLOPS)
+        row.update(ms=cuda_time_ms(fn, iters, warmup=1),
+                   stream_ms=stream_time_ms(fn, iters, warmup=1),
+                   plain_ms=cuda_time_ms(ref, iters=2, warmup=1),
+                   bound_bytes=nbytes, library_ms=None,
+                   library_note="no single PyTorch call computes per-group "
+                                "absmax quantization")
+        rows[kname] = row
+        emit(row)
+        if not equal:
+            fail(f"dp-quant-kernels: {kname} differs from its plain version "
+                 f"({name}): {err}")
+    return rows
+
+
+def phase_dp_quant_kernels(qk, tf_model):
+    """Phase 26: the path's shapes (see the module docstring).  Returns
+    the grad_reduce case's rows, for the kernels line."""
+    import torch
+
+    _n, _padded, m = dpq_padded(tf_model, DPQ_RANKS, DPQ_RANKS * 256)
+    _n, _padded, m_q = dpq_padded(tf_model, DPQ_RANKS, DPQ_RANKS * 8)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = torch.randn((DPQ_RANKS, m), generator=gen, device="cuda") * 1e-3
+    x[:, :256] = 0.0                       # an all-zero group: scale 1.0
+    rows = dpq_kernel_case(qk, "grad_reduce chunks, group 256", x, 256, 10)
+    if m_q != m:
+        x = torch.randn((DPQ_RANKS, m_q), generator=gen, device="cuda") * 1e-3
+    group = 2048 if m_q % 2048 == 0 else m_q
+    dpq_kernel_case(qk, "qgZ chunks, group " + ("2048" if group == 2048 else
+                    "the whole chunk (2048 does not divide it)"), x, group, 2)
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dpq_rank_reference(rank, world, model_kw, params, configs, batch, steps,
+                       device=None, threads=None):
+    """One rank of the dp-quant-reference phase: per config, the fp32
+    engine over ``{"data": world}`` from ``params``, ``steps`` steps:
+    losses, the modes
+    its gates chose, launch counts (on the card) and, on rank 0, the
+    params after the steps."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(threads or max(1, (os.cpu_count() or 2) // world))
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import registry
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    counters = _zero_counters()
+    model = registry.get_model_config(TRAIN_MODEL, **model_kw)
+    out = {}
+    for name, cfg in configs.items():
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params, device=device)
+        zero_counts(*counters)
+        losses = [float(eng.train_batch(batch)) for _ in range(steps)]
+        out[name] = {
+            "losses": losses,
+            "launches": {k: v for c in counters for k, v in c.items()},
+            "modes": {"comm_quant": eng._comm_quant is not None,
+                      "onebit": eng._onebit_variant,
+                      "decomposed": eng._decomposed,
+                      "fused_rs": eng._fused_rs},
+            "params": tf.tree_map_with_path(
+                lambda _p, a: a.detach().cpu().clone(), eng.params)
+            if rank == 0 else None}
+        del eng
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dpq_reference_readings(tf, params, name, got, want):
+    """A dp-quant-reference config's readings from the ranks' results
+    (``dpq_rank_reference``) under test (``got``) and of the CPU
+    (``want``), from the initial ``params``: the worst loss's relative
+    error, the params' distance over the update's L2 norm on the held
+    leaves and on the whole tree, the config's bound on the held leaves,
+    and whether it is a 1-bit optimizer (the held leaves then the layers'
+    but the key bias: see DPQ_REF_ONEBIT_RTOL)."""
+    worst = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+                for a, b in zip(g["losses"], w["losses"]))
+    onebit = got[0]["modes"]["onebit"] not in (None, "qgz")
+    paths = []
+    tf.tree_map_with_path(lambda p, _x: paths.append(p), params)
+
+    def distance(held):
+        num = den = 0.0
+        for path, (a, b, p0) in zip(paths, zip(
+                tf.tree_leaves(got[0]["params"]),
+                tf.tree_leaves(want[0]["params"]), tf.tree_leaves(params))):
+            if held(path):
+                a, b, p0 = a.double(), b.double(), p0.double()
+                num += float(((a - b) ** 2).sum())
+                den += float(((b - p0) ** 2).sum())
+        return (num / den) ** 0.5
+
+    whole_rel = distance(lambda _p: True)
+    update_rel = distance(lambda p: p[0] == "layers" and p[-1] != "bk") \
+        if onebit else whole_rel
+    bound = DPQ_REF_ONEBIT_RTOL if onebit else DPQ_REF_UPDATE_RTOL.get(
+        name, DPQ_REF_UPDATE_RTOL_DEFAULT)
+    return worst, update_rel, whole_rel, bound, onebit
+
+
+def dpq_reference_setup(tf_model, tf):
+    """The dp-quant-reference phase's inputs: ``(model_kw, configs,
+    params, batch)`` (DPQ_REF_CONFIGS over the fp32 base config)."""
+    model_kw = {"num_layers": ZERO_REF_LAYERS}
+    model = tf_model.get_model_config(TRAIN_MODEL, **model_kw)
+    base = {**{k: v for k, v in DPQ_CFG.items() if k != "zero_optimization"},
+            "bf16": {"enabled": False},
+            "train_micro_batch_size_per_gpu": DPQ_REF_MICRO}
+    configs = {}
+    for name, extra in DPQ_REF_CONFIGS.items():
+        configs[name] = {**base, **{k: v for k, v in extra.items()
+                                    if k != "zero_optimization"},
+                         "zero_optimization": extra.get(
+                             "zero_optimization", {"stage": 1})}
+    params = tf.init_params(model, seed=3, device="cpu")
+    rows = DPQ_REF_MICRO * DPQ_CFG["gradient_accumulation_steps"] * DPQ_RANKS
+    batch = train_batch_of(model.vocab_size, rows, seed=7, seq=DPQ_REF_SEQ)
+    batch["labels"][0, :5] = -100          # the ranks' token counts differ
+    return model_kw, configs, params, batch
+
+
+def phase_dp_quant_reference(ds, tf_model, tf, launch):
+    """Phase 27: DPQ_REF_CONFIGS in two ranks on the card against two ranks
+    on the CPU (the CPU ranks in a thread beside the card ranks), from one
+    set of params and one global batch: per config the losses to
+    DPQ_REF_RTOL, the params after the steps within the update bound,
+    the same modes on both sides, and each card rank's launches (the
+    quantize/dequantize counts of the mode, every flash kernel's, AdamW
+    but for the 1-bit and qgZ steps)."""
+    import numpy as np
+    import torch
+
+    gas = DPQ_CFG["gradient_accumulation_steps"]
+    model_kw, configs, params, batch = dpq_reference_setup(tf_model, tf)
+    names = list(configs)
+    parts = [{n: configs[n] for n in names[i::DPQ_REF_CPU_LAUNCHES]}
+             for i in range(DPQ_REF_CPU_LAUNCHES)]
+    threads = max(1, (os.cpu_count() or 2) // (DPQ_RANKS * len(parts)))
+    with ThreadPoolExecutor(len(parts)) as pool:
+        cpu_runs = [pool.submit(launch, dpq_rank_reference, DPQ_RANKS,
+                                args=(model_kw, params, part, batch,
+                                      DPQ_REF_STEPS, "cpu", threads),
+                                backend=DPQ_BACKEND, device="cpu")
+                    for part in parts]
+        card = launch(dpq_rank_reference, DPQ_RANKS,
+                      args=(model_kw, params, configs, batch,
+                            DPQ_REF_STEPS),
+                      backend=DPQ_BACKEND, device="cuda")
+        cpu = [{} for _ in range(DPQ_RANKS)]
+        for run in cpu_runs:
+            for rank, out in enumerate(run.result()):
+                cpu[rank].update(out)
+    for name in DPQ_REF_CONFIGS:
+        n_steps = DPQ_REF_STEPS
+        per = n_steps * gas * ZERO_REF_LAYERS
+        got, want = [r[name] for r in card], [r[name] for r in cpu]
+        worst, update_rel, whole_rel, bound, onebit = dpq_reference_readings(
+            tf, params, name, got, want)
+        modes = got[0]["modes"]
+        quant = {"int8-ef": (2, 3), "int8-no-ef": (2, 2),
+                 "qgz": (1, 1)}.get(name, (0, 0))
+        own_step = modes["onebit"] is None
+        wants = [{**{k: 0 for k in g["launches"]},
+                  "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                  "fused_adamw": n_steps if own_step else 0,
+                  "quantize": quant[0] * n_steps,
+                  "dequantize": quant[1] * n_steps} for g in got]
+        launches = [g["launches"] for g in got]
+        whole_bound = DPQ_REF_ONEBIT_WHOLE_RTOL if onebit else bound
+        ok = (worst <= DPQ_REF_RTOL and update_rel <= bound
+              and whole_rel <= whole_bound and launches == wants
+              and all(g["modes"] == want[0]["modes"] for g in got + want)
+              and all(np.isfinite(g["losses"]).all() for g in got))
+        emit({"phase": "dp-quant-reference", "config": name,
+              "extra": DPQ_REF_CONFIGS[name], "modes": modes,
+              "model": TRAIN_MODEL, "layers": ZERO_REF_LAYERS,
+              "dtype": "float32", "ranks": DPQ_RANKS, "backend": DPQ_BACKEND,
+              "seq": DPQ_REF_SEQ, "micro_per_rank": DPQ_REF_MICRO, "gas": gas,
+              "losses_card": [g["losses"] for g in got],
+              "losses_cpu": [w["losses"] for w in want],
+              "check": "two ranks on the card (kernels, cuBLAS) vs two ranks "
+                       "on the CPU (plain versions), one config each",
+              "max_rel_err_loss": worst,
+              "params_distance_over_update_l2": update_rel,
+              "params_held": "the layers but the key bias" if onebit
+              else "every leaf",
+              "whole_tree_distance_over_update_l2": whole_rel,
+              "tolerance": {"loss": DPQ_REF_RTOL, "params": bound,
+                            "whole_tree": whole_bound},
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": bool(ok)})
+        if not ok:
+            fail(f"dp-quant-reference ({name}): the card's ranks differ from "
+                 f"the CPU's ({worst}, {update_rel}), chose other modes, or "
+                 f"launched {launches}, expected {wants}")
+    del card, cpu, params
+    torch.cuda.empty_cache()
+
+
+def dpq_rank_train(rank, world, runs, seq, steps):
+    """One rank of the dp-quant-train phase: per run (name -> config), a
+    warm-up step, ``steps`` timed steps (counts and wire bytes zeroed just
+    before them and read just after), then one step profiled on rank 0
+    (its partner steps beside it)."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import registry
+
+    counters = _zero_counters() + _route_counters()
+    model = registry.get_model_config(TRAIN_MODEL)
+    out = {}
+    for name, cfg in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
+        rows = (cfg["train_micro_batch_size_per_gpu"]
+                * cfg["gradient_accumulation_steps"] * world)
+        batch = train_batch_of(model.vocab_size, rows, seed=0, seq=seq)
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch))]      # warm-up
+        warm_s = time.perf_counter() - t0
+        zero_counts(*counters, comm.calls)
+        comm.nbytes.clear()
+        step_s = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(batch)))   # float() syncs
+            step_s.append(time.perf_counter() - t0)
+        launches = {k: v / steps for c in counters[:-2] for k, v in c.items()}
+        routes = {k: v / steps for c in counters[-2:] for k, v in c.items()}
+        nbytes = {k: v / steps for k, v in comm.nbytes.items()}
+        calls = {k: v / steps for k, v in comm.calls.items()}
+        res = {"init_and_warmup_s": warm_s, "step_s": step_s,
+               "losses": losses, "launches_per_step": launches,
+               "routes_per_step": routes, "bytes_per_step": nbytes,
+               "collective_calls_per_step": calls,
+               "modes": {"comm_quant": eng._comm_quant is not None,
+                         "onebit": eng._onebit_variant,
+                         "residual": getattr(eng, "_quant_residual", None)
+                         is not None},
+               "quant_flat_numel": None if eng._quant_flat is None
+               else eng._quant_flat.numel(),
+               "finite": bool(np.all(np.isfinite(losses)))}
+        if rank == 0:
+            wall_ms, by_name, busy_ms, events = profile_call(
+                lambda: eng.train_batch(batch))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            res["profile"] = {
+                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "collectives": comm_ms(events, names=(
+                    "comm.all_to_all", "comm.all_gather", "comm.all_reduce")),
+                "quantize_ms": sum(v for k, v in by_name.items()
+                                   if "quant_kernel" in k),
+                "dequantize_ms": sum(v for k, v in by_name.items()
+                                     if "dequant_kernel" in k),
+                "top_kernels_ms": [[k[:90], v] for k, v in top]}
+        else:
+            eng.train_batch(batch)
+        res["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = res
+        del eng
+    return out
+
+
+def phase_dp_quant_train(tf_model, launch, card):
+    """Phase 28 (see the module docstring): per run the slower rank's step
+    seconds, tokens/s for the card, peak memory a rank, the grad-reduce
+    wire bytes a step, the loss delta against the fp32 control, launches
+    a step a rank (every flash kernel layers x gas times on wgmma, AdamW
+    once for the engine's own step, quantize/dequantize as
+    DPQ_QUANT_LAUNCHES) and rank 0's profile.  Returns the int8 run's
+    quantize/dequantize launches a step (rank 0), for the kernels line."""
+    import numpy as np
+
+    model = tf_model.get_model_config(TRAIN_MODEL)
+    gas = DPQ_CFG["gradient_accumulation_steps"]
+    per = model.num_layers * gas
+    runs = {}
+    for name, extra in DPQ_RUNS.items():
+        runs[name] = {**DPQ_CFG, **{k: v for k, v in extra.items()}}
+    ranks = launch(dpq_rank_train, DPQ_RANKS,
+                   args=(runs, TRAIN_SEQ, DPQ_STEPS),
+                   backend=DPQ_BACKEND, device="cuda")
+    rows = DPQ_CFG["train_micro_batch_size_per_gpu"] * gas * DPQ_RANKS
+    tokens = rows * TRAIN_SEQ
+    control = ranks[0]["fp32"]["losses"]
+    wire = {}
+    for name in DPQ_RUNS:
+        got = [r[name] for r in ranks]
+        step_s = [max(g["step_s"][i] for g in got) for i in range(DPQ_STEPS)]
+        nb = got[0]["bytes_per_step"]
+        wire[name] = sum(nb.get(op, 0) for op in ("quant_reduce_scatter",
+                                                  "quant_all_gather"))
+        q, dq = DPQ_QUANT_LAUNCHES[name]
+        own_step = got[0]["modes"]["onebit"] is None
+        want = {**{k: 0 for k in got[0]["launches_per_step"]},
+                "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                "fused_adamw": 1 if own_step else 0,
+                "quantize": q, "dequantize": dq}
+        want_routes = {**{k: 0 for k in got[0]["routes_per_step"]},
+                       "flash_fwd.wgmma": per, "flash_bwd_dq.wgmma": per,
+                       "flash_bwd_dkv.wgmma": per}
+        delta = max(abs(a - b) for a, b in zip(got[0]["losses"], control))
+        ok = (all(g["finite"] for g in got)
+              and all(g["losses"] == got[0]["losses"] for g in got)
+              and all(g["launches_per_step"] == want for g in got)
+              and all(g["routes_per_step"] == want_routes for g in got))
+        if name in ("int8", "fp32", "qgz"):
+            ok = ok and got[0]["losses"][-1] < got[0]["losses"][0]
+        if name == "int8":       # the buffer dp-quant-kernels timed
+            ok = ok and got[0]["modes"]["residual"] and \
+                got[0]["quant_flat_numel"] == dpq_padded(
+                    tf_model, DPQ_RANKS, DPQ_RANKS * 256)[1]
+        emit({"phase": "dp-quant-train", "run": name, "model": TRAIN_MODEL,
+              "layers": model.num_layers, "dtype": "bfloat16",
+              "zero_stage": 1, "extra": DPQ_RUNS[name], "modes":
+              got[0]["modes"], "ranks": DPQ_RANKS, "backend": DPQ_BACKEND,
+              "seq": TRAIN_SEQ, "micro_per_rank": DPQ_CFG[
+                  "train_micro_batch_size_per_gpu"], "gas": gas,
+              "remat": "none", "step_s": step_s,
+              "init_and_warmup_s": [g["init_and_warmup_s"] for g in got],
+              "tokens_per_step": tokens,
+              "tokens_per_s": tokens * DPQ_STEPS / sum(step_s),
+              "losses": got[0]["losses"],
+              "loss_delta_vs_fp32_control": delta,
+              "grad_reduce_wire_bytes_per_step": wire[name],
+              "bytes_per_step_rank0": nb,
+              "collective_calls_per_step_rank0":
+                  got[0]["collective_calls_per_step"],
+              "max_memory_allocated_gib": [g["max_memory_allocated_gib"]
+                                           for g in got],
+              "launches_per_step": [g["launches_per_step"] for g in got],
+              "expected_per_step": want, "card": card, "ok": bool(ok)})
+        prof = got[0]["profile"]
+        emit({"phase": "dp-quant-train-profile", "run": name,
+              "what": "one train_batch on rank 0 (rank 1 steps beside it)",
+              "collectives_note": "host time inside comm.all_to_all (the "
+                                  "quantized reduce-scatter's exchange), "
+                                  "comm.all_gather (its gather phase; "
+                                  "ZeRO-1's stepped slices) and "
+                                  "comm.all_reduce; own = less this "
+                                  "rank's compute kernels running",
+              **prof, "card": card})
+        if not ok:
+            fail(f"dp-quant-train ({name}): losses not finite, not equal on "
+                 "the ranks or not falling, or the launch or route counts "
+                 "do not show the kernels")
+    ratio = wire["fp32"] / wire["int8"]
+    emit({"phase": "dp-quant-wire", "fp32_bytes_per_step": wire["fp32"],
+          "int8_bytes_per_step": wire["int8"], "reduction": ratio,
+          "expected": 4 / (1 + 4 / 256), "card": card,
+          "ok": 3.9 <= ratio <= 4.0})
+    if not 3.9 <= ratio <= 4.0:
+        fail(f"dp-quant-wire: the int8 wire moved {ratio}x fewer bytes than "
+             "the fp32 control, expected 3.9-4.0")
+    return {k: ranks[0]["int8"]["launches_per_step"][k]
+            for k in ("quantize", "dequantize")}
+
+
 def count_params(model):
     """Parameter count of a llama-class model (untied head, RMSNorm)."""
     h, hd = model.hidden_size, model.dim_per_head
@@ -4438,6 +4972,19 @@ def main() -> int:
                                    "flash_bwd_dkv.wgmma": ckpt_n}), smi)
     phase_recovery(ds, tf_model, smi)
 
+    # 26. quantize/dequantize at the data axis's reduction shapes, 27. the
+    # reduction modes in two ranks on the card against two on the CPU, 28.
+    # gpt2-350m's commquant step and its control, qgZ and OnebitAdam
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_rows = phase_dp_quant_kernels(qk, tf_model)
+    phase_dp_quant_reference(ds, tf_model, tf, launch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "dp-quant-parent-memory",
+          "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
+    dp_launches = phase_dp_quant_train(tf_model, launch, smi)
+
     # 20. kernels line: each path's launches from its own run
     csrc = "deepspeed_tpu_torch/ops/csrc/"
     pallas = "deepspeed_tpu/ops/pallas/"
@@ -4556,6 +5103,15 @@ def main() -> int:
             entry["mma_s8_stream_ms"] = row["mma_s8_stream_ms"]
         if name in notes:
             entry["launches_note"] = notes[name]
+        if name in dp_rows:      # the data axis's gradient reduction (slice 19)
+            row = dp_rows[name]
+            entry["dp_path"] = {k: row[k] for k in (
+                "case", "shape", "group", "ms", "stream_ms", "plain_ms",
+                "bound_ms", "bound_by", "max_abs_err")}
+            entry["launches_dp_quant_train"] = dp_launches[name]
+            entry["launches_dp_quant_train_note"] = (
+                f"a step, rank 0 of {DPQ_RANKS} in dp-quant-train's int8 run "
+                f"(error feedback), the mean of its {DPQ_STEPS} timed steps")
         if name in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv",
                     "fused_adamw"):
             # rank 0 of the mesh-reference phase's four, by ZeRO stage

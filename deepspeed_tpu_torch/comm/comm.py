@@ -6,10 +6,11 @@ read: ``init_distributed`` (the caller names the backend, ``"nccl"`` or
 ``"gloo"``; nothing switches it), ``all_reduce``, ``all_gather`` (tiled,
 as ``lax.all_gather(..., tiled=True)``; also asynchronous, so a ZeRO-3
 prefetch can be issued ahead of its use), ``reduce_scatter`` (the sum
-``lax.psum_scatter(..., tiled=True)`` keeps one slice of) and
-``ring_rotate``, the counterpart of ``sequence/ring.py``
-``_rotate_together`` (one ``lax.ppermute`` of every traveling buffer to the
-next shard).
+``lax.psum_scatter(..., tiled=True)`` keeps one slice of), ``all_to_all``
+(``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)``, the
+quantized gradient reduction's exchange) and ``ring_rotate``, the
+counterpart of ``sequence/ring.py`` ``_rotate_together`` (one
+``lax.ppermute`` of every traveling buffer to the next shard).
 
 The gradient reduction goes through flat buckets (``zero_optimization.
 reduce_bucket_size``): :func:`plan_buckets` groups tensors in order,
@@ -32,14 +33,18 @@ is slower).  A failed collective raises; nothing falls back to gloo.
 
 Each collective runs inside a ``torch.profiler.record_function`` range
 (``comm.all_reduce``, ``comm.all_gather``, ``comm.reduce_scatter``,
-``comm.ring_rotate``), so a profiled step shows the host time spent in it,
-and adds one to its entry of :data:`calls` when it is issued.
+``comm.all_to_all``, ``comm.ring_rotate``), so a profiled step shows the
+host time spent in it, adds one to its entry of :data:`calls` when it is
+issued and the bytes this rank sends into it to its entry of
+:data:`nbytes`.  A caller that moves a wire of its own through them (the
+quantized collectives of ``comm/quantized.py``) records it under its own
+op name too (:func:`record_bytes`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,7 +53,9 @@ from torch.profiler import record_function
 BACKENDS = ("nccl", "gloo")
 # collectives issued, by kind (a bucket counts once); callers zero them
 calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-         "ring_rotate": 0}
+         "all_to_all": 0, "ring_rotate": 0}
+# bytes this rank sent into collectives, by op name; callers zero them
+nbytes: Dict[str, int] = {}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -74,6 +81,20 @@ def destroy() -> None:
         if dist.get_backend() == "nccl":
             torch.cuda.synchronize()
         dist.destroy_process_group()
+
+
+def group_size(group=None, world: Optional[int] = None) -> int:
+    """The size of ``group``; ``world``, when given, must equal it."""
+    size = dist.get_world_size(group)
+    if world is not None and world != size:
+        raise ValueError(f"world {world} is not the group's size {size}")
+    return size
+
+
+def record_bytes(op: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Add the bytes of ``tensors`` (None skipped) to ``nbytes[op]``."""
+    nbytes[op] = nbytes.get(op, 0) + sum(t.numel() * t.element_size()
+                                         for t in tensors if t is not None)
 
 
 def _staged(group) -> bool:
@@ -103,6 +124,7 @@ def all_reduce(tensor: torch.Tensor, group=None, op: str = "sum"
     ``"max"``); returns it."""
     with record_function("comm.all_reduce"):
         calls["all_reduce"] += 1
+        record_bytes("all_reduce", tensor)
         buf = _stage_in(tensor, _staged(group))
         dist.all_reduce(buf, op=_OPS[op], group=group)
         if buf is not tensor:
@@ -156,6 +178,7 @@ def all_gather(shard: torch.Tensor, dim: int = 0, group=None,
     once more to lay it out as the caller's tensor."""
     with record_function("comm.all_gather"):
         calls["all_gather"] += 1
+        record_bytes("all_gather", shard)
         staged = _staged(group)
         world = dist.get_world_size(group)
         dev = shard.device
@@ -186,6 +209,7 @@ def reduce_scatter(full: torch.Tensor, dim: int = 0, group=None
     back (one copy of the slice)."""
     with record_function("comm.reduce_scatter"):
         calls["reduce_scatter"] += 1
+        record_bytes("reduce_scatter", full)
         world = dist.get_world_size(group)
         if full.shape[dim] % world:
             raise ValueError(f"reduce_scatter: dim {dim} of size "
@@ -237,6 +261,29 @@ def _sum_scatter(src: torch.Tensor, group, async_op: bool = False):
     return done(cur) if async_op else cur
 
 
+def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Split ``x`` into ``world`` equal blocks along dim 0, send block i to
+    rank i of ``group`` and return the blocks received, block j from rank
+    j, concatenated along dim 0 (a new tensor of ``x``'s shape and dtype on
+    its device): ``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=True)``.  One ``all_to_all_single`` with equal splits; any dtype
+    travels (int8 and uint8 payloads too).  Under gloo a CUDA tensor is
+    staged through pinned host memory, both ways."""
+    with record_function("comm.all_to_all"):
+        calls["all_to_all"] += 1
+        record_bytes("all_to_all", x)
+        world = dist.get_world_size(group)
+        if x.shape[0] % world:
+            raise ValueError(f"all_to_all: dim 0 of size {x.shape[0]} does "
+                             f"not divide by {world}")
+        staged = _staged(group)
+        src = _stage_in(x.contiguous(), staged)
+        out = _empty_like_staged(tuple(x.shape), x, staged)
+        dist.all_to_all_single(out, src, group=group)
+        return out.to(x.device, non_blocking=True) if out.device != x.device \
+            else out
+
+
 def _ring_peers(group) -> Tuple[int, int]:
     """The global ranks of the next and the previous rank of ``group``."""
     size = dist.get_world_size(group)
@@ -256,6 +303,7 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
     travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
     with record_function("comm.ring_rotate"):
         calls["ring_rotate"] += 1
+        record_bytes("ring_rotate", *tensors)
         nxt, prv = _ring_peers(group)
         staged = _staged(group)
         sends = [_stage_in(t.contiguous(), staged) for t in tensors]
@@ -345,6 +393,7 @@ def reduce_scatter_bucket(tensors: Sequence[torch.Tensor],
     dropped once this returns: the packed buffer is what travels."""
     with record_function("comm.reduce_scatter"):
         calls["reduce_scatter"] += 1
+        record_bytes("reduce_scatter", *tensors)
         world = dist.get_world_size(group)
         shapes = [_slice_shape(t, d, world) for t, d in zip(tensors, dims)]
         seg = sum(math.prod(s) for s in shapes)

@@ -4,8 +4,9 @@
 // `_quant_kernel` (:78, launched by `quantize`), `_dequant_kernel` (:125,
 // `dequantize`) and `_fake_quant_kernel` (:158, `fake_quantize`).  The
 // tensor is viewed as [M, N] rows whose last axis splits into `group`-wide
-// groups (group a multiple of 128 dividing N: ops/quantize.py `supports`);
-// each group has one fp32 scale, stored [M, N / group].
+// groups (group dividing N and a whole number of the 16-byte vectors the
+// kernels read: ops/quantize.py `supports`); each group has one fp32
+// scale, stored [M, N / group].
 //
 // Bound: bytes.  Quantize reads x once and writes the int8 payload and the
 // scales once; dequantize reads payload and scales and writes the output
@@ -30,6 +31,17 @@
 //    the resident blocks: a block for every 8 warps' steps instead costs
 //    quantize a quarter more there (fake-quantize, whose stores are as
 //    large as its loads, a few percent less).
+//  * few wide groups (the whole-row groups of qgZ's gradient chunks: 2
+//    groups of 177M fp32 elements at gpt2-350m over two ranks) would leave
+//    the one-warp-a-group walk two warps on the card (1373 ms against a
+//    0.53 ms bound there).  When a group is read twice and the groups are
+//    fewer than 4 a streaming multiprocessor, quantize spreads each group
+//    over blocks instead: a grid over (chunk, group) takes each group's
+//    absmax into its scale slot (atomicMax over the bits of non-negative
+//    floats, which order as the floats do), one thread a group turns it
+//    into the scale, and a second grid quantizes with it, element for
+//    element the arithmetic of the walk.  (fake-quantize keeps the walk:
+//    it has no scale slots, and no path runs it on such groups.)
 //  * dequantize is elementwise, 4 elements a thread, grid-stride.
 //
 // Arithmetic, the JAX kernel's, so the result equals the plain PyTorch
@@ -58,6 +70,13 @@ constexpr int kThreads = 256;   // dequantize threads per block
 // x / scale normal), quotients more than kTieGuard from a half-integer
 constexpr float kScaleLo = 0x1p-100f, kScaleHi = 0x1p100f;
 constexpr float kTieGuard = 0x1p-12f;
+
+// lanes that take a group of nv 16-byte vectors: nv where it divides the
+// warp (1, 2, 4, 8, 16 vectors: 32 / nv groups a warp step), else the
+// whole warp (lanes past the group's last vector idle on it)
+__host__ __device__ constexpr int lanes_of(int nv) {
+  return nv < 32 && (nv & (nv - 1)) == 0 ? nv : 32;
+}
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
@@ -150,9 +169,10 @@ __device__ __forceinline__ float quant1(float x, float scale, float inv, bool fa
 
 // Groups are contiguous runs of `group` elements (x is [M, N] contiguous
 // and N splits into whole groups): group g is x[g * group ..].  A group is
-// V = group / E 16-byte vectors (E elements each); lg = min(V, 32) lanes
+// V = group / E 16-byte vectors (E elements each); lg = lanes_of(V) lanes
 // take it, lane l its vectors l, l + lg, ...: each load instruction of a
-// warp reads 512 contiguous bytes (two groups side by side when lg is 16).
+// warp reads up to 512 contiguous bytes (two groups side by side when lg
+// is 16).
 // A warp walks groups (pairs of groups) a grid's warps apart and issues
 // the next step's loads before it reduces and quantizes this step's.  NV:
 // vectors a lane keeps of a group (at least ceil(V / lg), at most
@@ -166,7 +186,7 @@ quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict_
              T* __restrict__ out, long long groups, int group, float qmax) {
   constexpr int E = kElems<T>;
   const int lane = threadIdx.x & 31;
-  const int nv = group / E, lg = nv < 32 ? nv : 32;  // vectors of a group; lanes a group
+  const int nv = group / E, lg = lanes_of(nv);        // vectors of a group; lanes a group
   const int per = 32 / lg, gl = lane % lg;           // groups a step; this lane's place
   const int nvec = (nv + lg - 1) / lg;                // vectors a lane of a group
   const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
@@ -265,6 +285,65 @@ quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict_
   }
 }
 
+// the wide-group route (see the header).  Group blockIdx.y, its vectors
+// blockIdx.x * kThreads + threadIdx.x, ... a grid's x threads apart.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_absmax_kernel(const T* __restrict__ x, unsigned* __restrict__ amax_bits, int nv) {
+  constexpr int E = kElems<T>;
+  const uint4* p = reinterpret_cast<const uint4*>(x + static_cast<long long>(blockIdx.y) * nv * E);
+  float amax = 0.f;
+  for (int j = blockIdx.x * kThreads + threadIdx.x; j < nv; j += gridDim.x * kThreads) {
+    float f[E];
+    to_f32<T>(__ldcs(p + j), f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  __shared__ float warp_max[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+    atomicMax(amax_bits + blockIdx.y, __float_as_uint(amax));
+  }
+}
+
+// scale = absmax / qmax, 1.0 where 0, in place over the absmax bits
+__global__ void wide_scale_kernel(float* __restrict__ scales, long long groups, float qmax) {
+  const long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (g >= groups) return;
+  float scale = __fdiv_rn(__uint_as_float(reinterpret_cast<unsigned*>(scales)[g]), qmax);
+  if (scale == 0.f) scale = 1.f;
+  scales[g] = scale;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                  const float* __restrict__ scales, int nv, float qmax) {
+  constexpr int E = kElems<T>;
+  const long long base = static_cast<long long>(blockIdx.y) * nv * E;
+  const uint4* p = reinterpret_cast<const uint4*>(x + base);
+  const float scale = scales[blockIdx.y];
+  const float inv = __frcp_rn(scale);
+  const bool fast = scale >= kScaleLo && scale <= kScaleHi;
+  for (int j = blockIdx.x * kThreads + threadIdx.x; j < nv; j += gridDim.x * kThreads) {
+    float f[E];
+    to_f32<T>(__ldcs(p + j), f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = quant1(f[e], scale, inv, fast, qmax);
+    const long long at = base + static_cast<long long>(j) * E;
+    if constexpr (E == 8) {
+      __stcs(reinterpret_cast<uint2*>(q + at), make_uint2(pack_s8x4(f), pack_s8x4(f + 4)));
+    } else {
+      __stcs(reinterpret_cast<unsigned int*>(q + at), pack_s8x4(f));
+    }
+  }
+}
+
 // out[e] = q[e] * scales[row, col / group], 4 elements a thread
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -298,11 +377,29 @@ int launch_quant_nv(const T* x, int8_t* q, float* scales, T* out, long long grou
                     float qmax, cudaStream_t stream) {
   auto kern = quant_kernel<T, FAKE, NV>;
   static const int resident = resident_blocks(kern);
-  const int nv = group / kElems<T>, per = nv < 32 ? 32 / nv : 1;
+  const int per = 32 / lanes_of(group / kElems<T>);
   const long long warps = (groups + per - 1) / per;
   const long long blocks = std::min<long long>((warps + kWarps - 1) / kWarps, resident);
   kern<<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(x, q, scales, out, groups,
                                                                    group, qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the wide-group route: groups * nv vectors, at most 65535 groups (a grid's y)
+template <typename T>
+int launch_wide_quant(const T* x, int8_t* q, float* scales, long long groups, int nv,
+                      float qmax, int sms, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(scales, 0, groups * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // about 8 blocks an SM in all, each a group's chunk
+  const long long per_group = std::max<long long>(1, 8LL * sms / groups);
+  const unsigned bx = static_cast<unsigned>(
+      std::min<long long>(per_group, (nv + kThreads - 1) / kThreads));
+  const dim3 grid(bx, static_cast<unsigned>(groups));
+  wide_absmax_kernel<T><<<grid, kThreads, 0, stream>>>(x, reinterpret_cast<unsigned*>(scales), nv);
+  wide_scale_kernel<<<static_cast<unsigned>((groups + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(scales, groups, qmax);
+  wide_quant_kernel<T><<<grid, kThreads, 0, stream>>>(x, q, scales, nv, qmax);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,6 +422,13 @@ int launch_quant(const void* x, void* q, void* scales, void* out, long long m, i
   if (nvec <= 4) return launch_quant_nv<T, FAKE, 4>(xt, qt, st, ot, groups, group, qmax, stream);
   if (nvec <= kMaxVecs)
     return launch_quant_nv<T, FAKE, kMaxVecs>(xt, qt, st, ot, groups, group, qmax, stream);
+  if constexpr (!FAKE) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (groups < 4LL * sms)   // too few groups to fill the card a warp each
+      return launch_wide_quant<T>(xt, qt, st, groups, nv, qmax, sms, stream);
+  }
   return launch_quant_nv<T, FAKE, 0>(xt, qt, st, ot, groups, group, qmax, stream);
 }
 

@@ -57,13 +57,14 @@ def adamw_leaf_ref(p, g, m, v, lr: float, bc1: float, bc2: float, b1: float,
     bc1_t = torch.tensor(bc1, dtype=torch.float32, device=dev)
     bc2_t = torch.tensor(bc2, dtype=torch.float32, device=dev)
     gf = g.float()
-    m.copy_(torch.add(torch.mul(m, b1), torch.mul(gf, 1.0 - b1)))
-    v.copy_(torch.add(torch.mul(v, b2), torch.mul(torch.mul(gf, 1.0 - b2), gf)))
-    u = torch.div(torch.div(m, bc1_t),
-                  torch.add(torch.sqrt(torch.div(v, bc2_t)), eps))
+    # each op rounds once, in the kernel's order; in place where a
+    # temporary would only be copied back
+    m.mul_(b1).add_(torch.mul(gf, 1.0 - b1))
+    v.mul_(b2).add_(torch.mul(gf, 1.0 - b2).mul_(gf))
+    u = torch.div(m, bc1_t).div_(torch.div(v, bc2_t).sqrt_().add_(eps))
     if wd:
-        u = torch.add(u, torch.mul(p, wd))
-    p.copy_(torch.sub(p, torch.mul(u, lr)))
+        u.add_(torch.mul(p, wd))
+    p.sub_(u.mul_(lr))
 
 
 def lion_leaf_ref(p, g, m, lr: float, b1: float, b2: float, wd: float) -> None:

@@ -11,10 +11,14 @@ and launches, or the call raises.
 Layout (the JAX function's): the tensor is viewed as ``[M, N]`` rows
 (``_view_2d``) whose last axis splits into ``group_size``-wide groups, one
 fp32 scale each, returned as ``x.shape[:-1] + (N // group_size,)``.  The
-kernels serve what :func:`supports` accepts (symmetric, 4 or 8 bits, a
-group that is a multiple of 128 and divides the last dim); the caller
-(``ops/quantizer.py``) routes everything else to the ported jnp
-arithmetic, as the JAX package does.
+kernels serve what :func:`supports` accepts: symmetric, 4 or 8 bits, a
+group that divides the last dim and is a whole number of the vectors the
+kernels read (16 bytes of input: 4 fp32 or 8 bf16/fp16 elements; 4 bytes
+of payload for ``dequantize``).  That is wider than the JAX kernel's rule
+(a multiple of 128), so the whole-chunk groups of qgZ and any
+``grad_reduce`` block of such a length launch the kernels on the card.
+The caller (``ops/quantizer.py``) routes asymmetric calls to the ported
+jnp arithmetic, as the JAX package does.
 
 Arithmetic, shared by kernel and plain version so the two agree bit for
 bit: the input is turned into fp32 first; ``scale = absmax / qmax`` (true
@@ -37,15 +41,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 launches = {"quantize": 0, "dequantize": 0, "fake_quantize": 0}
 
 
+def vector_elems(dtype: torch.dtype) -> int:
+    """Elements of one vector the kernels read: 16 bytes of a 16-bit input
+    (8), of an fp32 input (4), or 4 bytes of an int8 payload (dequantize's
+    loads)."""
+    return 8 if dtype in (torch.bfloat16, torch.float16) else 4
+
+
 def supports(shape: Tuple[int, ...], group_size: int, symmetric: bool,
-             num_bits: int) -> bool:
-    """Whether the kernels can serve this call."""
+             num_bits: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the kernels can serve this call on ``dtype`` input (the
+    int8 payload for ``dequantize``)."""
     if not symmetric or num_bits not in (4, 8):
         return False
     if len(shape) == 0 or group_size <= 0:  # <=0 means whole-tensor group
         return False
     n = shape[-1]
-    return n >= group_size and n % group_size == 0 and group_size % 128 == 0
+    return (n >= group_size and n % group_size == 0
+            and group_size % vector_elems(dtype) == 0)
 
 
 def _view_2d(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -70,7 +83,7 @@ def _round_trip_ref(x2: torch.Tensor, num_bits: int, group_size: int):
     absmax = torch.amax(torch.abs(g), dim=-1, keepdim=True)
     scale = absmax / torch.tensor(qmax, dtype=torch.float32, device=x2.device)
     scale = torch.where(scale == 0.0, 1.0, scale)
-    q = torch.clamp(torch.round(g / scale), -qmax - 1.0, qmax)
+    q = torch.div(g, scale).round_().clamp_(-qmax - 1.0, qmax)
     return q, scale
 
 
@@ -89,7 +102,8 @@ def dequantize_ref(q: torch.Tensor, scales: torch.Tensor,
     q2, shape = _view_2d(q)
     m, n = q2.shape
     ng = scales.shape[-1]
-    out = q2.float().reshape(m, ng, n // ng) * scales.reshape(m, ng, 1)
+    out = q2.to(torch.float32).reshape(m, ng, n // ng).mul_(
+        scales.reshape(m, ng, 1))
     return out.reshape(shape).to(dtype)
 
 
@@ -132,12 +146,12 @@ def _operand(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(name: str, x: torch.Tensor, group_size: int, num_bits: int) -> None:
-    if not supports(tuple(x.shape), group_size, True, num_bits):
+    if not supports(tuple(x.shape), group_size, True, num_bits, x.dtype):
         raise ValueError(
-            f"{name}: shape {tuple(x.shape)}, group {group_size}, "
+            f"{name}: shape {tuple(x.shape)}, {x.dtype}, group {group_size}, "
             f"{num_bits} bits is not served by the kernel (symmetric 4 or "
-            "8 bits, a group that is a multiple of 128 and divides the last "
-            "dim); ops.quantizer routes such calls to the torch arithmetic")
+            "8 bits, a group that divides the last dim and holds whole "
+            f"vectors of {vector_elems(x.dtype)} elements)")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
 

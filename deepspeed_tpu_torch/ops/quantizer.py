@@ -3,15 +3,17 @@
 Port of ``deepspeed_tpu/ops/quantizer.py``.  Symmetric blockwise calls of
 a shape that :func:`ops.quantize.supports` accepts go to the kernels of
 ``ops/quantize.py`` (a hand-written CUDA kernel on CUDA tensors, its plain
-version on CPU tensors); asymmetric mode and groups that are not a
-multiple of 128 take the torch arithmetic below, which is the JAX
-package's jnp path, ported: the reference's own second path, on a TPU as
-here.
+version on CPU tensors); asymmetric mode takes the torch arithmetic below,
+which is the JAX package's jnp path, ported: the reference's own second
+path, on a TPU as here.  A symmetric call on a CUDA tensor that the
+kernels cannot serve (a group that is not a whole number of their
+vectors) raises; on a CPU tensor it takes the torch arithmetic, whose
+numbers are the plain versions'.
 
 ``backend`` (the JAX values in brackets):
   * ``"auto"`` (``"auto"`` and ``"pallas"``): the kernel when
-    :func:`supports` accepts the call, else the torch arithmetic.  On a
-    CUDA tensor of a supported shape this launches the kernel.  JAX needs
+    :func:`supports` accepts the call, else the torch arithmetic (or, on
+    a symmetric CUDA call, an error).  JAX needs
     two values because its ``"auto"`` takes the Pallas kernel only on a
     TPU and ``"pallas"`` forces it elsewhere; here the kernel wrapper runs
     wherever the tensor lies (its plain version on the CPU).
@@ -36,18 +38,33 @@ BACKENDS = ("auto", "torch")
 def _kernel_ok(x: torch.Tensor, num_bits: int, group_size: int,
                symmetric: bool, backend: str) -> bool:
     """Route to the kernels when the backend allows and they serve the
-    call."""
+    call; a symmetric CUDA call they cannot serve raises."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
     if backend == "torch":
         return False
-    return qk.supports(tuple(x.shape), group_size, symmetric, num_bits)
+    if qk.supports(tuple(x.shape), group_size, symmetric, num_bits, x.dtype):
+        return True
+    if x.device.type == "cuda" and symmetric and num_bits in (4, 8):
+        raise ValueError(
+            f"quantizer: shape {tuple(x.shape)}, {x.dtype}, group "
+            f"{group_size} is not served by the quantize kernels (a group "
+            "that divides the last dim and holds whole vectors of "
+            f"{qk.vector_elems(x.dtype)} elements); backend='torch' takes "
+            "the plain arithmetic")
+    return False
+
+
+def _whole(x: torch.Tensor, group_size: int) -> int:
+    """``group_size``, or the last dim where it is <= 0 or longer (one
+    group a row)."""
+    n = x.shape[-1]
+    return n if group_size <= 0 or group_size > n else group_size
 
 
 def _group(x: torch.Tensor, group_size: int) -> Tuple[torch.Tensor, int]:
     n = x.shape[-1]
-    if group_size <= 0 or group_size > n:
-        group_size = n
+    group_size = _whole(x, group_size)
     if n % group_size != 0:
         raise ValueError(f"last dim {n} not divisible by group_size {group_size}")
     return x.reshape(tuple(x.shape[:-1]) + (n // group_size, group_size)), group_size
@@ -68,6 +85,7 @@ def quantize_blockwise(x: torch.Tensor, num_bits: int = 8,
 
     Returns ``(q, scale, zero_point)``; ``zero_point`` is None when
     symmetric.  q is int8 (int4 values occupy the low nibble range)."""
+    group_size = _whole(x, group_size)
     if _kernel_ok(x, num_bits, group_size, symmetric, backend):
         q, s = qk.quantize(x, num_bits, group_size)
         return q, s, None
@@ -111,6 +129,7 @@ def fake_quantize(x: torch.Tensor, num_bits: int = 8, group_size: int = 256,
                   symmetric: bool = True, backend: str = "auto") -> torch.Tensor:
     """Quantize-dequantize round trip for QAT; the kernel does it in one
     pass without writing the payload."""
+    group_size = _whole(x, group_size)
     if _kernel_ok(x, num_bits, group_size, symmetric, backend):
         return qk.fake_quantize(x, num_bits, group_size)
     q, s, z = quantize_blockwise(x, num_bits, group_size, symmetric,

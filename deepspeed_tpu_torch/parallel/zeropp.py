@@ -82,8 +82,10 @@ def round_trip(x: torch.Tensor, wire_dtype: str, group_size: int
     """The decoded fp32 values of the whole tensor ``x`` on the wire."""
     m = x.shape[-1]
     payload, scale = wire._wire_encode(x.float().reshape(-1, m), wire_dtype,
-                                       block_of(m, group_size))
-    return wire._wire_decode(payload, scale, wire_dtype).reshape(x.shape)
+                                       block_of(m, group_size),
+                                       backend="torch")
+    return wire._wire_decode(payload, scale, wire_dtype,
+                             backend="torch").reshape(x.shape)
 
 
 def straight_through(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -152,7 +154,8 @@ def decode(payload: torch.Tensor, scale: torch.Tensor, wire_dtype: str
     ``scale`` ``[..., blocks]``."""
     m = payload.shape[-1]
     out = wire._wire_decode(payload.reshape(-1, m),
-                            scale.reshape(-1, scale.shape[-1]), wire_dtype)
+                            scale.reshape(-1, scale.shape[-1]), wire_dtype,
+                            backend="torch")
     return out.reshape(payload.shape)
 
 
@@ -164,6 +167,7 @@ def encode_shard(x: torch.Tensor, m: int, group_size: int,
     they are the whole leaf's."""
     m_l = x.shape[-1]
     payload, scale = wire._wire_encode(x.float().reshape(-1, m_l),
-                                       wire_dtype, block_of(m, group_size))
+                                       wire_dtype, block_of(m, group_size),
+                                       backend="torch")
     return (payload.reshape(x.shape),
             scale.reshape(tuple(x.shape[:-1]) + (scale.shape[-1],)))

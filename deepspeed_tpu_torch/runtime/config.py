@@ -4,17 +4,18 @@ Port of ``deepspeed_tpu/runtime/config.py`` over the keys the training
 path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
 ``gradient_clipping``, ``zero_optimization.stage``,
 ``.param_persistence_threshold``, ``.reduce_bucket_size`` (the flat
-buckets of the gradient reduction), ``.prefetch_bucket_size`` and
-``.zero_quantized_weights`` (qwZ),
+buckets of the gradient reduction), ``.prefetch_bucket_size``,
+``.zero_quantized_weights`` (qwZ) and ``.zero_quantized_gradients`` (qgZ),
 ``activation_checkpointing.remat_policy``,
 the ``checkpoint`` block's writer and ``load_universal`` (and
 ``load_universal_checkpoint``), ``steps_per_print``, ``seed``, ``dataloader_drop_last``, the ``mesh``'s
 ``data`` and ``seq`` axes (or ``sequence_parallel_size``; every other axis
 1) and the ``step_schedule`` keys
 ``ring_interleave``, ``fused_gather_matmul``,
-``param_persistence_threshold``, ``gather_prefetch_depth`` and
-``prefetch_bucket_size``, and ``comm_quantization`` (its
-``ring_rotation`` and ``zero3_gather`` run).  Those keys get the JAX config's
+``param_persistence_threshold``, ``gather_prefetch_depth``,
+``prefetch_bucket_size``, ``weight_update`` and ``fused_reduce_scatter``,
+and ``comm_quantization`` (``grad_reduce``, ``ring_rotation`` and
+``zero3_gather`` run).  Those keys get the JAX config's
 rejections (:class:`DeepSpeedConfigError`: inconsistent batch sizes, a ZeRO
 stage outside [0, 3], fp16 together with bf16).  A key that turns on a
 feature the port has not got yet raises ``NotImplementedError`` naming the
@@ -104,7 +105,10 @@ class ZeroConfig:
     accepted, validated and reported, and bounds nothing: the JAX package
     reads it nowhere outside its config and autotuner either, the window
     of ``step_schedule.gather_prefetch_depth`` decides what is issued
-    ahead.  Offload, quantized gradients, hpZ and MiCS raise."""
+    ahead.  ``zero_quantized_gradients`` (qgZ) is read by the engine,
+    whose gate decides where it runs (``runtime/onebit.py``), as the JAX
+    engine's does.  Offload, hpZ, MiCS and quantized nontrainable weights
+    raise."""
     stage: int = 0
     param_persistence_threshold: int = 100_000
     reduce_bucket_size: int = 500_000_000
@@ -145,12 +149,13 @@ class ZeroConfig:
                                  "Queue A item 7")
         if self.cpu_offload or self.cpu_offload_params:
             raise not_ported("zero_optimization.cpu_offload", "Queue A item 7")
-        if (self.zero_quantized_gradients
-                or self.zero_quantized_nontrainable_weights
+        self.zero_quantized_gradients = bool(self.zero_quantized_gradients)
+        if (self.zero_quantized_nontrainable_weights
                 or self.zero_hpz_partition_size > 1
                 or self.mics_shard_size > 0):
-            raise not_ported("ZeRO++ (quantized gradients or nontrainable "
-                             "weights, hpZ, MiCS)", "Queue A item 8")
+            raise not_ported("ZeRO++ hierarchical partitioning (hpZ, MiCS) "
+                             "and quantized nontrainable weights",
+                             "Queue A item 8")
 
 
 # the JAX config's remat policy names; the port runs the first three
@@ -212,11 +217,14 @@ class CommQuantizationConfig:
     payloads with fp32 row scales (``sequence/ring.py``); the engine sets
     it on the model over a seq axis.  ``zero3_gather`` runs: the ZeRO-3
     weight gather moves the payload and block scales of ``group_size``
-    blocks (qwZ, ``parallel/zeropp.py``).  ``grad_reduce`` other than
-    ``fp32`` raises (ROADMAP Queue A item 8).  The ``collectives`` dict is
-    the same choice spelled per collective; unknown collective names and
-    wire dtypes are rejected as in JAX.  ``error_feedback`` serves the
-    collective not ported."""
+    blocks (qwZ, ``parallel/zeropp.py``).  ``grad_reduce`` runs: with the
+    block enabled, the engine's gate (the JAX engine's) sends the data
+    axis's gradient reduction through one explicit
+    ``comm/quantized.py`` ``quantized_all_reduce`` of that wire, fp32
+    spelled out included, with ``error_feedback`` carrying the first
+    send's residual to the next step.  The ``collectives`` dict is the
+    same choice spelled per collective; unknown collective names and wire
+    dtypes are rejected as in JAX."""
     enabled: bool = False
     grad_reduce: str = "fp32"
     zero3_gather: str = "fp32"
@@ -252,9 +260,7 @@ class CommQuantizationConfig:
                 f"comm_quantization.group_size must be positive, got "
                 f"{self.group_size}")
         self.group_size = int(self.group_size)
-        if self.enabled and self.grad_reduce != "fp32":
-            raise not_ported(f"comm_quantization.grad_reduce="
-                             f"{self.grad_reduce!r}", "Queue A item 8")
+        self.error_feedback = bool(self.error_feedback)
 
 
 @dataclass
@@ -312,18 +318,32 @@ class StepScheduleConfig:
     of the layer count, as the JAX engine clamps its scan unroll) and
     ``prefetch_bucket_size`` (positive or None; accepted, validated and
     reported, and, as in the JAX package, which reads it nowhere outside
-    its config and autotuner, it bounds nothing in the schedule).  The
-    block's other keys are accepted at their defaults and raise when they
-    ask for something else (``_UNPORTED_SCHEDULE``)."""
+    its config and autotuner, it bounds nothing in the schedule),
+    ``weight_update`` (``"fused"``, the stage's own layout, or
+    ``"decomposed"``: the optimizer state and the gradient accumulator split
+    over the ZeRO world at stages 0-1 too) and ``fused_reduce_scatter``
+    (with the decomposed update, one reduce-scatter a bucket after the
+    last micro-step's backward); the engine's gates decide whether the
+    last two run, as the JAX engine's do.  The block's other keys are
+    accepted at their defaults and raise when they ask for something else
+    (``_UNPORTED_SCHEDULE``)."""
     ring_interleave: int = 1
     fused_gather_matmul: bool = False
     param_persistence_threshold: Optional[int] = None
     gather_prefetch_depth: int = 1
     prefetch_bucket_size: Optional[int] = None
+    weight_update: str = "fused"
+    fused_reduce_scatter: bool = False
 
     RING_INTERLEAVES = (1, 2)
+    WEIGHT_UPDATES = ("fused", "decomposed")
 
     def __post_init__(self):
+        if self.weight_update not in self.WEIGHT_UPDATES:
+            raise DeepSpeedConfigError(
+                f"step_schedule.weight_update must be one of "
+                f"{list(self.WEIGHT_UPDATES)}, got {self.weight_update!r}")
+        self.fused_reduce_scatter = bool(self.fused_reduce_scatter)
         if int(self.ring_interleave) not in self.RING_INTERLEAVES:
             raise DeepSpeedConfigError(
                 f"step_schedule.ring_interleave must be one of "
@@ -355,8 +375,6 @@ _UNPORTED_SCHEDULE = {
     "probe_steps": (3, "Queue A item 12"),
     "overlap_threshold": (0.5, "Queue A item 12"),
     "decisions": (None, "Queue A item 12"),
-    "weight_update": ("fused", "Queue A item 8"),
-    "fused_reduce_scatter": (False, "Queue A item 8"),
 }
 
 

@@ -24,6 +24,10 @@ MUON_OPTIMIZER = "muon"
 ONEBIT_ADAM_OPTIMIZER = "onebitadam"
 ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
 ZERO_ONE_ADAM_OPTIMIZER = "zerooneadam"
+# the names the engine's compressed data-parallel step takes ("0/1adam"
+# the JAX engine's spelling of ZeroOneAdam)
+ONEBIT_OPTIMIZERS = (ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER,
+                     ZERO_ONE_ADAM_OPTIMIZER, "0/1adam")
 
 FP16 = "fp16"
 BFLOAT16 = "bf16"

@@ -87,6 +87,27 @@ stays whole on every rank is added once.
 where it is refused the engine warns with the JAX reason and keeps the
 unfused stage-3 gather.
 
+The gradient reduction over a data-only axis (data above one, no seq
+axis) has the JAX engine's other modes, each behind the JAX gate and its
+warnings:
+
+* ``comm_quantization.grad_reduce`` (the block enabled, ZeRO stage <= 2,
+  no 1-bit step): each rank's gradients of its own rows' loss accumulate
+  locally over the micro-steps in one flat buffer laid out in the JAX tree
+  order and padded to ``world · group_size`` blocks, and one
+  ``comm/quantized.py`` ``quantized_all_reduce`` of that wire averages it
+  (int8 through the ``quantize``/``dequantize`` kernels), with the first
+  send's residual carried per rank to the next step under
+  ``error_feedback``; the loss is the mean of the ranks' losses;
+* the 1-bit optimizers and qgZ (``zero_optimization.
+  zero_quantized_gradients`` at stage <= 1 with Adam/AdamW): the step is
+  ``runtime/onebit.py``'s, on the fp32 masters;
+* ``step_schedule.weight_update: "decomposed"``: at stages 0-1 the
+  optimizer state and the gradient accumulator split as at stage 2
+  (reduce-scattered buckets, the stepped slices all-gathered), and with
+  ``fused_reduce_scatter`` the micro-steps accumulate locally and each
+  bucket is reduce-scattered once after the last backward.
+
 Checkpoints (``save_checkpoint``/``load_checkpoint``, the JAX engine's
 dispatch): the pickle engine by default, the ``fast`` and ``decoupled``
 writers of ``checkpoint.writer.type``, and with
@@ -113,6 +134,7 @@ from deepspeed_tpu_torch.checkpoint.engine import (CkptLeaf, LeafSpec,
                                                    chain_names, check_leaves,
                                                    nest, numpy_dtype)
 from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.quantized import quantized_all_reduce
 from deepspeed_tpu_torch.models import transformer as tf_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     is_norm_path,
@@ -121,10 +143,13 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
 from deepspeed_tpu_torch.parallel import zeropp
 from deepspeed_tpu_torch.parallel.topology import MeshTopology, set_topology
 from deepspeed_tpu_torch.resilience.oracle import PartitionOracle
+from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
                                                       build_lr_schedule,
                                                       constant_lr)
+from deepspeed_tpu_torch.runtime.onebit import (OnebitConfig,
+                                                OnebitTrainStep, jax_order)
 from deepspeed_tpu_torch.runtime.optimizers import Optimizer, build_optimizer
 from deepspeed_tpu_torch.sequence.ring import stripe_sequence
 from deepspeed_tpu_torch.utils.device import resolve_device
@@ -240,6 +265,7 @@ class DeepSpeedEngine:
         if self._qwz is not None:
             log_dist(f"ZeRO-3 weight gather (qwZ): wire {self._qwz[0]}, "
                      f"group size {self._qwz[1]}")
+        self._reduction_modes()
 
         # -- params: masters (fp32 for the built-in model), leaves of the
         # autograd graph -------------------------------------------------
@@ -266,6 +292,14 @@ class DeepSpeedEngine:
             self.optimizer = build_optimizer("adamw", {})
         self.base_lr = cfg.optimizer.lr if cfg.optimizer else 1e-3
         self.opt_state = self.optimizer.init(self._masters)
+        self._onebit = self._onebit_state = None
+        if self._onebit_variant is not None:
+            self._onebit = OnebitTrainStep(
+                self.topology, self._loss_fn, self.params,
+                OnebitConfig(cfg.optimizer.params, self._onebit_variant),
+                gas=self.gradient_accumulation_steps_value,
+                grad_clip=cfg.gradient_clipping)
+            self._onebit_state = self._onebit.init_state(self.params)
         if lr_scheduler is not None:
             self.lr_scheduler = lr_scheduler
         elif cfg.scheduler is not None:
@@ -304,6 +338,101 @@ class DeepSpeedEngine:
                            f"clamped to {clamped}")
         return clamped
 
+    def _reduction_modes(self) -> None:
+        """The JAX engine's gates for the data axis's reduction modes
+        (``deepspeed_tpu/runtime/engine.py:500-540``, ``:969-1110``), reason
+        for reason and in its order: the decomposed weight update, the
+        1-bit or qgZ step, the explicit quantized reduce of
+        ``comm_quantization`` and the fused reduce-scatter.  Sets
+        ``_decomposed``, ``_onebit_variant``, ``_comm_quant`` (the config
+        block, or None) and ``_fused_rs``."""
+        cfg, topo = self.config, self.topology
+        zc, cq, ss = cfg.zero_config, cfg.comm_quantization, cfg.step_schedule
+        opt = cfg.optimizer.type if cfg.optimizer is not None else None
+        onebit_opt = opt in C.ONEBIT_OPTIMIZERS
+        dp_only = topo.dp_size > 1 and topo.sp_size == 1
+
+        self._decomposed = False
+        if ss.weight_update == "decomposed":
+            blocked = ("no >1 ZeRO axis" if topo.world_size <= 1 else
+                       "1-bit optimizer" if onebit_opt else
+                       "qgZ compressed gradients"
+                       if zc.zero_quantized_gradients
+                       and self.zero_stage <= 1 else "")
+            if blocked:
+                logger.warning(
+                    "step_schedule.weight_update='decomposed': unsupported "
+                    f"with this configuration ({blocked}) — keeping the "
+                    "stage's native update layout")
+            else:
+                self._decomposed = True
+                log_dist("step_schedule: decomposed weight update — "
+                         "optimizer state + grad accumulator split over "
+                         f"the ZeRO world (world={topo.world_size}, "
+                         f"stage={self.zero_stage})")
+
+        self._onebit_variant = None
+        if dp_only and onebit_opt:
+            self._onebit_variant = ("zerooneadam" if opt in (
+                C.ZERO_ONE_ADAM_OPTIMIZER, "0/1adam") else opt)
+        elif (zc.zero_quantized_gradients and dp_only
+              and self.zero_stage <= 1
+              and opt in (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER,
+                          C.FUSED_ADAM_OPTIMIZER)):
+            self._onebit_variant = "qgz"
+        if self._onebit_variant is not None and self.zero_stage >= 3:
+            raise ValueError("the 1-bit optimizers step whole params: ZeRO "
+                             "stage 3 splits them (ref: 1-bit Adam is "
+                             "incompatible with ZeRO>=2/TP/PP)")
+
+        self._comm_quant = None
+        if cq.enabled:
+            if dp_only and self.zero_stage <= 2 \
+                    and self._onebit_variant is None:
+                self._comm_quant = cq
+                log_dist(f"comm_quantization: explicit grad reduce over "
+                         f"dp={topo.dp_size} wire={cq.grad_reduce} "
+                         f"group_size={cq.group_size} error_feedback="
+                         f"{cq.error_feedback and cq.grad_reduce != 'fp32'}")
+            elif cq.grad_reduce != "fp32":
+                logger.warning(
+                    "comm_quantization.grad_reduce: unsupported with this "
+                    "configuration (needs a >1 data-parallel mesh without "
+                    "TP/PP/SP, ZeRO stage <= 2, no 1-bit optimizer) — "
+                    "falling back to the fp32 reduction of the gradient "
+                    "buckets")
+
+        self._fused_rs = False
+        if ss.fused_reduce_scatter:
+            blocked = (
+                "requires weight_update='decomposed'"
+                if not self._decomposed else
+                "requires ZeRO stage <= 1 (stage >= 2 grads are already "
+                "reduce-scattered each micro-step)" if self.zero_stage > 1
+                else "needs a >1 data-parallel mesh without TP/PP/SP"
+                if not dp_only else
+                "comm_quantization grad reduce already owns the wire"
+                if self._comm_quant is not None else
+                "1-bit/qgZ optimizer owns the reduction"
+                if self._onebit_variant is not None else "")
+            if blocked:
+                logger.warning(
+                    "step_schedule.fused_reduce_scatter: unsupported with "
+                    f"this configuration ({blocked}) — keeping the "
+                    "reduce-scatter of every micro-step")
+            else:
+                self._fused_rs = True
+                log_dist("step_schedule: fused reduce-scatter — one "
+                         "reduce-scatter a bucket after the last micro-step "
+                         f"over dp={topo.dp_size}")
+
+    @property
+    def _grad_split(self) -> bool:
+        """Whether the gradients of leaves whose state alone is split are
+        reduce-scattered into slice accumulators (stage >= 2, or the
+        decomposed update)."""
+        return self.zero_stage >= 2 or self._decomposed
+
     # ------------------------------------------------------------------
     # ZeRO partitioning over the ZeRO world (the data and seq axes)
     # ------------------------------------------------------------------
@@ -321,7 +450,9 @@ class DeepSpeedEngine:
         if topo.world_size > 1:
             self.oracle = PartitionOracle.from_config(topo, self.config)
             self.param_dims = self.oracle.param_specs(params)
-            self.state_dims = self.oracle.optimizer_specs(params)
+            # the decomposed update: the always-split specs (stage 2's)
+            self.state_dims = self.oracle.tree_specs(params, param_style=False) \
+                if self._decomposed else self.oracle.optimizer_specs(params)
             offenders = self.oracle.audit_replicated(params)
             if offenders:
                 desc = ", ".join(f"{p} {s} ({b / 1e6:.1f}MB)"
@@ -406,13 +537,17 @@ class DeepSpeedEngine:
         these."""
         self._reduce_buckets: List[tuple] = []
         self._scatter_buckets: List[tuple] = []
-        if self.topology.world_size <= 1:
+        self._quant_flat = None
+        if self.topology.world_size <= 1 or self._onebit_variant is not None:
+            return       # the 1-bit step keeps its own flat gradient
+        if self._comm_quant is not None:
+            self._build_quant_flat()
             return
         world = self.topology.world_size
         reduce_idx, scatter_idx = [], []
         for i, (_p, pdim, sdim) in enumerate(self._leaves):
             if pdim is None:
-                (scatter_idx if self.zero_stage >= 2 and sdim is not None
+                (scatter_idx if self._grad_split and sdim is not None
                  else reduce_idx).append(i)
         for scat, indices in ((False, reduce_idx), (True, scatter_idx)):
             by_dtype: Dict[torch.dtype, List[int]] = {}
@@ -439,6 +574,38 @@ class DeepSpeedEngine:
                         self._slice_grads[i] = v
                     self._scatter_buckets.append(
                         (bidx, [self._leaves[i][2] for i in bidx], acc))
+
+    def _build_quant_flat(self) -> None:
+        """The explicit quantized reduce's buffer (JAX
+        ``engine.py:1010-1068``): every leaf's gradient in the JAX tree
+        order, padded to ``ceil(n / (world · group_size)) · world ·
+        group_size`` elements, so that the wire's blocks fall where the JAX
+        engine's do.  An fp32 leaf's ``.grad`` is its view of the buffer,
+        set here; another leaf's gradient is added in after each backward.
+        The error-feedback residual is this rank's, of the same length."""
+        cq, world = self._comm_quant, self.topology.dp_size
+        n = sum(p.numel() for p, _pd, _sd in self._leaves)
+        base = world * cq.group_size
+        self._quant_flat = torch.zeros(-(-n // base) * base,
+                                       dtype=torch.float32, device=self.device)
+        self._quant_offsets = [0] * len(self._leaves)
+        off = 0
+        for i in jax_order(self.params):
+            self._quant_offsets[i] = off
+            off += self._leaves[i][0].numel()
+        self._quant_views = self._quant_views_of(self._quant_flat)
+        for (p, _pd, _sd), view in zip(self._leaves, self._quant_views):
+            if p.dtype == torch.float32:
+                p.grad = view
+        self._quant_residual = None
+        if cq.error_feedback and cq.grad_reduce != "fp32":
+            # not checkpointed, as in JAX: a resume starts it from zero
+            self._quant_residual = torch.zeros_like(self._quant_flat)
+
+    def _quant_views_of(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """Each leaf's view of a buffer laid out as ``_quant_flat``."""
+        return [flat[o:o + p.numel()].view(p.shape) for (p, _pd, _sd), o
+                in zip(self._leaves, self._quant_offsets)]
 
     @property
     def grad_bucket_count(self) -> int:
@@ -607,42 +774,64 @@ class DeepSpeedEngine:
         for _idx, _dims, acc in self._scatter_buckets:
             acc.zero_()
 
+    def _rank_loss(self, mb: Batch):
+        """This rank's own rows' mean loss (the JAX shard_map modes'
+        local loss): ``(loss to differentiate, its value)``."""
+        loss = self._loss_fn(self.params, mb)
+        return loss, loss.detach().float()
+
+    def _mean_over_ranks(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` all-reduced over the data group and divided by its
+        size (``lax.pmean``)."""
+        comm.all_reduce(value, self.topology.data_group)
+        return value * (1.0 / self.topology.dp_size)
+
     def _accum_grads(self, batch_stack: Batch):
         """Run the gas micro-steps, accumulating fp32 gradients in each
         param's ``.grad`` (a stage-3 slice's through the reducer's
-        buckets, finished after each backward) or, at stage >= 2 for a leaf whose state alone is
-        split, in its slice accumulator (one reduce-scatter a bucket each
-        micro-step); then all-reduce the whole leaves' buckets over the
-        ZeRO world.  Returns (the gradient of each ``_masters`` leaf,
-        summed loss)."""
+        buckets, finished after each backward) or, for a leaf whose state
+        alone is split at stage >= 2 (or under the decomposed update), in
+        its slice accumulator (one reduce-scatter a bucket each micro-step,
+        or under ``fused_reduce_scatter`` once after the last backward, of
+        the locally accumulated gradients); then all-reduce the whole
+        leaves' buckets over the ZeRO world.  Returns (the gradient of each
+        ``_masters`` leaf, summed loss)."""
+        if self._comm_quant is not None:
+            return self._accum_grads_quant(batch_stack)
         topo = self.topology
         group = topo.world_group
         self._zero_grads()
         gas = self.gradient_accumulation_steps_value
         seeds = self._dropout_seeds(gas)
+        fused_rs = self._fused_rs
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
             mb = self._to_device({k: v[i] for k, v in batch_stack.items()})
             if seeds is not None:
                 mb["dropout_seed"] = seeds[i]
-            loss, value = self._micro_loss(mb)
+            loss, value = self._rank_loss(mb) if fused_rs \
+                else self._micro_loss(mb)
             loss.backward()
             if self._zero is not None:     # the stage-3 buckets, reduced
                 self.stage3_buckets = self._zero.reducer.finish()
             loss_sum += value
-            for idx, dims, acc in self._scatter_buckets:
-                ps = [self._leaves[j][0] for j in idx]
-                acc += comm.reduce_scatter_bucket(
-                    [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in ps], dims, group)
-                for p in ps:
-                    p.grad = None
+            if not fused_rs:
+                self._scatter_micro_step(group)
+        if fused_rs:         # the local sums, reduce-scattered once
+            self._scatter_micro_step(group)
         for idx, flat in self._reduce_buckets:
             comm.all_reduce_bucket([self._leaves[j][0].grad for j in idx],
                                    flat, group)
+        if fused_rs:         # psum_scatter / world and pmean, as in JAX
+            inv = 1.0 / topo.dp_size
+            for _idx, _dims, acc in self._scatter_buckets:
+                acc.mul_(inv)
+            for _idx, flat in self._reduce_buckets:
+                flat.mul_(inv)
+            loss_sum = self._mean_over_ranks(loss_sum)
         grads = []
         for (p, pdim, sdim), acc in zip(self._leaves, self._slice_grads):
-            if acc is not None and self.zero_stage >= 2:
+            if acc is not None and self._grad_split:
                 grads.append(acc)          # reduce-scattered into its slice
                 continue
             if p.grad is None:   # a leaf the loss does not reach
@@ -652,6 +841,59 @@ class DeepSpeedEngine:
                 grads.append(acc)
             else:     # whole on every rank, or a stage-3 slice (its gather
                 grads.append(p.grad)       # reduced it already)
+        return grads, loss_sum
+
+    def _scatter_micro_step(self, group) -> None:
+        """Reduce-scatter each scatter bucket's full gradients into its
+        slice accumulator and drop them."""
+        for idx, dims, acc in self._scatter_buckets:
+            ps = [self._leaves[j][0] for j in idx]
+            acc += comm.reduce_scatter_bucket(
+                [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in ps], dims, group)
+            for p in ps:
+                p.grad = None
+
+    def _accum_grads_quant(self, batch_stack: Batch):
+        """The explicit quantized reduce (JAX ``engine.py:1328-1398``):
+        the micro-steps' gradients of each rank's own rows' loss accumulate
+        locally in the flat buffer (``_build_quant_flat``), then one
+        ``quantized_all_reduce`` averages it over the data group, with this
+        rank's residual under error feedback (in unscaled units; the port
+        has no loss scale, fp16 being Queue A item 3); the loss is the
+        ranks' mean.  A leaf whose optimizer state is split keeps its slice
+        of the mean (stage 1 and 2 alike).  Returns as :meth:`_accum_grads`."""
+        topo, cq = self.topology, self._comm_quant
+        flat = self._quant_flat
+        flat.zero_()
+        gas = self.gradient_accumulation_steps_value
+        seeds = self._dropout_seeds(gas)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(gas):
+            mb = self._to_device({k: v[i] for k, v in batch_stack.items()})
+            if seeds is not None:
+                mb["dropout_seed"] = seeds[i]
+            loss, value = self._rank_loss(mb)
+            loss.backward()
+            loss_sum += value
+            for (p, _pd, _sd), view in zip(self._leaves, self._quant_views):
+                if p.grad is not None and p.grad is not view:
+                    view.add_(p.grad.float())     # a non-fp32 leaf
+                    p.grad = None
+        loss_sum = self._mean_over_ranks(loss_sum)
+        avg, new_res = quantized_all_reduce(
+            flat, topo.data_group, topo.dp_size, wire_dtype=cq.grad_reduce,
+            group_size=cq.group_size, residual=self._quant_residual)
+        if new_res is not None:
+            self._quant_residual = new_res
+        grads = []
+        for (p, _pd, sdim), acc, g in zip(self._leaves, self._slice_grads,
+                                          self._quant_views_of(avg)):
+            if acc is not None:      # this rank's slice of the mean
+                acc.copy_(g.chunk(topo.world_size, dim=sdim)[topo.rank])
+                grads.append(acc)
+            else:
+                grads.append(g)
         return grads, loss_sum
 
     def _grad_norm(self, grads) -> torch.Tensor:
@@ -705,10 +947,17 @@ class DeepSpeedEngine:
         batch_stack = self._seq_shard(self._data_shard(
             self._stack_micro_batches(data), row_axis=1), seq_axis=2)
         lr = float(self.lr_scheduler(self.global_steps))
-        grads, loss_sum = self._accum_grads(batch_stack)
-        grad_norm = self._apply_update(grads, lr)
         gas = self.gradient_accumulation_steps_value
-        metrics = {"loss": loss_sum / gas, "grad_norm": grad_norm}
+        if self._onebit is not None:
+            # the compressed step (JAX _train_batch_onebit): no grad norm
+            loss = self._onebit(self.params, self._onebit_state, [
+                self._to_device({k: v[i] for k, v in batch_stack.items()})
+                for i in range(gas)], lr)
+            metrics = {"loss": loss}
+        else:
+            grads, loss_sum = self._accum_grads(batch_stack)
+            grad_norm = self._apply_update(grads, lr)
+            metrics = {"loss": loss_sum / gas, "grad_norm": grad_norm}
         self.global_steps += 1
         self.micro_steps += gas
         self.lr_scheduler.step()

@@ -1,8 +1,11 @@
 """Optimizer factory for the port's training path.
 
 Port of ``deepspeed_tpu/runtime/optimizers.py`` ``build_optimizer`` for
-``AdamW``, for ``Adam``/``FusedAdam`` with ``adam_w_mode`` true, and for
-``Lion``/``FusedLion``.  The fused multi-tensor kernels
+``AdamW``, for ``Adam``/``FusedAdam`` with ``adam_w_mode`` true, for
+``Lion``/``FusedLion``, and for the 1-bit names (``OnebitAdam``,
+``OnebitLamb``, ``ZeroOneAdam`` or ``0/1adam``), which build AdamW with the
+JAX factory's warning: over a data axis the engine's compressed step
+(``runtime/onebit.py``) replaces it, at data 1 it is the optimizer.  The fused multi-tensor kernels
 (``ops/fused_optimizer.py``) are the default for fp32 leaves, as FusedAdam
 and FusedLion are in DeepSpeed (the JAX package makes its Pallas kernels
 opt-in through ``pallas_fused``, a key the port accepts and ignores).
@@ -30,6 +33,7 @@ from deepspeed_tpu_torch.ops.fused_optimizer import (LeafTable,
                                                      fused_adamw, fused_lion)
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import not_ported
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 def _adamw_state_dtype_leaf(p, g, m, v, lr: float, count: int, b1: float,
@@ -162,9 +166,6 @@ _NOT_PORTED = {
     C.ADAGRAD_OPTIMIZER: "Queue A item 3 (Adagrad)",
     C.SGD_OPTIMIZER: "Queue A item 3 (SGD)",
     C.MUON_OPTIMIZER: "Queue A item 11 (Muon)",
-    C.ONEBIT_ADAM_OPTIMIZER: "Queue A item 8 (1-bit optimizers)",
-    C.ONEBIT_LAMB_OPTIMIZER: "Queue A item 8 (1-bit optimizers)",
-    C.ZERO_ONE_ADAM_OPTIMIZER: "Queue A item 8 (1-bit optimizers)",
 }
 
 
@@ -185,6 +186,15 @@ def build_optimizer(opt_type: str,
         return _adamw(params_cfg)
     if t in (C.LION_OPTIMIZER, "fusedlion"):
         return _lion(params_cfg)
+    if t in C.ONEBIT_OPTIMIZERS:
+        # the compressed-communication optimizers: the engine runs their
+        # step over a data axis (runtime/onebit.py); this is the plain one
+        logger.warning(f"{opt_type}: using uncompressed variant "
+                       "(all-reduced grads)")
+        if not bool(params_cfg.pop("adam_w_mode", True)):
+            raise not_ported("Adam with L2 decay (adam_w_mode false)",
+                             "Queue A item 3 (Adam L2)")
+        return _adamw(params_cfg)
     if t in _NOT_PORTED:
         raise not_ported(f"the {opt_type} optimizer", _NOT_PORTED[t])
     raise ValueError(f"unknown optimizer type '{opt_type}'")

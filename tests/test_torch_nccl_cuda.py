@@ -19,7 +19,14 @@ a bucket and a per-leaf call are held to the bound two orders of a sum of
 four terms can differ by, ``2 (4 - 1) 2^-24 sum_r |x_r|`` an element; on
 multiples of 2^-10, whose sums are exact in any order, bit for bit.  The
 quantized ring wire's int8 and uint8 payloads rotate around the seq groups
-of ``{"data": 2, "seq": 2}`` byte for byte.
+of ``{"data": 2, "seq": 2}`` byte for byte.  The quantized gradient
+reduction's collectives at data 4 (``quantized_all_reduce`` int8 with error
+feedback over two calls, one-level qgZ, the 1-bit ``compressed_allreduce``
+with both error states) against the same body in four gloo ranks on the
+CPU (plain versions): within a few fp32 ulps of each block's largest
+input (the sums of four ranks come in other orders), for at most one
+element in 1000 one wire step apart; the quantize kernels launched on
+the card.
 
 No JAX here: the machine with the cards has none.  Run on four cards
 with
@@ -161,6 +168,43 @@ def _rotation_check(device):
                for g, w in zip(got, payload(prev)))
 
 
+def dp_collectives(rank, world, device="cpu"):
+    """The quantized reduction's collectives on this rank's seeded inputs
+    (numpy results): ``quantized_all_reduce`` int8 (groups of 256) twice,
+    the residual fed back; one-level qgZ (groups of 2048); the 1-bit
+    all-reduce with nonzero errors.  Also the quantize/dequantize launches
+    they made.  Runs under NCCL on the card or gloo on the CPU."""
+    from deepspeed_tpu_torch.comm import coalesced_collectives as cc
+    from deepspeed_tpu_torch.comm import compressed as cp
+    from deepspeed_tpu_torch.comm import quantized as tq
+    from deepspeed_tpu_torch.ops import quantize as qk
+
+    gen = torch.Generator(device="cpu").manual_seed(90 + rank)
+    n = world * (1 << 16)
+    x = torch.randn(n, generator=gen) * (rank + 1)
+    res = torch.randn(n, generator=gen) * 1e-3
+    werr = torch.randn(n, generator=gen) * 0.1
+    serr = torch.randn(n // world, generator=gen) * 0.1
+    x, res, werr, serr = (t.to(device) for t in (x, res, werr, serr))
+    before = dict(qk.launches)
+    out = {}
+    for i in range(2):
+        y, res = tq.quantized_all_reduce(x, None, world, wire_dtype="int8",
+                                         group_size=256, residual=res)
+        out[f"ar{i}"] = y.cpu().numpy()
+    out["residual"] = res.cpu().numpy()
+    shard, _ = cc.all_to_all_quant_reduce({"g": x}, None, None, world, 1,
+                                          group_size=2048)
+    out["qgz"] = shard.cpu().numpy()
+    avg, we, se = cp.compressed_allreduce(x, werr, serr, None, world)
+    out.update(onebit=avg.cpu().numpy(), werr=we.cpu().numpy(),
+               serr=se.cpu().numpy())
+    out["launches"] = {k: qk.launches[k] - before[k]
+                       for k in ("quantize", "dequantize")}
+    out["x"] = x.cpu().numpy()
+    return out
+
+
 def nccl_ranks(rank, world, params, configs, batch, device=None):
     """One rank: its backend, each config's losses, grad norms, ZeRO
     world, flat buckets and (rank 0) gathered params after the steps, the
@@ -197,6 +241,7 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
     dev = device or torch.device("cuda", torch.cuda.current_device())
     out["buckets"] = _bucket_checks(dev)
     out["rotation"] = _rotation_check(dev)
+    out["dp"] = dp_collectives(rank, world, dev)
     return out
 
 
@@ -256,8 +301,9 @@ def nccl_run():
     configs = {name: config(*spec) for name, spec in CONFIGS.items()}
     ranks = launch(nccl_ranks, RANKS, args=(params, configs, batch),
                    backend="nccl", device="cuda")
+    cpu_dp = launch(dp_collectives, RANKS, backend="gloo", device="cpu")
     return {"ranks": ranks, "want": want, "final": final,
-            "want_qwz": want_qwz, "final_qwz": final_qwz}
+            "want_qwz": want_qwz, "final_qwz": final_qwz, "cpu_dp": cpu_dp}
 
 
 @pytest.mark.cuda
@@ -308,3 +354,34 @@ def test_buckets_equal_the_per_leaf_reduction_under_nccl(nccl_run):
 @pytest.mark.cuda
 def test_int8_ring_payloads_rotate_over_nccl(nccl_run):
     assert all(r["rotation"] for r in nccl_run["ranks"])
+
+
+def _near(got, want, mag, block, step):
+    """Within 8 fp32 ulps of each ``block``'s largest magnitude ``mag``
+    (broadcast), but for at most one element in 1000, which stays within
+    ``step`` of that magnitude."""
+    d = np.abs(got - want).reshape(-1, block)
+    big = np.broadcast_to(mag, got.shape).reshape(-1, block).max(
+        -1, keepdims=True)
+    far = d > 8 * U * big
+    return far.mean() <= 1e-3 and bool((d <= step * big).all())
+
+
+@pytest.mark.cuda
+def test_quantized_reductions_over_nccl_match_gloo_on_the_cpu(nccl_run):
+    cpu = nccl_run["cpu_dp"]
+    top = np.abs(np.stack([r["x"] for r in cpu])).max(0)
+    for rank, (card, want) in enumerate(zip(
+            [r["dp"] for r in nccl_run["ranks"]], cpu)):
+        assert card["launches"] == {"quantize": 5, "dequantize": 7}, card
+        for key in ("ar0", "ar1"):
+            assert _near(card[key], want[key], top, 256, 2 / 127), key
+        assert _near(card["residual"], want["residual"],
+                     np.abs(want["x"]), 256, 1 / 127)
+        chunk = top.reshape(RANKS, -1)[rank]
+        assert _near(card["qgz"], want["qgz"], chunk, 2048, 1 / 127)
+        for key in ("onebit", "werr", "serr"):
+            np.testing.assert_allclose(card[key], want[key], rtol=1e-5,
+                                       atol=1e-5 * np.abs(want[key]).max())
+        np.testing.assert_array_equal(card["onebit"],
+                                      nccl_run["ranks"][0]["dp"]["onebit"])

@@ -3,8 +3,11 @@ against their plain PyTorch versions on the card.
 
 ``quantize``, ``dequantize`` and ``fake_quantize``
 (``ops/csrc/quantize.cu``) bit for bit, over int8 and int4, bf16, fp16 and
-fp32 inputs, groups from 128 to 4096 (above 8 16-byte vectors a lane the
-kernel's second pass reads the group again), group counts that leave half
+fp32 inputs, groups from 24 to 4096 (any whole number of 16-byte vectors;
+above 8 16-byte vectors a lane the
+kernel's second pass reads the group again; where such groups are fewer
+than 4 a streaming multiprocessor, quantize spreads each over blocks,
+the wide-group route), group counts that leave half
 a warp or part of a grid step idle, exact .5 ties of x / scale (the
 kernel's reciprocal multiply against the IEEE quotient) and a 1-D tensor; ``fp6_matmul`` (``ops/csrc/fp6_linear.cu``) over tails in M, N
 and K, decode-sized and large M, bf16, fp16 and fp32 activations, each
@@ -50,11 +53,19 @@ def _x(shape, dtype, dev, seed=0, scale=3.0):
 # (two a step, an odd count leaving half a warp idle: 33 x 11, 131 x 5,
 # 20001 x 3 groups); a lane keeps up to 8 16-byte vectors of a group (384:
 # 1.5 a lane in 16 bits, 3 in fp32; 2048 in fp32 and 4096 are read twice);
-# 2048 x 4096 and 20001 x 384 take several steps a warp.
+# 2048 x 4096 and 20001 x 384 take several steps a warp.  64 x 4096 and
+# 5 x 8192 quantize on the wide-group route (128 and 10 groups read twice);
+# 600 x 4096 in groups of 2048 (1200 groups) keeps the one-warp walk.
+# Groups off the multiples of 128: 96 and 24 (24 and 6 fp32 vectors, 12
+# and 3 16-bit ones: not a power of two under 32, a whole warp a group),
+# 40 (10 and 5), 64 (16 and 8: half and a quarter of a warp) and 200 (50
+# fp32 vectors: two a lane, most lanes' second idle).
 QUANT_CASES = [((512, 1024), 512), ((300, 384), 128), ((1024,), 256),
                ((4, 8, 256), 256), ((64, 4096), 2048), ((33, 1408), 128),
                ((7, 3072), 384), ((5, 8192), 4096), ((131, 640), 128),
-               ((2048, 4096), 512), ((20001, 384), 128)]
+               ((2048, 4096), 512), ((20001, 384), 128),
+               ((600, 4096), 2048), ((40, 960), 96), ((17, 72), 24),
+               ((9, 120), 40), ((33, 320), 64), ((6, 1000), 200)]
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
@@ -109,13 +120,19 @@ def test_cuda_quantize_unaligned_view_and_facade(cuda_device):
     q, s = tqk.quantize(x, 8, 512)
     assert torch.equal(q, tqk.quantize_ref(x, 8, 512)[0])
     assert torch.equal(tqk.fake_quantize(x, 4, 512), tqk.fake_quantize_ref(x, 4, 512))
-    # the façade: kernel for a supported shape, torch arithmetic otherwise
+    # the façade: the kernel for every group of whole vectors (96 too),
+    # the torch arithmetic for asymmetric mode, an error for a symmetric
+    # group the kernel cannot serve
     before = dict(tqk.launches)
     tqz.quantize_blockwise(_x((32, 256), torch.float32, cuda_device), 8, 128)
     tqz.quantize_blockwise(_x((32, 96), torch.float32, cuda_device), 8, 96)
     tqz.quantize_blockwise(_x((32, 256), torch.float32, cuda_device), 8, 128,
                            symmetric=False)
-    assert tqk.launches["quantize"] == before["quantize"] + 1
+    assert tqk.launches["quantize"] == before["quantize"] + 2
+    with pytest.raises(ValueError, match="not served"):
+        tqz.quantize_blockwise(_x((32, 90), torch.float32, cuda_device), 8, 90)
+    with pytest.raises(ValueError, match="not served"):
+        tqz.quantize_blockwise(_x((32, 36), torch.bfloat16, cuda_device), 8, 36)
 
 
 # m, k, n, the bf16 route: K % 8 == 0 and N % 16 == 0 take wgmma (K 4104:

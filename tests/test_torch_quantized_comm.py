@@ -15,10 +15,10 @@ dtypes, against the JAX package on the CPU.
   validation cases.
 * The ``comm_quantization`` block: the JAX config's rejections (unknown
   collective, unknown wire dtype, a non-dict ``collectives``, group_size
-  <= 0) with the same messages; ``grad_reduce`` other than fp32 raises
-  ``NotImplementedError`` naming ROADMAP Queue A item 8; ``ring_rotation``
-  and ``zero3_gather`` are accepted and the ``collectives`` spelling sets
-  them.
+  <= 0) with the same messages; ``grad_reduce``, ``ring_rotation`` and
+  ``zero3_gather`` are accepted, read as the JAX config reads them, and
+  the ``collectives`` spelling sets them (``test_torch_dp_compression.py``
+  runs the gradient reduction).
 * ``comm.ring_rotate`` in 2 gloo ranks moves int8 and uint8 payloads (fp8
   travels as uint8) and fp32 scales in one call, bit for bit.
 """
@@ -147,17 +147,17 @@ def test_config_rejects_as_jax_does(block, match):
 
 @pytest.mark.parametrize("name", ["grad_reduce", "zero3_gather"])
 def test_quantized_collectives_not_ported_name_their_item(name):
-    """``grad_reduce`` raises naming its item; ``zero3_gather`` (qwZ) runs
-    and is read as the JAX config reads it."""
+    """Both collectives run now (``grad_reduce`` since the quantized
+    gradient reduction, ``zero3_gather`` as qwZ): each is read as the JAX
+    config reads it, with ``error_feedback`` and ``group_size``."""
     for block in ({"enabled": True, name: "int8"},
-                  {"enabled": True, "collectives": {name: "fp8"}}):
-        if name == "zero3_gather":
-            assert getattr(DeepSpeedConfig(_config(block)).comm_quantization,
-                           name) == getattr(JaxConfig(_config(
-                               block)).comm_quantization, name)
-            continue
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            DeepSpeedConfig(_config(block))
+                  {"enabled": True, "collectives": {name: "fp8"}},
+                  {"enabled": True, name: "INT8", "error_feedback": False,
+                   "group_size": 512}):
+        mine = DeepSpeedConfig(_config(block)).comm_quantization
+        want = JaxConfig(_config(block)).comm_quantization
+        for key in (name, "error_feedback", "group_size"):
+            assert getattr(mine, key) == getattr(want, key), (block, key)
     # switched off, or fp32 spelled out: nothing to run
     DeepSpeedConfig(_config({"enabled": False, name: "int8"}))
     DeepSpeedConfig(_config({"enabled": True, name: "fp32"}))

@@ -184,7 +184,9 @@ def test_pack_unpack_int4_match_jax():
 def test_routing_and_counts_on_cpu():
     """CPU tensors take the plain versions (no kernel count moves, with or
     without ``supports``); the kernel wrappers refuse what the kernel does
-    not serve."""
+    not serve.  The kernels take any group of whole 16-byte vectors (4
+    fp32 or 8 bf16 elements; 4 payload bytes for dequantize), wider than
+    the JAX kernel's multiples of 128."""
     before = dict(tqk.launches)
     x = torch.randn(32, 256)
     assert tqk.supports((32, 256), 128, True, 8)
@@ -192,11 +194,19 @@ def test_routing_and_counts_on_cpu():
     tqz.fake_quantize(x, 4, 128)
     q, s, _ = tqz.quantize_blockwise(x, 8, 128)
     tqz.dequantize_blockwise(q, s)
-    assert not tqk.supports((32, 96), 96, True, 8)
-    tqz.quantize_blockwise(torch.randn(32, 96), 8, 96)
+    assert tqk.supports((32, 96), 96, True, 8)
+    assert tqk.supports((2, 1384), 1384, True, 8, torch.bfloat16)
+    assert not tqk.supports((32, 90), 90, True, 8, torch.int8)
+    assert not tqk.supports((32, 36), 36, True, 8, torch.bfloat16)
+    assert not tqk.supports((32, 90), 90, True, 8)
+    tqz.quantize_blockwise(torch.randn(32, 90), 8, 90)
+    y = torch.randn(32, 96)
+    for a, b in zip(tqz.quantize_blockwise(y, 8, 96)[:2],
+                    tqz.quantize_blockwise(y, 8, 96, backend="torch")[:2]):
+        assert torch.equal(a, b)
     assert tqk.launches == before
     with pytest.raises(ValueError, match="not served"):
-        tqk.quantize(torch.randn(32, 96), 8, 96)
+        tqk.quantize(torch.randn(32, 90), 8, 90)
     with pytest.raises(ValueError, match="not served"):
         tqk.fake_quantize(x, 6, 128)
     with pytest.raises(ValueError, match="scales"):

@@ -14,9 +14,10 @@ summation-order noise of a near-zero gradient into a step of up to lr
 1e-5 · (1 + |p|) would flag on 1 to 3 elements of a leaf.  Both ranks
 must hold the same params, bit for bit.  The config and the model reject,
 naming their ROADMAP item, what the port does not run over a seq axis:
-Ulysses (A9; beside a data axis too), a quantized gradient reduction
-(A8), and ring attention with a block-sparse layout, a key-padding mask
-or ALiBi (as the JAX model raises).  With
+Ulysses (A9; beside a data axis too) and ring attention with a
+block-sparse layout, a key-padding mask or ALiBi (as the JAX model
+raises); a quantized gradient reduction and the decomposed update over a
+seq axis are read as the JAX config reads them.  With
 ``comm_quantization.ring_rotation: "int8"`` (or fp8) the same engine runs
 the quantized ring wire in both ranks against the JAX engine with that
 block on its seq mesh: the first step's loss and grad norm to 1e-5
@@ -35,9 +36,11 @@ import deepspeed_tpu as dsj
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import get_model_config as jax_model_config
 from deepspeed_tpu.parallel import topology as jtopology
+from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
 from deepspeed_tpu_torch.launcher import launch
 from deepspeed_tpu_torch.models import get_model_config
 from deepspeed_tpu_torch.models.bridge import params_from_jax
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
 import torch_ring_ranks
 from test_torch_engine_v2 import one_torch_thread  # noqa: F401
@@ -125,13 +128,26 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
     ({"sequence_parallel_size": 2}, {}, "item 9"),
     ({"mesh": {"seq": 2}, "comm_quantization": {
         "enabled": True, "grad_reduce": "int8", "ring_rotation": "int8"}},
-     {"seq_impl": "ring"}, "item 8"),
+     {"seq_impl": "ring"}, None),
     ({"mesh": {"seq": 2}, "step_schedule": {"weight_update": "decomposed"}},
-     {"seq_impl": "ring"}, "item 8"),
+     {"seq_impl": "ring"}, None),
 ], ids=["data-with-seq", "ulysses", "sp-size-ulysses", "int8-wire",
         "step-schedule"])
 def test_seq_axis_rejections_name_their_item(extra, model_kw, item):
+    """Ulysses over a seq axis raises naming its item.  ``grad_reduce``
+    int8 and the decomposed update over a seq axis are read as the JAX
+    config reads them (the engine's gates decide over two ranks,
+    ``test_torch_dp_compression.py``: the quantized reduce warns and keeps
+    the buckets, the decomposed update splits over the seq world)."""
     cfg = {"train_micro_batch_size_per_gpu": 2, **extra}
+    if item is None:
+        mine, want = DeepSpeedConfig(cfg), JaxConfig(cfg)
+        for block, key in (("comm_quantization", "grad_reduce"),
+                           ("comm_quantization", "ring_rotation"),
+                           ("step_schedule", "weight_update")):
+            assert getattr(getattr(mine, block), key) == \
+                getattr(getattr(want, block), key), key
+        return
     with pytest.raises(NotImplementedError, match=item):
         dst.initialize(model=get_model_config("llama-tiny", **model_kw),
                        config=cfg, device="cpu")

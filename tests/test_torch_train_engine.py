@@ -305,12 +305,13 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"fp16": {"enabled": True}},
-    {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
+    {"zero_optimization": {"stage": 2, "zero_hpz_partition_size": 2}},
     {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
     {"mesh": {"data": 2, "tensor": 2}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
-    {"comm_quantization": {"enabled": True, "grad_reduce": "int8"}},
+    {"zero_optimization": {"stage": 3,
+                           "zero_quantized_nontrainable_weights": True}},
     {"telemetry": {"enabled": True}},
     {"optimizer": {"type": "Lamb", "params": {"lr": 1e-4}}},
     {"optimizer": {"type": "Adam", "params": {"adam_w_mode": False}}},

@@ -388,7 +388,8 @@ def test_schedule_keys_rejected_as_jax_does(block, match):
 
 
 @pytest.mark.parametrize("zc", [
-    {"stage": 3, "zero_quantized_gradients": True},
+    {"stage": 1, "zero_quantized_gradients": True,
+     "zero_hpz_partition_size": 2},
     {"stage": 3, "zero_hpz_partition_size": 2},
     {"stage": 3, "mics_shard_size": 2},
 ], ids=["qgz", "hpz", "mics"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's training steps over NCCL, one H100 a rank.
 
-    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl]
+    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl] [--only commquant]
 
 Needs four CUDA cards.  Runs, each in ranks started by
 ``deepspeed_tpu_torch.launcher.launch(..., backend="nccl")``:
@@ -14,7 +14,12 @@ Needs four CUDA cards.  Runs, each in ranks started by
 * ``chip_smoke.py``'s ZeRO-3 fused gpt2-350m step (``ZERO_CFG``, gas 2) at
   data 2 and at data 4, for each ``gather_prefetch_depth`` of 1 and 2 and
   each ``reduce_bucket_size`` of 1 (the per-leaf reduce-scatter), one
-  layer's elements and the default 500,000,000 (one bucket a backward).
+  layer's elements and the default 500,000,000 (one bucket a backward);
+* ``chip_smoke.py``'s dp-quant-train step (bench.py's
+  row_gpt2_350m_commquant: gpt2-350m, ZeRO-1, gas 2) at data 4 with
+  ``grad_reduce`` int8 (error feedback) and with the explicit fp32 wire,
+  its control (``--only commquant`` runs these alone), with the bytes a
+  step of each op name (``comm.nbytes``).
 
 For each: the first step's seconds on a line of its own (NCCL makes a
 group's communicator at its first collective), the seconds of the timed
@@ -139,9 +144,10 @@ def probe_rank(rank, world, cases, steps):
     from deepspeed_tpu_torch.ops import flash_mha as fm
     from deepspeed_tpu_torch.ops import fused_optimizer as fo
     from deepspeed_tpu_torch.ops import gather_matmul as tgm
+    from deepspeed_tpu_torch.ops import quantize as qk
 
     counters = (fm.flash_mha.launches, fm.ring_launches,
-                fo.fused_adamw.launches, tgm.gemm.launches)
+                fo.fused_adamw.launches, tgm.gemm.launches, qk.launches)
     out = []
     for case in cases:
         model = registry.get_model_config(case["model"], **case["model_kw"])
@@ -158,6 +164,7 @@ def probe_rank(rank, world, cases, steps):
         first_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         cs.zero_counts(*counters, comm.calls)
+        comm.nbytes.clear()
         step_s = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -172,6 +179,8 @@ def probe_rank(rank, world, cases, steps):
                                      for k, v in c.items() if v},
                "collective_calls_per_step": {k: v / steps for k, v in
                                              comm.calls.items()},
+               "bytes_per_step": {k: v / steps for k, v in
+                                  comm.nbytes.items()},
                "stage3_buckets_per_micro_step": eng.stage3_buckets,
                "gather_prefetch_depth": eng._prefetch_depth,
                "max_memory_allocated_gib":
@@ -196,6 +205,14 @@ def layer_elements() -> int:
     one = registry.get_model_config(cs.TRAIN_MODEL).replace(num_layers=1)
     params = tf.init_params(one, device="cpu")
     return sum(x.numel() for x in tf.tree_leaves(params["layers"]))
+
+
+def commquant_cases(world):
+    """dp-quant-train's int8 run and its fp32-wire control at ``world``."""
+    return [{"name": f"commquant-data{world}-{wire}", "model": cs.TRAIN_MODEL,
+             "model_kw": {}, "seq": cs.TRAIN_SEQ,
+             "cfg": {**cs.DPQ_CFG, **cs.DPQ_RUNS[wire],
+                     "mesh": {"data": world}}} for wire in ("int8", "fp32")]
 
 
 def cases_for(world, layer):
@@ -234,6 +251,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "multicard_probe.jsonl"))
+    ap.add_argument("--only", choices=("all", "commquant"), default="all")
     args = ap.parse_args()
     import torch
 
@@ -258,9 +276,13 @@ def main() -> int:
     t0 = time.perf_counter()
     op_builder.build_all()     # in the parent, before the ranks
     emit({"build_s": time.perf_counter() - t0})
-    layer = layer_elements()
+    layer = layer_elements() if args.only == "all" else None
     for world in (2, 4):
-        cases = cases_for(world, layer)
+        cases = [] if args.only == "commquant" else cases_for(world, layer)
+        if world == 4:
+            cases += commquant_cases(world)
+        if not cases:
+            continue
         t0 = time.perf_counter()
         ranks = launch(probe_rank, world, args=(cases, args.steps),
                        backend="nccl", device="cuda")
@@ -292,6 +314,7 @@ def main() -> int:
                   "launches_per_step_rank0": per[0]["launches_per_step"],
                   "collective_calls_per_step_rank0":
                       per[0]["collective_calls_per_step"],
+                  "bytes_per_step_rank0": per[0]["bytes_per_step"],
                   "profile_rank0": per[0]["profile"]})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("\n".join(lines) + "\n")
