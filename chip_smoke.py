@@ -104,7 +104,7 @@ Phases, each printing JSON lines:
  19. ring-train — llama3-8b at full width, 2 layers, seq 8192 striped over
                two ranks sharing the card (bench.py's longseq_ring step:
                micro 1, gas 2, bf16, AdamW, clip 1.0, ZeRO-2 over the seq
-               axis): a warm-up step, two timed steps whose launch counts a
+               axis): a warm-up step, one timed step whose launch counts a
                rank show the ring kernels, AdamW and nothing else, every
                carry, dq and dk/dv launch on its wgmma route, the flat
                buckets the gradients are reduced through, and a profiled
@@ -129,19 +129,19 @@ Phases, each printing JSON lines:
                losses, grad norms and the gathered params after two steps,
                and each rank's launches (gather_matmul only in the fused
                run);
- 22. zero3-train — gpt2-350m at full width and depth under ZeRO-3 with the
-               fused gather-matmul over two ranks sharing the card (bench.py's
-               ZeRO-3 row: micro 8 a rank, seq 1024, bf16, AdamW, clip 1.0,
-               persistence 0, gather_prefetch_depth 2; gas 2): a warm-up
-               step, three timed steps whose
+ 22. zero3-train — gpt2-350m at full width, depth cut to 4 layers, under
+               ZeRO-3 with the fused gather-matmul over two ranks sharing
+               the card (bench.py's ZeRO-3 row: micro 8 a rank, seq 1024,
+               bf16, AdamW, clip 1.0, persistence 0, gather_prefetch_depth
+               2; gas 2): a warm-up step, one timed step whose
                launch counts a rank show gather_matmul, flash, AdamW and
                nothing else, every GEMM and attention kernel on the wgmma
                route, and a profiled step on rank 0 (device busy
                share, host time inside comm.all_gather, comm.reduce_scatter
                and comm.all_reduce);
- 23. ckpt-train — gpt2-350m at full width and depth (the train phase's
-               step, gas 1): two steps, a save through each writer
-               (pickle, its ds_to_universal, fast, decoupled), two more
+ 23. ckpt-train — gpt2-350m at full width, depth cut to 4 layers (the
+               train phase's step, gas 1): two steps, a save through each
+               writer (pickle, its ds_to_universal, fast, decoupled), two more
                steps; a fresh engine loads each form and takes the same
                two steps, bit for bit (losses and every master leaf), with
                bytes, save and load seconds and GB/s, and the decoupled
@@ -151,6 +151,26 @@ Phases, each printing JSON lines:
                at data 2 bit for bit; then the 2-layer fp32 model saved
                at data 2 and converted to universal resumes at data 1 on
                the card and on the CPU (ckpt-zero3-shrink);
+ 24b. zeropp-reference — the zero-reference model (2 layers, fp32, micro
+               1 x seq 32 a rank, gas 2, one step, qgZ two) in four ranks
+               sharing the card
+               over gloo at {"data": 4} factored into outer 2 x inner 2:
+               hpZ 2 at ZeRO-3, MiCS 2 at ZeRO-2 and 3, hpZ 2 with the qwZ
+               int8 gather, two-level qgZ at ZeRO-1 under hpZ 2, each
+               against the same config in four CPU ranks (losses, grad
+               norms, gathered params; qgZ's update bound), launches
+               (quantize/dequantize 2/2 a step under qgZ), hpZ's weight
+               gathers over the inner group only, the bytes a step by
+               group (inner, outer, world);
+ 24c. zeropp-train — gpt2-350m at full width and depth in the same four
+               ranks (bf16, AdamW, clip 1.0, seq 1024, micro 4 x gas 2 a
+               rank, gather_prefetch_depth 2, remat none), each run a
+               warm-up step and timed steps: hpZ 2 at ZeRO-3 (two), MiCS 2
+               at ZeRO-3 and two-level qgZ (8 layers each; one): seconds,
+               tokens/s, MFU, peak and reserved memory a rank, collectives
+               and bytes a step by group, launches a step (flash layers x
+               gas, AdamW 1 or qgZ's quantize/dequantize 2/2, no
+               gather_matmul), and a profiled step on rank 0 each;
  25. recovery — RecoverySupervisor runs the port's worker on the card
                (gpt2-350m, two gloo ranks at data 2); rank 0 dies after
                step 2, before its save, the group restarts at data 1 from
@@ -176,10 +196,10 @@ Phases, each printing JSON lines:
                at full width and depth, seq 1024, micro 8 a rank, bf16,
                AdamW lr 1e-4, clip 1.0, ZeRO-1, grad_reduce int8 with
                error feedback) over two ranks sharing the card, then in
-               the same ranks the explicit fp32 wire (the row's control),
-               qgZ and OnebitAdam: a warm-up step and two timed steps each
-               (seconds, peak memory a rank, grad-reduce wire bytes a
-               step, the loss delta against the control, quantize and
+               the same ranks qgZ and OnebitAdam: a warm-up step and one
+               timed step each (seconds, peak memory a rank, grad-reduce
+               wire bytes a step against the row's fp32 control's,
+               computed since the control run was cut, quantize and
                dequantize launches a step) and a profiled step on rank 0
                (idle share, host ms in all_to_all and all_gather).
 Then the ``kernels`` summary line, the nvidia-smi line, and last
@@ -386,7 +406,11 @@ RING_INT8_ROUTES = {"ring_carry": "wgmma_s8", "ring_bwd_dq": "wgmma_s8",
 # (the ZeRO-3 gather window, zero.Window).
 ZERO_RANKS = 2
 ZERO_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
-ZERO_STEPS = 3
+# one timed step, cut from three for time (PERF.md keeps their spread),
+# at ZERO_LAYERS layers, cut from 24 for time (PERF.md keeps the
+# full-depth steps, profiles and ckpt-zero3 saves)
+ZERO_STEPS = 1
+ZERO_LAYERS = 4
 ZERO_CFG = {"train_micro_batch_size_per_gpu": 8,
             "gradient_accumulation_steps": 2,
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
@@ -429,12 +453,14 @@ GEMM_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 
 # slice 16: checkpoints and recovery, written under build/ (ignored by git)
 CKPT_ROOT = ROOT / "build" / "ckpt_smoke"
-# ckpt-train: the train phase's step at full width and depth (bf16 over
-# fp32 masters, AdamW, seq 1024), gas cut 8 -> 1 for time; CKPT_STEPS
+# ckpt-train: the train phase's step at full width (bf16 over fp32
+# masters, AdamW, seq 1024), gas cut 8 -> 1 and depth 24 -> CKPT_LAYERS
+# for time (PERF.md keeps the full-depth saves and loads); CKPT_STEPS
 # steps before the saves and as many after, in the uninterrupted run and
 # in each resumed one
 CKPT_CFG = {**TRAIN_CFG, "gradient_accumulation_steps": 1}
 CKPT_STEPS = 2
+CKPT_LAYERS = 4
 CKPT_FORMS = ("pickle", "universal", "fast", "decoupled")
 # ckpt-zero3: in the zero3-train ranks after their steps (ZERO_CFG), a
 # save, its universal conversion, one step after them, and a resume from
@@ -462,11 +488,14 @@ RECOVERY_LOSS_ATOL = 2e-3
 # seq 1024, micro 8 a rank, bf16 over fp32 masters, AdamW lr 1e-4, clip
 # 1.0, ZeRO-1, comm_quantization.grad_reduce int8 (error feedback on).
 # Cuts: data 8 -> 2 ranks sharing the card over gloo, gas 8 -> 2, remat
-# dots_flash_saveable -> none (A13).  The same ranks then run the row's
-# explicit fp32-wire control, qgZ and OnebitAdam (freeze_step 1).
+# dots_flash_saveable -> none (A13).  The same ranks then run qgZ and
+# OnebitAdam (freeze_step 1).  The row's explicit fp32-wire control
+# (DPQ_RUNS["fp32"], still the multicard probe's) is cut from the one-card
+# phase for time: its wire is computed from the padded buffer (the bytes
+# the control moved when it ran) and PERF.md keeps its steps.
 DPQ_RANKS = 2
 DPQ_BACKEND = "gloo"      # NCCL refuses two ranks on one GPU
-DPQ_STEPS = 2             # timed, after one warm-up step
+DPQ_STEPS = 1             # timed, after one warm-up step (cut from two)
 DPQ_CFG = {"train_micro_batch_size_per_gpu": 8,
            "gradient_accumulation_steps": 2,
            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
@@ -490,6 +519,7 @@ DPQ_RUNS = {
 # JAX module) none
 DPQ_QUANT_LAUNCHES = {"int8": (2, 3), "fp32": (0, 0), "qgz": (1, 1),
                       "onebitadam": (0, 0)}
+DPQ_TRAIN_RUNS = ("int8", "qgz", "onebitadam")
 # dp-quant-reference: the zero-reference model (gpt2-350m width, 2 layers,
 # fp32: 2048 divides qgZ's chunk) at micro 1 x seq 32 a rank, gas 2, two
 # steps (the 1-bit optimizers' warm-up and a compressed step), lr 1e-4;
@@ -545,6 +575,66 @@ DPQ_REF_ONEBIT_WHOLE_RTOL = 0.6
 DPQ_REF_UPDATE_RTOL = {"int8-ef": 5e-3, "int8-no-ef": 5e-3, "qgz": 2e-2}
 DPQ_REF_UPDATE_RTOL_DEFAULT = 1e-3
 
+# zeropp: hierarchical ZeRO++ over a data axis of four ranks
+# factored into outer 2 x inner 2 (hpZ's secondary partition, MiCS's
+# sub-groups, two-level qgZ), four gloo ranks sharing the card.
+# zeropp-reference: the zero-reference model (gpt2-350m width, 2 layers,
+# fp32) at micro 1 x seq 32 a rank, gas 2, card ranks against the same
+# config in CPU ranks (ZPP_REF_CPU_LAUNCHES launches of four, in threads
+# beside them), one step (two for qgZ, whose bound is over two): name ->
+# the zero_optimization block (persistence 0)
+ZPP_RANKS = 4
+ZPP_BACKEND = "gloo"      # NCCL refuses two ranks on one GPU
+ZPP_REF_SEQ = 32
+ZPP_REF_MICRO = 1
+ZPP_REF_CPU_LAUNCHES = 2
+ZPP_REF_STEPS = {"qgz-hpz": 2}      # else 1
+ZPP_REF_CONFIGS = {
+    "hpz3": {"stage": 3, "zero_hpz_partition_size": 2},
+    "mics2": {"stage": 2, "mics_shard_size": 2},
+    "mics3": {"stage": 3, "mics_shard_size": 2},
+    "hpz3-qwz": {"stage": 3, "zero_hpz_partition_size": 2,
+                 "zero_quantized_weights": True},
+    "qgz-hpz": {"stage": 1, "zero_hpz_partition_size": 2,
+                "zero_quantized_gradients": True}}
+# quantize/dequantize launches a step a rank: two-level qgZ encodes and
+# decodes once a level
+ZPP_QUANT_LAUNCHES = {"qgz-hpz": (2, 2)}
+# zeropp-train: gpt2-350m at full width and depth, bf16 over fp32 masters,
+# AdamW lr 1e-4, clip 1.0, seq 1024, micro 4 x gas 2 a rank (32 rows a
+# step, zero3-train's 2 ranks x micro 8), gather_prefetch_depth 2, remat
+# none; each run a warm-up step, then timed steps (ZPP_HPZ_STEPS for the
+# hpZ run, one for MiCS at ZeRO-3 and for two-level qgZ at ZeRO-1 under
+# hpZ 2, in the same ranks), then one profiled step on rank 0.  The card
+# ranks start them once the reference's CPU ranks have finished, so that
+# no CPU rank shares the host with a timed step.  MiCS and qgZ are cut to
+# ZPP_CUT_LAYERS layers: qgZ's whole params, fp32 flat m/v/error state and
+# the engine's unused AdamW state take about 16 bytes a param a rank, four
+# ranks of which leave no room on one card at full depth; MiCS for time.
+# name -> (the config's extra keys, model overrides)
+ZPP_HPZ_STEPS = 2
+ZPP_CUT_LAYERS = 8
+ZPP_TRAIN_CFG = {"train_micro_batch_size_per_gpu": 4,
+                 "gradient_accumulation_steps": 2,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                 "bf16": {"enabled": True},
+                 "gradient_clipping": 1.0,
+                 "steps_per_print": 10_000,
+                 "activation_checkpointing": {"remat_policy": "none"},
+                 "step_schedule": {"gather_prefetch_depth": 2},
+                 "mesh": {"data": ZPP_RANKS}}
+ZPP_TRAIN_RUNS = {
+    "hpz": ({"zero_optimization": {"stage": 3,
+                                   "param_persistence_threshold": 0,
+                                   "zero_hpz_partition_size": 2}}, {}),
+    "mics": ({"zero_optimization": {"stage": 3,
+                                    "param_persistence_threshold": 0,
+                                    "mics_shard_size": 2}},
+             {"num_layers": ZPP_CUT_LAYERS}),
+    "qgz": ({"zero_optimization": {"stage": 1,
+                                   "zero_hpz_partition_size": 2,
+                                   "zero_quantized_gradients": True}},
+            {"num_layers": ZPP_CUT_LAYERS})}
 
 def bound_ms(nbytes, ops, peak):
     """The least time of a call, and what bounds it: the bytes it must move
@@ -3064,8 +3154,10 @@ def phase_ring_reference(ds, tf_model, tf, launch):
     each of RING_REF_STEPS steps and the params after them to REF_RTOL
     (summation order only), under both placements; each rank's launches.
     The same two card ranks then run the engine with each quantized wire
-    of RING_WIRES, which :func:`phase_ring_reference_wire` holds; returns
-    ``(params, batch, the card ranks' results)``."""
+    of RING_WIRES, which :func:`phase_ring_reference_wire` holds against
+    two CPU ranks on the same wire.  The card ranks and the CPU ranks run
+    in threads beside this process's CPU steps; returns the card ranks'
+    and the CPU ranks' results."""
     import numpy as np
     import torch
 
@@ -3077,15 +3169,24 @@ def phase_ring_reference(ds, tf_model, tf, launch):
                                    host.params)
     rows = cfg["train_micro_batch_size_per_gpu"] * cfg["gradient_accumulation_steps"]
     batch = train_batch_of(model.vocab_size, rows, seed=5, seq=RING_REF_SEQ)
-    want = []
-    for _ in range(RING_REF_STEPS):
-        want.append((float(host.train_batch(batch)),
-                     host.get_global_grad_norm()))
-    ranks = launch(ring_rank_reference, RING_RANKS,
-                   args=(RING_REF_MODEL, params,
-                         ring_ref_cfgs(("fp32",) + RING_WIRES), batch,
-                         RING_REF_STEPS),
-                   backend=RING_BACKEND, device="cuda")
+    for t in tf.tree_leaves(params):   # before two launches pickle them
+        t.share_memory_()
+    with ThreadPoolExecutor(2) as pool:
+        card = pool.submit(launch, ring_rank_reference, RING_RANKS,
+                           args=(RING_REF_MODEL, params,
+                                 ring_ref_cfgs(("fp32",) + RING_WIRES), batch,
+                                 RING_REF_STEPS),
+                           backend=RING_BACKEND, device="cuda")
+        cpu = pool.submit(launch, ring_rank_reference, RING_RANKS,
+                          args=(RING_REF_MODEL, params,
+                                ring_ref_cfgs(RING_WIRES), batch,
+                                RING_REF_STEPS, "cpu"),
+                          backend=RING_BACKEND, device="cpu")
+        want = []
+        for _ in range(RING_REF_STEPS):
+            want.append((float(host.train_batch(batch)),
+                         host.get_global_grad_norm()))
+        ranks, cpu_ranks = card.result(), cpu.result()
     # launches a rank: steps x gas x layers x live hops (contiguous rank 0
     # skips its dead hop); one AdamW a step
     per = RING_REF_STEPS * cfg["gradient_accumulation_steps"] * RING_REF_MODEL["num_layers"]
@@ -3131,7 +3232,7 @@ def phase_ring_reference(ds, tf_model, tf, launch):
                  f"expected {wants}")
     del host
     torch.cuda.empty_cache()
-    return params, batch, ranks
+    return ranks, cpu_ranks
 
 
 def _params_rel(a_tree, b_tree, tf):
@@ -3144,21 +3245,18 @@ def _params_rel(a_tree, b_tree, tf):
     return (num / den) ** 0.5
 
 
-def phase_ring_reference_wire(tf, launch, params, batch, card):
+def phase_ring_reference_wire(tf, card, cpu):
     """The ring-reference phase with each quantized wire of RING_WIRES
     (ring-reference-int8, -fp8): the card ranks' run of
     :func:`phase_ring_reference` (``card``) against the same fp32 engine
-    and params in two ranks on the CPU (gloo), both placements; per step
+    and params in two ranks on the CPU (gloo, ``cpu``), both placements;
+    per step
     the losses and grad norms, and the params after the steps.  The first
     step at REF_RTOL, the rest at RING_WIRE_REF_RTOL.  Each card rank's
     launches: its own block on the fma route, and with int8 every live
     visiting hop on the fma_s8 lane (fp8 decodes K/V with the codec and
     runs the fma route)."""
     cfgs = ring_ref_cfgs(RING_WIRES)
-    cpu = launch(ring_rank_reference, RING_RANKS,
-                 args=(RING_REF_MODEL, params, cfgs, batch, RING_REF_STEPS,
-                       "cpu"),
-                 backend=RING_BACKEND, device="cpu")
     for wire in RING_WIRES:
         ring_wire_check(tf, wire, cfgs[wire], [r[wire] for r in card],
                         [r[wire] for r in cpu])
@@ -3599,13 +3697,14 @@ def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
     for name, cfg in configs.items():
         eng, *_ = ds.initialize(model=model, config=cfg,
                                 model_parameters=params)
-        zero_counts(*counters, comm.calls)
+        zero_counts(*counters)
+        comm.clear_counts()
         losses, norms = [], []
         for _ in range(steps):
             losses.append(float(eng.train_batch(batch)))
             norms.append(eng.get_global_grad_norm())
         launches = {k: v for c in counters for k, v in c.items()}
-        calls = dict(comm.calls)
+        calls = comm.calls()
         with zero.GatheredParameters(eng.params) as full:
             gathered = full if rank == 0 else None
         out[name] = {"losses": losses, "grad_norms": norms,
@@ -3620,8 +3719,9 @@ def zero_rank_reference(rank, world, model_kw, params, configs, batch, steps):
 
 
 def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
-    """One rank of the zero3-train phase: gpt2-350m at full width and depth
-    under ZeRO-3 with the fused gather-matmul, a warm-up step, ``steps``
+    """One rank of the zero3-train phase: gpt2-350m at full width and
+    ZERO_LAYERS layers under ZeRO-3 with the fused gather-matmul, a warm-up
+    step, ``steps``
     timed steps (counts zeroed just before them and read just after), then
     one step profiled on rank 0; then the ckpt-zero3 phase on the same
     engine (``zero_rank_ckpt``, its result under ``"ckpt"``)."""
@@ -3634,7 +3734,7 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
     from deepspeed_tpu_torch.models import transformer as tf
 
     counters = _zero_counters() + _route_counters()
-    model = registry.get_model_config(TRAIN_MODEL)
+    model = registry.get_model_config(TRAIN_MODEL, num_layers=ZERO_LAYERS)
     t0 = time.perf_counter()
     eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
     torch.cuda.synchronize()
@@ -3646,7 +3746,8 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
     losses = [float(eng.train_batch(batch))]      # warm-up
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(*counters, comm.calls)
+    zero_counts(*counters)
+    comm.clear_counts()
     step_s = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3654,7 +3755,7 @@ def zero_rank_train(rank, world, cfg, seq, steps, ckpt):
         step_s.append(time.perf_counter() - t0)
     launches = {k: v for c in counters[:-2] for k, v in c.items()}
     routes = {k: v for c in counters[-2:] for k, v in c.items()}
-    calls = {k: v / steps for k, v in comm.calls.items()}
+    calls = {k: v / steps for k, v in comm.calls().items()}
     shard_bytes = sum(p.numel() * p.element_size() for p in tf.tree_leaves(eng.params))
     res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
            "fused": bool(eng.model_config.fused_gather_matmul),
@@ -3797,14 +3898,12 @@ def phase_zero_reference(ds, tf_model, tf, launch):
                for _ in range(ZERO_REF_STEPS)]
         return out, eng.params
 
-    want = {False: host_steps(host)}
     # the qwZ reference: ZeRO-3 at data 1 takes the codec's round trip on
     # every leaf (nothing is gathered), as the JAX engine does
     host_qwz, *_ = ds.initialize(model=model, device="cpu", config={
         **base, "train_micro_batch_size_per_gpu": ZERO_REF_MICRO * ZERO_RANKS,
         "zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
         model_parameters=params)
-    want[True] = host_steps(host_qwz)
     configs = {}
     for name, (stage, fused, extra) in ZERO_REF_CONFIGS.items():
         zc = {"stage": stage, "param_persistence_threshold": 0,
@@ -3818,9 +3917,14 @@ def phase_zero_reference(ds, tf_model, tf, launch):
         if ss:
             cfg["step_schedule"] = ss
         configs[name] = cfg
-    ranks = launch(zero_rank_reference, ZERO_RANKS,
-                   args=(model_kw, params, configs, batch, ZERO_REF_STEPS),
-                   backend=ZERO_BACKEND, device="cuda")
+    # the card's ranks train while this process runs the CPU engines
+    with ThreadPoolExecutor(1) as pool:
+        card = pool.submit(launch, zero_rank_reference, ZERO_RANKS,
+                           args=(model_kw, params, configs, batch,
+                                 ZERO_REF_STEPS),
+                           backend=ZERO_BACKEND, device="cuda")
+        want = {False: host_steps(host), True: host_steps(host_qwz)}
+        ranks = card.result()
     per = ZERO_REF_STEPS * gas * ZERO_REF_LAYERS
     for name, (stage, fused, extra) in ZERO_REF_CONFIGS.items():
         zc = configs[name]["zero_optimization"]
@@ -3884,9 +3988,10 @@ def phase_zero_reference(ds, tf_model, tf, launch):
 
 
 def phase_zero_train(tf_model, launch, card, ckpt):
-    """gpt2-350m at full width and depth under ZeRO-3 with the fused
-    gather-matmul over ZERO_RANKS ranks sharing the card (gloo): seconds a
-    step (the slower rank's), tokens/s for the card, peak memory a rank, a
+    """gpt2-350m at full width and ZERO_LAYERS layers under ZeRO-3 with the
+    fused gather-matmul over ZERO_RANKS ranks sharing the card (gloo):
+    seconds a step (the slower rank's), tokens/s for the card, peak memory
+    a rank, a
     profiled step on rank 0 with the host time inside all_gather,
     reduce_scatter and all_reduce (``comm_ms``), and each rank's launches a
     step, which must be 6 GEMMs x layers x gas of gather_matmul, layers x
@@ -3895,7 +4000,7 @@ def phase_zero_train(tf_model, launch, card, ckpt):
     returns the kernel line's launches and the ranks' results."""
     import numpy as np
 
-    model = tf_model.get_model_config(TRAIN_MODEL)
+    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=ZERO_LAYERS)
     gas = ZERO_CFG["gradient_accumulation_steps"]
     per = model.num_layers * gas
     emit({"phase": "zero-backend", "backend": ZERO_BACKEND,
@@ -3962,6 +4067,419 @@ def phase_zero_train(tf_model, launch, card, ckpt):
 
 
 # ----------------------------------------------------------------------
+# zeropp-reference and zeropp-train: hierarchical ZeRO++
+# ----------------------------------------------------------------------
+def _all_gathers(comm, steps):
+    """The all-gathers issued since the counts were cleared, by group,
+    divided by ``steps``."""
+    return {g: ops["all_gather"] / steps
+            for g, ops in comm.group_calls.items() if ops.get("all_gather")}
+
+
+def _nested(eng):
+    """How many of ``eng``'s masters are a slice of their param (or of
+    its slice: hpZ's nested state), each gathered back into it once a
+    step (under hpZ at stage 3 over the outer group)."""
+    return sum(place.rel is not None for place in eng._places)
+
+
+def weight_gathers_inner(all_gathers, stepped):
+    """Whether, of the all-gathers by group of an hpZ stage-3 run, the
+    weight gathers all ran over the inner group: the outer group's are
+    the ``stepped`` slices' alone, and no other group gathered."""
+    return (set(all_gathers) == {"inner", "outer"} and stepped > 0
+            and all_gathers["outer"] == stepped)
+
+
+def zpp_rank_reference(rank, world, model_kw, params, configs, batch,
+                       device=None, threads=None):
+    """One rank of the zeropp-reference phase: per config, the fp32
+    engine over ``{"data": world}`` (factored by the config's hpZ or MiCS
+    key) from ``params``, ZPP_REF_STEPS steps: losses, grad norms, the
+    modes, launch counts, the all-gathers by group (``all_gathers``) and
+    how many of them gathered stepped slices (``stepped``: one a step for
+    each master nested in a param slice), the collectives' bytes a step by
+    group and, on rank 0, the params after the steps, gathered."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(threads or max(1, (os.cpu_count() or 2) // world))
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import registry
+
+    counters = _zero_counters()
+    model = registry.get_model_config(TRAIN_MODEL, **model_kw)
+    out = {}
+    for name, cfg in configs.items():
+        steps = ZPP_REF_STEPS.get(name, 1)
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params, device=device)
+        zero_counts(*counters)
+        comm.clear_counts()
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(float(eng.train_batch(batch)))
+            norms.append(eng.get_global_grad_norm())
+        topo = eng.topology
+        res = {"losses": losses, "grad_norms": norms,
+               "launches": {k: v for c in counters for k, v in c.items()},
+               "all_gathers": _all_gathers(comm, 1),
+               "stepped": steps * _nested(eng),
+               "bytes_per_step": {g: {op: n / steps for op, n in ops.items()}
+                                  for g, ops in comm.group_nbytes.items()},
+               "modes": {"secondary": eng._secondary_mode,
+                         "onebit": eng._onebit_variant,
+                         "qwz": eng._qwz is not None,
+                         "outer_x_inner": [topo.outer_size,
+                                           topo.inner_size]}}
+        with zero.GatheredParameters(eng.params) as full:
+            res["params"] = full if rank == 0 else None
+        out[name] = res
+        del eng
+        gc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def zpp_rank_train(rank, world, runs, seq, hpz_steps):
+    """One rank of the zeropp-train phase: per run (name -> (config, model
+    overrides)), the engine on the card: a warm-up step, then ``hpz_steps``
+    timed steps for the hpZ run and one for every other run; counts
+    zeroed just before the timed steps and read just after (launches and
+    routes a step, the collectives and bytes a step by group, the
+    all-gathers a step by group and the stepped slices' among them, peak
+    memory); then one step profiled on rank 0 (the other ranks step
+    beside it)."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import registry
+
+    counters = _zero_counters() + _route_counters()
+    out = {}
+    for name, (cfg, model_kw) in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = registry.get_model_config(TRAIN_MODEL, **model_kw)
+        t0 = time.perf_counter()
+        eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rows = (cfg["train_micro_batch_size_per_gpu"]
+                * cfg["gradient_accumulation_steps"] * world)
+        batch = train_batch_of(model.vocab_size, rows, seed=0, seq=seq)
+        t0 = time.perf_counter()
+        losses = [float(eng.train_batch(batch))]    # warm-up
+        warm_s = time.perf_counter() - t0
+        steps = hpz_steps if name == "hpz" else 1
+        zero_counts(*counters)
+        comm.clear_counts()
+        step_s = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(batch)))   # float() syncs
+            step_s.append(time.perf_counter() - t0)
+        res = {"init_s": init_s, "warmup_step_s": warm_s, "step_s": step_s,
+               "losses": losses, "layers": model.num_layers,
+               "launches_per_step": {k: v / steps for c in counters[:-2]
+                                     for k, v in c.items()},
+               "routes_per_step": {k: v / steps for c in counters[-2:]
+                                   for k, v in c.items()},
+               "calls_per_step": {g: {op: n / steps for op, n in ops.items()}
+                                  for g, ops in comm.group_calls.items()},
+               "bytes_per_step": {g: {op: n / steps for op, n in ops.items()}
+                                  for g, ops in comm.group_nbytes.items()},
+               "all_gathers_per_step": _all_gathers(comm, steps),
+               "stepped_per_step": _nested(eng),
+               "secondary": eng._secondary_mode,
+               "onebit": eng._onebit_variant,
+               "outer_x_inner": [eng.topology.outer_size,
+                                 eng.topology.inner_size],
+               "max_memory_allocated_gib":
+                   torch.cuda.max_memory_allocated() / 2 ** 30,
+               "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+               "finite": bool(np.all(np.isfinite(losses)))}
+        if rank == 0:
+            wall_ms, by_name, busy_ms, events = profile_call(
+                lambda: eng.train_batch(batch))
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+            res["profile"] = {
+                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "collectives": comm_ms(events, names=(
+                    "comm.all_gather", "comm.reduce_scatter",
+                    "comm.all_reduce", "comm.all_to_all")),
+                "top_kernels_ms": [[k[:90], v] for k, v in top]}
+        else:
+            eng.train_batch(batch)
+        out[name] = res
+        del eng
+    return out
+
+
+def zpp_rank_card(rank, world, reference, train, cpu_done):
+    """One card rank of the zeropp phases: the reference configs
+    (``zpp_rank_reference``'s arguments), then, once the file ``cpu_done``
+    exists (the reference's CPU ranks have finished), the training runs
+    (``zpp_rank_train``'s)."""
+    ref = zpp_rank_reference(rank, world, *reference)
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    while not os.path.exists(cpu_done):
+        if time.perf_counter() > t0 + 900:
+            raise RuntimeError("zeropp: the CPU reference ranks did not "
+                               "finish within 900 s")
+        time.sleep(0.2)
+    return {"reference": ref, "waited_s": time.perf_counter() - t0,
+            "train": zpp_rank_train(rank, world, *train)}
+
+
+def zpp_reference_setup(tf_model, tf):
+    """The zeropp-reference phase's inputs: ``(model_kw, configs, params,
+    batch)``."""
+    model_kw = {"num_layers": ZERO_REF_LAYERS}
+    model = tf_model.get_model_config(TRAIN_MODEL, **model_kw)
+    base = {**{k: v for k, v in ZPP_TRAIN_CFG.items()},
+            "bf16": {"enabled": False},
+            "train_micro_batch_size_per_gpu": ZPP_REF_MICRO}
+    configs = {name: {**base, "zero_optimization": {
+        "param_persistence_threshold": 0, **zc}}
+        for name, zc in ZPP_REF_CONFIGS.items()}
+    params = tf.init_params(model, seed=3, device="cpu")
+    rows = ZPP_REF_MICRO * ZPP_TRAIN_CFG["gradient_accumulation_steps"] \
+        * ZPP_RANKS
+    batch = train_batch_of(model.vocab_size, rows, seed=8, seq=ZPP_REF_SEQ)
+    batch["labels"][0, :5] = -100          # the ranks' token counts differ
+    return model_kw, configs, params, batch
+
+
+def phase_zeropp(tf_model, tf, launch, card):
+    """zeropp-reference and zeropp-train in one launch of ZPP_RANKS card
+    ranks (gloo, one card), the reference's CPU ranks in a thread beside
+    them.  zeropp-reference: per ZPP_REF_CONFIGS config the card against
+    the CPU, losses and grad norms to ZERO_REF_RTOL and the gathered
+    params to ZERO_REF_PARAMS_RTOL (relative L2; qgZ: losses to
+    DPQ_REF_RTOL, params within DPQ_REF_UPDATE_RTOL["qgz"] of the update's
+    L2 norm), the same modes, each card rank's launches and, under hpZ,
+    every weight gather over the inner group, with the bytes a step by
+    group.  zeropp-train: ZPP_TRAIN_RUNS (see ZPP_TRAIN_CFG).  Returns
+    rank 0's launches a step by run, for the kernels line."""
+    import numpy as np
+    import torch
+
+    gas = ZPP_TRAIN_CFG["gradient_accumulation_steps"]
+    model_kw, configs, params, batch = zpp_reference_setup(tf_model, tf)
+    runs = {name: ({**ZPP_TRAIN_CFG, **extra}, kw)
+            for name, (extra, kw) in ZPP_TRAIN_RUNS.items()}
+    emit({"phase": "zeropp-backend", "backend": ZPP_BACKEND,
+          "ranks": ZPP_RANKS,
+          "why": "the ranks share one card, and NCCL refuses two ranks on "
+                 "one GPU; all-gather, reduce-scatter and all-to-all "
+                 "buffers go through pinned host memory, every computation "
+                 "stays on the card"})
+    names = list(configs)
+    parts = [{n: configs[n] for n in names[i::ZPP_REF_CPU_LAUNCHES]}
+             for i in range(ZPP_REF_CPU_LAUNCHES)]
+    threads = max(1, (os.cpu_count() or 2) // (ZPP_RANKS * len(parts)))
+    cpu_done = ROOT / "build" / "zeropp_cpu_reference.done"
+    cpu_done.parent.mkdir(exist_ok=True)
+    cpu_done.unlink(missing_ok=True)
+    for t in tf.tree_leaves(params):   # before several launches pickle them
+        t.share_memory_()
+
+    def cpu_reference():
+        try:
+            with ThreadPoolExecutor(len(parts)) as inner:
+                runs_ = [inner.submit(launch, zpp_rank_reference, ZPP_RANKS,
+                                      args=(model_kw, params, part, batch,
+                                            "cpu", threads),
+                                      backend=ZPP_BACKEND, device="cpu")
+                         for part in parts]
+                out = [{} for _ in range(ZPP_RANKS)]
+                for run in runs_:
+                    for rank, res in enumerate(run.result()):
+                        out[rank].update(res)
+            return out
+        finally:          # the card ranks wait for it, failed or not
+            cpu_done.touch()
+
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(cpu_reference)
+        ranks = launch(zpp_rank_card, ZPP_RANKS,
+                       args=((model_kw, params, configs, batch),
+                             (runs, TRAIN_SEQ, ZPP_HPZ_STEPS),
+                             str(cpu_done)),
+                       backend=ZPP_BACKEND, device="cuda")
+        cpu = cpu_run.result()
+    cpu_done.unlink(missing_ok=True)
+    for name in ZPP_REF_CONFIGS:
+        n_steps = ZPP_REF_STEPS.get(name, 1)
+        per = n_steps * gas * ZERO_REF_LAYERS
+        got = [r["reference"][name] for r in ranks]
+        want = [r[name] for r in cpu]
+        worst = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+                    for a, b in zip(g["losses"], w["losses"]))
+        qgz = got[0]["modes"]["onebit"] == "qgz"
+        if not qgz:
+            worst = max([worst] + [abs(a - b) / b for g, w in zip(got, want)
+                                   for a, b in zip(g["grad_norms"],
+                                                   w["grad_norms"])])
+        params_rel = _params_rel(got[0]["params"], want[0]["params"], tf)
+        _w, update_rel, _whole, _b, _o = dpq_reference_readings(
+            tf, params, "qgz", [{**got[0], "modes": {"onebit": "qgz"}}],
+            [want[0]])
+        q, dq = ZPP_QUANT_LAUNCHES.get(name, (0, 0))
+        wants = [{**{k: 0 for k in g["launches"]},
+                  "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                  "fused_adamw": 0 if qgz else n_steps,
+                  "quantize": q * n_steps,
+                  "dequantize": dq * n_steps} for g in got]
+        launches = [g["launches"] for g in got]
+        # under hpZ at stage 3 the weight gathers run over the inner group
+        # and only the stepped slices over the outer one
+        hpz = got[0]["modes"]["secondary"] == "hpz" \
+            and ZPP_REF_CONFIGS[name]["stage"] == 3
+        gathers_inner = all(weight_gathers_inner(g["all_gathers"],
+                                                 g["stepped"]) for g in got)
+        if qgz:
+            ok = (worst <= DPQ_REF_RTOL
+                  and update_rel <= DPQ_REF_UPDATE_RTOL["qgz"])
+        else:
+            ok = worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
+        ok = (ok and launches == wants and (gathers_inner or not hpz)
+              and all(g["modes"] == want[0]["modes"] for g in got + want)
+              and got[0]["modes"]["outer_x_inner"] == [2, 2]
+              and all(np.isfinite(g["losses"]).all() for g in got))
+        emit({"phase": "zeropp-reference", "config": name,
+              "zero_optimization": ZPP_REF_CONFIGS[name],
+              "modes": got[0]["modes"], "model": TRAIN_MODEL,
+              "layers": ZERO_REF_LAYERS, "dtype": "float32",
+              "ranks": ZPP_RANKS, "backend": ZPP_BACKEND,
+              "seq": ZPP_REF_SEQ, "micro_per_rank": ZPP_REF_MICRO,
+              "gas": gas, "steps": n_steps, "losses_card": [g["losses"] for g in got],
+              "losses_cpu": [w["losses"] for w in want],
+              "grad_norms_card": got[0]["grad_norms"],
+              "grad_norms_cpu": want[0]["grad_norms"],
+              "check": "four ranks on the card (kernels, cuBLAS, ZeRO over "
+                       "gloo) vs four ranks on the CPU (plain versions), "
+                       "the same config",
+              "max_rel_err_loss_grad_norm": worst,
+              "params_rel_l2": params_rel,
+              "params_distance_over_update_l2": update_rel,
+              "tolerance": ({"loss": DPQ_REF_RTOL,
+                             "params_over_update": DPQ_REF_UPDATE_RTOL["qgz"]}
+                            if qgz else
+                            {"loss_grad_norm": ZERO_REF_RTOL,
+                             "params_rel_l2": ZERO_REF_PARAMS_RTOL}),
+              "all_gathers_by_group_rank0": got[0]["all_gathers"],
+              "stepped_slice_gathers_rank0": got[0]["stepped"],
+              "weight_gathers_inner_only": gathers_inner if hpz else None,
+              "bytes_per_step_by_group_rank0": got[0]["bytes_per_step"],
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": bool(ok)})
+        if not ok:
+            fail(f"zeropp-reference ({name}): the card's ranks differ from "
+                 f"the CPU's ({worst}, {params_rel}, {update_rel}), chose "
+                 f"other modes, gathered over {got[0]['all_gathers']} or "
+                 f"launched {launches}, expected {wants}")
+    del cpu, params
+    # zeropp-train
+    out = {}
+    for name, (extra, kw) in ZPP_TRAIN_RUNS.items():
+        got = [r["train"][name] for r in ranks]
+        model = tf_model.get_model_config(TRAIN_MODEL, **kw)
+        per_run = model.num_layers * gas
+        steps = len(got[0]["step_s"])
+        step_s = [max(g["step_s"][i] for g in got) for i in range(steps)]
+        rows = ZPP_TRAIN_CFG["train_micro_batch_size_per_gpu"] * gas \
+            * ZPP_RANKS
+        tokens = rows * TRAIN_SEQ
+        tps = tokens * steps / sum(step_s)
+        qgz = got[0]["onebit"] == "qgz"
+        q, dq = (2, 2) if qgz else (0, 0)
+        want = {**{k: 0 for k in got[0]["launches_per_step"]},
+                "flash_fwd": per_run, "flash_bwd_dq": per_run,
+                "flash_bwd_dkv": per_run, "fused_adamw": 0 if qgz else 1,
+                "quantize": q, "dequantize": dq}
+        want_routes = {**{k: 0 for k in got[0]["routes_per_step"]},
+                       "flash_fwd.wgmma": per_run,
+                       "flash_bwd_dq.wgmma": per_run,
+                       "flash_bwd_dkv.wgmma": per_run}
+        ok = (all(g["finite"] for g in got)
+              and all(g["losses"] == got[0]["losses"] for g in got)
+              and all(g["launches_per_step"] == want for g in got)
+              and all(g["routes_per_step"] == want_routes for g in got)
+              and all(g["outer_x_inner"] == [2, 2] for g in got))
+        if name == "hpz":
+            ok = (ok and got[0]["losses"][-1] < got[0]["losses"][0]
+                  and all(weight_gathers_inner(g["all_gathers_per_step"],
+                                               g["stepped_per_step"])
+                          for g in got))
+        emit({"phase": "zeropp-train", "run": name, "model": TRAIN_MODEL,
+              "layers": model.num_layers, "dtype": "bfloat16",
+              "zero_optimization": extra["zero_optimization"],
+              "secondary": got[0]["secondary"], "onebit": got[0]["onebit"],
+              "ranks": ZPP_RANKS, "backend": ZPP_BACKEND, "seq": TRAIN_SEQ,
+              "micro_per_rank": ZPP_TRAIN_CFG["train_micro_batch_size_per_gpu"],
+              "gas": gas, "remat": "none", "gather_prefetch_depth": 2,
+              "optimizer": ZPP_TRAIN_CFG["optimizer"],
+              "step_s": step_s, "tokens_per_step": tokens,
+              "tokens_per_s": tps,
+              "mfu": tps * 3 * fwd_flops_per_tok(model, TRAIN_SEQ)
+              / BF16_FLOPS,
+              "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM), one card for "
+                          "the four ranks; the formula counts dense "
+                          "attention",
+              "timed": "after a warm-up step",
+              "card_ranks_waited_for_cpu_reference_s":
+                  [r["waited_s"] for r in ranks],
+              "losses": got[0]["losses"],
+              "init_s": [g["init_s"] for g in got],
+              "max_memory_allocated_gib": [g["max_memory_allocated_gib"]
+                                           for g in got],
+              "memory_reserved_gib": [g["memory_reserved_gib"] for g in got],
+              "collectives_per_step_by_group_rank0":
+                  got[0]["calls_per_step"],
+              "bytes_per_step_by_group_rank0": got[0]["bytes_per_step"],
+              "all_gathers_per_step_by_group":
+                  [g["all_gathers_per_step"] for g in got],
+              "stepped_slice_gathers_per_step": got[0]["stepped_per_step"],
+              "launches_per_step": [g["launches_per_step"] for g in got],
+              "expected_per_step": want, "card": card, "ok": bool(ok)})
+        emit({"phase": "zeropp-train-profile", "run": name,
+              "what": "one train_batch on rank 0 (ranks 1-3 step beside "
+                      "it)",
+              "collectives_note": "host time inside each comm range: the "
+                                  "weight gathers and stepped slices "
+                                  "(all_gather), the stage-3 gradient "
+                                  "buckets and hpZ's outer buckets "
+                                  "(reduce_scatter), the loss, norm and "
+                                  "MiCS's outer sums (all_reduce), qgZ's "
+                                  "exchanges (all_to_all); own = less this "
+                                  "rank's compute kernels running",
+              **got[0]["profile"], "card": card})
+        if not ok:
+            fail(f"zeropp-train ({name}): losses not finite, not equal on "
+                 "the ranks or not falling, a weight gather off the inner "
+                 "group, or the launch or route counts do not show the "
+                 "kernels")
+        out[name] = got[0]["launches_per_step"]
+    del ranks
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
 # phases 23-25: checkpoints (ckpt-zero3 in the zero3-train ranks, then
 # ckpt-train) and recovery
 # ----------------------------------------------------------------------
@@ -3978,9 +4496,10 @@ def gbps(nbytes, seconds):
 
 
 def phase_ckpt_train(ds, tf_model, tf, counters, want, card):
-    """gpt2-350m at full width and depth (CKPT_CFG): CKPT_STEPS steps, a
-    save through each writer the config names (``checkpoint.writer.type``
-    "": pickle, then ds_to_universal of the pickle tag; "fast";
+    """gpt2-350m at full width and CKPT_LAYERS layers (CKPT_CFG): CKPT_STEPS
+    steps, a save through each writer the config names
+    (``checkpoint.writer.type`` "": pickle, then ds_to_universal of the
+    pickle tag; "fast";
     "decoupled", whose write overlaps the uninterrupted run's next
     CKPT_STEPS steps), then for each saved form a fresh engine of another
     seed, configured for that form, loads it and takes the same steps:
@@ -3998,7 +4517,7 @@ def phase_ckpt_train(ds, tf_model, tf, counters, want, card):
     root = CKPT_ROOT / "train"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    model = tf_model.get_model_config(TRAIN_MODEL)
+    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=CKPT_LAYERS)
     rows = CKPT_CFG["train_micro_batch_size_per_gpu"] * CKPT_CFG[
         "gradient_accumulation_steps"]
     batch = train_batch_of(model.vocab_size, rows, seed=5, seq=TRAIN_SEQ)
@@ -4139,7 +4658,7 @@ def phase_ckpt_zero3(ds, tf_model, tf, ranks, small, root, card):
 
     from deepspeed_tpu_torch.checkpoint import universal as cu
 
-    model = tf_model.get_model_config(TRAIN_MODEL)
+    model = tf_model.get_model_config(TRAIN_MODEL, num_layers=ZERO_LAYERS)
     gas = ZERO_CFG["gradient_accumulation_steps"]
     per = model.num_layers * gas
     steps = CKPT_ZERO_STEPS
@@ -4627,8 +5146,8 @@ def dpq_rank_train(rank, world, runs, seq, steps):
         t0 = time.perf_counter()
         losses = [float(eng.train_batch(batch))]      # warm-up
         warm_s = time.perf_counter() - t0
-        zero_counts(*counters, comm.calls)
-        comm.nbytes.clear()
+        zero_counts(*counters)
+        comm.clear_counts()
         step_s = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -4636,8 +5155,8 @@ def dpq_rank_train(rank, world, runs, seq, steps):
             step_s.append(time.perf_counter() - t0)
         launches = {k: v / steps for c in counters[:-2] for k, v in c.items()}
         routes = {k: v / steps for c in counters[-2:] for k, v in c.items()}
-        nbytes = {k: v / steps for k, v in comm.nbytes.items()}
-        calls = {k: v / steps for k, v in comm.calls.items()}
+        nbytes = {k: v / steps for k, v in comm.nbytes().items()}
+        calls = {k: v / steps for k, v in comm.calls().items()}
         res = {"init_and_warmup_s": warm_s, "step_s": step_s,
                "losses": losses, "launches_per_step": launches,
                "routes_per_step": routes, "bytes_per_step": nbytes,
@@ -4675,7 +5194,7 @@ def dpq_rank_train(rank, world, runs, seq, steps):
 def phase_dp_quant_train(tf_model, launch, card):
     """Phase 28 (see the module docstring): per run the slower rank's step
     seconds, tokens/s for the card, peak memory a rank, the grad-reduce
-    wire bytes a step, the loss delta against the fp32 control, launches
+    wire bytes a step (against the fp32 control's, computed), launches
     a step a rank (every flash kernel layers x gas times on wgmma, AdamW
     once for the engine's own step, quantize/dequantize as
     DPQ_QUANT_LAUNCHES) and rank 0's profile.  Returns the int8 run's
@@ -4685,17 +5204,14 @@ def phase_dp_quant_train(tf_model, launch, card):
     model = tf_model.get_model_config(TRAIN_MODEL)
     gas = DPQ_CFG["gradient_accumulation_steps"]
     per = model.num_layers * gas
-    runs = {}
-    for name, extra in DPQ_RUNS.items():
-        runs[name] = {**DPQ_CFG, **{k: v for k, v in extra.items()}}
+    runs = {name: {**DPQ_CFG, **DPQ_RUNS[name]} for name in DPQ_TRAIN_RUNS}
     ranks = launch(dpq_rank_train, DPQ_RANKS,
                    args=(runs, TRAIN_SEQ, DPQ_STEPS),
                    backend=DPQ_BACKEND, device="cuda")
     rows = DPQ_CFG["train_micro_batch_size_per_gpu"] * gas * DPQ_RANKS
     tokens = rows * TRAIN_SEQ
-    control = ranks[0]["fp32"]["losses"]
     wire = {}
-    for name in DPQ_RUNS:
+    for name in DPQ_TRAIN_RUNS:
         got = [r[name] for r in ranks]
         step_s = [max(g["step_s"][i] for g in got) for i in range(DPQ_STEPS)]
         nb = got[0]["bytes_per_step"]
@@ -4710,12 +5226,11 @@ def phase_dp_quant_train(tf_model, launch, card):
         want_routes = {**{k: 0 for k in got[0]["routes_per_step"]},
                        "flash_fwd.wgmma": per, "flash_bwd_dq.wgmma": per,
                        "flash_bwd_dkv.wgmma": per}
-        delta = max(abs(a - b) for a, b in zip(got[0]["losses"], control))
         ok = (all(g["finite"] for g in got)
               and all(g["losses"] == got[0]["losses"] for g in got)
               and all(g["launches_per_step"] == want for g in got)
               and all(g["routes_per_step"] == want_routes for g in got))
-        if name in ("int8", "fp32", "qgz"):
+        if name in ("int8", "qgz"):
             ok = ok and got[0]["losses"][-1] < got[0]["losses"][0]
         if name == "int8":       # the buffer dp-quant-kernels timed
             ok = ok and got[0]["modes"]["residual"] and \
@@ -4732,7 +5247,6 @@ def phase_dp_quant_train(tf_model, launch, card):
               "tokens_per_step": tokens,
               "tokens_per_s": tokens * DPQ_STEPS / sum(step_s),
               "losses": got[0]["losses"],
-              "loss_delta_vs_fp32_control": delta,
               "grad_reduce_wire_bytes_per_step": wire[name],
               "bytes_per_step_rank0": nb,
               "collective_calls_per_step_rank0":
@@ -4755,8 +5269,14 @@ def phase_dp_quant_train(tf_model, launch, card):
             fail(f"dp-quant-train ({name}): losses not finite, not equal on "
                  "the ranks or not falling, or the launch or route counts "
                  "do not show the kernels")
+    # the fp32 control's wire over the same padded buffer: the buffer on
+    # the reduce-scatter, a rank's 1/world of it on the all-gather
+    padded = dpq_padded(tf_model, DPQ_RANKS, DPQ_RANKS * 256)[1]
+    wire["fp32"] = 4 * (padded + padded // DPQ_RANKS)
     ratio = wire["fp32"] / wire["int8"]
     emit({"phase": "dp-quant-wire", "fp32_bytes_per_step": wire["fp32"],
+          "fp32_bytes_note": "computed from the padded buffer: the "
+                             "control run is cut for time",
           "int8_bytes_per_step": wire["int8"], "reduction": ratio,
           "expected": 4 / (1 + 4 / 256), "card": card,
           "ok": 3.9 <= ratio <= 4.0})
@@ -4921,10 +5441,9 @@ def main() -> int:
 
     ring_summary = phase_ring_kernels(fm)
     ring_summary.update(phase_ring_int8_kernels(fm, codec))
-    ref_params, ref_batch, ref_card = phase_ring_reference(ds, tf_model, tf,
-                                                           launch)
-    phase_ring_reference_wire(tf, launch, ref_params, ref_batch, ref_card)
-    del ref_params, ref_batch, ref_card
+    ref_card, ref_cpu = phase_ring_reference(ds, tf_model, tf, launch)
+    phase_ring_reference_wire(tf, ref_card, ref_cpu)
+    del ref_card, ref_cpu
     # 18b (slice 17): ZeRO over data x seq, four ranks on the card
     mesh_launches = phase_mesh_reference(ds, tf_model, tf, launch)
     gc.collect()     # engines of earlier phases left in reference cycles
@@ -4963,7 +5482,13 @@ def main() -> int:
                                 "small_kw": small["kw"]})
     phase_ckpt_zero3(ds, tf_model, tf, zero_ranks, small, zero_root, smi)
     del zero_ranks
-    ckpt_n = layers * CKPT_CFG["gradient_accumulation_steps"] * CKPT_STEPS
+    # 24b-c: hierarchical ZeRO++ (hpZ, MiCS, two-level qgZ)
+    # over four ranks sharing the card, against CPU ranks, then trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    zpp_launches = phase_zeropp(tf_model, tf, launch, smi)
+    ckpt_n = CKPT_LAYERS * CKPT_CFG["gradient_accumulation_steps"] * \
+        CKPT_STEPS
     routed = counters + (fm.flash_mha.routes,)
     phase_ckpt_train(ds, tf_model, tf, routed, expected(
         routed, flash_fwd=ckpt_n, flash_bwd_dq=ckpt_n, flash_bwd_dkv=ckpt_n,
@@ -5112,6 +5637,10 @@ def main() -> int:
             entry["launches_dp_quant_train_note"] = (
                 f"a step, rank 0 of {DPQ_RANKS} in dp-quant-train's int8 run "
                 f"(error feedback), the mean of its {DPQ_STEPS} timed steps")
+        zpp = {run: counts[name] for run, counts in zpp_launches.items()
+               if name in counts}
+        if zpp:     # a step, rank 0 of zeropp-train's four, by run
+            entry["launches_zeropp_train"] = zpp
         if name in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv",
                     "fused_adamw"):
             # rank 0 of the mesh-reference phase's four, by ZeRO stage

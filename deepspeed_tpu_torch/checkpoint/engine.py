@@ -12,7 +12,9 @@ the JAX optax chain's (``{"0": {".count", ".mu", ".nu"}}``, the names a
 JAX state flattens to: ``0/.count``, ``0/.mu/<param path>``).
 
 Over a data axis the state is split by ZeRO (``resilience/oracle.py``):
-every rank gathers each leaf through its split dim, rank 0 writes, and
+every rank gathers each leaf through its split (one all-gather a cut:
+over the ZeRO world, or hpZ's and MiCS's inner and outer groups), rank 0
+writes, and
 every rank returns after the save's success is agreed (a collective), so
 a failed write raises on every rank.  Over a seq axis the state is whole
 on every rank and rank 0 (seq rank 0 of data rank 0) writes.  Loading
@@ -44,11 +46,12 @@ MODEL_FILE = "mp_rank_00_model_states.pt"
 class CkptLeaf:
     """One saved leaf of an engine: its name (``module/<path>``,
     ``optimizer/0/.mu/<path>``, ``optimizer/0/.count``), this rank's
-    tensor, the dim it is split on over the data axis (None: whole on
-    every rank) and its full shape."""
+    tensor, where that tensor lies in the leaf (a ``zero.Split``: its
+    dim, the groups it is cut over and whether this rank writes it; None:
+    whole on every rank) and its full shape."""
     name: str
     tensor: torch.Tensor
-    dim: Optional[int]
+    split: Optional[Any]
     shape: Tuple[int, ...]
 
 
@@ -132,19 +135,16 @@ def _writer(engine) -> bool:
 
 def _gather(engine, leaf: CkptLeaf, keep: bool) -> Optional[np.ndarray]:
     """The full value of ``leaf`` as numpy on the host where ``keep``
-    (every rank of the ZeRO group joins a split leaf's gather)."""
+    (every rank of the ZeRO groups joins a split leaf's gathers)."""
     import torch.distributed as dist
 
-    from deepspeed_tpu_torch.comm import comm
-
     t = leaf.tensor.detach()
-    if leaf.dim is not None and engine.topology.world_size > 1:
-        group = engine.topology.world_group
-        if dist.get_backend(group) == "gloo":
+    if leaf.split is not None:
+        if dist.get_backend() == "gloo":
             # gloo gathers host tensors: gather there, where the result
             # is wanted, not through pinned staging and back to the card
             t = t.cpu()
-        t = comm.all_gather(t, leaf.dim, group)
+        t = leaf.split.gather(t)
     return to_numpy(t) if keep else None
 
 

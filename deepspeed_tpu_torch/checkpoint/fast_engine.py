@@ -49,22 +49,25 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 
 def _flatten(engine) -> "tuple[Dict[str, np.ndarray], Dict[str, Dict]]":
-    """This rank's entries and shard index: a leaf split over the ZeRO
-    world as this rank's slice, named ``<leaf>@p<rank>s0`` with its bounds
-    in the full leaf; a whole leaf (and the loss-scale state) from rank 0
+    """This rank's entries and shard index: a split leaf as this rank's
+    slice, named ``<leaf>@p<rank>s0`` with its bounds in the full leaf
+    (one replica of each slice writes it: MiCS's outer replicas hold the
+    same slices); a whole leaf (and the loss-scale state) from rank 0
     only.  One rank: one full entry a leaf."""
     topo = engine.topology
     rank = topo.rank
     entries: Dict[str, np.ndarray] = {}
     index: Dict[str, Dict] = {}
     for leaf in engine._checkpoint_leaves(optimizer=True):
-        if leaf.dim is None or topo.world_size <= 1:
+        if leaf.split is None:
             if rank == 0:
                 entries[leaf.name] = to_numpy(leaf.tensor)
             continue
-        n = leaf.shape[leaf.dim] // topo.world_size
+        if not leaf.split.writer:
+            continue
+        dim = leaf.split.dim
         bounds = [[0, s] for s in leaf.shape]
-        bounds[leaf.dim] = [topo.rank * n, (topo.rank + 1) * n]
+        bounds[dim] = list(leaf.split.bounds(leaf.shape[dim]))
         ename = f"{leaf.name}@p{rank}s0"
         entries[ename] = to_numpy(leaf.tensor)
         index[ename] = {"leaf": leaf.name, "shape": list(leaf.shape),
@@ -310,7 +313,7 @@ class DecoupledCheckpointEngine:
         t0 = time.perf_counter()
         # snapshot NOW: the fused optimizers step params and moments in
         # place, so the write must not read the live tensors
-        leaves = [CkptLeaf(leaf.name, self._host_copy(leaf), leaf.dim,
+        leaves = [CkptLeaf(leaf.name, self._host_copy(leaf), leaf.split,
                            leaf.shape)
                   for leaf in engine._checkpoint_leaves(optimizer=True)]
         if torch.device(engine.device).type == "cuda":

@@ -17,11 +17,12 @@ out as ``jax.tree.flatten`` lays out the JAX package's.  A level of qgZ is
 ``comm/quantized.py``'s int8 ``quantized_reduce_scatter``: the
 ``quantize``/``dequantize`` kernels on CUDA tensors, their plain versions
 on CPU tensors.  Where the JAX package names mesh axes, these functions
-take process groups (None: the default group).  No path of the port calls
-:func:`all_to_all_quant_reduce`, :func:`loco_quant_reduce` or the
-coalesced pair yet (the engine's one-level qgZ calls
-``_quant_chunked_reduce``); two-level qgZ over hpZ's factored data axis
-will (ROADMAP Queue A item 1).
+take process groups (None: the default group).  The engine's qgZ step
+calls ``_quant_chunked_reduce`` at one level and
+:func:`all_to_all_quant_reduce` at two, over hpZ's or MiCS's factored
+data axis (``runtime/onebit.py``).  As in the JAX package, no engine path
+calls :func:`loco_quant_reduce` or the coalesced pair; only tests and
+benchmarks do.
 """
 
 from __future__ import annotations

@@ -33,30 +33,98 @@ is slower).  A failed collective raises; nothing falls back to gloo.
 
 Each collective runs inside a ``torch.profiler.record_function`` range
 (``comm.all_reduce``, ``comm.all_gather``, ``comm.reduce_scatter``,
-``comm.all_to_all``, ``comm.ring_rotate``), so a profiled step shows the
-host time spent in it, adds one to its entry of :data:`calls` when it is
-issued and the bytes this rank sends into it to its entry of
-:data:`nbytes`.  A caller that moves a wire of its own through them (the
-quantized collectives of ``comm/quantized.py``) records it under its own
-op name too (:func:`record_bytes`).
+``comm.all_to_all``, ``comm.ring_rotate``) and, inside it, one named for
+its group (``comm.group.<name>``, where the kernels NCCL launches for it
+are issued), so a profiled step shows the host time spent in it.  Each
+adds one to its entry of :data:`group_calls` when it is issued and the
+bytes this rank sends into it to its entry of :data:`group_nbytes`, both
+under the group's name (``MeshTopology`` names its groups ``world``,
+``inner``, ``outer``, ``batch`` and ``seq`` with :func:`name_group`);
+:func:`calls` and :func:`nbytes` sum them over the groups.  A caller that
+moves a wire of its own through them (the quantized collectives of
+``comm/quantized.py``) records it under its own op name too
+(:func:`record_bytes`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
 BACKENDS = ("nccl", "gloo")
-# collectives issued, by kind (a bucket counts once); callers zero them
-calls = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-         "all_to_all": 0, "ring_rotate": 0}
-# bytes this rank sent into collectives, by op name; callers zero them
-nbytes: Dict[str, int] = {}
+# the kinds of collective (a bucket counts once)
+CALL_OPS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+            "ring_rotate")
+# collectives issued, and the bytes this rank sent into them, by group
+# name, then op name; callers clear them (clear_counts)
+group_calls: Dict[str, Dict[str, int]] = {}
+group_nbytes: Dict[str, Dict[str, int]] = {}
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# the names of process groups (the first name a group is given wins)
+_group_names: Dict[Any, str] = {}
+
+
+def name_group(group, name: str) -> None:
+    """Name ``group`` for :data:`group_calls` and :data:`group_nbytes`
+    (a group that already has a name keeps it)."""
+    if group is not None and group not in _group_names:
+        _group_names[group] = name
+
+
+def group_name(group) -> str:
+    """``group``'s name (None: the default group's), or ``"other"``."""
+    if group is None:
+        group = dist.group.WORLD
+    return _group_names.get(group, "other")
+
+
+def clear_counts() -> None:
+    """Zero every count (:data:`group_calls`, :data:`group_nbytes`)."""
+    group_calls.clear()
+    group_nbytes.clear()
+
+
+def _summed(by_group: Dict[str, Dict[str, int]],
+            ops: Sequence[str] = ()) -> Dict[str, int]:
+    out = dict.fromkeys(ops, 0)
+    for by_op in by_group.values():
+        for op, n in by_op.items():
+            out[op] = out.get(op, 0) + n
+    return out
+
+
+def calls() -> Dict[str, int]:
+    """Collectives issued since the counts were cleared, by kind (every
+    kind of :data:`CALL_OPS`, zero or not), over every group."""
+    return _summed(group_calls, CALL_OPS)
+
+
+def nbytes() -> Dict[str, int]:
+    """Bytes this rank sent into collectives since the counts were
+    cleared, by op name, over every group."""
+    return _summed(group_nbytes)
+
+
+def _range(op: str, group):
+    """The profiler ranges of a collective: ``comm.<op>``, and inside it
+    ``comm.group.<the group's name>``."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(record_function(f"comm.{op}"))
+    stack.enter_context(record_function(f"comm.group.{group_name(group)}"))
+    return stack
+
+
+def _count(op: str, group, *tensors: Optional[torch.Tensor]) -> None:
+    """One collective of kind ``op`` issued over ``group``, sending
+    ``tensors``."""
+    by_op = group_calls.setdefault(group_name(group), {})
+    by_op[op] = by_op.get(op, 0) + 1
+    record_bytes(op, *tensors, group=group)
 
 
 def init_distributed(backend: str, rank: int, world_size: int,
@@ -80,6 +148,7 @@ def destroy() -> None:
     if dist.is_initialized():
         if dist.get_backend() == "nccl":
             torch.cuda.synchronize()
+        _group_names.clear()
         dist.destroy_process_group()
 
 
@@ -91,10 +160,13 @@ def group_size(group=None, world: Optional[int] = None) -> int:
     return size
 
 
-def record_bytes(op: str, *tensors: Optional[torch.Tensor]) -> None:
-    """Add the bytes of ``tensors`` (None skipped) to ``nbytes[op]``."""
-    nbytes[op] = nbytes.get(op, 0) + sum(t.numel() * t.element_size()
-                                         for t in tensors if t is not None)
+def record_bytes(op: str, *tensors: Optional[torch.Tensor],
+                 group=None) -> None:
+    """Add the bytes of ``tensors`` (None skipped) to
+    ``group_nbytes[<group's name>][op]``."""
+    n = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    by_op = group_nbytes.setdefault(group_name(group), {})
+    by_op[op] = by_op.get(op, 0) + n
 
 
 def _staged(group) -> bool:
@@ -122,9 +194,8 @@ def all_reduce(tensor: torch.Tensor, group=None, op: str = "sum"
                ) -> torch.Tensor:
     """Reduce ``tensor`` over ``group`` in place (``op``: ``"sum"`` or
     ``"max"``); returns it."""
-    with record_function("comm.all_reduce"):
-        calls["all_reduce"] += 1
-        record_bytes("all_reduce", tensor)
+    with _range("all_reduce", group):
+        _count("all_reduce", group, tensor)
         buf = _stage_in(tensor, _staged(group))
         dist.all_reduce(buf, op=_OPS[op], group=group)
         if buf is not tensor:
@@ -176,9 +247,8 @@ def all_gather(shard: torch.Tensor, dim: int = 0, group=None,
     ``dim`` other than 0 is moved to the front and back: the shard is
     copied once to make that dim leading and contiguous, and the result
     once more to lay it out as the caller's tensor."""
-    with record_function("comm.all_gather"):
-        calls["all_gather"] += 1
-        record_bytes("all_gather", shard)
+    with _range("all_gather", group):
+        _count("all_gather", group, shard)
         staged = _staged(group)
         world = dist.get_world_size(group)
         dev = shard.device
@@ -207,9 +277,8 @@ def reduce_scatter(full: torch.Tensor, dim: int = 0, group=None
     device.  ``full.shape[dim]`` must divide by the group's size.  A ``dim``
     other than 0 is moved to the front (one copy of ``full``) and the slice
     back (one copy of the slice)."""
-    with record_function("comm.reduce_scatter"):
-        calls["reduce_scatter"] += 1
-        record_bytes("reduce_scatter", full)
+    with _range("reduce_scatter", group):
+        _count("reduce_scatter", group, full)
         world = dist.get_world_size(group)
         if full.shape[dim] % world:
             raise ValueError(f"reduce_scatter: dim {dim} of size "
@@ -269,9 +338,8 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     tiled=True)``.  One ``all_to_all_single`` with equal splits; any dtype
     travels (int8 and uint8 payloads too).  Under gloo a CUDA tensor is
     staged through pinned host memory, both ways."""
-    with record_function("comm.all_to_all"):
-        calls["all_to_all"] += 1
-        record_bytes("all_to_all", x)
+    with _range("all_to_all", group):
+        _count("all_to_all", group, x)
         world = dist.get_world_size(group)
         if x.shape[0] % world:
             raise ValueError(f"all_to_all: dim 0 of size {x.shape[0]} does "
@@ -301,9 +369,8 @@ def ring_rotate(tensors: Sequence[torch.Tensor], group=None
     returns the received tensors (new buffers, shapes and dtypes of the
     sent ones, on their devices).  Point-to-point moves bytes, so any dtype
     travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
-    with record_function("comm.ring_rotate"):
-        calls["ring_rotate"] += 1
-        record_bytes("ring_rotate", *tensors)
+    with _range("ring_rotate", group):
+        _count("ring_rotate", group, *tensors)
         nxt, prv = _ring_peers(group)
         staged = _staged(group)
         sends = [_stage_in(t.contiguous(), staged) for t in tensors]
@@ -391,9 +458,8 @@ def reduce_scatter_bucket(tensors: Sequence[torch.Tensor],
     ``async_op`` a :class:`Pending` of it (issued on NCCL's stream under
     NCCL; under gloo the ring has run when it returns).  The tensors may be
     dropped once this returns: the packed buffer is what travels."""
-    with record_function("comm.reduce_scatter"):
-        calls["reduce_scatter"] += 1
-        record_bytes("reduce_scatter", *tensors)
+    with _range("reduce_scatter", group):
+        _count("reduce_scatter", group, *tensors)
         world = dist.get_world_size(group)
         shapes = [_slice_shape(t, d, world) for t, d in zip(tensors, dims)]
         seg = sum(math.prod(s) for s in shapes)

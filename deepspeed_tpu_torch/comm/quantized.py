@@ -11,7 +11,7 @@ Port of ``deepspeed_tpu/comm/quantized.py``: the wire codec
 fp32, with optional error feedback on the first send) and
 :func:`quantized_all_reduce` (then requantize the reduced chunk and
 ``all_gather`` it: both phases move the payload).  Each wire movement is
-recorded under one of :data:`QUANT_COMM_OPS` in ``comm.nbytes``, payload
+recorded under one of :data:`QUANT_COMM_OPS` in ``comm.nbytes()``, payload
 and scales.
 
 Wire dtypes:
@@ -51,7 +51,7 @@ from deepspeed_tpu_torch.ops import quantizer
 WIRE_DTYPES = ("fp32", "int8", "fp8")
 
 # every wire movement of the quantized collectives is recorded under one
-# of these names in ``comm.nbytes``, payload and scales both
+# of these names in ``comm.nbytes()``, payload and scales both
 QUANT_COMM_OPS = ("quant_reduce_scatter", "quant_all_gather")
 
 _FP8_DTYPE = getattr(torch, "float8_e4m3fn", None)
@@ -184,10 +184,10 @@ def _wire_decode(payload: torch.Tensor, scale: Optional[torch.Tensor],
 # the quantized gradient reduction
 # ----------------------------------------------------------------------
 def _log_wire(op: str, payload: torch.Tensor,
-              scale: Optional[torch.Tensor]) -> None:
-    """Record what travels the wire: the payload and, for a quantized
-    dtype, its fp32 scales."""
-    comm.record_bytes(op, payload, scale)
+              scale: Optional[torch.Tensor], group) -> None:
+    """Record what travels the wire over ``group``: the payload and, for a
+    quantized dtype, its fp32 scales."""
+    comm.record_bytes(op, payload, scale, group=group)
 
 
 def quantized_reduce_scatter(x: torch.Tensor, group=None,
@@ -210,7 +210,7 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None,
     c = x + residual if residual is not None else x
     chunks = c.reshape(world, m)
     payload, scale = _wire_encode(chunks, wire_dtype, group_size)
-    _log_wire("quant_reduce_scatter", payload, scale)
+    _log_wire("quant_reduce_scatter", payload, scale, group)
     new_residual = None
     if residual is not None:
         sent = _wire_decode(payload, scale, wire_dtype).reshape(-1)
@@ -243,7 +243,7 @@ def quantized_all_reduce(x: torch.Tensor, group=None,
         residual=residual, mean=mean)
     m = shard.numel()
     payload, scale = _wire_encode(shard[None, :], wire_dtype, group_size)
-    _log_wire("quant_all_gather", payload, scale)
+    _log_wire("quant_all_gather", payload, scale, group)
     g = comm.all_gather(payload[0], 0, group)
     s = comm.all_gather(scale[0], 0, group).reshape(world, -1) \
         if scale is not None else None

@@ -25,7 +25,9 @@ part of each block to a partial absolute maximum (:func:`partial_absmax`),
 the ranks take their maximum in one all-reduce, and each rank quantizes
 its columns with the block's scale (:func:`quantize_columns`), so its
 payload is its slice of the whole leaf's encoding and every rank decodes
-with the same scales.  The forward value of a gathered leaf is the
+with the same scales.  The ranks are those of the group the leaf is split
+over: the ZeRO world, or under hpZ the inner group, whose gathers the
+payload rides (``zero.ParamGather``).  The forward value of a gathered leaf is the
 decoded ``w``; the JAX value ``p + (w - p)`` in fp32 can differ from it by
 one ulp where ``w - p`` rounds, which the gather cannot reproduce without
 moving ``p``.

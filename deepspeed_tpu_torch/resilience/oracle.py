@@ -8,13 +8,19 @@ accumulators and checkpoints partition the same way.
 ``parallel/sharding.py`` re-exports this class under its historical name.
 
 Where the JAX oracle returns a ``PartitionSpec``, :meth:`spec_for` returns
-the one dim a leaf is split on over the ZeRO world (or None: the leaf stays
-whole on every rank).  The rules, the stacked-layer-aware persistence
+the one dim a leaf is split on (or None: the leaf stays whole on every
+rank), and :meth:`split_for` that dim with the group the split runs over:
+``"world"`` (the JAX ``ZERO_AXES``) or ``"inner"`` (``ZERO_INNER_AXES``).
+The secondary mode decides, as the JAX ``_fsdp_axes`` does: under hpZ
+(``zero_hpz_partition_size > 1``) the params split over the inner axes and
+the optimizer and gradient state over the whole world; under MiCS
+(``mics_shard_size > 0``) both split over the inner axes, and the outer
+data axis holds replicas.  The rules, the stacked-layer-aware persistence
 threshold and the candidate order (embed/norm/pos first, then
-mlp/heads/vocab, the first dim the world divides) are the JAX oracle's.
+mlp/heads/vocab, the first dim the shard count divides) are the JAX
+oracle's, so under hpZ a param and its state may split on different dims.
 The tensor, pipeline and expert axes are one in the port (ROADMAP Queue A
-item 10), so their placements never apply, and hpZ/MiCS raise in the
-config (Queue A item 8).
+item 10), so their placements never apply.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import numpy as np
 from deepspeed_tpu_torch.parallel.topology import (DATA_AXIS, EXPERT_AXIS,
                                                    MESH_AXES, PIPE_AXIS,
                                                    SEQ_AXIS, SUBDATA_AXIS,
-                                                   TENSOR_AXIS, MeshTopology)
+                                                   TENSOR_AXIS,
+                                                   ZERO_INNER_AXES,
+                                                   MeshTopology)
 from deepspeed_tpu_torch.utils.logging import logger
 
 # path-pattern → logical dims, one entry per array dim (the JAX table).
@@ -112,41 +120,68 @@ def _tree_map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def secondary_mode_from_config(zero_config: Any) -> str:
+    """hpZ / MiCS hierarchical-partitioning mode of a zero config block
+    (``"hpz"``, ``"mics"`` or ``"none"``): read by the engine, which
+    factors the data axis before the topology exists, and by
+    :meth:`PartitionOracle.from_config`."""
+    if getattr(zero_config, "zero_hpz_partition_size", 1) > 1:
+        return "hpz"
+    if getattr(zero_config, "mics_shard_size", 0) > 0:
+        return "mics"
+    return "none"
+
+
 class PartitionOracle:
-    """Resolves param paths to the dim each leaf is partitioned on, for a
-    topology and a ZeRO stage."""
+    """Resolves param paths to the dim each leaf is partitioned on, and the
+    group it is partitioned over, for a topology, a ZeRO stage and a
+    secondary mode (``"none"``, ``"hpz"``, ``"mics"``)."""
 
     def __init__(self, topology: MeshTopology, zero_stage: int = 0,
-                 persist_threshold: int = 0):
+                 persist_threshold: int = 0, secondary_mode: str = "none"):
         self.topo = topology
         self.zero_stage = zero_stage
         self.rules = [(re.compile(pat), dims) for pat, dims in DEFAULT_RULES]
         # params with fewer elements than this stay gathered under ZeRO-3
         # (ref param_persistence_threshold, runtime/zero/config.py)
         self.persist_threshold = int(persist_threshold)
+        if secondary_mode not in ("none", "hpz", "mics"):
+            raise ValueError(f"secondary_mode {secondary_mode!r}")
+        self.secondary_mode = secondary_mode
 
     @classmethod
     def from_config(cls, topology: MeshTopology,
                     config: Any) -> "PartitionOracle":
-        """The engine's construction recipe: the zero stage and the
-        persistence threshold, the ``step_schedule`` value winning over
-        the ``zero_optimization`` one."""
+        """The engine's construction recipe: the zero stage, the secondary
+        mode and the persistence threshold, the ``step_schedule`` value
+        winning over the ``zero_optimization`` one."""
         zc = config.zero_config
         persist = zc.param_persistence_threshold
         ss = getattr(config, "step_schedule", None)
         if ss is not None and ss.param_persistence_threshold is not None:
             persist = ss.param_persistence_threshold
-        return cls(topology, zero_stage=zc.stage, persist_threshold=persist)
+        return cls(topology, zero_stage=zc.stage, persist_threshold=persist,
+                   secondary_mode=secondary_mode_from_config(zc))
 
     # ------------------------------------------------------------------
-    def fsdp_axes(self) -> Tuple[str, ...]:
-        """The ZeRO axes above one, in the JAX order."""
-        return tuple(ax for ax in (DATA_AXIS, SUBDATA_AXIS, EXPERT_AXIS,
-                                   SEQ_AXIS) if self.topo.axis_size(ax) > 1)
+    def group_of(self, param_style: bool = True) -> str:
+        """The group a split runs over: ``"inner"`` for MiCS, and for hpZ's
+        params; ``"world"`` otherwise (the JAX ``_fsdp_axes``)."""
+        if self.secondary_mode == "mics" or (self.secondary_mode == "hpz"
+                                             and param_style):
+            return "inner"
+        return "world"
 
-    def shard_world(self) -> int:
+    def fsdp_axes(self, param_style: bool = True) -> Tuple[str, ...]:
+        """The ZeRO axes above one of :meth:`group_of`'s group, in the JAX
+        order."""
+        candidates = ZERO_INNER_AXES if self.group_of(param_style) == \
+            "inner" else (DATA_AXIS, SUBDATA_AXIS, EXPERT_AXIS, SEQ_AXIS)
+        return tuple(ax for ax in candidates if self.topo.axis_size(ax) > 1)
+
+    def shard_world(self, param_style: bool = True) -> int:
         return int(np.prod([self.topo.axis_size(a)
-                            for a in self.fsdp_axes()] or [1]))
+                            for a in self.fsdp_axes(param_style)] or [1]))
 
     def _logical_dims(self, path: str, ndim: int
                       ) -> Optional[Tuple[Optional[str], ...]]:
@@ -160,9 +195,17 @@ class PartitionOracle:
                 return dims
         return None
 
+    def split_for(self, path: str, shape: Tuple[int, ...],
+                  param_style: bool = True) -> Optional[Tuple[int, str]]:
+        """``(dim, group)`` of a parameter array's split (``group``
+        ``"world"`` or ``"inner"``, :meth:`group_of`), or None: whole on
+        every rank."""
+        dim = self.spec_for(path, shape, param_style)
+        return None if dim is None else (dim, self.group_of(param_style))
+
     def spec_for(self, path: str, shape: Tuple[int, ...],
                  param_style: bool = True) -> Optional[int]:
-        """The dim of a parameter array split over the ZeRO world, or None.
+        """The dim of a parameter array split over its ZeRO group, or None.
 
         ``param_style=True`` splits params only at zero_stage 3 (and not
         below the persistence threshold); False gives the always-split
@@ -172,7 +215,7 @@ class PartitionOracle:
         dims = self._logical_dims(path, ndim)
         if dims is None:
             return None
-        axes = self.fsdp_axes()
+        axes = self.fsdp_axes(param_style)
         if not axes or (param_style and self.zero_stage < 3):
             return None
         if param_style and self.persist_threshold:
@@ -183,7 +226,7 @@ class PartitionOracle:
                 elems //= max(1, shape[0])
             if elems < self.persist_threshold:
                 return None
-        n_shard = self.shard_world()
+        n_shard = self.shard_world(param_style)
         candidates = [i for i, d in enumerate(dims)
                       if d in ("embed", "norm", "pos")]
         candidates += [i for i, d in enumerate(dims)

@@ -5,7 +5,8 @@ path reads: the batch triple, ``optimizer``, ``scheduler``, ``bf16``,
 ``gradient_clipping``, ``zero_optimization.stage``,
 ``.param_persistence_threshold``, ``.reduce_bucket_size`` (the flat
 buckets of the gradient reduction), ``.prefetch_bucket_size``,
-``.zero_quantized_weights`` (qwZ) and ``.zero_quantized_gradients`` (qgZ),
+``.zero_quantized_weights`` (qwZ), ``.zero_quantized_gradients`` (qgZ),
+``.zero_hpz_partition_size`` (hpZ) and ``.mics_shard_size`` (MiCS),
 ``activation_checkpointing.remat_policy``,
 the ``checkpoint`` block's writer and ``load_universal`` (and
 ``load_universal_checkpoint``), ``steps_per_print``, ``seed``, ``dataloader_drop_last``, the ``mesh``'s
@@ -107,8 +108,11 @@ class ZeroConfig:
     of ``step_schedule.gather_prefetch_depth`` decides what is issued
     ahead.  ``zero_quantized_gradients`` (qgZ) is read by the engine,
     whose gate decides where it runs (``runtime/onebit.py``), as the JAX
-    engine's does.  Offload, hpZ, MiCS and quantized nontrainable weights
-    raise."""
+    engine's does.  ``zero_hpz_partition_size`` (hpZ) and
+    ``mics_shard_size`` (MiCS) factor the data axis (the engine,
+    ``parallel/topology.py``); ``zero_quantized_nontrainable_weights`` and
+    ``mics_hierarchical_params_gather`` are accepted and logged as
+    ignored, as the JAX package reads them nowhere.  Offload raises."""
     stage: int = 0
     param_persistence_threshold: int = 100_000
     reduce_bucket_size: int = 500_000_000
@@ -123,6 +127,7 @@ class ZeroConfig:
     zero_quantized_nontrainable_weights: bool = False
     zero_quantized_gradients: bool = False
     mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
 
     def __post_init__(self):
         if not 0 <= self.stage <= 3:
@@ -150,12 +155,14 @@ class ZeroConfig:
         if self.cpu_offload or self.cpu_offload_params:
             raise not_ported("zero_optimization.cpu_offload", "Queue A item 7")
         self.zero_quantized_gradients = bool(self.zero_quantized_gradients)
-        if (self.zero_quantized_nontrainable_weights
-                or self.zero_hpz_partition_size > 1
-                or self.mics_shard_size > 0):
-            raise not_ported("ZeRO++ hierarchical partitioning (hpZ, MiCS) "
-                             "and quantized nontrainable weights",
-                             "Queue A item 8")
+        self.zero_hpz_partition_size = int(self.zero_hpz_partition_size)
+        self.mics_shard_size = int(self.mics_shard_size)
+        for name in ("zero_quantized_nontrainable_weights",
+                     "mics_hierarchical_params_gather"):
+            if getattr(self, name):
+                logger.warning(f"Config: zero_optimization.{name} is read "
+                               "and ignored (the JAX package reads it "
+                               "nowhere either)")
 
 
 # the JAX config's remat policy names; the port runs the first three

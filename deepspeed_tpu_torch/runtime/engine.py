@@ -69,6 +69,19 @@ optimizer state and its gradient accumulator are split on over that world
   ``zero_optimization.zero_quantized_weights``) the gathers move the
   wire's payload and block scales (``parallel/zeropp.py``).
 
+hpZ and MiCS (``zero_hpz_partition_size`` / ``mics_shard_size`` k) factor
+the data axis into outer ``data`` × inner ``subdata`` (k) before the
+topology is built, as the JAX engine does; each leaf's place is a
+:class:`zero.Split` (``_place_leaves``).  Under hpZ a stage-3 param holds
+its slice over the inner group, where its gathers run; its master and
+optimizer state are its world slice nested in the param slice, the
+gradient summed over the inner group by the reducer and reduce-scattered
+across the outer group once a step, the stepped slices all-gathered over
+the outer group.  Under MiCS params and state both split over the inner
+group; the outer group holds replicas, across which the gradients are
+summed once a step, and the grad norm counts each slice once.  Below
+stage 3, hpZ changes only the factoring.
+
 The gradient reduction runs through flat buckets of at most
 ``zero_optimization.reduce_bucket_size`` elements, in leaf order (one
 ``all_reduce`` or one rank-major ``reduce_scatter`` a bucket over the ZeRO
@@ -124,7 +137,7 @@ axis for a duck-typed trainable.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -141,8 +154,11 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     tree_leaves,
                                                     tree_map_with_path)
 from deepspeed_tpu_torch.parallel import zeropp
-from deepspeed_tpu_torch.parallel.topology import MeshTopology, set_topology
-from deepspeed_tpu_torch.resilience.oracle import PartitionOracle
+from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
+                                                   factor_data_axis,
+                                                   set_topology)
+from deepspeed_tpu_torch.resilience.oracle import (PartitionOracle,
+                                                   secondary_mode_from_config)
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
@@ -176,6 +192,16 @@ def _global_norm(leaves) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
     sums = torch.stack([torch.sum(torch.square(g.float())) for g in leaves])
     return torch.sqrt(torch.sum(sums))
+
+
+class _Place(NamedTuple):
+    """Where a leaf's tensors lie in the full leaf: the param (``param``,
+    a :class:`zero.Split` or None: whole), the master the optimizer steps
+    and its state (``master``), and the master's split of the param
+    tensor (``rel``: None where the master is the param itself)."""
+    param: Optional[zero.Split]
+    master: Optional[zero.Split]
+    rel: Optional[zero.Split]
 
 
 class DeepSpeedEngine:
@@ -214,8 +240,19 @@ class DeepSpeedEngine:
                 raise not_ported(f"seq_impl={model.seq_impl!r} (Ulysses) "
                                  "over a seq axis above one",
                                  "Queue A item 9")
-        self.topology = MeshTopology({"data": cfg.world_size,
-                                      "seq": cfg.seq_parallel_size})
+        # hpZ and MiCS factor the data axis before the topology is built
+        # (the JAX engine's order, deepspeed_tpu/runtime/engine.py:183-195)
+        sizes = {"data": cfg.world_size, "seq": cfg.seq_parallel_size}
+        zc = cfg.zero_config
+        self._secondary_mode = secondary_mode_from_config(zc)
+        if self._secondary_mode != "none":
+            sizes = factor_data_axis(sizes, zc.zero_hpz_partition_size
+                                     if self._secondary_mode == "hpz"
+                                     else zc.mics_shard_size)
+            log_dist(f"ZeRO++ {self._secondary_mode}: DP world factored "
+                     f"into outer={sizes['data']} × "
+                     f"inner={sizes['subdata']}")
+        self.topology = MeshTopology(sizes)
         set_topology(self.topology)
 
         # -- model: compute dtype from the precision block, remat policy
@@ -411,6 +448,8 @@ class DeepSpeedEngine:
                 "reduce-scattered each micro-step)" if self.zero_stage > 1
                 else "needs a >1 data-parallel mesh without TP/PP/SP"
                 if not dp_only else
+                "hierarchical (hpz/mics) partitioning unsupported"
+                if self._secondary_mode != "none" else
                 "comm_quantization grad reduce already owns the wire"
                 if self._comm_quant is not None else
                 "1-bit/qgZ optimizer owns the reduction"
@@ -440,18 +479,18 @@ class DeepSpeedEngine:
         """Decide each leaf's splits with the oracle (over a ZeRO world
         above one), run the fused gather-matmul gate, keep this rank's
         slices of the stage-3 params, build the tree the optimizer steps
-        (``_masters``: a stage-3 slice itself, a slice copy of a leaf whose
-        optimizer state alone is split, or the whole leaf) and the flat
-        buckets of the gradient reduction."""
+        (``_masters``: a stage-3 slice itself, a slice copy of a leaf, or of
+        an hpZ param slice, whose optimizer state is split further, or the
+        whole leaf) and the flat buckets of the gradient reduction."""
         topo = self.topology
-        none = tree_map_with_path(lambda _p, _x: None, params)
-        self.param_dims = self.state_dims = none
+        param_dims = state_dims = tree_map_with_path(lambda _p, _x: None,
+                                                     params)
         self.oracle = None
         if topo.world_size > 1:
             self.oracle = PartitionOracle.from_config(topo, self.config)
-            self.param_dims = self.oracle.param_specs(params)
+            param_dims = self.oracle.param_specs(params)
             # the decomposed update: the always-split specs (stage 2's)
-            self.state_dims = self.oracle.tree_specs(params, param_style=False) \
+            state_dims = self.oracle.tree_specs(params, param_style=False) \
                 if self._decomposed else self.oracle.optimizer_specs(params)
             offenders = self.oracle.audit_replicated(params)
             if offenders:
@@ -461,8 +500,9 @@ class DeepSpeedEngine:
                          "sharded (no dim divisible by the shard world) and "
                          f"will be REPLICATED on every device: {desc}",
                          level="warning")
+        self._places = self._place_leaves(params, param_dims, state_dims)
         if self.config.step_schedule.fused_gather_matmul:
-            self._fused_gate()
+            self._fused_gate(param_dims)
         self._zero = None
         if self.zero_stage >= 3 and self.oracle is not None:
             mc = self.model_config
@@ -480,19 +520,20 @@ class DeepSpeedEngine:
             with zero.Init(topology=topo, oracle=self.oracle) as zinit:
                 params = zinit.partition(params)
             # a stage-3 slice's fp32 gradient accumulator, its .grad, into
-            # which the reducer adds each micro-step's reduced slices
+            # which the reducer adds each micro-step's reduced slices (the
+            # sum over the param's group)
             accs = {}
             paths = []
             tree_map_with_path(lambda path, _x: paths.append(path), params)
-            for path, p, d in zip(paths, tree_leaves(params),
-                                  tree_leaves(self.param_dims)):
-                if d is not None:
+            for path, p, place in zip(paths, tree_leaves(params),
+                                      self._places):
+                if place.param is not None:
                     p.grad = accs[path] = torch.zeros_like(p)
             zc = self.config.zero_config
+            group = topo.level(self.oracle.group_of(param_style=True)).group
             self._zero = zero.ParamGather(
-                params, self.param_dims, topo.world_group, dtype_of,
-                zero.Stage3Reducer(accs, topo.world_group,
-                                   zc.reduce_bucket_size),
+                params, param_dims, group, dtype_of,
+                zero.Stage3Reducer(accs, group, zc.reduce_bucket_size),
                 depth=self._prefetch_depth, qwz=self._qwz)
             log_dist(f"ZeRO-3: gather window depth {self._prefetch_depth}, "
                      f"gradient buckets of {zc.reduce_bucket_size} elements "
@@ -502,78 +543,136 @@ class DeepSpeedEngine:
             p.requires_grad_(True)
         self.params = params
 
-        self._leaves = list(zip(tree_leaves(params),
-                                tree_leaves(self.param_dims),
-                                tree_leaves(self.state_dims)))
-        # a leaf whose state alone is split steps a slice copy, and its
-        # fp32 slice gradient (stage 1: filled after the all-reduce; stage
-        # >= 2: the accumulator the micro-steps reduce-scatter into)
+        self._leaves = tree_leaves(params)
+        # a leaf whose state is split further than its param steps a slice
+        # copy, and its fp32 slice gradient (stage 1: filled after the
+        # all-reduce; stage >= 2: the accumulator the micro-steps
+        # reduce-scatter into; an hpZ param slice's: reduce-scattered over
+        # the outer group once a step)
         masters, self._slice_grads = [], []
-        for p, pdim, sdim in self._leaves:
-            sliced = pdim is None and sdim is not None
-            m = zero.shard_of(p, sdim, topo.rank, topo.world_size) \
-                if sliced else p
+        for p, place in zip(self._leaves, self._places):
+            m = p
+            if place.rel is not None:
+                m = zero.take(p, place.rel)
+                m.ds_split = place.master
+                m.ds_full_shape = tuple(getattr(p, "ds_full_shape", p.shape))
             masters.append(m)
-            self._slice_grads.append(torch.zeros_like(m) if sliced else None)
+            self._slice_grads.append(torch.zeros_like(m) if m is not p
+                                     else None)
         self._masters = _unflatten(params, masters)
         self._build_buckets()
 
+    def _place_leaves(self, params, param_dims, state_dims) -> List[_Place]:
+        """Each leaf's :class:`_Place`.  The param splits over the
+        oracle's param group (the world, or hpZ's and MiCS's inner group);
+        the optimizer state over its state group: where the param lies,
+        except under hpZ, whose state splits over the whole world.  An hpZ
+        param slice's state is its chunk over the outer group (the
+        world's slice ``inner_rank · outer + outer_rank`` of the leaf, so
+        that it lies inside the param slice); where the JAX oracle splits
+        that state on another dim, or not at all, the state stays on the
+        param slice, replicated across the outer group, with a warning."""
+        topo, oracle = self.topology, self.oracle
+        pdims, sdims = tree_leaves(param_dims), tree_leaves(state_dims)
+        places = [_Place(None, None, None)] * len(pdims)
+        if oracle is None:
+            return places
+        param_split = zero.param_split(topo, oracle)
+        kind = oracle.group_of(param_style=False)
+        replicas = kind == "inner" and topo.outer_size > 1
+        state_level = topo.level(kind)
+        writer = not replicas or topo.outer_rank == 0
+        paths = []
+        tree_map_with_path(lambda path, _x: paths.append("/".join(path)),
+                           params)
+        for i, (pdim, sdim, path) in enumerate(zip(pdims, sdims, paths)):
+            psplit = param_split(pdim)
+            if psplit is None:
+                master = None if sdim is None else zero.Split(
+                    sdim, (state_level,), replicas, writer)
+                places[i] = _Place(None, master, master)
+            elif oracle.group_of(param_style=True) == kind:
+                places[i] = _Place(psplit, psplit, None)
+            elif sdim == pdim:          # hpZ: nested in the param slice
+                rel = zero.Split(pdim, (topo.level("outer"),))
+                places[i] = _Place(psplit, psplit.then(rel), rel)
+            else:
+                logger.warning(
+                    f"hpZ: '{path}' splits its param on dim {pdim} over the "
+                    "inner group and its optimizer state on "
+                    f"{'no dim' if sdim is None else f'dim {sdim}'} over the "
+                    "world; its state stays on the param slice, replicated "
+                    "across the outer group")
+                places[i] = _Place(psplit, psplit, None)
+        return places
+
     def _build_buckets(self) -> None:
-        """Lay the gradient reduction over the ZeRO world out in flat
-        buckets of at most ``reduce_bucket_size`` elements, by dtype, in
-        ``_leaves`` order (a larger leaf alone).  ``_reduce_buckets`` are
-        all-reduced once a step: every leaf at stages 0/1, at stages 2/3
+        """Lay the gradient reduction out in flat buckets of at most
+        ``reduce_bucket_size`` elements, by dtype, in ``_leaves`` order (a
+        larger leaf alone).  ``_reduce_buckets`` are all-reduced over the
+        ZeRO world once a step: every leaf at stages 0/1, at stages 2/3
         the leaves that stay whole everywhere.  Their ``.grad`` are views
         of the bucket's flat buffer, set here, before any backward, so that
         autograd accumulates into them in place.  ``_scatter_buckets``
-        (stages 2/3: the leaves whose state alone is split) are
-        reduce-scattered rank-major each micro-step into a flat accumulator
-        whose views are the leaves' slice gradients; their full ``.grad``
-        are autograd's own, made by the backward and dropped once
-        reduce-scattered, and the rank-major pack takes a buffer of the
-        bucket's size then, after the backward has freed the activations.
-        A stage-3 slice's gradient goes through the reducer of its gather
-        (``zero.Stage3Reducer``, buckets of the same size) and takes none of
-        these."""
+        (stages 2/3: whole leaves whose state alone is split) are
+        reduce-scattered rank-major over the state's group each micro-step
+        into a flat accumulator whose views are the leaves' slice
+        gradients (under MiCS all-reduced across the outer group once a
+        step); their full ``.grad`` are autograd's own, made by the
+        backward and dropped once reduce-scattered, and the rank-major pack
+        takes a buffer of the bucket's size then, after the backward has
+        freed the activations.  A stage-3 slice's gradient goes through the
+        reducer of its gather (``zero.Stage3Reducer``, buckets of the same
+        size) and takes none of these; under hpZ ``_outer_buckets``
+        reduce-scatter those sums over the outer group once a step into
+        the state's slice gradients."""
         self._reduce_buckets: List[tuple] = []
         self._scatter_buckets: List[tuple] = []
+        self._outer_buckets: List[tuple] = []
         self._quant_flat = None
         if self.topology.world_size <= 1 or self._onebit_variant is not None:
             return       # the 1-bit step keeps its own flat gradient
         if self._comm_quant is not None:
             self._build_quant_flat()
             return
-        world = self.topology.world_size
-        reduce_idx, scatter_idx = [], []
-        for i, (_p, pdim, sdim) in enumerate(self._leaves):
-            if pdim is None:
-                (scatter_idx if self._grad_split and sdim is not None
-                 else reduce_idx).append(i)
-        for scat, indices in ((False, reduce_idx), (True, scatter_idx)):
+        limit = self.config.zero_config.reduce_bucket_size
+        reduce_idx, scatter_idx, outer_idx = [], [], []
+        for i, place in enumerate(self._places):
+            if place.param is not None:
+                if place.rel is not None:
+                    outer_idx.append(i)
+            elif self._grad_split and place.rel is not None:
+                scatter_idx.append(i)
+            else:
+                reduce_idx.append(i)
+        for kind, indices in (("reduce", reduce_idx),
+                              ("scatter", scatter_idx),
+                              ("outer", outer_idx)):
             by_dtype: Dict[torch.dtype, List[int]] = {}
             for i in indices:
-                by_dtype.setdefault(self._leaves[i][0].dtype, []).append(i)
+                by_dtype.setdefault(self._leaves[i].dtype, []).append(i)
             for dtype, idx in by_dtype.items():
                 for b in comm.plan_buckets(
-                        [self._leaves[i][0].numel() for i in idx],
-                        self.config.zero_config.reduce_bucket_size):
+                        [self._leaves[i].numel() for i in idx], limit):
                     bidx = [idx[j] for j in b]
-                    ps = [self._leaves[i][0] for i in bidx]
-                    n = sum(p.numel() for p in ps)
-                    if not scat:
-                        flat = torch.zeros(n, dtype=dtype, device=self.device)
+                    ps = [self._leaves[i] for i in bidx]
+                    if kind == "reduce":
+                        flat = torch.zeros(sum(p.numel() for p in ps),
+                                           dtype=dtype, device=self.device)
                         for p, v in zip(ps, comm.flat_views(
                                 flat, [p.shape for p in ps])):
                             p.grad = v
                         self._reduce_buckets.append((bidx, flat))
                         continue
-                    acc = torch.zeros(n // world, dtype=dtype,
-                                      device=self.device)
+                    acc = torch.zeros(sum(self._slice_grads[i].numel()
+                                          for i in bidx),
+                                      dtype=dtype, device=self.device)
                     for i, v in zip(bidx, comm.flat_views(acc, [
                             self._slice_grads[i].shape for i in bidx])):
                         self._slice_grads[i] = v
-                    self._scatter_buckets.append(
-                        (bidx, [self._leaves[i][2] for i in bidx], acc))
+                    (self._scatter_buckets if kind == "scatter" else
+                     self._outer_buckets).append(
+                        (bidx, [self._places[i].rel.dim for i in bidx], acc))
 
     def _build_quant_flat(self) -> None:
         """The explicit quantized reduce's buffer (JAX
@@ -584,7 +683,7 @@ class DeepSpeedEngine:
         set here; another leaf's gradient is added in after each backward.
         The error-feedback residual is this rank's, of the same length."""
         cq, world = self._comm_quant, self.topology.dp_size
-        n = sum(p.numel() for p, _pd, _sd in self._leaves)
+        n = sum(p.numel() for p in self._leaves)
         base = world * cq.group_size
         self._quant_flat = torch.zeros(-(-n // base) * base,
                                        dtype=torch.float32, device=self.device)
@@ -592,9 +691,9 @@ class DeepSpeedEngine:
         off = 0
         for i in jax_order(self.params):
             self._quant_offsets[i] = off
-            off += self._leaves[i][0].numel()
+            off += self._leaves[i].numel()
         self._quant_views = self._quant_views_of(self._quant_flat)
-        for (p, _pd, _sd), view in zip(self._leaves, self._quant_views):
+        for p, view in zip(self._leaves, self._quant_views):
             if p.dtype == torch.float32:
                 p.grad = view
         self._quant_residual = None
@@ -604,7 +703,7 @@ class DeepSpeedEngine:
 
     def _quant_views_of(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """Each leaf's view of a buffer laid out as ``_quant_flat``."""
-        return [flat[o:o + p.numel()].view(p.shape) for (p, _pd, _sd), o
+        return [flat[o:o + p.numel()].view(p.shape) for p, o
                 in zip(self._leaves, self._quant_offsets)]
 
     @property
@@ -613,13 +712,13 @@ class DeepSpeedEngine:
         reduce-scattered)."""
         return len(self._reduce_buckets) + len(self._scatter_buckets)
 
-    def _fused_gate(self) -> None:
+    def _fused_gate(self, param_dims) -> None:
         """The JAX engine's gate for ``step_schedule.fused_gather_matmul``
         (``deepspeed_tpu/runtime/engine.py:369-436``), reason for reason:
         the fused MLP runs only where the MLP weights carry the fsdp
         pattern (wi/wg split on the embed dim 1 of the stacked leaf, wo on
-        dim 2, bi on dim 1); anything else warns and keeps the unfused
-        path."""
+        dim 2, bi on dim 1; ``param_dims``: the oracle's param split
+        dims); anything else warns and keeps the unfused path."""
         cfg, mc, topo = self.config, self.model_config, self.topology
         zc = cfg.zero_config
         blocked = (
@@ -629,7 +728,7 @@ class DeepSpeedEngine:
                 topo.tp_size > 1 or topo.pp_size > 1 or topo.sp_size > 1
                 or topo.ep_size > 1) else
             "hierarchical (hpz/mics) partitioning unsupported"
-            if zc.zero_hpz_partition_size > 1 or zc.mics_shard_size > 0 else
+            if self._secondary_mode != "none" else
             "param streaming unsupported" if mc.param_stream else
             "quantized zero3_gather (qwZ) already owns the gather"
             if self._qwz is not None or zc.zero_quantized_weights else
@@ -637,7 +736,7 @@ class DeepSpeedEngine:
             if cfg.to_dict().get("compression_training") else
             "MoE layers unsupported" if mc.is_moe else "")
         if not blocked:
-            mlp = self.param_dims["layers"]["mlp"]
+            mlp = param_dims["layers"]["mlp"]
             ok = mlp.get("wi") == 1 and mlp.get("wo") == 2
             if ok and mc.activation == "swiglu":
                 ok = mlp.get("wg") == 1
@@ -768,7 +867,7 @@ class DeepSpeedEngine:
         """Zero the last step's gradients: every ``.grad`` that outlived it
         and the stage-2 accumulators.  (Stage 1's slice gradients are
         overwritten whole each step.)"""
-        for p, _pd, _sd in self._leaves:
+        for p in self._leaves:
             if p.grad is not None:
                 p.grad.zero_()
         for _idx, _dims, acc in self._scatter_buckets:
@@ -794,12 +893,12 @@ class DeepSpeedEngine:
         its slice accumulator (one reduce-scatter a bucket each micro-step,
         or under ``fused_reduce_scatter`` once after the last backward, of
         the locally accumulated gradients); then all-reduce the whole
-        leaves' buckets over the ZeRO world.  Returns (the gradient of each
-        ``_masters`` leaf, summed loss)."""
+        leaves' buckets over the ZeRO world, and run hpZ's and MiCS's sums
+        across the outer group (:meth:`_reduce_across_outer`).  Returns
+        (the gradient of each ``_masters`` leaf, summed loss)."""
         if self._comm_quant is not None:
             return self._accum_grads_quant(batch_stack)
         topo = self.topology
-        group = topo.world_group
         self._zero_grads()
         gas = self.gradient_accumulation_steps_value
         seeds = self._dropout_seeds(gas)
@@ -816,12 +915,13 @@ class DeepSpeedEngine:
                 self.stage3_buckets = self._zero.reducer.finish()
             loss_sum += value
             if not fused_rs:
-                self._scatter_micro_step(group)
+                self._scatter_micro_step()
         if fused_rs:         # the local sums, reduce-scattered once
-            self._scatter_micro_step(group)
+            self._scatter_micro_step()
         for idx, flat in self._reduce_buckets:
-            comm.all_reduce_bucket([self._leaves[j][0].grad for j in idx],
-                                   flat, group)
+            comm.all_reduce_bucket([self._leaves[j].grad for j in idx],
+                                   flat, topo.world_group)
+        self._reduce_across_outer()
         if fused_rs:         # psum_scatter / world and pmean, as in JAX
             inv = 1.0 / topo.dp_size
             for _idx, _dims, acc in self._scatter_buckets:
@@ -830,29 +930,63 @@ class DeepSpeedEngine:
                 flat.mul_(inv)
             loss_sum = self._mean_over_ranks(loss_sum)
         grads = []
-        for (p, pdim, sdim), acc in zip(self._leaves, self._slice_grads):
+        for p, place, acc in zip(self._leaves, self._places,
+                                 self._slice_grads):
             if acc is not None and self._grad_split:
                 grads.append(acc)          # reduce-scattered into its slice
                 continue
             if p.grad is None:   # a leaf the loss does not reach
                 p.grad = torch.zeros_like(p)
             if acc is not None:            # stage 1: this rank's slice
-                acc.copy_(p.grad.chunk(topo.world_size, dim=sdim)[topo.rank])
+                acc.copy_(place.rel.slice(p.grad))
                 grads.append(acc)
             else:     # whole on every rank, or a stage-3 slice (its gather
                 grads.append(p.grad)       # reduced it already)
         return grads, loss_sum
 
-    def _scatter_micro_step(self, group) -> None:
-        """Reduce-scatter each scatter bucket's full gradients into its
-        slice accumulator and drop them."""
+    def _scatter_micro_step(self) -> None:
+        """Reduce-scatter each scatter bucket's full gradients over the
+        state's group into its slice accumulator and drop them."""
         for idx, dims, acc in self._scatter_buckets:
-            ps = [self._leaves[j][0] for j in idx]
+            ps = [self._leaves[j] for j in idx]
+            group = self._places[idx[0]].master.levels[0].group
             acc += comm.reduce_scatter_bucket(
                 [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in ps], dims, group)
             for p in ps:
                 p.grad = None
+
+    def _reduce_across_outer(self) -> None:
+        """Once a step, the sums that hpZ and MiCS leave to the outer
+        group: under hpZ each stage-3 slice's gradient (summed over the
+        inner group) reduce-scattered into its state's slice (the outer
+        buckets); the gradients of slices replicated across the outer
+        group (MiCS's, and hpZ's slices whose state stays on them)
+        all-reduced over it, packed in flat buckets."""
+        topo = self.topology
+        for idx, dims, acc in self._outer_buckets:
+            acc.copy_(comm.reduce_scatter_bucket(
+                [self._leaves[j].grad for j in idx], dims,
+                topo.outer_group))
+        if topo.outer_size <= 1:
+            return
+        tensors = [p.grad for p, place in zip(self._leaves, self._places)
+                   if place.param is not None and place.rel is None
+                   and place.param.replicas]
+        tensors += [acc for idx, _dims, acc in self._scatter_buckets
+                    if self._places[idx[0]].master.replicas]
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            for b in comm.plan_buckets(
+                    [t.numel() for t in ts],
+                    self.config.zero_config.reduce_bucket_size):
+                flat = torch.cat([ts[j].reshape(-1) for j in b])
+                comm.all_reduce(flat, topo.outer_group)
+                for j, v in zip(b, comm.flat_views(
+                        flat, [ts[j].shape for j in b])):
+                    ts[j].copy_(v)
 
     def _accum_grads_quant(self, batch_stack: Batch):
         """The explicit quantized reduce (JAX ``engine.py:1328-1398``):
@@ -876,7 +1010,7 @@ class DeepSpeedEngine:
             loss, value = self._rank_loss(mb)
             loss.backward()
             loss_sum += value
-            for (p, _pd, _sd), view in zip(self._leaves, self._quant_views):
+            for p, view in zip(self._leaves, self._quant_views):
                 if p.grad is not None and p.grad is not view:
                     view.add_(p.grad.float())     # a non-fp32 leaf
                     p.grad = None
@@ -887,10 +1021,10 @@ class DeepSpeedEngine:
         if new_res is not None:
             self._quant_residual = new_res
         grads = []
-        for (p, _pd, sdim), acc, g in zip(self._leaves, self._slice_grads,
-                                          self._quant_views_of(avg)):
+        for place, acc, g in zip(self._places, self._slice_grads,
+                                 self._quant_views_of(avg)):
             if acc is not None:      # this rank's slice of the mean
-                acc.copy_(g.chunk(topo.world_size, dim=sdim)[topo.rank])
+                acc.copy_(place.rel.slice(g))
                 grads.append(acc)
             else:
                 grads.append(g)
@@ -898,22 +1032,35 @@ class DeepSpeedEngine:
 
     def _grad_norm(self, grads) -> torch.Tensor:
         """The global L2 norm, each element counted once: the sums of
-        squares of split gradients are all-reduced over the ZeRO group;
-        a gradient every rank holds whole is added once."""
-        if self.topology.world_size <= 1:
+        squares of split gradients are all-reduced over the group whose
+        ranks hold each slice of their leaves once (the ZeRO world; under
+        MiCS, and for hpZ slices whose state stays on them, the inner
+        group, so that the outer replicas are not added again); a gradient
+        every rank holds whole is added once."""
+        topo = self.topology
+        if topo.world_size <= 1:
             return _global_norm(grads)
+        zero_ = torch.zeros((), dtype=torch.float32, device=self.device)
+
         def sumsq(gs):
             return sum((torch.sum(torch.square(g.float())) for g in gs),
-                       torch.zeros((), dtype=torch.float32, device=self.device))
+                       zero_)
 
-        split = [g for g, (_p, pdim, sdim) in zip(grads, self._leaves)
-                 if pdim is not None or sdim is not None]
-        whole = [g for g, (_p, pdim, sdim) in zip(grads, self._leaves)
-                 if pdim is None and sdim is None]
-        sq = sumsq(split)
-        if split:
-            comm.all_reduce(sq, self.topology.world_group)
-        return torch.sqrt(sq + sumsq(whole))
+        split: Dict[Any, List[torch.Tensor]] = {}   # in leaf order
+        whole = []
+        for g, place in zip(grads, self._places):
+            m = place.master
+            if m is None:
+                whole.append(g)
+            else:
+                group = topo.world_group if len(m.levels) > 1 \
+                    else m.levels[0].group
+                split.setdefault(group, []).append(g)
+        sq = None
+        for group, gs in split.items():
+            part = comm.all_reduce(sumsq(gs), group)
+            sq = part if sq is None else sq + part
+        return torch.sqrt(sumsq(whole) if sq is None else sq + sumsq(whole))
 
     @torch.no_grad()
     def _apply_update(self, grads, lr: float) -> torch.Tensor:
@@ -931,11 +1078,12 @@ class DeepSpeedEngine:
                 g.mul_(coef)
         self.optimizer.update(_unflatten(self._masters, grads), self.opt_state,
                               self._masters, lr)
-        # a whole param whose state alone is split: gather the stepped slices
-        topo = self.topology
-        for (p, pdim, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
-            if pdim is None and sdim is not None:
-                p.copy_(comm.all_gather(m, sdim, topo.world_group))
+        # a param whose state is split further: gather the stepped slices
+        # (under hpZ over the outer group, into the param's inner slice)
+        for place, p, m in zip(self._places, tree_leaves(self.params),
+                               tree_leaves(self._masters)):
+            if place.rel is not None:
+                p.copy_(place.rel.gather(m))
         return grad_norm
 
     # ------------------------------------------------------------------
@@ -1069,48 +1217,46 @@ class DeepSpeedEngine:
         """Every saved leaf of this rank:
         ``module/<path>`` for each master param, and with ``optimizer``
         the state under the JAX chain's names (``optimizer/0/.count``,
-        ``optimizer/0/.mu/<path>``), each with the dim it is split on over
-        the ZeRO world and its full shape."""
+        ``optimizer/0/.mu/<path>``), each with its :class:`zero.Split` in
+        the full leaf (None: whole) and its full shape."""
         paths = []
         tree_map_with_path(lambda p, _x: paths.append("/".join(p)),
                            self.params)
         shapes = [tuple(getattr(p, "ds_full_shape", p.shape))
-                  for p, _pd, _sd in self._leaves]
-        out = [CkptLeaf("module/" + path, p, pdim, shape)
-               for path, (p, pdim, _sd), shape in zip(paths, self._leaves,
-                                                      shapes)]
+                  for p in self._leaves]
+        out = [CkptLeaf("module/" + path, p, place.param, shape)
+               for path, p, place, shape in zip(
+                   paths, self._leaves, self._places, shapes)]
         if optimizer:
             names = chain_names(self.optimizer)
             out.append(CkptLeaf("optimizer/" + names["count"],
                                 self.opt_state["count"], None, ()))
             for key in self.optimizer.moments:
-                # a moment is split where its master is: the stage-3 dim,
-                # else the optimizer-state dim
-                for path, (_p, pdim, sdim), shape, m in zip(
-                        paths, self._leaves, shapes,
+                # a moment is split where its master is
+                for path, place, shape, m in zip(
+                        paths, self._places, shapes,
                         tree_leaves(self.opt_state[key])):
                     out.append(CkptLeaf(f"optimizer/{names[key]}/{path}", m,
-                                        pdim if pdim is not None else sdim,
-                                        shape))
+                                        place.master, shape))
         return out
 
     @torch.no_grad()
     def _load_leaves(self, flat: Dict[str, np.ndarray],
                      optimizer: bool = True) -> None:
         """Copy full saved leaves (``{name: array}``) into this rank's
-        tensors, in place on their device: each rank keeps its slice along
-        the leaf's split dim.  Every leaf is checked (presence, shape,
-        dtype) before any is changed."""
-        topo = self.topology
+        tensors, in place on their device: each rank keeps its slice of the
+        leaf's split.  Every leaf is checked (presence, shape, dtype) before
+        any is changed."""
         pairs = check_leaves(self._checkpoint_leaves(optimizer=optimizer),
                              flat)
         for leaf, arr in pairs:
             src = torch.from_numpy(np.asarray(arr))
-            if leaf.dim is not None and topo.world_size > 1:
-                src = src.chunk(topo.world_size, dim=leaf.dim)[topo.rank]
+            if leaf.split is not None:
+                src = leaf.split.slice(src)
             leaf.tensor.copy_(src.to(leaf.tensor.dtype))
-        # a whole param whose optimizer state alone is split steps a slice
-        # copy of itself: refresh it from the loaded param
-        for (p, _pd, sdim), m in zip(self._leaves, tree_leaves(self._masters)):
+        # a param whose optimizer state is split further steps a slice copy
+        # of itself: refresh it from the loaded param
+        for place, p, m in zip(self._places, tree_leaves(self.params),
+                               tree_leaves(self._masters)):
             if m is not p:
-                m.copy_(zero.shard_of(p, sdim, topo.rank, topo.world_size))
+                m.copy_(place.rel.slice(p))

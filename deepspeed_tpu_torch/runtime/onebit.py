@@ -13,9 +13,15 @@ mesh's:
   mean-all-reduced through ``comm/compressed.py``'s 1-bit
   ``compressed_allreduce`` with worker and server error feedback;
 * ``qgz`` (``zero_quantized_gradients`` without ZeRO-3): the gradient is
-  averaged through one level of int8 all-to-all reduction
-  (``_quant_chunked_reduce``, groups of 2048, the ``quantize``/
-  ``dequantize`` kernels on the card) and all-gathered; both moments learn.
+  averaged through int8 all-to-all reduction (``_quant_chunked_reduce``,
+  groups of 2048, the ``quantize``/``dequantize`` kernels on the card) and
+  all-gathered; both moments learn.  Over a data axis factored by hpZ or
+  MiCS (subdata above one) the reduction runs two levels, as
+  ``deepspeed_tpu/runtime/onebit.py:159-178`` does: within the inner group
+  (subdata), then across the outer group (data), through
+  ``comm/coalesced_collectives.py``'s ``all_to_all_quant_reduce``; the
+  all-gathers run outer first, then inner.  Otherwise one level over the
+  data group.
 
 Then, as in JAX, bias correction, clipping on the update's global norm,
 and the step: decoupled weight decay (Adam) or the LAMB trust ratio a leaf
@@ -39,8 +45,8 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from deepspeed_tpu_torch.comm import comm
-from deepspeed_tpu_torch.comm.coalesced_collectives import \
-    _quant_chunked_reduce
+from deepspeed_tpu_torch.comm.coalesced_collectives import (
+    _quant_chunked_reduce, all_to_all_quant_reduce)
 from deepspeed_tpu_torch.comm.compressed import compressed_allreduce
 from deepspeed_tpu_torch.models.transformer import (tree_leaves,
                                                     tree_map_with_path)
@@ -100,7 +106,9 @@ class OnebitTrainStep:
         self.topo = topology
         self.group = topology.data_group
         self.cfg = cfg
+        # the data-parallel world, data · subdata (the batch group)
         self.world = topology.dp_size
+        self.inner = getattr(topology, "subdata_size", 1)
         self.gas = gas
         self.loss_fn = loss_fn
         self.grad_clip = grad_clip
@@ -165,9 +173,7 @@ class OnebitTrainStep:
             m, v = state["m"], state["v"]
             b1, b2 = _f32(cfg.beta1, g), _f32(cfg.beta2, g)
             if cfg.variant == "qgz":
-                shard = _quant_chunked_reduce(g, self.group, world,
-                                              QGZ_GROUP)
-                g = comm.all_gather(shard, 0, self.group)
+                g = self._qgz_mean(g)
                 m.copy_(b1 * m + (1 - b1) * g)
                 v.copy_(b2 * v + (1 - b2) * g * g)
             elif step <= cfg.freeze_step:
@@ -193,6 +199,24 @@ class OnebitTrainStep:
                     self.grad_clip / (gnorm + 1e-6), max=1.0)
             self._apply(leaves, update, _f32(lr, m))
         return loss
+
+    def _qgz_mean(self, g: torch.Tensor) -> torch.Tensor:
+        """qgZ's mean of the ranks' flat gradients ``g``: one level of
+        int8 all-to-all reduction over the data group, or two over a
+        factored data axis (the inner group, then the outer), each rank's
+        chunk then all-gathered (outer first)."""
+        topo = self.topo
+        if self.inner <= 1:
+            shard = _quant_chunked_reduce(g, self.group, self.world,
+                                          QGZ_GROUP)
+            return comm.all_gather(shard, 0, self.group)
+        outer = self.world // self.inner
+        shard, _meta = all_to_all_quant_reduce(
+            g, topo.inner_group, topo.outer_group, self.inner, outer,
+            QGZ_GROUP)
+        if outer > 1:
+            shard = comm.all_gather(shard, 0, topo.outer_group)
+        return comm.all_gather(shard, 0, topo.inner_group)
 
     def _apply(self, leaves, update: torch.Tensor, lr: torch.Tensor) -> None:
         cfg = self.cfg

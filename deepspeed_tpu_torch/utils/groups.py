@@ -27,8 +27,11 @@ def _topo() -> MeshTopology:
 
 # -- data parallel ----------------------------------------------------
 def get_data_parallel_group():
-    """The data axis's group (ZeRO reduces gradients and partitions state
-    over the data and seq axes, the whole world)."""
+    """The data-parallel group: data × subdata (the JAX package's
+    ``BATCH_AXES``; subdata is above one under hpZ and MiCS, which factor
+    the data axis).  ZeRO reduces gradients and partitions state over the
+    data, subdata and seq axes, the whole world, or hpZ's and MiCS's
+    inner group."""
     topo = _topo()
     return topo.data_group if topo.dp_size > 1 else None
 
@@ -105,7 +108,7 @@ def _get_expert_parallel_rank(group_name: str = "") -> int:
 
 
 def _get_expert_data_parallel_group(group_name: str = ""):
-    """DP-within-experts: the data axis (the expert axis is one)."""
+    """DP-within-experts: data × subdata (the expert axis is one)."""
     return get_data_parallel_group()
 
 

@@ -2,18 +2,21 @@
 
 Port of ``deepspeed_tpu/zero.py`` (the reference's ``deepspeed.zero``):
 
+* :class:`Split` says where a rank's tensor lies in its full leaf: cut
+  along one dim over one group (the ZeRO world, or hpZ's and MiCS's inner
+  group), or twice (hpZ's optimizer state: over the inner group, then its
+  chunk over the outer group).
 * :class:`Init` partitions a full parameter tree by the
   :class:`~deepspeed_tpu_torch.resilience.oracle.PartitionOracle`, so each
-  rank keeps only its shard of each leaf over the ZeRO world (the data
-  and seq axes: the whole world, ``MeshTopology.rank``/``world_size``;
-  the JAX ``Init``
-  materialises straight into the ZeRO-3 shardings over ``ZERO_AXES``; the
-  port builds the full tree once and keeps a copy of its slice).  Each shard carries ``ds_shard_dim`` and
-  ``ds_full_shape``, as the reference tags its partitioned parameters.
+  rank keeps only its shard of each leaf over the oracle's group (the JAX
+  ``Init`` materialises straight into the ZeRO-3 shardings; the port
+  builds the full tree once and keeps a copy of its slice).  Each shard
+  carries ``ds_shard_dim``, ``ds_full_shape`` and ``ds_split``, as the
+  reference tags its partitioned parameters.
 * :class:`GatheredParameters` gathers full host copies of a partitioned
   tree, and its ``updated`` tree puts edits back as the params are held
   (:func:`gathered_update` is its functional form).  Every rank of the
-  group must enter it, as in the reference.
+  groups must enter it, as in the reference.
 * The memory estimators of ZeRO-2 and ZeRO-3's model states.
 * The stage-3 gather (:class:`ParamGather`) and its gradients
   (:class:`Stage3Reducer`).  A gathered leaf is an autograd ``Function``
@@ -38,6 +41,7 @@ Port of ``deepspeed_tpu/zero.py`` (the reference's ``deepspeed.zero``):
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -46,7 +50,8 @@ import torch.distributed as dist
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm import quantized as wire
 from deepspeed_tpu_torch.parallel import zeropp
-from deepspeed_tpu_torch.parallel.topology import MeshTopology, get_topology
+from deepspeed_tpu_torch.parallel.topology import (Level, MeshTopology,
+                                                   get_topology)
 from deepspeed_tpu_torch.resilience.oracle import PartitionOracle
 
 
@@ -62,17 +67,67 @@ def _tree_map2(fn, a, b, path=()):
     return fn(path, a, b)
 
 
-def shard_of(full: torch.Tensor, dim: Optional[int], rank: int,
-             world: int) -> torch.Tensor:
-    """This rank's slice of ``full`` along ``dim`` (a contiguous copy,
-    tagged with its dim and the full shape); ``full`` itself when ``dim``
-    is None."""
-    if dim is None:
+class Split(NamedTuple):
+    """Where a rank's tensor lies in its full leaf: the leaf is cut along
+    ``dim`` into ``levels[0].size`` equal chunks and this rank keeps chunk
+    ``levels[0].index``; that chunk is cut by ``levels[1]``, and so on.
+    ``replicas``: whether other ranks hold the same slice (MiCS's outer
+    data axis); ``writer``: whether this rank writes the slice to a
+    checkpoint (one replica of each)."""
+    dim: int
+    levels: Tuple[Level, ...]
+    replicas: bool = False
+    writer: bool = True
+
+    @property
+    def parts(self) -> int:
+        """How many slices the leaf is cut into."""
+        return math.prod(lv.size for lv in self.levels)
+
+    @property
+    def index(self) -> int:
+        """This rank's slice among :attr:`parts`, in leaf order."""
+        i = 0
+        for lv in self.levels:
+            i = i * lv.size + lv.index
+        return i
+
+    def slice(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``full`` (a view)."""
+        for lv in self.levels:
+            full = full.chunk(lv.size, dim=self.dim)[lv.index]
         return full
-    shard = full.detach().chunk(world, dim=dim)[rank].clone(
+
+    def bounds(self, n: int) -> Tuple[int, int]:
+        """This rank's ``[start, stop)`` along a full dim of ``n``."""
+        k = n // self.parts
+        return self.index * k, (self.index + 1) * k
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The full leaf from every rank's slice ``t``: one all-gather a
+        level, the last level's first."""
+        for lv in reversed(self.levels):
+            t = comm.all_gather(t, self.dim, lv.group)
+        return t
+
+    def then(self, other: "Split") -> "Split":
+        """This split's slice cut again by ``other``'s levels (on the same
+        dim)."""
+        return Split(self.dim, self.levels + other.levels, other.replicas,
+                     other.writer)
+
+
+def take(full: torch.Tensor, split: Optional[Split]) -> torch.Tensor:
+    """This rank's slice of ``full`` (a contiguous copy tagged with its dim,
+    the full shape and ``split``); ``full`` itself when ``split`` is
+    None."""
+    if split is None:
+        return full
+    shard = split.slice(full.detach()).clone(
         memory_format=torch.contiguous_format)
-    shard.ds_shard_dim = dim
+    shard.ds_shard_dim = split.dim
     shard.ds_full_shape = tuple(full.shape)
+    shard.ds_split = split
     return shard
 
 
@@ -109,43 +164,46 @@ class Init:
         if self.oracle is None:
             raise RuntimeError("zero.Init used outside its context")
         dims = self.oracle.param_specs(params)
-        topo = self.topology
-        return _tree_map2(lambda _p, x, d: shard_of(x, d, topo.rank,
-                                                    topo.world_size),
-                          params, dims)
+        split = param_split(self.topology, self.oracle)
+        return _tree_map2(lambda _p, x, d: take(x, split(d)), params, dims)
 
 
-def _zero_group(group):
-    if group is None:
-        topo = get_topology()
-        group = topo.world_group if topo is not None else None
-    return group
+def param_split(topo: MeshTopology, oracle: PartitionOracle) -> Callable:
+    """``dim -> Split`` (None for None) of a stage-3 param over the
+    oracle's param group: the world, or hpZ's and MiCS's inner group, whose
+    outer replicas (MiCS and hpZ alike) write no checkpoint slice."""
+    kind = oracle.group_of(param_style=True)
+    level = topo.level(kind)
+    replicas = kind == "inner" and topo.outer_size > 1
+    writer = not replicas or topo.outer_rank == 0
+
+    def split(dim):
+        return None if dim is None else Split(dim, (level,), replicas, writer)
+
+    return split
 
 
-def _full_copies(params, group):
+def _full_copies(params):
     def full(_path, x):
-        dim = getattr(x, "ds_shard_dim", None)
+        split = getattr(x, "ds_split", None)
         x = x.detach()
-        if dim is not None:
-            x = comm.all_gather(x, dim, group)
+        if split is not None:
+            x = split.gather(x)
         return x.cpu().clone()
 
     return _tree_map(full, params)
 
 
-def _scatter_back(orig, edited, group):
+def _scatter_back(orig, edited):
     """Each leaf of ``edited`` (full values: tensors or arrays) put back as
-    its ``orig`` leaf is held: this rank's slice of a leaf tagged
-    ``ds_shard_dim`` (tagged alike), the whole value otherwise, in the
-    original dtype and on the original device."""
-    world = dist.get_world_size(group) if dist.is_initialized() else 1
-    rank = dist.get_rank(group) if dist.is_initialized() else 0
-
+    its ``orig`` leaf is held: this rank's slice of a tagged shard (tagged
+    alike), the whole value otherwise, in the original dtype and on the
+    original device."""
     def put_back(_path, o, new):
-        dim = getattr(o, "ds_shard_dim", None)
+        split = getattr(o, "ds_split", None)
         full = torch.as_tensor(new).to(device=o.device, dtype=o.dtype,
-                                       copy=dim is None)
-        return shard_of(full, dim, rank, world)
+                                       copy=split is None)
+        return take(full, split)
 
     return _tree_map2(put_back, orig, edited)
 
@@ -157,39 +215,37 @@ class GatheredParameters:
             ...   # full: the same tree of full CPU tensors, editable
         new = ctx.updated   # the edits, put back as the params are held
 
-    A leaf tagged ``ds_shard_dim`` is all-gathered over ``group`` (default:
-    the ZeRO group of the live topology); any other leaf is copied as it
-    is.  Every rank of the group must enter the context.  The tensors are
+    A leaf tagged ``ds_split`` is gathered through its split (its groups:
+    the ZeRO world, or hpZ's and MiCS's inner group); any other leaf is
+    copied as it is.  Every rank of the groups must enter the context.
+    The tensors are
     functional, as in the JAX package: edits do not write into the
     params; after the block ``updated`` holds the edited tree re-scattered
     (each rank's slice of a split leaf, on its device and in its dtype).
     ``modifier_rank`` is accepted and, as in the JAX package, every rank's
     own edits are kept."""
 
-    def __init__(self, params, modifier_rank: Optional[int] = 0, group=None):
+    def __init__(self, params, modifier_rank: Optional[int] = 0):
         self._orig = params
-        self._group = group
         self.params = None
         self.updated = None
 
     def __enter__(self):
-        self._group = _zero_group(self._group)
-        self.params = _full_copies(self._orig, self._group)
+        self.params = _full_copies(self._orig)
         return self.params
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            self.updated = _scatter_back(self._orig, self.params, self._group)
+            self.updated = _scatter_back(self._orig, self.params)
         return None
 
 
-def gathered_update(params, edit_fn: Callable, group=None):
+def gathered_update(params, edit_fn: Callable):
     """The functional form of :class:`GatheredParameters`: gather, edit
     the full host copies with ``edit_fn`` (which returns the edited tree),
     re-scatter; returns the updated tree."""
-    group = _zero_group(group)
-    edited = edit_fn(_full_copies(params, group))
-    return _scatter_back(params, edited, group)
+    edited = edit_fn(_full_copies(params))
+    return _scatter_back(params, edited)
 
 
 # ----------------------------------------------------------------------

@@ -569,7 +569,7 @@ def test_engine_modes_match_the_jax_data_mesh(mode):
 
 def test_int8_wire_moves_fewer_bytes_than_the_fp32_control():
     """The JAX commquant acceptance check's byte reduction (>= 3×) between
-    the explicit fp32 wire and the int8 wire, from ``comm.nbytes``
+    the explicit fp32 wire and the int8 wire, from ``comm.nbytes()``
     (exactly 4 / (1 + 4 / 256) for groups of 256), over 2 ranks."""
     batch = _batch(8)
     runs = [{"name": m, "model": "gpt2-tiny", "cfg": _mode_cfg(m),
@@ -728,17 +728,37 @@ def test_gates_over_two_ranks_refuse_as_jax_does(monkeypatch):
         assert np.isfinite(got["losses"]).all()
 
 
-def test_hpz_mics_and_nontrainable_weights_still_raise():
+def test_hpz_mics_and_nontrainable_weights_still_raise(monkeypatch):
+    """The keys are accepted as the JAX config accepts them (the flags
+    nothing reads are logged as ignored); hpZ and MiCS over a data world
+    their shard size does not divide still raise, the JAX engine's
+    ``ValueError``."""
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    from deepspeed_tpu_torch.runtime import config as tconfig
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
+    seen = []
+    monkeypatch.setattr(tconfig.logger, "warning",
+                        lambda msg, *a, **k: seen.append(str(msg)))
     for zc in ({"stage": 3, "zero_hpz_partition_size": 2},
                {"stage": 3, "mics_shard_size": 2},
                {"stage": 3, "zero_quantized_nontrainable_weights": True},
                {"stage": 1, "zero_quantized_gradients": True,
                 "zero_hpz_partition_size": 2}):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            DeepSpeedConfig({"train_micro_batch_size_per_gpu": 1,
-                             "zero_optimization": zc})
+        cfg = {"train_micro_batch_size_per_gpu": 1, "zero_optimization": zc,
+               "mesh": {"data": 1}}
+        mine, theirs = DeepSpeedConfig(cfg), JaxConfig(cfg)
+        for key, v in zc.items():
+            assert getattr(mine.zero_config, key) == \
+                getattr(theirs.zero_config, key) == v, key
+        if zc.get("zero_hpz_partition_size", 1) > 1 or \
+                zc.get("mics_shard_size", 0) > 0:
+            with pytest.raises(ValueError, match="data-parallel world 1 not "
+                               "divisible by secondary partition size 2"):
+                dst.initialize(model=get_model_config("gpt2-tiny"),
+                               config=cfg, device="cpu")
+    assert any("zero_quantized_nontrainable_weights" in w and "ignored" in w
+               for w in seen), seen
 
 
 def test_config_reads_the_reduction_keys_as_jax_does():

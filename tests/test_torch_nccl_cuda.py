@@ -1,10 +1,12 @@
 """The port's data parallelism over NCCL, one H100 a rank: ZeRO stages 1-3
 at ``{"data": 4}`` (stage 3 also with the gather window at depth 2 over
-buckets of about a third of a layer's gradients, and with the int8
-weight gather, qwZ) and stages 1-2 at ``{"data": 2, "seq": 2}`` (the
-ring, striped), each against one engine on the CPU at data 1 on the same
-global batch (for qwZ, ZeRO-3 with qwZ at data 1: the codec's round trip
-on every leaf), and the flat buckets against the per-leaf collectives.
+buckets of about a third of a layer's gradients, with the int8 weight
+gather, qwZ, and over the data axis factored into outer 2 x inner 2 by
+hpZ 2 and by MiCS 2, whose weight gathers run over the inner group only)
+and stages 1-2 at ``{"data": 2, "seq": 2}`` (the ring, striped), each
+against one engine on the CPU at data 1 on the same global batch (for
+qwZ, ZeRO-3 with qwZ at data 1: the codec's round trip on every leaf),
+and the flat buckets against the per-leaf collectives.
 
 The model is ``chip_smoke.py``'s mesh-reference model (llama3-8b's head
 dim 128 and GQA group 4 at width 1024, 2 layers, fp32, seq 512).  Losses
@@ -60,12 +62,16 @@ PARAMS_RTOL = 1e-6
 # name: (mesh, ZeRO stage, reduce_bucket_size, extra keys)
 DEPTH2 = {"step_schedule": {"gather_prefetch_depth": 2}}
 QWZ = {"zero_optimization": {"zero_quantized_weights": True}}
+HPZ = {"zero_optimization": {"zero_hpz_partition_size": 2}}
+MICS = {"zero_optimization": {"mics_shard_size": 2}}
 CONFIGS = {"data4-stage1": ({"data": 4}, 1, 500_000_000, {}),
            "data4-stage1-per-leaf": ({"data": 4}, 1, 1, {}),
            "data4-stage2": ({"data": 4}, 2, 500_000_000, {}),
            "data4-stage3": ({"data": 4}, 3, 500_000_000, {}),
            "data4-stage3-prefetch2": ({"data": 4}, 3, 4_000_000, DEPTH2),
            "data4-stage3-qwz": ({"data": 4}, 3, 500_000_000, QWZ),
+           "data4-stage3-hpz2": ({"data": 4}, 3, 500_000_000, HPZ),
+           "data4-stage3-mics2": ({"data": 4}, 3, 500_000_000, MICS),
            "data2xseq2-stage1": ({"data": 2, "seq": 2}, 1, 500_000_000, {}),
            "data2xseq2-stage2": ({"data": 2, "seq": 2}, 2, 500_000_000, {})}
 U = 2.0 ** -24
@@ -215,6 +221,7 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     import deepspeed_tpu_torch as ds
     from deepspeed_tpu_torch import zero
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import get_model_config
 
     model = get_model_config(MODEL, **MODEL_KW)
@@ -222,10 +229,15 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
     for name, cfg in configs.items():
         eng, *_ = ds.initialize(model=model, config=cfg,
                                 model_parameters=params, device=device)
+        comm.clear_counts()
         losses, norms = [], []
         for _ in range(STEPS):
             losses.append(float(eng.train_batch(batch)))
             norms.append(eng.get_global_grad_norm())
+        gathers = {g: ops["all_gather"] for g, ops in comm.group_calls.items()
+                   if ops.get("all_gather")}
+        # the stepped slices of the masters nested in a param slice
+        stepped = STEPS * sum(pl.rel is not None for pl in eng._places)
         with zero.GatheredParameters(eng.params) as full:
             gathered = _tree_cpu(full) if rank == 0 else None
         out["runs"][name] = {"losses": losses, "grad_norms": norms,
@@ -234,6 +246,7 @@ def nccl_ranks(rank, world, params, configs, batch, device=None):
                              "buckets": eng.grad_bucket_count,
                              "stage3_buckets": eng.stage3_buckets,
                              "depth": eng._prefetch_depth, "qwz": eng._qwz,
+                             "gathers": gathers, "stepped": stepped,
                              "params": gathered}
         del eng
         if device is None:
@@ -327,6 +340,12 @@ def test_zero_over_nccl_matches_the_cpu_engine(name, nccl_run):
             assert loss == pytest.approx(wl, rel=RTOL)
             assert norm == pytest.approx(wn, rel=RTOL)
         assert got["losses"] == ranks[0]["runs"][name]["losses"]
+        if extra in (HPZ, MICS):
+            # the weight gathers over the inner group only; over the outer
+            # group only hpZ's stepped slices
+            assert set(got["gathers"]) <= {"inner", "outer"}, got["gathers"]
+            assert got["gathers"].get("outer", 0) == got["stepped"]
+            assert (got["stepped"] > 0) == (extra is HPZ)
     assert params_rel(ranks[0]["runs"][name]["params"], final) <= PARAMS_RTOL
     got = ranks[0]["runs"][name]
     assert got["depth"] == extra.get("step_schedule", {}).get(

@@ -305,18 +305,17 @@ def test_unread_config_keys_are_logged_and_ignored(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     {"fp16": {"enabled": True}},
-    {"zero_optimization": {"stage": 2, "zero_hpz_partition_size": 2}},
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
     {"mesh": {"data": 2, "tensor": 2}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"activation_checkpointing": {"remat_policy": "dots_flash_saveable"}},
-    {"zero_optimization": {"stage": 3,
-                           "zero_quantized_nontrainable_weights": True}},
+    {"data_types": {"grad_accum_dtype": "bf16"}},
     {"telemetry": {"enabled": True}},
     {"optimizer": {"type": "Lamb", "params": {"lr": 1e-4}}},
     {"optimizer": {"type": "Adam", "params": {"adam_w_mode": False}}},
-], ids=["fp16", "zero2", "offload", "mesh", "tp", "named-remat", "commq",
-        "telemetry", "lamb", "adam-l2"])
+], ids=["fp16", "offload-param", "offload", "mesh", "tp", "named-remat",
+        "grad-accum-bf16", "telemetry", "lamb", "adam-l2"])
 def test_unported_features_raise_naming_the_roadmap(extra):
     cfg = {"train_micro_batch_size_per_gpu": 2, **extra}
     with pytest.raises(NotImplementedError, match="ROADMAP"):

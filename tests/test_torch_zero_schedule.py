@@ -39,15 +39,19 @@ devices.
   ``zero.gathered_update`` against the JAX functions, and the memory
   estimators.
 * The schedule and qwZ keys: accepted, and rejected with the JAX config's
-  messages; quantized gradients, hpZ and MiCS still raise.
+  messages; hpZ and MiCS over a data world their shard size does not
+  divide raise the JAX engine's ``ValueError``.
 """
 
 import jax
 import numpy as np
 import pytest
 
+import deepspeed_tpu as dsj
+import deepspeed_tpu_torch as dst
 from deepspeed_tpu import zero as jzero
 from deepspeed_tpu.models import get_model_config as jax_model_config
+from deepspeed_tpu.parallel import topology as jtopology
 from deepspeed_tpu.runtime.config import (DeepSpeedConfig as JaxConfig,
                                           DeepSpeedConfigError as JaxConfigError)
 from deepspeed_tpu_torch import zero
@@ -394,5 +398,22 @@ def test_schedule_keys_rejected_as_jax_does(block, match):
     {"stage": 3, "mics_shard_size": 2},
 ], ids=["qgz", "hpz", "mics"])
 def test_the_rest_of_zeropp_still_raises(zc):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        DeepSpeedConfig(_config(zero_optimization=zc))
+    """The hierarchical keys are accepted as the JAX config accepts them
+    (``test_torch_zeropp_hier.py`` trains them); what still raises is the
+    JAX engine's ``ValueError`` for a data world the shard size does not
+    divide (data 1 here), with its message."""
+    cfg = _config(zero_optimization=zc)
+    assert DeepSpeedConfig(cfg).zero_config.stage == \
+        JaxConfig(cfg).zero_config.stage
+    want = ""
+    try:
+        dsj.initialize(model=jax_model_config("gpt2-tiny"),
+                       config={**cfg, "mesh": {"data": 1}})
+    except ValueError as e:
+        want = str(e)
+    finally:
+        jtopology.set_topology(None)
+    assert "not divisible by secondary partition size 2" in want, want
+    with pytest.raises(ValueError, match=want):
+        dst.initialize(model=get_model_config("gpt2-tiny"), config=cfg,
+                       device="cpu")

@@ -34,7 +34,7 @@ def collectives(rank, world, cases):
       of the shard (with ``tree_meta``).
 
     Returns per case a list of numpy outputs, and the bytes recorded a
-    case under each op name (``comm.nbytes``)."""
+    case under each op name (``comm.nbytes()``)."""
     torch.set_num_threads(1)
     from deepspeed_tpu_torch.comm import coalesced_collectives as cc
     from deepspeed_tpu_torch.comm import comm
@@ -43,7 +43,7 @@ def collectives(rank, world, cases):
 
     out = []
     for case in cases:
-        comm.nbytes.clear()
+        comm.clear_counts()
         x = torch.tensor(case["x"][rank])
         op = case["op"]
         if op in ("rs", "ar"):
@@ -93,7 +93,7 @@ def collectives(rank, world, cases):
                         "w": back["a"]["w"].numpy().copy()})
         else:
             raise ValueError(op)
-        out[-1]["nbytes"] = dict(comm.nbytes)
+        out[-1]["nbytes"] = comm.nbytes()
     return out
 
 
@@ -103,7 +103,7 @@ def engine_runs(rank, world, runs):
     ``batch`` and ``steps``.  Per run: the losses and grad norms of each
     ``train_batch``, the reduction modes the engine's gates chose, the
     warnings it logged, the bytes a step under each op name of the last
-    step (``comm.nbytes``) and the params after the steps, gathered
+    step (``comm.nbytes()``) and the params after the steps, gathered
     (rank 0's tree, and every rank's checksum of it)."""
     torch.set_num_threads(1)
     import deepspeed_tpu_torch as ds
@@ -127,7 +127,7 @@ def engine_runs(rank, world, runs):
                                     model_parameters=run.get("params"))
             losses, norms = [], []
             for _ in range(run["steps"]):
-                comm.nbytes.clear()
+                comm.clear_counts()
                 losses.append(float(eng.train_batch(run["batch"])))
                 norms.append(eng.get_global_grad_norm())
             with zero.GatheredParameters(eng.params) as full:
@@ -141,7 +141,7 @@ def engine_runs(rank, world, runs):
                           "residual": getattr(eng, "_quant_residual", None)
                           is not None,
                           "scatter_buckets": len(eng._scatter_buckets)},
-                "nbytes": dict(comm.nbytes),
+                "nbytes": comm.nbytes(),
                 "warnings": list(warned),
                 "checksum": float(sum(float(np.sum(p, dtype=np.float64))
                                       for p in tf.tree_leaves(params))),

@@ -111,9 +111,9 @@ def engine_runs(rank, world, runs):
             norms.append(eng.get_global_grad_norm())
         with zero.GatheredParameters(eng.params) as full:
             params = _numpy_tree(full)
-        views = all(comm._views_of([eng._leaves[i][0].grad for i in idx], flat)
+        views = all(comm._views_of([eng._leaves[i].grad for i in idx], flat)
                     for idx, flat in eng._reduce_buckets)
-        dropped = all(eng._leaves[i][0].grad is None
+        dropped = all(eng._leaves[i].grad is None
                       for idx, _dims, _acc in eng._scatter_buckets
                       for i in idx)
         mc = eng.model_config

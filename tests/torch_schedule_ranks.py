@@ -21,7 +21,7 @@ def schedule_runs(rank, world, runs):
     ``model_kw``, ``params`` (a full tree of CPU tensors, or None),
     ``cfg``, ``batch`` and ``steps``.  Per run: the losses and grad norms
     of each ``train_batch``; per step the collectives issued
-    (``comm.calls``), the stage-3 gradients in the order the reducer got
+    (``comm.calls()``), the stage-3 gradients in the order the reducer got
     them (their sizes), the reducer's buckets a micro-step, the elements
     of each reduce-scattered bucket, and the buffers every all-gather
     moved (dtype, elements); the engine's
@@ -71,12 +71,11 @@ def schedule_runs(rank, world, runs):
                                     model_parameters=run.get("params"))
             losses, norms, steps = [], [], []
             for _ in range(run["steps"]):
-                for k in comm.calls:
-                    comm.calls[k] = 0
+                comm.clear_counts()
                 del arrived[:], moved[:], buckets[:]
                 losses.append(float(eng.train_batch(run["batch"])))
                 norms.append(eng.get_global_grad_norm())
-                steps.append({"calls": dict(comm.calls),
+                steps.append({"calls": comm.calls(),
                               "arrived": list(arrived),
                               "buckets": eng.stage3_buckets,
                               "bucket_sizes": list(buckets),

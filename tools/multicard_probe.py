@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's training steps over NCCL, one H100 a rank.
 
-    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl] [--only commquant]
+    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl] [--only commquant|zeropp]
 
 Needs four CUDA cards.  Runs, each in ranks started by
 ``deepspeed_tpu_torch.launcher.launch(..., backend="nccl")``:
@@ -19,17 +19,22 @@ Needs four CUDA cards.  Runs, each in ranks started by
   row_gpt2_350m_commquant: gpt2-350m, ZeRO-1, gas 2) at data 4 with
   ``grad_reduce`` int8 (error feedback) and with the explicit fp32 wire,
   its control (``--only commquant`` runs these alone), with the bytes a
-  step of each op name (``comm.nbytes``).
+  step of each op name (``comm.nbytes()``);
+* ``chip_smoke.py``'s ZeRO-3 gpt2-350m step (``ZERO_CFG`` without the
+  fused gather-matmul, which hpZ and MiCS refuse; gather depth 2) at data
+  4: plain, hpZ 2 and MiCS 2 (``--only zeropp`` runs these alone), with
+  the collectives and bytes a step by group (inner, outer, world).
 
 For each: the first step's seconds on a line of its own (NCCL makes a
 group's communicator at its first collective), the seconds of the timed
 steps (the slower rank's), tokens/s, peak memory a rank, the collectives
-issued a step (``comm.calls``: reduce-scatters, all-gathers,
+issued a step (``comm.calls()``: reduce-scatters, all-gathers,
 all-reduces), and from one profiled step on rank 0: device busy (the union
 of every stream's kernels) and idle share, the device ms of the NCCL
 kernels (``nccl*``, read from the raw kineto events) and of each ported
 kernel, the compute kernels' ms that overlap NCCL kernels, and the host
-ms in the comm layer's ranges.
+ms in the comm layer's ranges, and the NCCL kernels' device ms by the
+group of the collective that launched them (``comm.group.<name>``).
 Prints one JSON line a run, the cards' ``nvidia-smi`` lines first; writes
 the same lines to ``--out``.
 """
@@ -88,6 +93,33 @@ def _overlap_ms(spans, others):
     return ns / 1e6
 
 
+def _nccl_ms_by_group(prof):
+    """Device ms of the NCCL kernels by the group of the collective that
+    issued them: a kernel's launch (the host event of its correlation id)
+    lies inside that collective's ``comm.group.<name>`` range."""
+    from torch.autograd import DeviceType
+
+    ranges, launched, kernels = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        corr = e.correlation_id()
+        if e.device_type() == DeviceType.CPU:
+            if e.name().startswith("comm.group."):
+                ranges.append((e.start_ns(), e.end_ns(),
+                               e.name()[len("comm.group."):]))
+            elif corr and e.name().startswith("cu"):   # the launch API
+                launched[corr] = e.start_ns()
+        elif e.name().startswith("nccl") and not e.is_user_annotation():
+            # (a range's device-side copy, nccl:<op>, is no kernel)
+            kernels.append((corr, e.end_ns() - e.start_ns()))
+    out = {}
+    for corr, ns in kernels:
+        t = launched.get(corr)
+        name = next((g for a, b, g in ranges if t is not None and a <= t <= b),
+                    "unattributed")
+        out[name] = out.get(name, 0.0) + ns / 1e6
+    return out
+
+
 def profile_step(step):
     """One ``step()`` under torch.profiler, read from its raw kineto
     events: wall ms, device busy ms over every stream, NCCL ms, compute
@@ -128,6 +160,7 @@ def profile_step(step):
             "gemm_ms": sum(v for n, v in by_name.items()
                            if any(x in n for x in ("gemm", "nvjet", "cutlass",
                                                    "xmma"))),
+            "nccl_ms_by_group": _nccl_ms_by_group(prof),
             "collectives": cs.comm_ms(events, names=COLLECTIVES)}
 
 
@@ -163,8 +196,8 @@ def probe_rank(rank, world, cases, steps):
         losses = [float(eng.train_batch(batch))]
         first_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
-        cs.zero_counts(*counters, comm.calls)
-        comm.nbytes.clear()
+        cs.zero_counts(*counters)
+        comm.clear_counts()
         step_s = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -178,9 +211,16 @@ def probe_rank(rank, world, cases, steps):
                "launches_per_step": {k: v / steps for c in counters
                                      for k, v in c.items() if v},
                "collective_calls_per_step": {k: v / steps for k, v in
-                                             comm.calls.items()},
+                                             comm.calls().items()},
                "bytes_per_step": {k: v / steps for k, v in
-                                  comm.nbytes.items()},
+                                  comm.nbytes().items()},
+               "calls_per_step_by_group": {
+                   g: {k: v / steps for k, v in ops.items()}
+                   for g, ops in comm.group_calls.items()},
+               "bytes_per_step_by_group": {
+                   g: {k: v / steps for k, v in ops.items()}
+                   for g, ops in comm.group_nbytes.items()},
+               "secondary": eng._secondary_mode,
                "stage3_buckets_per_micro_step": eng.stage3_buckets,
                "gather_prefetch_depth": eng._prefetch_depth,
                "max_memory_allocated_gib":
@@ -213,6 +253,20 @@ def commquant_cases(world):
              "model_kw": {}, "seq": cs.TRAIN_SEQ,
              "cfg": {**cs.DPQ_CFG, **cs.DPQ_RUNS[wire],
                      "mesh": {"data": world}}} for wire in ("int8", "fp32")]
+
+
+def zeropp_cases():
+    """ZeRO-3 on gpt2-350m at data 4, unfused (hpZ and MiCS refuse the
+    fused gather-matmul): plain, hpZ 2, MiCS 2."""
+    base = {**cs.ZERO_CFG, "mesh": {"data": 4},
+            "step_schedule": {"gather_prefetch_depth": 2}}
+    return [{"name": f"zeropp-data4-{name}", "model": cs.TRAIN_MODEL,
+             "model_kw": {}, "seq": cs.TRAIN_SEQ,
+             "cfg": {**base, "zero_optimization": {
+                 **base["zero_optimization"], **extra}}}
+            for name, extra in (("plain", {}),
+                                ("hpz2", {"zero_hpz_partition_size": 2}),
+                                ("mics2", {"mics_shard_size": 2}))]
 
 
 def cases_for(world, layer):
@@ -251,7 +305,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "multicard_probe.jsonl"))
-    ap.add_argument("--only", choices=("all", "commquant"), default="all")
+    ap.add_argument("--only", choices=("all", "commquant", "zeropp"),
+                    default="all")
     args = ap.parse_args()
     import torch
 
@@ -278,9 +333,11 @@ def main() -> int:
     emit({"build_s": time.perf_counter() - t0})
     layer = layer_elements() if args.only == "all" else None
     for world in (2, 4):
-        cases = [] if args.only == "commquant" else cases_for(world, layer)
-        if world == 4:
+        cases = cases_for(world, layer) if args.only == "all" else []
+        if world == 4 and args.only in ("all", "commquant"):
             cases += commquant_cases(world)
+        if world == 4 and args.only in ("all", "zeropp"):
+            cases += zeropp_cases()
         if not cases:
             continue
         t0 = time.perf_counter()
@@ -315,6 +372,11 @@ def main() -> int:
                   "collective_calls_per_step_rank0":
                       per[0]["collective_calls_per_step"],
                   "bytes_per_step_rank0": per[0]["bytes_per_step"],
+                  "secondary": per[0]["secondary"],
+                  "calls_per_step_by_group_rank0":
+                      per[0]["calls_per_step_by_group"],
+                  "bytes_per_step_by_group_rank0":
+                      per[0]["bytes_per_step_by_group"],
                   "profile_rank0": per[0]["profile"]})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("\n".join(lines) + "\n")
