@@ -92,11 +92,23 @@ Phases, each printing JSON lines:
                and each rank's dq and the dk/dv carried back to their
                block's owner against flash_bwd_ref, over the unsplit 2048
                positions;
+ 17c. fpdt-kernel — chunked_attention with K/V parked in pinned host
+               memory at llama3-8b's heads (bf16, seq 32768, chunk 4096,
+               causal), forward and backward: one launch of each ring hop
+               kernel a live chunk pair (36 each, wgmma), against
+               flash_attention and (forward) its plain version, with peak
+               memory and times;
  18. ring-reference — the ring engine (llama3-8b head geometry at hidden
                1024, 2 layers, fp32, seq 512, ZeRO-2 over the seq axis) in
                two ranks sharing the card over gloo against the same engine
                in this process on the CPU at sp 1, two steps, both
-               placements, with each rank's launches;
+               placements, with each rank's launches; the same card ranks
+               at ring_interleave 2 give the bits of interleave 1 on the
+               fp32 and the int8 wire; then in
+               the same card ranks and two CPU ranks, ulysses-reference
+               (that model with seq_impl "ulysses", untiled and with loss
+               tiles, card against CPU ranks, all_to_all bytes, launches)
+               and fpdt-reference (FPDTAttention over the ranks);
  18b. mesh-reference — that engine in four ranks sharing the card over
                gloo at {"data": 2, "seq": 2} (striped), ZeRO stages 1, 2
                and 3 in one launch, against one CPU engine at data 1 on the
@@ -104,13 +116,16 @@ Phases, each printing JSON lines:
  19. ring-train — llama3-8b at full width, 2 layers, seq 8192 striped over
                two ranks sharing the card (bench.py's longseq_ring step:
                micro 1, gas 2, bf16, AdamW, clip 1.0, ZeRO-2 over the seq
-               axis): a warm-up step, one timed step whose launch counts a
-               rank show the ring kernels, AdamW and nothing else, every
-               carry, dq and dk/dv launch on its wgmma route, the flat
-               buckets the gradients are reduced through, and a profiled
+               axis, loss_tiles 32; ring_interleave 2): a warm-up step, one
+               timed step whose launch counts a rank show the ring
+               kernels, AdamW and nothing else, every carry, dq and dk/dv
+               launch on its wgmma route, the flat buckets the gradients
+               are reduced through, peak memory a rank, and a profiled
                step on rank 0 (device busy share, and the host time inside
                the comm layer's ranges); then, in the same ranks,
-               ring-train-int8 (the int8 wire);
+               ring-train-int8 (the int8 wire, interleave 1) and
+               ulysses-train (seq_impl "ulysses": the flash kernels on
+               wgmma, all_to_all bytes a step, MFU);
  20. gemm-kernels — gather_matmul (the ZeRO-3 fused MLP's GEMM) against
                its plain version in bf16 and fp32: the gpt2-350m MLP at
                micro 8 x seq 1024 (forward wi and wo, and the backward's
@@ -339,8 +354,10 @@ LINEAR_UPDATE_RTOL = 0.05
 # (llama3-8b's max_seq_len) over two ranks sharing the card, at the row's
 # ZeRO stage 2 over the seq axis (state and gradients split over the two
 # ranks, each micro-step's gradients reduce-scattered through the flat
-# buckets).  The row's loss_tiles=32 runs untiled (ROADMAP A9).  One timed
-# step (two before the dp-quant phases joined the script, three before
+# buckets).  The row's loss_tiles=32 runs tiled (ALST's tiled loss), the
+# fp32 wire at step_schedule.ring_interleave 2 (each hop's rotation in
+# flight while it attends), the int8 wire at 1.  One timed step (two
+# before the dp-quant phases joined the script, three before
 # mesh-reference).
 RING_MODEL = "llama3-8b"
 RING_RANKS = 2
@@ -348,8 +365,9 @@ RING_BACKEND = "gloo"     # NCCL refuses two ranks on one GPU
 RING_LAYERS = 2
 RING_SEQ = 8192
 RING_STEPS = 1
+RING_LOSS_TILES = 32
 RING_MODEL_KW = {"num_layers": RING_LAYERS, "seq_impl": "ring",
-                 "ring_placement": "striped"}
+                 "ring_placement": "striped", "loss_tiles": RING_LOSS_TILES}
 RING_CFG = {"train_micro_batch_size_per_gpu": 1,
             "gradient_accumulation_steps": 2,
             "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
@@ -359,6 +377,22 @@ RING_CFG = {"train_micro_batch_size_per_gpu": 1,
             "steps_per_print": 10_000,
             "activation_checkpointing": {"remat_policy": "none"},
             "mesh": {"seq": RING_RANKS}}
+RING_I2_CFG = {**RING_CFG, "step_schedule": {"ring_interleave": 2}}
+# ring-train's untiled, interleave-1 baselines as PERF.md records them
+# (the peak a rank at ZeRO-2; the ring_rotate host ms of two profiles)
+RING_BASELINE = {"max_memory_allocated_gib": 30.1,
+                 "ring_rotate_host_ms": [660.9, 675.3]}
+# ulysses-train, ring-train's step with seq_impl "ulysses"
+# (contiguous shards: Ulysses' all-to-alls around the flash kernels) in the
+# same launch, one timed step
+ULYSSES_MODEL_KW = {"num_layers": RING_LAYERS, "seq_impl": "ulysses",
+                    "loss_tiles": RING_LOSS_TILES}
+ULYSSES_STEPS = 1
+# fpdt-kernel: chunked_attention on the ring's hop kernels, llama3-8b's
+# heads, bf16, K/V parked in pinned host memory: 8 causal chunks launch
+# 36 of each hop kernel forward and backward
+FPDT_KERNEL = {"b": 1, "hq": 32, "hkv": 8, "s": 32768, "d": 128,
+               "chunk": 4096}
 # ring-reference: llama3-8b's head dim 128 and GQA group 4 at a width the
 # CPU run keeps short
 RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
@@ -366,6 +400,13 @@ RING_REF_MODEL = {"hidden_size": 1024, "num_heads": 8, "num_kv_heads": 2,
                   "num_layers": 2}
 RING_REF_SEQ = 512
 RING_REF_STEPS = 2
+# ulysses-reference, the ring-reference model with seq_impl
+# "ulysses" in the same two card ranks and two CPU ranks, untiled and with
+# 64-token loss tiles, to ZERO_REF_RTOL / ZERO_REF_PARAMS_RTOL; and
+# FPDTAttention over those ranks (chunks of 128 of the 512 positions, K/V
+# parked on the host), card against CPU to FLASH_RTOL
+ULYSSES_REF = {"untiled": {}, "tiled": {"loss_tiles": 8}}
+FPDT_REF_CHUNK = 128
 # slice 17: mesh-reference, the ring-reference model in four gloo ranks
 # sharing the card at data 2 x seq 2 (ZeRO over both axes), striped, at
 # these stages in one launch, against one CPU engine at data 1 (micro 2,
@@ -382,6 +423,9 @@ MESH_REF_STAGES = (1, 2, 3)
 # wire step apart on the two devices, and AdamW's first step turns that into
 # an update of up to lr on a near-zero gradient element.
 RING_WIRES = ("int8", "fp8")
+# the wires ring-reference's card ranks also run at ring_interleave 2, each
+# held bit for bit to its interleave-1 run (the int8 one on rows 8b-10b)
+RING_I2_WIRES = ("fp32", "int8")
 # ring-train-int8's timed steps (the phase costs ~13 s a step at ZeRO-2,
 # gloo's collectives most of it; two before the dp-quant phases joined)
 RING_WIRE_STEPS = 1
@@ -2946,6 +2990,108 @@ def ring_int8_case(fm, codec, case):
     return rows
 
 
+def phase_fpdt_kernel(fm, card):
+    """fpdt-kernel: ``chunked_attention`` with ``offload_kv`` on one card at
+    FPDT_KERNEL (llama3-8b's heads, bf16, causal), forward and backward:
+    every live chunk pair one launch of each ring hop kernel, all on the
+    wgmma route (n·(n+1)/2 each for n chunks), against ``flash_attention``
+    (the flash kernels) on the same inputs, forward and gradients, and the
+    forward against its plain version (the JAX function's online softmax
+    over K/V chunks, on the card; its autograd state at this length would
+    not fit, so the gradients are held to the flash kernels alone), each
+    to FLASH_RTOL of the reference's largest magnitude.  Reports peak
+    memory, the host bytes the K/V are parked in, the chunked path's
+    forward and forward+backward times on the stream (the fetches run on a
+    side stream), the plain forward's, SDPA's causal GQA forward's and the
+    hop kernels' bounds over the causal pairs.  Returns the launches of the
+    checked run by kernel and route."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+    from deepspeed_tpu_torch.sequence import fpdt
+
+    c = FPDT_KERNEL
+    b, hq, hkv, s, d, chunk = (c[k] for k in ("b", "hq", "hkv", "s", "d",
+                                              "chunk"))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def rand(h):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v, do = rand(hq), rand(hkv), rand(hkv), rand(hq)
+
+    def chunked(q_, k_, v_):
+        return fpdt.chunked_attention(q_, k_, v_, chunk, offload_kv=True)
+
+    def flash(q_, k_, v_):
+        return flash_attention(q_, k_, v_, causal=True)
+
+    def fwd_bwd(fn):
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        o = fn(qs, ks, vs)
+        o.backward(do)
+        return [o.detach(), qs.grad, ks.grad, vs.grad]
+
+    counters = (fm.ring_launches, fm.ring_routes, fm.flash_mha.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(*counters)
+    got = fwd_bwd(chunked)
+    torch.cuda.synchronize()
+    launches = {k_: v_ for cnt in counters for k_, v_ in cnt.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = fwd_bwd(flash)
+    with torch.no_grad():
+        plain = fpdt._plain_chunked_attention(q, k, v, chunk, True, d ** -0.5)
+    err = {name: float((a.float() - r.float()).abs().max()
+                       / r.float().abs().max())
+           for name, a, r in zip(("o", "dq", "dk", "dv"), got, want)}
+    err_plain = float((got[0].float() - plain.float()).abs().max()
+                      / plain.float().abs().max())
+    del want, plain
+    n = s // chunk
+    pairs = n * (n + 1) // 2
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    expect = {**{k_: 0 for k_ in launches}, **{k_: pairs for k_ in kernels},
+              **{f"{k_}.wgmma": pairs for k_ in kernels}}
+    with torch.no_grad():
+        fwd_ms = stream_time_ms(lambda: chunked(q, k, v), iters=3, warmup=1)
+        plain_ms = stream_time_ms(lambda: fpdt._plain_chunked_attention(
+            q, k, v, chunk, True, d ** -0.5), iters=1, warmup=0)
+        sdpa_ms = stream_time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), iters=3, warmup=1)
+    fwd_bwd_ms = stream_time_ms(lambda: fwd_bwd(chunked), iters=2, warmup=0)
+    bounds = ring_bounds(b, hq, hkv, s, d, 2, s * (s + 1) // 2, False)
+    tol = FLASH_RTOL["bfloat16"]
+    ok = (launches == expect and max(err.values()) <= tol
+          and err_plain <= tol and all(torch.isfinite(x).all() for x in got))
+    emit({"phase": "fpdt-kernel", **c, "dtype": "bfloat16", "causal": True,
+          "offload_kv": True, "chunk_pairs": pairs,
+          "kv_host_bytes": 2 * b * s * hkv * d * 2,
+          "check": "chunked_attention (ring hop kernels a live chunk pair) "
+                   "vs flash_attention (flash kernels), forward and "
+                   "gradients, and vs its plain version, forward: max abs "
+                   "error over the reference's max abs",
+          "max_rel_err_vs_flash": err, "max_rel_err_vs_plain_fwd": err_plain,
+          "tolerance": tol, "launches": launches, "expected": expect,
+          "max_memory_allocated_gib": peak,
+          "fwd_ms_stream": fwd_ms, "fwd_bwd_ms_stream": fwd_bwd_ms,
+          "plain_fwd_ms_stream": plain_ms, "sdpa_fwd_ms_stream": sdpa_ms,
+          "bound_ms": {k_: round(bnd[0], 5) for k_, bnd in zip(kernels, bounds)},
+          "bound_by": {k_: bnd[1] for k_, bnd in zip(kernels, bounds)},
+          "card": card, "ok": ok})
+    if not ok:
+        fail(f"fpdt-kernel: launched {launches} (expected {expect}), or "
+             f"differs from flash_attention ({err}) or its plain version "
+             f"({err_plain})")
+    del got, q, k, v, do
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_ring_int8_kernels(fm, codec):
     """The int8 K/V lanes; the kernels line's rows, named ``<kernel>_int8``,
     from the path case."""
@@ -2975,24 +3121,80 @@ def _ring_counters():
             fm.ring_launches, fm.ring_routes)
 
 
+def _seq_counters():
+    """:func:`_ring_counters` and the flash kernels' routes (the local
+    attention of Ulysses)."""
+    from deepspeed_tpu_torch.ops import flash_mha as fm
+
+    return _ring_counters() + (fm.flash_mha.routes,)
+
+
 def ring_rank_reference(rank, world, model_kw, params, cfgs, batch, steps,
-                        device=None):
+                        device=None, ulysses=None, fpdt=None):
     """One rank of the ring-reference phases: the fp32 engine over a seq
     axis of ``world`` ranks on the card (or, ``device="cpu"``, on the CPU),
     per config of ``cfgs`` (by wire) and placement, from ``params``:
     losses, grad norms, the ring's wire, launch counts and (rank 0) the
-    params after."""
+    params after.  ``ulysses`` (name -> (model overrides, config)): the
+    same engine with ``seq_impl="ulysses"`` per entry, with its
+    ``all_to_all`` bytes a step too; ``fpdt`` (global ``q, k, v, w`` numpy
+    arrays and ``chunk``): ``FPDTAttention`` over the ranks with K/V
+    parked on the host, this rank's output and the gradients of
+    ``sum(o * w)``, and its launches."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     if device == "cpu":
         torch.set_num_threads(4)
     import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.models import transformer as tf
 
-    counters = _ring_counters()
+    counters = _seq_counters()
     out = {}
+    for name, (kw, cfg) in (ulysses or {}).items():
+        model = registry.get_model_config(RING_MODEL, seq_impl="ulysses",
+                                          **model_kw, **kw)
+        eng, *_ = ds.initialize(model=model, config=cfg,
+                                model_parameters=params, device=device)
+        zero_counts(*counters)
+        comm.clear_counts()
+        losses, norms = [], []
+        for _ in range(steps):
+            losses.append(float(eng.train_batch(batch)))
+            norms.append(eng.get_global_grad_norm())
+        out.setdefault("ulysses", {})[name] = {
+            "losses": losses, "grad_norms": norms,
+            "all_to_all_bytes_per_step": comm.nbytes().get("all_to_all", 0)
+            // steps,
+            "launches": {k: v for c in counters for k, v in c.items()},
+            "params": (tf.tree_map_with_path(
+                lambda _p, x: x.detach().cpu(), eng.params)
+                if rank == 0 else None)}
+        del eng
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    if fpdt is not None:
+        from deepspeed_tpu_torch.parallel.topology import MeshTopology
+        from deepspeed_tpu_torch.sequence import FPDTAttention
+
+        from deepspeed_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(device)
+        n = fpdt["q"].shape[1] // world
+        qs, ks, vs, ws = (torch.tensor(fpdt[x][:, rank * n:(rank + 1) * n],
+                                       device=dev) for x in "qkvw")
+        for x in (qs, ks, vs):
+            x.requires_grad_()
+        zero_counts(*counters)
+        o = FPDTAttention(fpdt["chunk"], offload_kv=True,
+                          topology=MeshTopology({"seq": world}))(qs, ks, vs)
+        (o * ws).sum().backward()
+        out["fpdt"] = {"arrays": [x.detach().cpu() for x in
+                                  (o, qs.grad, ks.grad, vs.grad)],
+                       "launches": {k: v for c in counters
+                                    for k, v in c.items()}}
     for wire, cfg in cfgs.items():
         out[wire] = {}
         for placement in ("contiguous", "striped"):
@@ -3009,6 +3211,7 @@ def ring_rank_reference(rank, world, model_kw, params, cfgs, batch, steps,
             out[wire][placement] = {
                 "losses": losses, "grad_norms": norms,
                 "wire": eng.model_config.ring_wire_dtype,
+                "interleave": eng.model_config.ring_interleave,
                 "launches": {k: v for c in counters for k, v in c.items()},
                 "params": (tf.tree_map_with_path(
                     lambda _p, x: x.detach().cpu(), eng.params)
@@ -3029,12 +3232,12 @@ def wire_bytes_of_step(step):
     calls, where, seen = [], [None], {"forward": -1, "backward": -1}
     orig = (ring_mod.ring_rotate, ring_mod._ring_fwd, ring_mod._ring_bwd)
 
-    def rotate(tensors, group=None):
+    def rotate(tensors, group=None, async_op=False):
         by = {}
         for t in tensors:
             by[str(t.dtype)] = by.get(str(t.dtype), 0) + t.numel() * t.element_size()
         calls.append((where[0], by))
-        return orig[0](tensors, group)
+        return orig[0](tensors, group, async_op=async_op)
 
     def tagged(fn, name):
         def run(*a, **k):
@@ -3056,16 +3259,17 @@ def wire_bytes_of_step(step):
             "bytes_per_step": sum(sum(b.values()) for _, b in calls)}
 
 
-def ring_rank_train(rank, world, model_kw, runs, seq):
-    """One rank of the ring-train phases, for each ``(cfg, steps)`` of
-    ``runs`` in turn (one spawn for both wires): llama3-8b width, bf16,
-    striped, a warm-up step (the ring's wire bytes recorded), ``steps``
-    timed steps (counts zeroed just before them and read just after),
-    then one step profiled on rank 0.  Returns a result a run."""
+def ring_rank_train(rank, world, runs, seq):
+    """One rank of the ring-train phases (and ulysses-train), for each
+    ``(model overrides, cfg, steps)`` of ``runs`` in turn (one spawn for
+    them all): llama3-8b width, bf16, a warm-up step (a ring's wire bytes
+    recorded), ``steps`` timed steps (counts zeroed just before them and
+    read just after), then one step profiled on rank 0.  Returns a result
+    a run."""
     import torch
 
     out = []
-    for cfg, steps in runs:
+    for model_kw, cfg, steps in runs:
         out.append(_ring_rank_run(rank, model_kw, cfg, seq, steps))
         gc.collect()
         torch.cuda.empty_cache()
@@ -3077,10 +3281,11 @@ def _ring_rank_run(rank, model_kw, cfg, seq, steps):
     import torch
 
     import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import registry
     from deepspeed_tpu_torch.models import transformer as tf
 
-    counters = _ring_counters()
+    counters = _seq_counters()
     model = registry.get_model_config(RING_MODEL, **model_kw)
     t0 = time.perf_counter()
     eng, *_ = ds.initialize(model=model, config=cfg, seed=0)
@@ -3095,6 +3300,7 @@ def _ring_rank_run(rank, model_kw, cfg, seq, steps):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     zero_counts(*counters)
+    comm.clear_counts()
     step_s = []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3104,13 +3310,16 @@ def _ring_rank_run(rank, model_kw, cfg, seq, steps):
     res = {"rank": rank, "device": str(eng.device), "init_s": init_s,
            "warmup_step_s": warm_s, "step_s": step_s, "losses": losses,
            "launches": launches,
+           "collectives_per_step": {k: v / steps for k, v in comm.calls().items()},
+           "bytes_per_step": {k: v / steps for k, v in comm.nbytes().items()},
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "max_memory_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
            "param_checksum": float(sum(float(p.detach().double().sum())
                                        for p in tf.tree_leaves(eng.params))),
            "finite": bool(np.all(np.isfinite(losses))),
-           "wire": eng.model_config.ring_wire_dtype, "wire_bytes": wire_bytes,
-           "grad_buckets": eng.grad_bucket_count}
+           "wire": eng.model_config.ring_wire_dtype,
+           "interleave": eng.model_config.ring_interleave,
+           "wire_bytes": wire_bytes, "grad_buckets": eng.grad_bucket_count}
     if rank == 0:
         wall_ms, by_name, busy_ms, events = profile_call(
             lambda: eng.train_batch(batch))
@@ -3122,7 +3331,8 @@ def _ring_rank_run(rank, model_kw, cfg, seq, steps):
             "kernel_ms": {n: sum(v for k, v in by_name.items()
                                  if all(x in k for x in parts))
                           for n, parts in PROFILE_NAMES.items()
-                          if n.startswith("ring") or n == "fused_adamw"},
+                          if n.startswith(("ring", "flash"))
+                          or n == "fused_adamw"},
             "gemm_ms": sum(v for k, v in by_name.items()
                            if any(x in k for x in ("gemm", "nvjet", "cutlass",
                                                    "xmma"))),
@@ -3136,7 +3346,7 @@ def _ring_rank_run(rank, model_kw, cfg, seq, steps):
 # rank-major reduce_scatter a bucket each micro-step, the stepped slices'
 # all_gather, the loss sums' and the grad norm's all_reduce
 RING_COLLECTIVES = ("comm.ring_rotate", "comm.reduce_scatter",
-                    "comm.all_gather", "comm.all_reduce")
+                    "comm.all_gather", "comm.all_reduce", "comm.all_to_all")
 
 
 def ring_ref_cfgs(wires):
@@ -3147,19 +3357,13 @@ def ring_ref_cfgs(wires):
             for w in wires}
 
 
-def phase_ring_reference(ds, tf_model, tf, launch):
-    """The ring engine in two ranks on the card (gloo, one card) against
-    the same engine in this process on the CPU at sp 1, fp32, at
-    llama3-8b's head geometry and a reduced width: loss and grad norm of
-    each of RING_REF_STEPS steps and the params after them to REF_RTOL
-    (summation order only), under both placements; each rank's launches.
-    The same two card ranks then run the engine with each quantized wire
-    of RING_WIRES, which :func:`phase_ring_reference_wire` holds against
-    two CPU ranks on the same wire.  The card ranks and the CPU ranks run
-    in threads beside this process's CPU steps; returns the card ranks'
-    and the CPU ranks' results."""
+def ring_reference_start(ds, tf_model, tf, launch, pool):
+    """The ring-reference phases' set-up, and their CPU ranks started in
+    ``pool`` (they run beside the card-bound kernel phases before
+    :func:`phase_ring_reference`): the CPU engine at sp 1 and its params,
+    the batch, the Ulysses configs and FPDT's inputs; returns them with the
+    CPU ranks' future."""
     import numpy as np
-    import torch
 
     model = tf_model.get_model_config(RING_MODEL, **RING_REF_MODEL)
     cfg = {**RING_CFG, "bf16": {"enabled": False}}
@@ -3171,22 +3375,53 @@ def phase_ring_reference(ds, tf_model, tf, launch):
     batch = train_batch_of(model.vocab_size, rows, seed=5, seq=RING_REF_SEQ)
     for t in tf.tree_leaves(params):   # before two launches pickle them
         t.share_memory_()
-    with ThreadPoolExecutor(2) as pool:
+    ulysses = {name: (kw, cfg) for name, kw in ULYSSES_REF.items()}
+    gen = np.random.default_rng(9)
+    d, hq, hkv = model.dim_per_head, model.num_heads, model.kv_heads
+    fpdt = {"chunk": FPDT_REF_CHUNK,
+            **{x: gen.standard_normal((1, RING_REF_SEQ, h, d)).astype(
+                np.float32) for x, h in (("q", hq), ("k", hkv), ("v", hkv),
+                                         ("w", hq))}}
+    cpu = pool.submit(launch, ring_rank_reference, RING_RANKS,
+                      args=(RING_REF_MODEL, params, ring_ref_cfgs(RING_WIRES),
+                            batch, RING_REF_STEPS, "cpu", ulysses, fpdt),
+                      backend=RING_BACKEND, device="cpu")
+    return {"model": model, "cfg": cfg, "host": host, "params": params,
+            "batch": batch, "ulysses": ulysses, "fpdt": fpdt, "cpu": cpu}
+
+
+def phase_ring_reference(ds, tf_model, tf, launch, started):
+    """The ring engine in two ranks on the card (gloo, one card) against
+    the same engine in this process on the CPU at sp 1, fp32, at
+    llama3-8b's head geometry and a reduced width: loss and grad norm of
+    each of RING_REF_STEPS steps and the params after them to REF_RTOL
+    (summation order only), under both placements; each rank's launches.
+    The same two card ranks then run the engine with each quantized wire
+    of RING_WIRES, which :func:`phase_ring_reference_wire` holds against
+    two CPU ranks on the same wire (``started``: :func:`ring_reference_start`,
+    whose CPU ranks run meanwhile).  The card ranks run in a thread beside
+    this process's CPU steps; returns the card ranks' and the CPU ranks'
+    results."""
+    import torch
+
+    model, cfg, host = started["model"], started["cfg"], started["host"]
+    params, batch = started["params"], started["batch"]
+    fpdt = started["fpdt"]
+    card_cfgs = {**ring_ref_cfgs(("fp32",) + RING_WIRES),
+                 **{f"{w}-interleave2": {**c, "step_schedule":
+                                         {"ring_interleave": 2}}
+                    for w, c in ring_ref_cfgs(RING_I2_WIRES).items()}}
+    with ThreadPoolExecutor(1) as pool:
         card = pool.submit(launch, ring_rank_reference, RING_RANKS,
-                           args=(RING_REF_MODEL, params,
-                                 ring_ref_cfgs(("fp32",) + RING_WIRES), batch,
-                                 RING_REF_STEPS),
+                           args=(RING_REF_MODEL, params, card_cfgs, batch,
+                                 RING_REF_STEPS, None, started["ulysses"],
+                                 fpdt),
                            backend=RING_BACKEND, device="cuda")
-        cpu = pool.submit(launch, ring_rank_reference, RING_RANKS,
-                          args=(RING_REF_MODEL, params,
-                                ring_ref_cfgs(RING_WIRES), batch,
-                                RING_REF_STEPS, "cpu"),
-                          backend=RING_BACKEND, device="cpu")
         want = []
         for _ in range(RING_REF_STEPS):
             want.append((float(host.train_batch(batch)),
                          host.get_global_grad_norm()))
-        ranks, cpu_ranks = card.result(), cpu.result()
+        ranks, cpu_ranks = card.result(), started["cpu"].result()
     # launches a rank: steps x gas x layers x live hops (contiguous rank 0
     # skips its dead hop); one AdamW a step
     per = RING_REF_STEPS * cfg["gradient_accumulation_steps"] * RING_REF_MODEL["num_layers"]
@@ -3230,9 +3465,125 @@ def phase_ring_reference(ds, tf_model, tf, launch):
         if launches != wants:
             fail(f"ring-reference ({placement}): launched {launches}, "
                  f"expected {wants}")
+        # interleave 2 (each hop's rotation in flight while it attends), on
+        # the fp32 and the int8 wire: the bits of interleave 1 in the same
+        # card ranks
+        for wire in RING_I2_WIRES:
+            one = [r[wire][placement] for r in ranks]
+            i2 = [r[f"{wire}-interleave2"][placement] for r in ranks]
+            same = all(a["losses"] == b["losses"]
+                       and a["grad_norms"] == b["grad_norms"]
+                       and a["launches"] == b["launches"]
+                       and b["interleave"] == 2 for a, b in zip(one, i2))
+            same = same and all(torch.equal(a, b) for a, b in zip(
+                tf.tree_leaves(one[0]["params"]),
+                tf.tree_leaves(i2[0]["params"])))
+            emit({"phase": "ring-reference-interleave2", "wire": wire,
+                  "placement": placement,
+                  "losses_interleave1": [r["losses"] for r in one],
+                  "losses_interleave2": [r["losses"] for r in i2],
+                  "launches_interleave2": [r["launches"] for r in i2],
+                  "check": "losses, grad norms, launches and rank 0's "
+                           "params bit for bit", "ok": same})
+            if not same:
+                fail(f"ring-reference ({placement}, {wire} wire): interleave "
+                     "2 does not give the bits of interleave 1")
+    phase_ulysses_reference(tf, model, ranks, cpu_ranks, fpdt)
     del host
     torch.cuda.empty_cache()
     return ranks, cpu_ranks
+
+
+def phase_ulysses_reference(tf, model, ranks, cpu_ranks, fpdt):
+    """ulysses-reference: the ring-reference model with seq_impl "ulysses"
+    in the card ranks against the CPU ranks (the same params and batch),
+    untiled and tiled: each step's losses and grad norms to ZERO_REF_RTOL,
+    the params after the steps to ZERO_REF_PARAMS_RTOL (relative L2), the
+    all_to_all bytes a step (:func:`ulysses_a2a_bytes`, fp32) and each card
+    rank's launches (steps x gas x layers of each flash kernel on the fma
+    route, one AdamW a step).  Then fpdt-reference: FPDTAttention over the
+    same ranks, each card rank's output and gradients against its CPU
+    rank's to FLASH_RTOL, its launches one of each hop kernel a live chunk
+    pair on the fma route."""
+    import numpy as np
+
+    gas = RING_CFG["gradient_accumulation_steps"]
+    per = RING_REF_STEPS * gas * RING_REF_MODEL["num_layers"]
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    a2a = ulysses_a2a_bytes(model, RING_CFG["train_micro_batch_size_per_gpu"]
+                            * gas, RING_REF_SEQ, RING_RANKS, 4)
+    for name in ULYSSES_REF:
+        got = [r["ulysses"][name] for r in ranks]
+        want = [r["ulysses"][name] for r in cpu_ranks]
+        worst = max(max(abs(g - w) / abs(w) for g, w in
+                        zip(a["losses"] + a["grad_norms"],
+                            b["losses"] + b["grad_norms"]))
+                    for a, b in zip(got, want))
+        params_rel = _params_rel(got[0]["params"], want[0]["params"], tf)
+        wants = [{**{k: 0 for k in g["launches"]}, **{k: per for k in flash},
+                  **{f"{k}.fma": per for k in flash},
+                  "fused_adamw": RING_REF_STEPS} for g in got]
+        launches = [g["launches"] for g in got]
+        bytes_ = [g["all_to_all_bytes_per_step"] for g in got + want]
+        ok = (worst <= ZERO_REF_RTOL and params_rel <= ZERO_REF_PARAMS_RTOL
+              and launches == wants and all(b == a2a for b in bytes_)
+              and bool(np.all(np.isfinite([g["losses"] for g in got]))))
+        emit({"phase": "ulysses-reference", "config": name,
+              "model": RING_MODEL, "overrides": {**RING_REF_MODEL,
+                                                 **ULYSSES_REF[name]},
+              "dtype": "float32", "placement": "contiguous",
+              "ranks": RING_RANKS, "backend": RING_BACKEND,
+              "seq": RING_REF_SEQ,
+              "steps": [{"loss_card": [g["losses"][i] for g in got],
+                         "loss_cpu": [w["losses"][i] for w in want],
+                         "grad_norm_card": [g["grad_norms"][i] for g in got],
+                         "grad_norm_cpu": [w["grad_norms"][i] for w in want]}
+                        for i in range(RING_REF_STEPS)],
+              "check": "two ranks on the card (all_to_all through gloo, "
+                       "flash kernels, cuBLAS) vs two ranks on the CPU "
+                       "(plain versions)",
+              "max_rel_err_loss_grad_norm": worst,
+              "params_rel_l2": params_rel,
+              "tolerance": {"loss_grad_norm": ZERO_REF_RTOL,
+                            "params_rel_l2": ZERO_REF_PARAMS_RTOL},
+              "all_to_all_bytes_per_step": bytes_,
+              "all_to_all_bytes_expected": a2a,
+              "launches_per_rank": launches, "expected_per_rank": wants,
+              "ok": ok})
+        if not ok:
+            fail(f"ulysses-reference ({name}): the card's ranks differ from "
+                 f"the CPU's ({worst}, {params_rel}), moved {bytes_} bytes "
+                 f"through all_to_all (expected {a2a}) or launched "
+                 f"{launches}, expected {wants}")
+    n = RING_REF_SEQ // FPDT_REF_CHUNK
+    pairs = n * (n + 1) // 2
+    kernels = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")
+    worst = {}
+    for r, c in zip(ranks, cpu_ranks):
+        for name, a, b in zip(("o", "dq", "dk", "dv"), r["fpdt"]["arrays"],
+                              c["fpdt"]["arrays"]):
+            rel = float((a - b).abs().max() / b.abs().max())
+            worst[name] = max(worst.get(name, 0.0), rel)
+    wants = [{**{k: 0 for k in r["fpdt"]["launches"]},
+              **{k: pairs for k in kernels},
+              **{f"{k}.fma": pairs for k in kernels}} for r in ranks]
+    launches = [r["fpdt"]["launches"] for r in ranks]
+    ok = (max(worst.values()) <= FLASH_RTOL["float32"] and launches == wants)
+    emit({"phase": "fpdt-reference", "heads": [model.num_heads,
+                                               model.kv_heads],
+          "head_dim": model.dim_per_head, "seq": RING_REF_SEQ,
+          "chunk": fpdt["chunk"], "offload_kv": True, "dtype": "float32",
+          "ranks": RING_RANKS,
+          "check": "FPDTAttention in two card ranks (all_to_all, the hop "
+                   "kernels a live chunk pair, K/V parked in pinned host "
+                   "memory) vs two CPU ranks (the plain chunked attention): "
+                   "max abs error over max abs of the CPU's",
+          "max_rel_err": worst, "tolerance": FLASH_RTOL["float32"],
+          "launches_per_rank": launches, "expected_per_rank": wants,
+          "ok": ok})
+    if not ok:
+        fail(f"fpdt-reference: the card's ranks differ from the CPU's "
+             f"({worst}) or launched {launches}, expected {wants}")
 
 
 def _params_rel(a_tree, b_tree, tf):
@@ -3454,10 +3805,11 @@ def phase_mesh_reference(ds, tf_model, tf, launch):
 
 
 def phase_ring_trains(tf_model, launch, card):
-    """ring-train and ring-train-int8 in one launch of RING_RANKS ranks
-    sharing the card (gloo): the fp32 wire for RING_STEPS timed steps,
-    then the int8 wire for RING_WIRE_STEPS (:func:`phase_ring_train`
-    reports each).  Returns rank 0's launches of each."""
+    """ring-train, ring-train-int8 and ulysses-train in one launch of
+    RING_RANKS ranks sharing the card (gloo): the fp32 wire at interleave 2
+    for RING_STEPS timed steps, the int8 wire for RING_WIRE_STEPS
+    (:func:`phase_ring_train` reports each), then Ulysses for ULYSSES_STEPS
+    (:func:`phase_ulysses_train`).  Returns rank 0's launches of each."""
     emit({"phase": "ring-backend", "backend": RING_BACKEND,
           "why": "the ranks share one card, and NCCL refuses two ranks "
                  "on one GPU; point-to-point buffers go through pinned "
@@ -3465,15 +3817,96 @@ def phase_ring_trains(tf_model, launch, card):
     int8 = {**RING_CFG, "comm_quantization": {"enabled": True,
                                               "ring_rotation": "int8"}}
     ranks = launch(ring_rank_train, RING_RANKS,
-                   args=(RING_MODEL_KW, [(RING_CFG, RING_STEPS),
-                                         (int8, RING_WIRE_STEPS)],
+                   args=([(RING_MODEL_KW, RING_I2_CFG, RING_STEPS),
+                          (RING_MODEL_KW, int8, RING_WIRE_STEPS),
+                          (ULYSSES_MODEL_KW, RING_CFG, ULYSSES_STEPS)],
                          RING_SEQ),
                    backend=RING_BACKEND, device="cuda")
     fp32 = [r[0] for r in ranks]
     return (phase_ring_train(tf_model, card, fp32),
             phase_ring_train(tf_model, card, [r[1] for r in ranks],
-                             wire="int8", base=fp32, steps=RING_WIRE_STEPS))
+                             wire="int8", base=fp32, steps=RING_WIRE_STEPS),
+            phase_ulysses_train(tf_model, card, [r[2] for r in ranks]))
 
+
+def ulysses_a2a_bytes(model, rows, seq, ranks, elem):
+    """Bytes a rank sends through ``all_to_all`` in a step of Ulysses
+    without remat: a layer a micro-step, q, k, v and the output forward and
+    their gradients backward, each its shard of ``rows x seq / ranks``
+    tokens (K/V at the KV heads: sp divides them)."""
+    tokens = rows * seq // ranks
+    heads = 2 * model.num_heads + 2 * model.kv_heads
+    return 2 * tokens * heads * model.dim_per_head * elem * model.num_layers
+
+
+def phase_ulysses_train(tf_model, card, ranks):
+    """ulysses-train: ring-train's step (llama3-8b width, RING_LAYERS
+    layers, seq RING_SEQ over RING_RANKS ranks sharing the card, bf16,
+    ZeRO-2 over the seq axis, loss_tiles) with seq_impl "ulysses": seconds
+    a step, tokens/s, MFU, peak memory a rank, all_to_all bytes a step a
+    rank against :func:`ulysses_a2a_bytes`, a profiled step's host ms in
+    each collective, and each rank's launches a step: layers x gas of each
+    flash kernel on its wgmma route, one AdamW, no ring kernel.  Returns
+    rank 0's launches a step."""
+    model = tf_model.get_model_config(RING_MODEL, **ULYSSES_MODEL_KW)
+    gas = RING_CFG["gradient_accumulation_steps"]
+    rows = RING_CFG["train_micro_batch_size_per_gpu"] * gas
+    n = RING_LAYERS * gas
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    want = {**{k: 0 for k in ranks[0]["launches"]},
+            **{k: n for k in flash}, **{f"{k}.wgmma": n for k in flash},
+            "fused_adamw": 1}
+    steps = ULYSSES_STEPS
+    per_step = [{k: v / steps for k, v in r["launches"].items()}
+                for r in ranks]
+    a2a = ulysses_a2a_bytes(model, rows, RING_SEQ, RING_RANKS, 2)
+    got_a2a = [r["bytes_per_step"].get("all_to_all", 0) for r in ranks]
+    step_s = [max(r["step_s"][i] for r in ranks) for i in range(steps)]
+    tokens = rows * RING_SEQ
+    tps = tokens * steps / sum(step_s)
+    ok = (all(r["finite"] for r in ranks)
+          and all(r["losses"] == ranks[0]["losses"] for r in ranks)
+          and all(r["param_checksum"] == ranks[0]["param_checksum"]
+                  for r in ranks)
+          and ranks[0]["losses"][-1] < ranks[0]["losses"][0]
+          and all(p == want for p in per_step)
+          and all(b == a2a for b in got_a2a))
+    emit({"phase": "ulysses-train", "model": RING_MODEL,
+          "layers": RING_LAYERS, "params": count_params(model),
+          "dtype": "bfloat16", "placement": "contiguous",
+          "ranks": RING_RANKS, "backend": RING_BACKEND, "seq": RING_SEQ,
+          "seq_per_rank": RING_SEQ // RING_RANKS,
+          "loss_tiles": RING_LOSS_TILES, "micro": RING_CFG[
+              "train_micro_batch_size_per_gpu"], "gas": gas,
+          "optimizer": RING_CFG["optimizer"], "remat": "none",
+          "zero_stage": RING_CFG["zero_optimization"]["stage"],
+          "step_s": step_s, "tokens_per_step": tokens, "tokens_per_s": tps,
+          "mfu": tps * 3 * fwd_flops_per_tok(model, RING_SEQ) / BF16_FLOPS,
+          "mfu_peak": "989 TFLOP/s bf16 dense (H100 SXM), the card's two "
+                      "ranks together; the formula counts dense attention",
+          "max_memory_allocated_gib": [r["max_memory_allocated_gib"]
+                                       for r in ranks],
+          "all_to_all_bytes_per_step": got_a2a,
+          "all_to_all_bytes_expected": a2a,
+          "ranks_detail": [{k: v for k, v in r.items()
+                            if k not in ("profile", "wire_bytes")}
+                           for r in ranks],
+          "launches_per_step": per_step, "expected_per_step": want,
+          "card": card, "ok": ok})
+    emit({"phase": "ulysses-train-profile",
+          "what": "one train_batch on rank 0 (rank 1 steps beside it)",
+          "collectives_note": "host time inside comm.all_to_all (q, k, v "
+                              "and the output a layer, their gradients), "
+                              "comm.reduce_scatter, comm.all_gather and "
+                              "comm.all_reduce; own = less this rank's "
+                              "compute kernels running",
+          **ranks[0]["profile"], "card": card})
+    if not ok:
+        fail("ulysses-train: losses not finite, not equal on the ranks or "
+             "not falling, params differ between ranks, the all_to_all "
+             f"bytes {got_a2a} are not {a2a}, or the launch counts "
+             f"{per_step} do not show the flash kernels on wgmma")
+    return per_step[0]
 
 
 def phase_ring_train(tf_model, card, ranks, wire="fp32", base=None,
@@ -3495,7 +3928,7 @@ def phase_ring_train(tf_model, card, ranks, wire="fp32", base=None,
     model = tf_model.get_model_config(RING_MODEL, **RING_MODEL_KW)
     gas = RING_CFG["gradient_accumulation_steps"]
     live = RING_LAYERS * gas * 2
-    cfg = RING_CFG
+    cfg = RING_I2_CFG
     phase = "ring-train"
     if wire != "fp32":
         cfg = {**RING_CFG, "comm_quantization": {"enabled": True,
@@ -3522,9 +3955,16 @@ def phase_ring_train(tf_model, card, ranks, wire="fp32", base=None,
           and all(r["wire"] == wire for r in ranks)
           and all(p == want for p in per_step))
     n_params = count_params(model)
+    prof = ranks[0]["profile"]
     row = {"phase": phase, "model": RING_MODEL,
            "layers": RING_LAYERS, "params": n_params, "dtype": "bfloat16",
-           "wire": wire, "placement": "striped", "ranks": RING_RANKS,
+           "wire": wire, "interleave": ranks[0]["interleave"],
+           "loss_tiles": RING_LOSS_TILES,
+           "placement": "striped", "ranks": RING_RANKS,
+           "max_memory_allocated_gib": [r["max_memory_allocated_gib"]
+                                        for r in ranks],
+           "ring_rotate_host_ms": prof["collectives"]["comm.ring_rotate"],
+           "untiled_interleave1_baseline": RING_BASELINE,
            "backend": RING_BACKEND, "seq": RING_SEQ,
            "seq_per_rank": RING_SEQ // RING_RANKS,
            "micro": cfg["train_micro_batch_size_per_gpu"], "gas": gas,
@@ -3555,7 +3995,6 @@ def phase_ring_train(tf_model, card, ranks, wire="fp32", base=None,
             "step": (b0["wire_bytes"]["bytes_per_step"]
                      / ranks[0]["wire_bytes"]["bytes_per_step"])}
     emit(row)
-    prof = ranks[0]["profile"]
     emit({"phase": f"{phase}-profile",
           "what": "one train_batch on rank 0 (rank 1 steps beside it)",
           "collectives_note": "host time inside comm.ring_rotate, "
@@ -5439,9 +5878,18 @@ def main() -> int:
     from deepspeed_tpu_torch.comm import quantized as codec
     from deepspeed_tpu_torch.launcher import launch
 
+    # the ring-reference phases' CPU ranks start now and run beside the
+    # kernel phases, whose times are the card's (CUDA graphs)
+    ring_pool = ThreadPoolExecutor(1)
+    ring_ref = ring_reference_start(ds, tf_model, tf, launch, ring_pool)
     ring_summary = phase_ring_kernels(fm)
     ring_summary.update(phase_ring_int8_kernels(fm, codec))
-    ref_card, ref_cpu = phase_ring_reference(ds, tf_model, tf, launch)
+    # FPDT's chunked attention on the hop kernels, one card
+    fpdt_launches = phase_fpdt_kernel(fm, smi)
+    ref_card, ref_cpu = phase_ring_reference(ds, tf_model, tf, launch,
+                                             ring_ref)
+    ring_pool.shutdown()
+    del ring_ref
     phase_ring_reference_wire(tf, ref_card, ref_cpu)
     del ref_card, ref_cpu
     # 18b (slice 17): ZeRO over data x seq, four ranks on the card
@@ -5450,7 +5898,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "ring-parent-memory",
           "memory_reserved_gib": torch.cuda.memory_reserved() / 2 ** 30})
-    ring_run, int8_run = phase_ring_trains(tf_model, launch, smi)
+    ring_run, int8_run, ulysses_run = phase_ring_trains(tf_model, launch, smi)
     ring_train_launches = {
         **{k: ring_run[k] for k in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv")},
         **{f"{k}_int8": int8_run[f"{k}.{r}"] for k, r in RING_INT8_ROUTES.items()}}
@@ -5641,6 +6089,13 @@ def main() -> int:
                if name in counts}
         if zpp:     # a step, rank 0 of zeropp-train's four, by run
             entry["launches_zeropp_train"] = zpp
+        if name in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv"):
+            # FPDT's chunk pairs (fpdt-kernel, one card)
+            entry["launches_fpdt_kernel"] = fpdt_launches[name]
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                    "fused_adamw"):
+            # a step, rank 0 of ulysses-train's two (Ulysses' local attention)
+            entry["launches_ulysses_train"] = ulysses_run[name]
         if name in ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv",
                     "fused_adamw"):
             # rank 0 of the mesh-reference phase's four, by ZeRO stage

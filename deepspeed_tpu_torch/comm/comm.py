@@ -7,10 +7,13 @@ read: ``init_distributed`` (the caller names the backend, ``"nccl"`` or
 as ``lax.all_gather(..., tiled=True)``; also asynchronous, so a ZeRO-3
 prefetch can be issued ahead of its use), ``reduce_scatter`` (the sum
 ``lax.psum_scatter(..., tiled=True)`` keeps one slice of), ``all_to_all``
-(``lax.all_to_all(..., split_axis=0, concat_axis=0, tiled=True)``, the
-quantized gradient reduction's exchange) and ``ring_rotate``, the
-counterpart of ``sequence/ring.py`` ``_rotate_together`` (one
-``lax.ppermute`` of every traveling buffer to the next shard).
+(``lax.all_to_all(..., split_axis, concat_axis, tiled=True)``: the
+quantized gradient reduction's exchange along dim 0, and Ulysses' switch
+between sequence and head shards, differentiable through
+:func:`seq_all_to_all`) and ``ring_rotate``, the counterpart of
+``sequence/ring.py`` ``_rotate_together`` (one ``lax.ppermute`` of every
+traveling buffer to the next shard; also asynchronous, so that a ring
+hop's transfer is in flight while the hop attends).
 
 The gradient reduction goes through flat buckets (``zero_optimization.
 reduce_bucket_size``): :func:`plan_buckets` groups tensors in order,
@@ -173,13 +176,15 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
-def _stage_in(t: torch.Tensor, staged: bool) -> torch.Tensor:
+def _stage_in(t: torch.Tensor, staged: bool,
+              non_blocking: bool = False) -> torch.Tensor:
     """``t`` as the buffer a collective reads: a pinned host copy of a CUDA
-    tensor under gloo (the copy waits for the kernels queued before it),
-    else ``t`` itself."""
+    tensor under gloo (the copy waits for the kernels queued before it,
+    and, unless ``non_blocking``, the host waits for the copy), else ``t``
+    itself."""
     if staged and t.device.type == "cuda":
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t)
+        host.copy_(t, non_blocking=non_blocking)
         return host
     return t
 
@@ -330,26 +335,64 @@ def _sum_scatter(src: torch.Tensor, group, async_op: bool = False):
     return done(cur) if async_op else cur
 
 
-def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Split ``x`` into ``world`` equal blocks along dim 0, send block i to
-    rank i of ``group`` and return the blocks received, block j from rank
-    j, concatenated along dim 0 (a new tensor of ``x``'s shape and dtype on
-    its device): ``lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
-    tiled=True)``.  One ``all_to_all_single`` with equal splits; any dtype
-    travels (int8 and uint8 payloads too).  Under gloo a CUDA tensor is
-    staged through pinned host memory, both ways."""
+def all_to_all(x: torch.Tensor, scatter_dim: int = 0, gather_dim: int = 0,
+               group=None) -> torch.Tensor:
+    """Split ``x`` into ``world`` equal blocks along ``scatter_dim``, send
+    block i to rank i of ``group`` and return the blocks received, block j
+    from rank j, concatenated along ``gather_dim`` in rank order (a new
+    tensor on ``x``'s device): ``lax.all_to_all(x, axis,
+    split_axis=scatter_dim, concat_axis=gather_dim, tiled=True)``, the
+    JAX ``single_all_to_all``.  One ``all_to_all_single`` with equal
+    splits; any dtype travels (int8 and uint8 payloads too).  The default
+    dims (0, 0) return a tensor of ``x``'s shape, with no copy but the
+    one that makes ``x`` contiguous; other dims move ``scatter_dim`` to
+    the front (one copy) and lay the blocks out along ``gather_dim`` (one
+    more).  Under gloo a CUDA tensor is staged through pinned host memory,
+    both ways."""
     with _range("all_to_all", group):
         _count("all_to_all", group, x)
         world = dist.get_world_size(group)
-        if x.shape[0] % world:
-            raise ValueError(f"all_to_all: dim 0 of size {x.shape[0]} does "
-                             f"not divide by {world}")
+        if x.shape[scatter_dim] % world:
+            raise ValueError(f"all_to_all: dim {scatter_dim} of size "
+                             f"{x.shape[scatter_dim]} does not divide by "
+                             f"{world}")
         staged = _staged(group)
-        src = _stage_in(x.contiguous(), staged)
-        out = _empty_like_staged(tuple(x.shape), x, staged)
+        lead = x.movedim(scatter_dim, 0).contiguous()
+        src = _stage_in(lead, staged)
+        out = _empty_like_staged(tuple(lead.shape), lead, staged)
         dist.all_to_all_single(out, src, group=group)
-        return out.to(x.device, non_blocking=True) if out.device != x.device \
-            else out
+        if out.device != x.device:
+            out = out.to(x.device, non_blocking=True)
+        if scatter_dim == 0 and gather_dim == 0:
+            return out
+        # [world, n/world, rest]: block j as x lays it out, then the
+        # blocks in rank order along gather_dim
+        blocks = out.unflatten(0, (world, -1)).movedim(1, scatter_dim + 1)
+        shape = list(blocks.shape[1:])
+        shape[gather_dim] *= world
+        return blocks.movedim(0, gather_dim).reshape(shape)
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    """:func:`all_to_all` as a differentiable op (the reference's
+    ``_SeqAllToAll``): the backward is the inverse exchange, which
+    scatters along ``gather_dim`` and gathers along ``scatter_dim``."""
+
+    @staticmethod
+    def forward(ctx, x, scatter_dim, gather_dim, group):
+        ctx.exchange = (scatter_dim, gather_dim, group)
+        return all_to_all(x, scatter_dim, gather_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        scatter_dim, gather_dim, group = ctx.exchange
+        return all_to_all(grad, gather_dim, scatter_dim, group), None, None, None
+
+
+def seq_all_to_all(x: torch.Tensor, scatter_dim: int, gather_dim: int,
+                   group=None) -> torch.Tensor:
+    """:func:`all_to_all` differentiable in ``x``."""
+    return _SeqAllToAll.apply(x, scatter_dim, gather_dim, group)
 
 
 def _ring_peers(group) -> Tuple[int, int]:
@@ -362,25 +405,50 @@ def _ring_peers(group) -> Tuple[int, int]:
             dist.get_global_rank(group, (rank - 1) % size))
 
 
-def ring_rotate(tensors: Sequence[torch.Tensor], group=None
-                ) -> List[torch.Tensor]:
+def ring_rotate(tensors: Sequence[torch.Tensor], group=None,
+                async_op: bool = False):
     """One hop of the ring: send each tensor to the next rank of ``group``
     and receive the previous rank's, all in one ``batch_isend_irecv``;
     returns the received tensors (new buffers, shapes and dtypes of the
-    sent ones, on their devices).  Point-to-point moves bytes, so any dtype
-    travels: the quantized wire's int8 and uint8 (fp8) payloads too."""
+    sent ones, on their devices), or with ``async_op`` a :class:`Pending`
+    whose ``wait()`` returns them.  Point-to-point moves bytes, so any
+    dtype travels: the quantized wire's int8 and uint8 (fp8) payloads too.
+
+    Asynchronous, the exchange stays in flight until ``wait()``: under
+    NCCL on NCCL's stream, which ``wait()`` makes the current stream wait
+    for; under gloo on gloo's threads, after this rank's CUDA tensors are
+    copied to pinned host memory (an event on the current stream, waited
+    for before the sends are posted: the copies need only the kernels
+    queued before them), and ``wait()`` queues the copies back.  The sent
+    tensors must not change before ``wait()``; the :class:`Pending` holds
+    every send and receive buffer until then."""
     with _range("ring_rotate", group):
         _count("ring_rotate", group, *tensors)
         nxt, prv = _ring_peers(group)
         staged = _staged(group)
-        sends = [_stage_in(t.contiguous(), staged) for t in tensors]
+        sends = [_stage_in(t.contiguous(), staged, non_blocking=True)
+                 for t in tensors]
         recvs = [_empty_like_staged(t.shape, t, staged) for t in tensors]
+        if staged and any(t.device.type == "cuda" for t in tensors):
+            copied = torch.cuda.Event()
+            copied.record()
+            copied.synchronize()    # the D2H copies, not the whole device
         ops = [dist.P2POp(dist.isend, s, nxt, group) for s in sends]
         ops += [dist.P2POp(dist.irecv, r, prv, group) for r in recvs]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return [r.to(t.device, non_blocking=True) if r.device != t.device
-                else r for r, t in zip(recvs, tensors)]
+        reqs = dist.batch_isend_irecv(ops)
+
+        def finish():
+            for req in reqs:
+                req.wait()
+            return [r.to(t.device, non_blocking=True) if r.device != t.device
+                    else r for r, t in zip(recvs, tensors)]
+
+        pending = Pending(None, finish, "comm.ring_rotate",
+                          keep=(sends, recvs, tensors))
+        if async_op:
+            return pending
+        pending._complete()
+        return pending._out
 
 
 # ----------------------------------------------------------------------

@@ -85,8 +85,8 @@ def compressed_allreduce(x: torch.Tensor, worker_err: torch.Tensor,
     del c
 
     # rank r receives chunk r of every rank
-    bits_t = comm.all_to_all(bits, group)
-    scales_t = comm.all_to_all(scales, group)
+    bits_t = comm.all_to_all(bits, group=group)
+    scales_t = comm.all_to_all(scales, group=group)
     recv = _decompress(bits_t.reshape(world, -(-m // 8)),
                        scales_t.reshape(world), m)
 

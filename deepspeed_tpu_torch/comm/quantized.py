@@ -218,8 +218,8 @@ def quantized_reduce_scatter(x: torch.Tensor, group=None,
         del sent
     del c, chunks
     # rank r receives chunk r of every rank: [world, m], a row a source
-    p_t = comm.all_to_all(payload, group)
-    s_t = comm.all_to_all(scale, group) if scale is not None else None
+    p_t = comm.all_to_all(payload, group=group)
+    s_t = comm.all_to_all(scale, group=group) if scale is not None else None
     del payload, scale
     deq = _wire_decode(p_t, s_t, wire_dtype)
     red = deq.mean(dim=0) if mean else deq.sum(dim=0)

@@ -11,11 +11,15 @@ Casts sit where the JAX code has them (``x @ w.to(dt)`` inside the
 differentiated function, no ``torch.autocast``), so bf16 rounds where it
 rounds in JAX and fp32 master leaves receive fp32 gradients.
 
-Ring sequence parallelism runs when a topology with a ``seq`` axis above
-one is passed (``topo``; the engine passes its own): each rank's forward
-takes its shard of the sequence, positions follow the ring placement, and
-attention goes through ``sequence/ring.py``.  Over a data axis each rank's
-forward takes its rows of the batch.  Dropout masks are drawn over the
+Sequence parallelism runs when a topology with a ``seq`` axis above one
+is passed (``topo``; the engine passes its own): each rank's forward takes
+its shard of the sequence and the shard's global positions.  Attention
+goes through ``sequence/ring.py`` under ``seq_impl="ring"`` (positions
+follow the ring placement) or, under ``seq_impl="ulysses"`` (contiguous
+shards), through ``sequence/layer.py``'s all-to-all around the same local
+attention the unsplit model runs.  With ``cfg.loss_tiles`` the loss goes
+through ``sequence/alst.py``'s tiled logits, never holding ``[B, S, V]``.
+Over a data axis each rank's forward takes its rows of the batch.  Dropout masks are drawn over the
 global ``[B·dp, S·sp, H]`` positions and each rank keeps its rows and its
 sequence positions, so they do not depend on the split, as the masks of
 ``jax.random.bernoulli`` over the global array do not under GSPMD.
@@ -32,9 +36,8 @@ With ``cfg.fused_gather_matmul`` the MLP's wi/wo/wg/bi stay shards
 gathers them itself, its prefetches issued ahead of the matmuls.
 
 Branches not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item: MoE layers, Ulysses sequence parallelism and the pipeline path,
-parameter streaming, random-LTD, progressive layer drop and the
-sequence-tiled loss.
+item: MoE layers, the pipeline path, parameter streaming, random-LTD and
+progressive layer drop.
 """
 
 from __future__ import annotations
@@ -48,10 +51,13 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.gather_matmul import fused_gather_mlp
 from deepspeed_tpu_torch.sequence import ring
+from deepspeed_tpu_torch.sequence.alst import tiled_nll
+from deepspeed_tpu_torch.sequence.layer import DistributedAttention
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -188,8 +194,8 @@ class TransformerConfig:
     # positions, so training is turnkey (sequence/ring.py helpers).
     ring_placement: str = "contiguous"
     # ring hop/compute interleave depth (step_schedule.ring_interleave):
-    # 1 or 2, the JAX option; the port accepts both and runs attend then
-    # rotate (its rotations are synchronous, sequence/ring.py)
+    # 1 = attend then rotate; 2 = each hop's rotation issued before its
+    # attend (asynchronous, sequence/ring.py); the same bits either way
     ring_interleave: int = 1
     # ring rotation wire dtype (comm_quantization.ring_rotation; set by
     # the engine): "fp32" | "int8" | "fp8" — quantized payloads + fp32
@@ -518,10 +524,14 @@ def _rope(q, k, positions, cfg: TransformerConfig):
     return rot(q).to(q.dtype), rot(k).to(k.dtype)
 
 
-def _attention_scores(q, k, v, cfg: TransformerConfig, attention_mask=None):
+def _attention_scores(q, k, v, cfg: TransformerConfig, attention_mask=None,
+                      slopes=None):
     """MHA/GQA over [B, S, H, D] through plain products — the path for a
     key-padding ``attention_mask`` ([B, S], 1 = attend) and the ALiBi
-    score bias, which the flash kernels have no lane for."""
+    score bias, which the flash kernels have no lane for.  ``slopes``
+    ([H]) are the ALiBi slopes of the heads in ``q``: by default those of
+    an H-head model, under Ulysses the slice of the global heads a rank
+    holds."""
     b, s, nh, d = q.shape
     nkv = k.shape[2]
     if nkv != nh:  # GQA: repeat kv heads
@@ -530,7 +540,8 @@ def _attention_scores(q, k, v, cfg: TransformerConfig, attention_mask=None):
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1 / math.sqrt(d)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if cfg.use_alibi:
-        slopes = alibi_slopes(nh, device=q.device)
+        if slopes is None:
+            slopes = alibi_slopes(nh, device=q.device)
         if attention_mask is not None:
             # key positions within the real sequence (HF build_alibi_tensor)
             am = attention_mask.float()
@@ -588,6 +599,33 @@ def _sp_size(topo) -> int:
     return topo.sp_size if topo is not None else 1
 
 
+def _local_attention(q, k, v, cfg: TransformerConfig, attention_mask=None,
+                     slopes=None):
+    """The attention of the unsplit model over [B, S, H, D] (and of each
+    rank's head shard under Ulysses, ``slopes`` then its heads' ALiBi
+    slopes): the plain products for a key-padding mask or ALiBi, the
+    block-sparse kernels, or the flash kernels."""
+    if attention_mask is not None or cfg.use_alibi:
+        if cfg.attn_impl == "sparse":
+            raise NotImplementedError(
+                "attention_mask/alibi + attn_impl='sparse' not supported")
+        return _attention_scores(q, k, v, cfg, attention_mask=attention_mask,
+                                 slopes=slopes)
+    if cfg.attn_impl == "sparse":
+        return _sparse_attn(q, k, v, cfg)
+    if cfg.attn_impl in ("pallas_flash", "auto"):
+        return flash_attention(q, k, v, causal=cfg.causal,
+                               sm_scale=cfg.attn_scale,
+                               window=cfg.sliding_window or None)
+    if q.device.type != "cpu":
+        # "xla" is the unfused reference path: on the card these inputs
+        # (no mask, no alibi) go through the flash kernel, never the plain one
+        raise NotImplementedError(
+            "attn_impl='xla' runs only on the CPU in deepspeed_tpu_torch; "
+            "use 'auto' on the card")
+    return _attention_scores(q, k, v, cfg)
+
+
 def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None,
                 topo=None):
     b, s, _h = x.shape
@@ -613,12 +651,7 @@ def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None,
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}: expected one of "
                          f"{ATTN_IMPLS}")
-    if _sp_size(topo) > 1:
-        if cfg.seq_impl != "ring":
-            raise NotImplementedError(
-                "Ulysses sequence parallelism is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP Queue A item 9); use "
-                "seq_impl='ring'")
+    if _sp_size(topo) > 1 and cfg.seq_impl == "ring":
         # Ring attention: K/V blocks rotate the seq ring (nearest-neighbour
         # point-to-point + online softmax)
         if attention_mask is not None:
@@ -639,25 +672,31 @@ def _attn_block(x, p, positions, cfg: TransformerConfig, attention_mask=None,
                                   placement=cfg.ring_placement,
                                   interleave=cfg.ring_interleave,
                                   wire_dtype=cfg.ring_wire_dtype)
-    elif attention_mask is not None or cfg.use_alibi:
-        if cfg.attn_impl == "sparse":
+    elif _sp_size(topo) > 1:
+        # Ulysses: the all-to-alls turn the sequence shards of q/k/v into
+        # head shards of the whole sequence around the local attention
+        # (ref sequence/layer.py:331); a key-padding mask is gathered whole
+        mask = attention_mask
+        if mask is not None:
+            mask = comm.all_gather(mask, 1, topo.seq_group)
+        sc = cfg.sparse_attention or {}
+        if cfg.attn_impl == "sparse" and sc.get("different_layout_per_head"):
             raise NotImplementedError(
-                "attention_mask/alibi + attn_impl='sparse' not supported")
-        out = _attention_scores(q, k, v, cfg, attention_mask=attention_mask)
-    elif cfg.attn_impl == "sparse":
-        out = _sparse_attn(q, k, v, cfg)
-    elif cfg.attn_impl in ("pallas_flash", "auto"):
-        out = flash_attention(q, k, v, causal=cfg.causal,
-                              sm_scale=cfg.attn_scale,
-                              window=cfg.sliding_window or None)
-    elif q.device.type != "cpu":
-        # "xla" is the unfused reference path: on the card these inputs
-        # (no mask, no alibi) go through the flash kernel, never the plain one
-        raise NotImplementedError(
-            "attn_impl='xla' runs only on the CPU in deepspeed_tpu_torch; "
-            "use 'auto' on the card")
+                "attn_impl='sparse' with per-head layouts + Ulysses: a "
+                "rank's layout would be built for its own heads, not the "
+                "global heads it holds")
+        slopes = None
+        if cfg.use_alibi:
+            # rank r holds the global heads r·H/sp … (r+1)·H/sp - 1
+            hl = nh // topo.sp_size
+            slopes = alibi_slopes(nh, device=q.device)[
+                topo.sp_rank * hl:(topo.sp_rank + 1) * hl]
+        out = DistributedAttention(
+            lambda q_, k_, v_: _local_attention(q_, k_, v_, cfg, mask,
+                                                slopes),
+            topo)(q, k, v)
     else:
-        out = _attention_scores(q, k, v, cfg)
+        out = _local_attention(q, k, v, cfg, attention_mask)
     out = out.reshape(b, s, nh * d) @ p["wo"].to(dt)
     if p.get("bo") is not None:
         out = out + p["bo"].to(dt)
@@ -776,6 +815,17 @@ def _embed(params: Params, input_ids, positions, cfg: TransformerConfig,
     return x.to(cfg.dtype)
 
 
+def _shard_positions(s: int, cfg: TransformerConfig, topo, device):
+    """The global positions of this rank's ``s`` slots ([s] int64): the
+    ring placement's under the ring, else the contiguous shard's
+    (``sp_rank·s …``; all of them with no seq axis)."""
+    if _sp_size(topo) > 1 and cfg.seq_impl == "ring":
+        return ring.shard_positions(s, topo, cfg.ring_placement,
+                                    device=device)
+    first = topo.sp_rank * s if _sp_size(topo) > 1 else 0
+    return torch.arange(first, first + s, dtype=torch.int64, device=device)
+
+
 def forward(params: Params, input_ids, cfg: TransformerConfig,
             positions=None, pld_theta=None, return_hidden: bool = False,
             token_embeds=None, dropout_seed: Optional[int] = None,
@@ -789,17 +839,43 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
     shard of the sequence (in the placement's order) and its positions
     are the shard's global ones.  ``zero``: the ZeRO-3
     :class:`~deepspeed_tpu_torch.zero.ParamGather` when ``params`` are
-    this rank's shards."""
+    this rank's shards.  ``return_hidden``: the final norm's output
+    [B, S, E] instead of the logits."""
+    x, top = _hidden(params, input_ids, cfg, positions, pld_theta,
+                     token_embeds, dropout_seed, token_type_ids,
+                     attention_mask, topo, zero)
+    if return_hidden:
+        return x
+    dt = cfg.dtype
+    ht = _module_dtype(cfg, "lm_head", dt)
+    if cfg.mlm_head:
+        mh = top["mlm_head"]
+        t = x.to(ht) @ mh["w"].to(ht) + mh["b"].to(ht)
+        t = F.relu(t) if cfg.activation == "relu" else F.gelu(
+            t, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
+        t = _norm(t, mh["ln"], cfg)
+        logits = t.to(ht) @ top["embed"]["tokens"].to(ht).T \
+            + mh["bias"].to(ht)
+    elif cfg.tie_embeddings:
+        logits = x.to(ht) @ top["embed"]["tokens"].to(ht).T
+    else:
+        logits = x.to(ht) @ top["lm_head"].to(ht)
+    if not cfg.mlm_head and top.get("lm_head_bias") is not None:
+        logits = logits + top["lm_head_bias"].to(ht)
+    return logits
+
+
+def _hidden(params: Params, input_ids, cfg: TransformerConfig, positions,
+            pld_theta, token_embeds, dropout_seed, token_type_ids,
+            attention_mask, topo, zero):
+    """:func:`forward` up to the final norm: ``(hidden [B, S, E], the
+    params whose top leaves the head reads)`` — under ZeRO-3 the gathered
+    ones of this forward, so a head computed outside gathers nothing
+    twice."""
     _forward_unsupported(cfg, pld_theta)
     b, s = input_ids.shape
-    dt = cfg.dtype
     if positions is None:
-        if _sp_size(topo) > 1 and cfg.seq_impl == "ring":
-            pos_row = ring.shard_positions(s, topo, cfg.ring_placement,
-                                           device=input_ids.device)
-        else:
-            pos_row = torch.arange(s, dtype=torch.int64,
-                                   device=input_ids.device)
+        pos_row = _shard_positions(s, cfg, topo, input_ids.device)
         positions = pos_row[None, :].expand(b, s)
     per_layer = tree_map_with_path(lambda _p, leaf: leaf.unbind(0),
                                    params["layers"])
@@ -832,24 +908,7 @@ def forward(params: Params, input_ids, cfg: TransformerConfig,
 
     if cfg.norm_position != "post":
         x = _norm(x, params["final_norm"], cfg)
-    if return_hidden:
-        return x
-    ht = _module_dtype(cfg, "lm_head", dt)
-    if cfg.mlm_head:
-        mh = params["mlm_head"]
-        t = x.to(ht) @ mh["w"].to(ht) + mh["b"].to(ht)
-        t = F.relu(t) if cfg.activation == "relu" else F.gelu(
-            t, approximate="none" if cfg.activation == "gelu_exact" else "tanh")
-        t = _norm(t, mh["ln"], cfg)
-        logits = t.to(ht) @ params["embed"]["tokens"].to(ht).T \
-            + mh["bias"].to(ht)
-    elif cfg.tie_embeddings:
-        logits = x.to(ht) @ params["embed"]["tokens"].to(ht).T
-    else:
-        logits = x.to(ht) @ params["lm_head"].to(ht)
-    if not cfg.mlm_head and params.get("lm_head_bias") is not None:
-        logits = logits + params["lm_head_bias"].to(ht)
-    return logits
+    return x, params
 
 
 def _nll_sum(logits32, labels_mb):
@@ -867,7 +926,12 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
     """Causal LM cross-entropy.  ``batch``: input_ids [B,S], labels [B,S]
     (-100 = ignore), optional loss_mask, token_type_ids, attention_mask
     and dropout_seed, all tensors on the params' device.  ``topo`` and
-    ``zero``: as in :func:`forward`.  ``sum_count``: return ``(token NLL
+    ``zero``: as in :func:`forward`.  With ``cfg.loss_tiles`` dividing the
+    global sequence (this rank's times the seq axis, the JAX gate), the
+    loss runs over tiles of ``S_global / loss_tiles`` tokens of this
+    rank's shard (``sequence/alst.py``; the shard must divide into them),
+    against the head weight cast to the compute dtype (no logit bias, as
+    in JAX).  ``sum_count``: return ``(token NLL
     sum, token count)`` of this batch instead of their ratio, for a caller
     that reduces both over the ranks of a data or sequence-parallel
     group."""
@@ -875,19 +939,39 @@ def loss_fn(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
     mask = labels != -100
     if "loss_mask" in batch:
         mask = mask & (batch["loss_mask"] > 0)
-    if cfg.loss_tiles and batch["input_ids"].shape[1] % cfg.loss_tiles == 0:
-        raise NotImplementedError(
-            "the sequence-tiled loss (ALST) is not ported yet (ROADMAP "
-            "Queue A item 9)")
-    out = forward(params, batch["input_ids"], cfg,
-                  pld_theta=batch.get("pld_theta"), token_embeds=token_embeds,
-                  dropout_seed=batch.get("dropout_seed"),
-                  token_type_ids=batch.get("token_type_ids"),
-                  attention_mask=batch.get("attention_mask"), topo=topo,
-                  zero=zero)
-    lt = torch.float32 if op_fp32(cfg, "loss") else out.dtype
     labels_eff = torch.where(mask, labels, torch.full_like(labels, -100))
-    nll = _nll_sum(out.to(lt), labels_eff)
+    s = batch["input_ids"].shape[1]
+    s_global = s * _sp_size(topo)
+    tiled = cfg.loss_tiles and s_global % cfg.loss_tiles == 0
+    if tiled and cfg.mlm_head:
+        raise NotImplementedError(
+            "loss_tiles + mlm_head not supported (the tiled loss computes "
+            "logits directly against the embedding table, bypassing the "
+            "MLM transform head); encoder sequences are short — drop "
+            "loss_tiles")
+    if tiled and s % (s_global // cfg.loss_tiles):
+        raise ValueError(
+            f"loss_tiles={cfg.loss_tiles}: this rank's {s} tokens do not "
+            f"divide into tiles of {s_global // cfg.loss_tiles} (the "
+            f"global sequence {s_global} over the tiles)")
+    extra = dict(positions=None, pld_theta=batch.get("pld_theta"),
+                 token_embeds=token_embeds,
+                 dropout_seed=batch.get("dropout_seed"),
+                 token_type_ids=batch.get("token_type_ids"),
+                 attention_mask=batch.get("attention_mask"), topo=topo,
+                 zero=zero)
+    if tiled:
+        # ALST: the head weight the forward used (under ZeRO-3 its
+        # gathered embedding), tiles of the global sequence's tile size
+        hidden, top = _hidden(params, batch["input_ids"], cfg, **extra)
+        w = top["embed"]["tokens"] if cfg.tie_embeddings \
+            else top["lm_head"].T
+        nll, count = tiled_nll(hidden, w.to(cfg.dtype), labels_eff,
+                               s_global // cfg.loss_tiles)
+    else:
+        out = forward(params, batch["input_ids"], cfg, **extra)
+        lt = torch.float32 if op_fp32(cfg, "loss") else out.dtype
+        nll, count = _nll_sum(out.to(lt), labels_eff), mask.sum()
     if sum_count:
-        return nll, mask.sum()
-    return nll / torch.clamp(mask.sum(), min=1)
+        return nll, count
+    return nll / torch.clamp(count, min=1)

@@ -397,7 +397,7 @@ def _step_schedule(block) -> StepScheduleConfig:
 
 def _check_world(d: Dict[str, Any]) -> Dict[str, int]:
     """The port's parallel axes are ``data`` (data parallelism and ZeRO)
-    and ``seq`` (ring sequence parallelism; ``sequence_parallel_size``
+    and ``seq`` (ring or Ulysses sequence parallelism; ``sequence_parallel_size``
     stands for it when the mesh does not name it, as in the JAX config),
     either or both above one.  Any other mesh axis, tensor, pipeline
     or expert parallel size above one raises.  Returns ``{"data": ...,

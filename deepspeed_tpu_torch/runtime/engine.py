@@ -28,16 +28,20 @@ The ``bf16`` flag sets the built-in model's compute dtype; a duck-typed
 trainable chooses its own, as in the JAX engine, and the flag is logged
 as ignored for it.
 
-Ring sequence parallelism (``{"mesh": {"seq": N}}`` with a built-in
-model of ``seq_impl="ring"``): every rank of the seq process group (which
-the launcher initialised) takes the same global batch, as the JAX engine
-does, keeps its shard of the sequence (striped first under
-``ring_placement="striped"``, as ``_maybe_stripe_ring``; the port stripes
-``loss_mask`` with the labels, ROADMAP Queue C), runs its shard's forward
-and backward with attention around the ring, all-reduces each
-micro-step's token NLL sum and count and, before clipping, the fp32
-gradients over the group.  ZeRO splits its state over the seq axis as over
-a data axis (the JAX ``ZERO_AXES``).
+Sequence parallelism (``{"mesh": {"seq": N}}``): every rank of the seq
+process group (which the launcher initialised) takes the same global
+batch, as the JAX engine does, and keeps its shard of the sequence: the
+rank-th contiguous block, striped first only under a ring model's
+``ring_placement="striped"``, as ``_maybe_stripe_ring`` (the port stripes
+``loss_mask`` with the labels, ROADMAP Queue C).  A built-in model runs
+its shard's forward and backward with attention around the ring
+(``seq_impl="ring"``) or through Ulysses' all-to-alls (``"ulysses"``),
+and all-reduces each micro-step's token NLL sum and count and, before
+clipping, the fp32 gradients over the group.  A duck-typed trainable
+(whose attention may be ``sequence.UlyssesAttentionHF``) gets the
+contiguous shard of the sequence keys; its loss is divided by dp·sp and
+its gradients summed over the world.  ZeRO splits its state over the seq
+axis as over a data axis (the JAX ``ZERO_AXES``).
 ``comm_quantization.ring_rotation`` ``"int8"`` or ``"fp8"`` sets the ring's
 wire on the model (``sequence/ring.py``); without a seq axis above one, or
 with another ``seq_impl``, it warns and keeps the fp32 wire.
@@ -131,8 +135,7 @@ engine's own ZeRO world, so a checkpoint moves between meshes and between
 the two packages.
 
 Not ported yet (ROADMAP Queue A): the ``forward``/``backward``/``step``
-trio, telemetry and the watchdog, fp16 loss scaling, offload, and a seq
-axis for a duck-typed trainable.
+trio, telemetry and the watchdog, fp16 loss scaling and offload.
 """
 
 from __future__ import annotations
@@ -160,7 +163,7 @@ from deepspeed_tpu_torch.parallel.topology import (MeshTopology,
 from deepspeed_tpu_torch.resilience.oracle import (PartitionOracle,
                                                    secondary_mode_from_config)
 from deepspeed_tpu_torch.runtime import constants as C
-from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, not_ported
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import (LRSchedule,
                                                       build_lr_schedule,
                                                       constant_lr)
@@ -230,16 +233,6 @@ class DeepSpeedEngine:
         self.train_batch_size_value = cfg.train_batch_size
         self.seed = seed if seed is not None else cfg.seed
 
-        # -- the seq axis: ring sequence parallelism over the process group
-        # the launcher initialised ---------------------------------------
-        if cfg.seq_parallel_size > 1:
-            if not builtin:
-                raise not_ported("a seq mesh axis with a duck-typed "
-                                 "trainable", "Queue A item 9")
-            if model.seq_impl != "ring":
-                raise not_ported(f"seq_impl={model.seq_impl!r} (Ulysses) "
-                                 "over a seq axis above one",
-                                 "Queue A item 9")
         # hpZ and MiCS factor the data axis before the topology is built
         # (the JAX engine's order, deepspeed_tpu/runtime/engine.py:183-195)
         sizes = {"data": cfg.world_size, "seq": cfg.seq_parallel_size}
@@ -803,9 +796,10 @@ class DeepSpeedEngine:
                 for k, v in batch.items()}
 
     def _seq_shard(self, batch: Batch, seq_axis: int) -> Batch:
-        """This rank's shard of the sequence keys of a global batch,
-        striped first under striped ring placement (the JAX engine's
-        ``_maybe_stripe_ring``, then its seq sharding)."""
+        """This rank's shard of the sequence keys of a global batch: the
+        rank-th contiguous block (``sequence/alst.py`` ``sp_shard_batch``),
+        striped first only under the ring's striped placement (the JAX
+        engine's ``_maybe_stripe_ring``, then its seq sharding)."""
         sp, rank = self.topology.sp_size, self.topology.sp_rank
         if sp <= 1:
             return batch
@@ -815,7 +809,9 @@ class DeepSpeedEngine:
                              f"axis {sp}")
         s_l = s // sp
         cut = (slice(None),) * seq_axis + (slice(rank * s_l, (rank + 1) * s_l),)
-        striped = self.model_config.ring_placement == "striped"
+        mc = self.model_config
+        striped = (mc is not None and mc.seq_impl == "ring"
+                   and mc.ring_placement == "striped")
         out = dict(batch)
         for k in SEQ_KEYS:
             v = out.get(k)
@@ -831,8 +827,8 @@ class DeepSpeedEngine:
         each rank's share of the global token mean: its NLL sum over the
         token count all-reduced with the sum over the data and seq ranks
         (so the summed grads are the global mean's); for a duck-typed
-        trainable over a data axis its loss over the rank's rows divided
-        by dp.  Returns ``(loss to differentiate, global mean loss)``."""
+        trainable its loss over the rank's rows and sequence shard divided
+        by dp·sp.  Returns ``(loss to differentiate, global mean loss)``."""
         topo = self.topology
         if topo.world_size <= 1:
             params = self.params
@@ -843,7 +839,7 @@ class DeepSpeedEngine:
         if self.model_config is None:
             params = (self._zero.whole(self.params) if self._zero is not None
                       else self.params)
-            loss = self._loss_fn(params, mb) / topo.dp_size
+            loss = self._loss_fn(params, mb) / (topo.dp_size * topo.sp_size)
             value = loss.detach().float().clone()
             comm.all_reduce(value, topo.world_group)
             return loss, value

@@ -23,10 +23,14 @@ hop about half live on every rank).  Callers feed striped data
 (:func:`stripe_sequence`), and positions follow :func:`ring_position_map`.
 
 The gradient is a ``torch.autograd.Function`` that saves (q, k, v, o, lse)
-and never reruns the forward.  ``interleave=2`` (the JAX rotate-ahead
-order) is accepted and has no effect: ``ring_rotate`` returns only once
-the transfer is done, so issuing it before the hop's attend would overlap
-nothing, and every hop runs attend-then-rotate.
+and never reruns the forward.  ``interleave=2`` is the JAX rotate-ahead
+order: each hop issues the next rotation of its K/V block (or payloads)
+asynchronously (``ring_rotate(..., async_op=True)``), attends the block it
+holds while the transfer is in flight, then waits.  In the backward the
+K/V depart before the hop's grads and the traveling dk/dv take a second,
+blocking rotation once the hop has added into them.  The kernels read the
+same blocks in the same order either way, so interleave 2 gives the bits
+of interleave 1.
 
 The quantized wire (``wire_dtype`` "int8" or "fp8",
 ``comm_quantization.ring_rotation``; the codec of ``comm/quantized.py``):
@@ -53,7 +57,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from deepspeed_tpu_torch.comm.comm import ring_rotate
+from deepspeed_tpu_torch.comm.comm import Pending, ring_rotate
 from deepspeed_tpu_torch.comm.quantized import (validate_wire_dtype,
                                                 wire_decode_rows,
                                                 wire_encode_rows)
@@ -72,6 +76,7 @@ class _RingSpec(NamedTuple):
     window: Optional[int]
     placement: str
     wire: str = "fp32"   # the ring's wire dtype: "fp32", "int8" or "fp8"
+    interleave: int = 1  # 2: each hop's rotation issued before its attend
 
 
 # ----------------------------------------------------------------------
@@ -161,10 +166,19 @@ class _Wire(NamedTuple):
     vs: torch.Tensor
 
 
-def _rotate_quantized(payloads, scales, group):
+def _then(pending: Pending, fn) -> Pending:
+    """A :class:`Pending` of ``fn(pending's result)``."""
+    def finish():
+        pending._complete()
+        return fn(pending._out)
+    return Pending(None, finish, "comm.ring_rotate")
+
+
+def _rotate_quantized(payloads, scales, group, async_op: bool = False):
     """One hop of the quantized wire: every payload flattened into ONE
     int8/uint8 message and every scale into one fp32 message, both moved
-    by one ``ring_rotate``; returns ``(payloads', scales')``."""
+    by one ``ring_rotate``; returns ``(payloads', scales')``, or with
+    ``async_op`` a :class:`Pending` of them."""
     def cat(xs):
         return torch.cat([x.reshape(-1) for x in xs])
 
@@ -175,13 +189,24 @@ def _rotate_quantized(payloads, scales, group):
             i += x.numel()
         return out
 
-    pay, sc = ring_rotate([cat(payloads), cat(scales)], group)
-    return split(pay, payloads), split(sc, scales)
+    def unpack(got):
+        return split(got[0], payloads), split(got[1], scales)
+
+    moved = ring_rotate([cat(payloads), cat(scales)], group,
+                        async_op=async_op)
+    return _then(moved, unpack) if async_op else unpack(moved)
 
 
-def _rotate_wire(w: _Wire, group) -> _Wire:
-    (kp, vp), (ks, vs) = _rotate_quantized((w.kp, w.vp), (w.ks, w.vs), group)
+def _wire_of(got) -> _Wire:
+    (kp, vp), (ks, vs) = got
     return _Wire(kp, vp, ks, vs)
+
+
+def _rotate_wire(w: _Wire, group, async_op: bool = False):
+    """The block's payloads and scales one hop on (a :class:`Pending` of
+    the :class:`_Wire` with ``async_op``)."""
+    moved = _rotate_quantized((w.kp, w.vp), (w.ks, w.vs), group, async_op)
+    return _then(moved, _wire_of) if async_op else _wire_of(moved)
 
 
 def _rotate_grads_quant(dk, dv, wire, group, w: Optional[_Wire] = None):
@@ -233,22 +258,31 @@ def _ring_fwd(qk, kk, vk, spec: _RingSpec, group):
             kc, vc, scales = _visiting(w, qk.dtype, spec.wire)
             attend(kc, vc, src, **scales)
 
+    def hop(send, rotate, run):
+        """``run()`` this hop's attend and move ``send`` one rank on:
+        rotate-ahead at interleave 2, attend-then-rotate at 1."""
+        if spec.interleave > 1:
+            pending = rotate(send, group, async_op=True)
+            run()
+            return pending.wait()
+        run()
+        return rotate(send, group)
+
     srcs = [(spec.idx - t - 1) % spec.sp for t in range(spec.sp - 1)]
     # hop 0: the rank's own block (the diagonal is never dead), exact
-    attend(kk, vk, spec.idx)
     if spec.wire == "fp32":
-        kc, vc = ring_rotate([kk, vk], group)
+        kc, vc = hop([kk, vk], ring_rotate, lambda: attend(kk, vk, spec.idx))
         for src in srcs[:-1]:
-            attend(kc, vc, src)
-            kc, vc = ring_rotate([kc, vc], group)
+            kc, vc = hop([kc, vc], ring_rotate,
+                         lambda kc=kc, vc=vc, src=src: attend(kc, vc, src))
         attend(kc, vc, srcs[-1])
     else:
         # K/V encoded once; the payloads and scales travel every hop
         (kp, ks), (vp, vs) = (wire_encode_rows(x, spec.wire) for x in (kk, vk))
-        w = _rotate_wire(_Wire(kp, vp, ks, vs), group)
+        w = hop(_Wire(kp, vp, ks, vs), _rotate_wire,
+                lambda: attend(kk, vk, spec.idx))
         for src in srcs[:-1]:
-            attend_wire(w, src)
-            w = _rotate_wire(w, group)
+            w = hop(w, _rotate_wire, lambda w=w, src=src: attend_wire(w, src))
         attend_wire(w, srcs[-1])
     safe = torch.clamp(l, min=1e-20)
     o = (acc / safe[..., None]).to(qk.dtype)
@@ -279,29 +313,64 @@ def _ring_bwd(qk, kk, vk, ok, lse, dok, spec: _RingSpec, group):
             kc, vc, scales = _visiting(w, qk.dtype, spec.wire)
             grads(kc, vc, dk_t, dv_t, src, **scales)
 
+    if spec.wire == "fp32":
+        # K/V and their accumulated grads travel as tensors
+        block = [kk, vk]
+
+        def attend(block, dk_t, dv_t, src):
+            grads(*block, dk_t, dv_t, src)
+
+        def rotate(block, async_op=False):
+            return ring_rotate(block, group, async_op=async_op)
+
+        def rotate_grads(dk_t, dv_t):
+            return ring_rotate([dk_t, dv_t], group)
+
+        def rotate_all(block, dk_t, dv_t):
+            kc, vc, dk_t, dv_t = ring_rotate([*block, dk_t, dv_t], group)
+            return [kc, vc], dk_t, dv_t
+    else:
+        # K/V encoded once; the traveling grads re-encode every hop
+        (kp, ks), (vp, vs) = (wire_encode_rows(x, spec.wire) for x in (kk, vk))
+        block = _Wire(kp, vp, ks, vs)
+        attend = grads_wire
+
+        def rotate(block, async_op=False):
+            return _rotate_wire(block, group, async_op)
+
+        def rotate_grads(dk_t, dv_t):
+            return _rotate_grads_quant(dk_t, dv_t, spec.wire, group)[:2]
+
+        def rotate_all(block, dk_t, dv_t):
+            dk_t, dv_t, w = _rotate_grads_quant(dk_t, dv_t, spec.wire, group,
+                                                block)
+            return w, dk_t, dv_t
+
+    def hop(block, dk_t, dv_t, run):
+        """``run()`` this hop's grads into ``dk_t``/``dv_t`` and move the
+        block and the grads one rank on: at interleave 2 the block departs
+        before ``run()`` and the grads after it (the JAX order), at 1 all
+        travel together after it."""
+        if spec.interleave > 1:
+            pending = rotate(block, async_op=True)
+            run()
+            dk_t, dv_t = rotate_grads(dk_t, dv_t)
+            return pending.wait(), dk_t, dv_t
+        run()
+        return rotate_all(block, dk_t, dv_t)
+
     srcs = [(spec.idx - t - 1) % spec.sp for t in range(spec.sp - 1)]
     # hop 0: the own block, exact
-    grads(kk, vk, dk, dv, spec.idx)
-    if spec.wire == "fp32":
-        # K/V and their accumulated grads rotate together
-        kc, vc, dk_t, dv_t = ring_rotate([kk, vk, dk, dv], group)
-        for src in srcs[:-1]:
-            grads(kc, vc, dk_t, dv_t, src)
-            kc, vc, dk_t, dv_t = ring_rotate([kc, vc, dk_t, dv_t], group)
-        grads(kc, vc, dk_t, dv_t, srcs[-1])
-        # the traveling grads sit one rank behind their owner: deliver home
-        dk_t, dv_t = ring_rotate([dk_t, dv_t], group)
-        return dq, dk_t, dv_t
-    # K/V encoded once; the traveling grads re-encode every hop
-    (kp, ks), (vp, vs) = (wire_encode_rows(x, spec.wire) for x in (kk, vk))
-    dk_t, dv_t, w = _rotate_grads_quant(dk, dv, spec.wire, group,
-                                        _Wire(kp, vp, ks, vs))
+    block, dk_t, dv_t = hop(block, dk, dv,
+                            lambda: grads(kk, vk, dk, dv, spec.idx))
     for src in srcs[:-1]:
-        grads_wire(w, dk_t, dv_t, src)
-        dk_t, dv_t, w = _rotate_grads_quant(dk_t, dv_t, spec.wire, group, w)
-    grads_wire(w, dk_t, dv_t, srcs[-1])
-    # the delivery hop: the traveling grads encode one last time
-    dk_t, dv_t, _ = _rotate_grads_quant(dk_t, dv_t, spec.wire, group)
+        block, dk_t, dv_t = hop(
+            block, dk_t, dv_t,
+            lambda b_=block, dk_=dk_t, dv_=dv_t, src=src:
+                attend(b_, dk_, dv_, src))
+    attend(block, dk_t, dv_t, srcs[-1])
+    # the delivery hop: the traveling grads sit one rank behind their owner
+    dk_t, dv_t = rotate_grads(dk_t, dv_t)
     return dq, dk_t, dv_t
 
 
@@ -345,8 +414,8 @@ def ring_attention(q, k, v, topo=None, causal: bool = True,
     attention on the shard).  Returns ``[B, S_l, Hq, D]``, differentiable
     in q, k and v.  ``placement``: "contiguous" or "striped" (the caller
     feeds striped data, cf. :func:`stripe_sequence`); ``interleave``: 1
-    or 2, the JAX option, accepted; both run attend-then-rotate here (see
-    the module docstring).  ``wire_dtype``: "fp32", or "int8"/"fp8" for
+    or 2, the JAX option: 2 issues each hop's rotation before its attend
+    (the module docstring).  ``wire_dtype``: "fp32", or "int8"/"fp8" for
     the quantized wire (module docstring); ignored at sp 1."""
     sp = topo.sp_size if topo is not None else 1
     nh, nkv = q.shape[2], k.shape[2]
@@ -375,7 +444,7 @@ def ring_attention(q, k, v, topo=None, causal: bool = True,
                                window=window)
     spec = _RingSpec(sp=sp, idx=topo.sp_rank, scale=float(scale),
                      causal=causal, window=window, placement=placement,
-                     wire=wire_dtype)
+                     wire=wire_dtype, interleave=interleave)
 
     def attn(q_, k_, v_):
         return _RingAttention.apply(q_, k_, v_, spec, topo.seq_group)

@@ -66,3 +66,14 @@ def test_chip_smoke_refuses_without_card_or_port(tmp_path):
                              text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_sequence_modules_stand_alone():
+    """Ulysses, ALST and FPDT (``sequence/{layer,alst,fpdt}.py``) are
+    among the files scanned above and import neither JAX nor the JAX
+    package, not even inside a function."""
+    files = {f.relative_to(ROOT).as_posix() for f in PACKAGE.rglob("*.py")}
+    for name in ("layer", "alst", "fpdt", "ring"):
+        path = f"deepspeed_tpu_torch/sequence/{name}.py"
+        assert path in files, path
+        assert not [m for m in _imports(ROOT / path) if _forbidden(m)], path

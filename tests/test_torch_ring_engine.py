@@ -12,12 +12,12 @@ and every element within lr (one AdamW step) of it.  Elementwise, AdamW turns th
 summation-order noise of a near-zero gradient into a step of up to lr
 (the ring sums the attention in other orders than the JAX mesh), which
 1e-5 · (1 + |p|) would flag on 1 to 3 elements of a leaf.  Both ranks
-must hold the same params, bit for bit.  The config and the model reject,
-naming their ROADMAP item, what the port does not run over a seq axis:
-Ulysses (A9; beside a data axis too) and ring attention with a
-block-sparse layout, a key-padding mask or ALiBi (as the JAX model
-raises); a quantized gradient reduction and the decomposed update over a
-seq axis are read as the JAX config reads them.  With
+must hold the same params, bit for bit.  The model rejects ring attention with a block-sparse
+layout, a key-padding mask or ALiBi (as the JAX model raises); Ulysses
+over a seq axis (beside a data axis too) needs a process group as the
+ring does (it trains in ``test_torch_ulysses.py``); a quantized gradient
+reduction and the decomposed update over a seq axis are read as the JAX
+config reads them.  With
 ``comm_quantization.ring_rotation: "int8"`` (or fp8) the same engine runs
 the quantized ring wire in both ranks against the JAX engine with that
 block on its seq mesh: the first step's loss and grad norm to 1e-5
@@ -123,9 +123,10 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
 
 
 @pytest.mark.parametrize("extra,model_kw,item", [
-    ({"mesh": {"seq": 2, "data": 2}}, {"seq_impl": "ulysses"}, "item 9"),
-    ({"mesh": {"seq": 2}}, {"seq_impl": "ulysses"}, "item 9"),
-    ({"sequence_parallel_size": 2}, {}, "item 9"),
+    ({"mesh": {"seq": 2, "data": 2}}, {"seq_impl": "ulysses"},
+     "process group"),
+    ({"mesh": {"seq": 2}}, {"seq_impl": "ulysses"}, "process group"),
+    ({"sequence_parallel_size": 2}, {}, "process group"),
     ({"mesh": {"seq": 2}, "comm_quantization": {
         "enabled": True, "grad_reduce": "int8", "ring_rotation": "int8"}},
      {"seq_impl": "ring"}, None),
@@ -134,11 +135,13 @@ def test_two_gloo_ranks_train_like_the_jax_seq_mesh():
 ], ids=["data-with-seq", "ulysses", "sp-size-ulysses", "int8-wire",
         "step-schedule"])
 def test_seq_axis_rejections_name_their_item(extra, model_kw, item):
-    """Ulysses over a seq axis raises naming its item.  ``grad_reduce``
-    int8 and the decomposed update over a seq axis are read as the JAX
-    config reads them (the engine's gates decide over two ranks,
-    ``test_torch_dp_compression.py``: the quantized reduce warns and keeps
-    the buckets, the decomposed update splits over the seq world)."""
+    """Ulysses over a seq axis (beside a data axis too) is taken, and
+    without an initialised group of the axis's size it raises as the ring
+    does.  ``grad_reduce`` int8 and the decomposed update over a seq axis
+    are read as the JAX config reads them (the engine's gates decide over
+    two ranks, ``test_torch_dp_compression.py``: the quantized reduce
+    warns and keeps the buckets, the decomposed update splits over the seq
+    world)."""
     cfg = {"train_micro_batch_size_per_gpu": 2, **extra}
     if item is None:
         mine, want = DeepSpeedConfig(cfg), JaxConfig(cfg)
@@ -148,7 +151,7 @@ def test_seq_axis_rejections_name_their_item(extra, model_kw, item):
             assert getattr(getattr(mine, block), key) == \
                 getattr(getattr(want, block), key), key
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         dst.initialize(model=get_model_config("llama-tiny", **model_kw),
                        config=cfg, device="cpu")
 

@@ -58,11 +58,11 @@ class _FaultyComm:
     def __getattr__(self, name):
         return getattr(self._real, name)
 
-    def all_to_all(self, x, group=None):
+    def all_to_all(self, x, scatter_dim=0, gather_dim=0, group=None):
         import torch
         import torch.distributed as dist
 
-        out = self._real.all_to_all(x, group)
+        out = self._real.all_to_all(x, scatter_dim, gather_dim, group)
         if out.dtype != torch.float32:
             return out
         rows = out.reshape(out.shape[0], -1)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's training steps over NCCL, one H100 a rank.
 
-    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl] [--only commquant|zeropp]
+    python3 tools/multicard_probe.py [--steps 2] [--out build/multicard_probe.jsonl] [--only commquant|zeropp|seq]
 
 Needs four CUDA cards.  Runs, each in ranks started by
 ``deepspeed_tpu_torch.launcher.launch(..., backend="nccl")``:
@@ -23,7 +23,12 @@ Needs four CUDA cards.  Runs, each in ranks started by
 * ``chip_smoke.py``'s ZeRO-3 gpt2-350m step (``ZERO_CFG`` without the
   fused gather-matmul, which hpZ and MiCS refuse; gather depth 2) at data
   4: plain, hpZ 2 and MiCS 2 (``--only zeropp`` runs these alone), with
-  the collectives and bytes a step by group (inner, outer, world).
+  the collectives and bytes a step by group (inner, outer, world);
+* with ``--only seq``, sequence parallelism alone: the ring-train step at
+  ``{"seq": 2}`` at ``ring_interleave`` 1 and 2 (each hop's rotation in
+  flight while it attends), and ulysses-train's step (Ulysses'
+  all-to-alls around the flash kernels) at ``{"seq": 2}`` and
+  ``{"seq": 4}``.
 
 For each: the first step's seconds on a line of its own (NCCL makes a
 group's communicator at its first collective), the seconds of the timed
@@ -52,7 +57,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 COLLECTIVES = ("comm.ring_rotate", "comm.reduce_scatter", "comm.all_gather",
-               "comm.all_reduce")
+               "comm.all_reduce", "comm.all_to_all")
 KERNELS = ("ring_carry", "ring_bwd_dq", "ring_bwd_dkv", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw", "gather_matmul")
 
@@ -269,6 +274,20 @@ def zeropp_cases():
                                 ("mics2", {"mics_shard_size": 2}))]
 
 
+def seq_cases(world):
+    """Sequence parallelism over ``world`` cards: at 2 the ring at
+    interleave 1 and 2 and Ulysses, at 4 Ulysses."""
+    ulysses = {"name": f"ulysses-seq{world}", "model": cs.RING_MODEL,
+               "model_kw": cs.ULYSSES_MODEL_KW, "seq": cs.RING_SEQ,
+               "cfg": {**cs.RING_CFG, "mesh": {"seq": world}}}
+    if world != 2:
+        return [ulysses]
+    return [{"name": f"ring-seq2-interleave{i}", "model": cs.RING_MODEL,
+             "model_kw": cs.RING_MODEL_KW, "seq": cs.RING_SEQ,
+             "cfg": {**cfg, "mesh": {"seq": 2}}}
+            for i, cfg in ((1, cs.RING_CFG), (2, cs.RING_I2_CFG))] + [ulysses]
+
+
 def cases_for(world, layer):
     """The runs of ``world`` ranks; ``layer``: one layer's elements."""
     ring_kw = cs.RING_MODEL_KW
@@ -305,7 +324,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "multicard_probe.jsonl"))
-    ap.add_argument("--only", choices=("all", "commquant", "zeropp"),
+    ap.add_argument("--only", choices=("all", "commquant", "zeropp", "seq"),
                     default="all")
     args = ap.parse_args()
     import torch
@@ -334,6 +353,8 @@ def main() -> int:
     layer = layer_elements() if args.only == "all" else None
     for world in (2, 4):
         cases = cases_for(world, layer) if args.only == "all" else []
+        if args.only == "seq":
+            cases = seq_cases(world)
         if world == 4 and args.only in ("all", "commquant"):
             cases += commquant_cases(world)
         if world == 4 and args.only in ("all", "zeropp"):
@@ -352,6 +373,8 @@ def main() -> int:
             emit({"run": case["name"], "ranks": world,
                   "backends": [r["backend"] for r in per],
                   "mesh": case["cfg"]["mesh"],
+                  "model_kw": case["model_kw"],
+                  "step_schedule": case["cfg"].get("step_schedule", {}),
                   "zero_stage": case["cfg"]["zero_optimization"]["stage"],
                   "reduce_bucket_size": case["cfg"]["zero_optimization"].get(
                       "reduce_bucket_size", 500_000_000),
